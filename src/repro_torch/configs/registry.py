@@ -1,0 +1,32 @@
+"""Reduced (smoke-test) config derivation.
+
+The full configs live one-per-module in this package (see __init__); this
+module derives the CPU smoke sibling: same family, same layer topology and
+code paths, tiny dims.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.models.config import ModelConfig
+
+
+def reduced(cfg: ModelConfig) -> ModelConfig:
+    """Smoke-test sibling: same family, topology and code paths, tiny dims."""
+    plen = len(cfg.pattern())
+    kw = dict(
+        name=cfg.name + "-smoke",
+        d_model=64, n_layers=max(plen, 2 if plen == 1 else plen),
+        vocab_size=256,
+        param_dtype=torch.float32, compute_dtype=torch.float32,
+        attn_block_kv=64,
+    )
+    if cfg.n_heads:
+        kw.update(n_heads=8, n_kv_heads=min(cfg.n_kv_heads, 4) or 2,
+                  head_dim=8)
+    if cfg.d_ff:
+        kw.update(d_ff=128)
+    return dataclasses.replace(cfg, **kw)

@@ -1,0 +1,103 @@
+"""Serving launcher: a mixed-length workload through the continuous-batching
+engine, on the card.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
+      --engine --requests 8 --tokens 32
+
+serves the full-width model on ``cuda`` with random weights from seed 0.
+``--smoke`` takes the ``reduced()`` config instead (as the JAX launcher
+always does); ``--device cpu`` runs the plain PyTorch versions of every
+kernel on the CPU.  Only the ``--engine`` path is ported so far; the
+fixed-batch, ``--service`` and ``--supervised`` paths come with later
+slices.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+
+from repro_torch.configs import ARCH_NAMES, get_config, reduced
+from repro_torch.serve.engine import (EngineConfig, SamplingParams,
+                                      build_engine, generate)
+
+
+def _engine_cfg(args) -> EngineConfig:
+    stride = 16
+    s_max = -(-max(args.s_max, args.tokens + 12) // stride) * stride
+    buckets = tuple(b for b in (1, 2, 4, 8) if b <= max(args.batch, 1))
+    chunks = tuple(int(c) for c in args.prefill_chunks.split(",") if c)
+    return EngineConfig(s_max=s_max, buckets=buckets,
+                        block_pos_stride=stride, prefill_chunks=chunks,
+                        prefix_cache=args.prefix_cache != "off",
+                        device=args.device)
+
+
+def _workload(cfg, args):
+    rng = np.random.default_rng(0)
+    vocab = min(cfg.vocab_size, 256)
+    return [rng.integers(0, vocab, size=int(rng.integers(2, 12))).tolist()
+            for _ in range(args.requests)]
+
+
+def _main_engine(cfg, args):
+    eng = build_engine(cfg, seed=0, engine_cfg=_engine_cfg(args))
+    prompts = _workload(cfg, args)
+    outs = generate(eng, prompts, SamplingParams(max_tokens=args.tokens))
+    for c in outs[:4]:
+        print(f"  {c.request_id}: prompt[{len(c.prompt)}] -> "
+              f"{c.tokens[:12]} ({c.finish_reason})")
+    ev = eng.kernel_events()
+    st = eng.stats
+    ttfts = [c.ttft_s for c in outs if c.ttft_s is not None]
+    print(f"served {len(outs)} requests / {st.tokens_generated} tokens "
+          f"({cfg.family}: paged KV, {eng.device}): "
+          f"{eng.throughput_tok_s():.1f} tok/s over {len(ev)} executables "
+          f"{sorted(ev)}")
+    ttft_ms = f"{np.mean(ttfts) * 1e3:.1f} ms" if ttfts else "n/a"
+    tpl = st.tokens_generated / max(st.launches, 1)
+    print(f"  prefill: {st.prompt_tokens_ingested} prompt tokens ingested "
+          f"in {st.prefill_launches} launches "
+          f"({st.prefill_chunk_launches} chunked); "
+          f"decode: {st.decode_launches} launches; "
+          f"{tpl:.2f} tokens/launch; mean TTFT {ttft_ms}")
+    if st.prefix_hits or st.prefix_evictions:
+        print(f"  prefix cache: {st.prefix_hits} page hits, "
+              f"{st.prefix_tokens_reused} prompt tokens reused "
+              f"(hit rate {st.prefix_hit_rate:.2f}), "
+              f"{st.prefix_evictions} evictions")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", "--config", dest="arch", required=True,
+                    type=lambda s: s.replace("_", "-"),
+                    choices=list(ARCH_NAMES))
+    ap.add_argument("--engine", action="store_true",
+                    help="serve a mixed-length workload through the "
+                         "continuous-batching engine (the one ported path)")
+    ap.add_argument("--batch", type=int, default=8,
+                    help="largest batch bucket")
+    ap.add_argument("--tokens", type=int, default=32)
+    ap.add_argument("--s-max", type=int, default=64)
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--prefill-chunks", default="16,64,256",
+                    help="chunked-prefill length ladder (comma-separated; "
+                         "empty string disables chunking)")
+    ap.add_argument("--prefix-cache", default="on", choices=["on", "off"])
+    ap.add_argument("--smoke", action="store_true",
+                    help="serve the reduced config instead of full width")
+    ap.add_argument("--device", default=None, choices=["cuda", "cpu"],
+                    help="default: cuda (raises without a GPU)")
+    args = ap.parse_args(argv)
+    if not args.engine:
+        ap.error("only the --engine path is ported so far")
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = reduced(cfg)
+    _main_engine(cfg, args)
+
+
+if __name__ == "__main__":
+    main()

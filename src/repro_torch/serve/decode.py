@@ -1,0 +1,204 @@
+"""Serving step bodies over the paged KV arena, on one device.
+
+The counterparts of ``repro.serve.decode``'s ``make_decode_body(per_slot=
+True, paged=...)`` and ``make_prefill_chunk_body``, at q = r = 1: every
+SHMEM row/column collective is the identity, page routing ``p % q`` is
+trivial, and each gemv2d projection is one ``torch.matmul``.
+
+Both bodies read and write ONE paged arena: a list with one entry per
+pattern position, each ``{"k", "v"}`` of shape
+``(G, n_blocks, stride, kvh, hd)``, addressed through per-slot block tables
+``(B, s_max // stride)`` of physical page ids (-1 = unallocated).  The
+arena is updated **in place** (the JAX bodies return a new arena that the
+engine donates through every enqueue; here the new K/V are written into
+the same storage), so the bodies return only the logits.
+
+A one-position decode step is the L = 1 case of the chunked-prefill body
+with every lane valid: the same RoPE, K/V write, masked paged attention and
+logits, so the port keeps one attention path where the JAX package has
+``_attn_decode_paged`` and ``_attn_prefill_chunk_paged``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Tuple
+
+import torch
+
+from repro_torch.kernels.paged_attention import paged_attention
+from repro_torch.models.attention import combine_partials
+from repro_torch.models.config import ModelConfig, attn_static
+from repro_torch.models.layers import (apply_norm, apply_rope, mlp_apply,
+                                       rms_norm_local, rope_tables)
+
+
+@dataclasses.dataclass(frozen=True)
+class PagedKV:
+    """Physically paged KV arena layout: ``n_blocks`` pages of
+    ``block_pos_stride`` cache positions each, shared by every batch
+    bucket.  Sequence identity lives entirely in host-built block tables,
+    so slot migration, prefix sharing and ``fork()`` never touch the
+    device KV."""
+
+    n_blocks: int                # physical pages in the arena
+    block_pos_stride: int        # cache positions per page
+
+    def __post_init__(self):
+        if self.n_blocks < 1:
+            raise ValueError("n_blocks must be >= 1")
+        if self.block_pos_stride < 1:
+            raise ValueError("block_pos_stride must be >= 1")
+
+
+# ---------------------------------------------------------------------------
+# Pieces of the bodies.
+# ---------------------------------------------------------------------------
+
+def _embed_decode(embed: torch.Tensor, tokens: torch.Tensor, compute_dtype
+                  ) -> torch.Tensor:
+    """tokens (B,) or (B, L) -> (B, 1, D) or (B, L, D); ids outside the
+    (padded) vocabulary embed to zero."""
+    V = embed.shape[0]
+    hit = (tokens >= 0) & (tokens < V)
+    x = embed[tokens.clamp(0, V - 1).long()]
+    x = torch.where(hit[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+    x = x.to(compute_dtype)
+    return x if tokens.ndim == 2 else x[:, None, :]
+
+
+def _last_logits(lm_head: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """x (B, n, D) -> logits (B, n, Vpad) in fp32.  The product is taken in
+    fp32 (operands upcast), as the JAX package's fp32-accumulated
+    ``out_dtype=float32`` gemv; a bf16 product would round the logits to
+    bf16."""
+    return torch.matmul(x.float(), lm_head.float())
+
+
+def _write_index(table: torch.Tensor, pos2: torch.Tensor,
+                 n_valid: torch.Tensor, stride: int
+                 ) -> Tuple[torch.Tensor, ...]:
+    """(slot, chunk column, page, offset) of every K/V position a launch
+    writes: the valid chunk columns (``j < n_valid``) whose table entry is
+    allocated.  Padding columns, idle slots (table -1) and positions past
+    the table write nothing — the JAX bodies' ``.at[].set(mode="drop")``.
+    Computed once per launch (one host sync for the boolean selection) and
+    shared by every layer."""
+    B, T = table.shape
+    L = pos2.shape[1]
+    valid = torch.arange(L, device=pos2.device)[None, :] < n_valid[:, None]
+    tidx = (pos2 // stride).clamp(0, T - 1).long()
+    pid = torch.gather(table, 1, tidx)
+    b, j = torch.nonzero(valid & (pid >= 0), as_tuple=True)
+    return b, j, pid[b, j].long(), (pos2[b, j] % stride).long()
+
+
+def _attn_prefill_chunk_paged(p, x, cfg, kc, vc, rope, pos2, widx, table,
+                              stride):
+    """Chunked-prefill attention against the paged arena.
+
+    x (B, L, D): slot b advances positions ``pos2[b]``; kc/vc
+    (n_blocks, stride, kvh, hd) are this layer's arena pages, written in
+    place.  Head counts come from the weight shapes, and query head h
+    reads kv head ``h // (Hq / kvh)``."""
+    ast = attn_static(cfg)
+    B, L = x.shape[:2]
+    hd = ast.head_dim
+    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if ast.qkv_bias:
+        q = q + p["bq"].to(q.dtype)
+        k = k + p["bk"].to(k.dtype)
+        v = v + p["bv"].to(v.dtype)
+    q = q.reshape(B, L, -1, hd)
+    k = k.reshape(B, L, -1, hd)
+    v = v.reshape(B, L, -1, hd)
+    if ast.qk_norm:
+        q = rms_norm_local(q, p["q_norm"])
+        k = rms_norm_local(k, p["k_norm"])
+    cos, sin = rope
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+
+    b, j, page, off = widx
+    kc.index_put_((page, off), k[b, j].to(kc.dtype))
+    vc.index_put_((page, off), v[b, j].to(vc.dtype))
+
+    part = paged_attention(q.transpose(1, 2).contiguous(), kc, vc, table,
+                           pos2, stride=stride)
+    out = combine_partials(part)                      # (B, Hq, L, hd) fp32
+    out = out.transpose(1, 2).reshape(B, L, -1)
+    return out.to(x.dtype) @ p["wo"]
+
+
+def _unstack(tree, n: int) -> List:
+    """Split every leaf's leading group dim: n trees of views."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][g] for k in tree} for g in range(n)]
+    return list(tree.unbind(0))
+
+
+def _decode_layer(cfg, mixer, ffn, p, x, cache, rope, pos2, widx, table,
+                  stride):
+    if mixer != "attn" or ffn != "mlp":
+        raise NotImplementedError(
+            f"({mixer}, {ffn}) layers: SSM/hybrid and MoE are later slices")
+    h = apply_norm(cfg, p["norm1"], x)
+    x = x + _attn_prefill_chunk_paged(p["mixer"], h, cfg, cache["k"],
+                                      cache["v"], rope, pos2, widx, table,
+                                      stride)
+    h = apply_norm(cfg, p["norm2"], x)
+    return x + mlp_apply(cfg, p["ffn"], h)
+
+
+# ---------------------------------------------------------------------------
+# The two step bodies.
+# ---------------------------------------------------------------------------
+
+def prefill_chunk_step(cfg: ModelConfig, params, arena, tokens: torch.Tensor,
+                       pos: torch.Tensor, n_valid: torch.Tensor,
+                       table: torch.Tensor, *, stride: int,
+                       all_logits: bool = False) -> torch.Tensor:
+    """The ``prefill_bs{N}_len{L}`` body: up to L tokens per slot per launch.
+
+    tokens (B, L), pos (B,), n_valid (B,), table (B, T), all int32.  Slot b
+    consumes ``tokens[b, :n_valid[b]]`` at cache positions
+    ``[pos[b], pos[b] + n_valid[b])``; its K/V scatter into its block-table
+    pages and the blocked causal mask makes chunk position j attend to
+    exactly [0, pos + j].  Returns fp32 logits ``(B, 1, Vpad)`` of each
+    slot's last valid position, or ``(B, L, Vpad)`` with ``all_logits``
+    (the speculative-verify variant).  ``arena`` is updated in place."""
+    B, L = tokens.shape
+    G = cfg.n_groups()
+    x = _embed_decode(params["embed"], tokens, cfg.compute_dtype)
+    pos2 = (pos[:, None] + torch.arange(L, dtype=torch.int32,
+                                        device=pos.device)[None, :])
+    rope = rope_tables(pos2, cfg.hd(), cfg.rope_theta)
+    widx = _write_index(table, pos2, n_valid, stride)
+    pattern = cfg.pattern()
+    layers = [_unstack(lp, G) for lp in params["layers"]]
+    caches = [_unstack(c, G) for c in arena]
+    for g in range(G):
+        for posn, (mixer, ffn) in enumerate(pattern):
+            x = _decode_layer(cfg, mixer, ffn, layers[posn][g], x,
+                              caches[posn][g], rope, pos2, widx, table,
+                              stride)
+    if not all_logits:
+        # each slot's last VALID chunk position, before the final norm and
+        # lm_head (both pointwise over positions, so the gather commutes)
+        idx = (n_valid - 1).clamp(0, L - 1).long()
+        x = torch.gather(x, 1, idx[:, None, None].expand(B, 1, x.shape[-1]))
+    x = apply_norm(cfg, params["final_norm"], x)
+    return _last_logits(params["lm_head"], x)
+
+
+def decode_step(cfg: ModelConfig, params, arena, tokens: torch.Tensor,
+                pos: torch.Tensor, table: torch.Tensor, *, stride: int
+                ) -> torch.Tensor:
+    """The ``serve_step_bs{N}`` body: every slot advances one position.
+
+    tokens (B,), pos (B,), table (B, T) int32 -> fp32 logits (B, 1, Vpad).
+    Idle slots carry an all -1 table row and write nothing."""
+    return prefill_chunk_step(cfg, params, arena, tokens[:, None], pos,
+                              torch.ones_like(pos), table, stride=stride)

@@ -1,0 +1,479 @@
+"""Continuous-batching drive loop over the command queue, on one device.
+
+Every step is one enqueue of a named step body: ``serve_step_bs{N}``
+advances every occupied slot by one position, ``prefill_bs{N}_len{L}``
+advances each slot by up to L prompt positions (decode-phase slots ride
+along with one valid position).  Both consume the engine's paged KV arena
+plus per-slot ``tokens``/``pos`` vectors and a ``(B, T)`` block table of
+physical page ids, and return next-token logits.  The host loop scatters
+request tokens in, gathers sampled tokens out, and drives the request state
+machine; ``queue.finish()`` after each launch is the paper's ``clFinish``
+and stamps the ``KernelEvent`` timestamps throughput is read from.
+
+The arena is ONE allocation per leaf for the engine's lifetime, written in
+place by every step (the JAX engine donates it through every enqueue), so
+a bucket change costs nothing on the device and slot migration is a
+host-side permutation of table rows.  As prefill fills full prompt pages
+the engine publishes them to the pool's radix prefix cache, so requests
+sharing a token-block prefix adopt the same physical pages at admission.
+
+This is ``repro.serve.engine.engine`` at q = r = 1 with the host logic
+unchanged.  Speculation, fault injection and ``StepGuard``, drain/restore
+and checkpoints, and dense (SSM) slots come with later slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import time
+from typing import Dict, Iterator, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.hybrid import CommandQueue
+from repro_torch.device import resolve_device
+from repro_torch.models.params import init_params, stored_heads
+from repro_torch.serve.decode import PagedKV, decode_step, prefill_chunk_step
+from repro_torch.serve.engine.block_cache import BlockPool, block_layout
+from repro_torch.serve.engine.request import (Request, RequestState,
+                                              SamplingParams)
+from repro_torch.serve.engine.scheduler import (ScheduledStep, Scheduler,
+                                                SchedulerConfig)
+from repro_torch.serve.engine.state_store import StateStore
+from repro_torch.serve.state import layer_state_specs
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    s_max: int = 128                      # max cache positions per sequence
+    buckets: Tuple[int, ...] = (1, 2, 4, 8)
+    block_pos_stride: int = 16            # positions per KV page
+    n_kv_blocks: Optional[int] = None     # pool size; None = fit max batch
+    max_steps: Optional[int] = None       # drain() safety valve
+    # chunked-prefill length ladder: entries above s_max are dropped, ()
+    # disables chunking (token-stepped prefill)
+    prefill_chunks: Tuple[int, ...] = (16, 64, 256)
+    # cross-request radix prefix cache (repro_torch.serve.prefix).  False
+    # turns the pool into a pure free-list allocator — the parity baseline.
+    prefix_cache: bool = True
+    # "cuda" (the default, None) or "cpu" (plain versions of every kernel)
+    device: Optional[str] = None
+
+    def __post_init__(self):
+        pc = tuple(int(c) for c in self.prefill_chunks)
+        bad = [c for c in pc if c < 2]
+        if bad:
+            raise ValueError(
+                f"prefill_chunks entries must be >= 2 (an L=1 chunk is just "
+                f"a slower decode step): {bad}")
+        if list(pc) != sorted(set(pc)):
+            raise ValueError(
+                f"prefill_chunks must be strictly ascending: {pc}")
+        # store what was validated (int-normalized)
+        object.__setattr__(self, "prefill_chunks", pc)
+
+
+@dataclasses.dataclass
+class EngineStats:
+    steps: int = 0
+    prefill_launches: int = 0             # launches with a prefilling slot
+    prefill_chunk_launches: int = 0       # of which used a prefill_bs{N}_len{L}
+    decode_launches: int = 0
+    prompt_tokens_ingested: int = 0       # prompt-position tokens fed (a
+    #                                       preemption replay re-feeds them)
+    tokens_generated: int = 0
+    migrations: int = 0                   # host-side table permutations only
+    peak_blocks_used: int = 0             # pool occupancy high-water mark
+    peak_dense_slots_used: int = 0        # dense slot high-water mark
+    # speculative decoding (0 until the speculation slice)
+    spec_launches: int = 0
+    spec_proposed_tokens: int = 0
+    spec_accepted_tokens: int = 0
+    spec_rejected_tokens: int = 0
+    spec_rollbacks: int = 0
+    # resilience counters (0 until the resilience slice)
+    fault_launch_failures: int = 0
+    fault_retries: int = 0
+    fault_nonfinite: int = 0
+    fault_quarantined: int = 0
+    fault_pool_steals: int = 0
+    fault_stalls: int = 0
+    # radix prefix cache (0 everywhere with prefix_cache=False)
+    prefix_hits: int = 0                  # pages adopted at admission
+    prefix_tokens_reused: int = 0         # prompt positions never prefilled
+    prefix_evictions: int = 0             # cached pages recycled under pressure
+
+    @property
+    def prefix_hit_rate(self) -> float:
+        """Prompt tokens served from cached pages / total prompt tokens
+        offered (reused + actually ingested).  0.0 before any prompt."""
+        total = self.prefix_tokens_reused + self.prompt_tokens_ingested
+        if not total:
+            return 0.0
+        return self.prefix_tokens_reused / total
+
+    @property
+    def spec_accept_rate(self) -> float:
+        """Accepted / proposed draft tokens (0.0 before any proposal)."""
+        if not self.spec_proposed_tokens:
+            return 0.0
+        return self.spec_accepted_tokens / self.spec_proposed_tokens
+
+    @property
+    def launches(self) -> int:
+        """Total step enqueues (decode + chunked/token prefill + verify) —
+        the denominator of tokens-per-launch."""
+        return self.decode_launches + self.prefill_launches \
+            + self.spec_launches
+
+
+class ServingEngine:
+    """Batch-generate service over one device."""
+
+    def __init__(self, cfg, *, params=None,
+                 engine_cfg: Optional[EngineConfig] = None, seed: int = 0):
+        ec = engine_cfg or EngineConfig()
+        if ec.s_max % ec.block_pos_stride:
+            raise ValueError(
+                f"s_max={ec.s_max} must be a multiple of "
+                f"block_pos_stride={ec.block_pos_stride}")
+        self.device = resolve_device(ec.device)
+        self.cfg, self.engine_cfg = cfg, ec
+
+        blocks_per_seq = ec.s_max // ec.block_pos_stride
+        n_blocks = ec.n_kv_blocks or ec.buckets[-1] * blocks_per_seq
+        self.paged = PagedKV(n_blocks=n_blocks,
+                             block_pos_stride=ec.block_pos_stride)
+        self._table_width = blocks_per_seq
+        # chunk ladder (validated ascending/>=2 by EngineConfig), capped by
+        # s_max: oversized entries are geometry, not user error
+        self._chunks = tuple(c for c in ec.prefill_chunks if c <= ec.s_max)
+
+        if params is None:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            params = init_params(cfg, generator=gen, device=self.device)
+        self.params = params
+        # head geometry comes from the weights (native r=1, or the r=4
+        # storage of weights carried over from the JAX engine)
+        _, kvh = stored_heads(params, cfg)
+        self.state_specs = layer_state_specs(
+            cfg, stride=ec.block_pos_stride, kvh=kvh)
+
+        self.pool = BlockPool(self.paged.n_blocks, self.paged.block_pos_stride,
+                              layout=block_layout(self.state_specs),
+                              prefix_cache=ec.prefix_cache)
+        self.store = StateStore(self.state_specs,
+                                n_blocks=self.paged.n_blocks,
+                                device=self.device)
+        self.scheduler = Scheduler(self.pool, SchedulerConfig(ec.buckets),
+                                   state=self.store)
+
+        self.queue = CommandQueue(self.device)
+        # step cache keyed by (bucket, L): L=0 is the one-position decode
+        # step, L>0 a chunked-prefill step from the ladder
+        self._kernels: Dict[Tuple[int, int], Tuple[str, object]] = {}
+        self._bucket: Optional[int] = None
+        self._rngs: Dict[str, np.random.Generator] = {}
+        self.stats = EngineStats()
+        # pool prefix counters are monotone; the engine folds DELTAS into
+        # stats so `eng.stats = EngineStats()` resets stay correct
+        self._prefix_seen = (0, 0, 0)
+
+    # -- request intake ----------------------------------------------------
+
+    def submit(self, prompt: Sequence[int],
+               sampling: Optional[SamplingParams] = None,
+               **request_kw) -> Request:
+        """Validate and enqueue one request; extra keywords (priority,
+        tenant, ttft_deadline_s) are SLO metadata for admission policies."""
+        return self.submit_request(Request(prompt, sampling, **request_kw))
+
+    def fork(self, parent: Request,
+             sampling: Optional[SamplingParams] = None) -> Request:
+        """Submit a fork of ``parent`` (same prompt, e.g. n>1 sampling).
+        Once the parent's prefill has published its full prompt pages, the
+        fork's block table adopts them — the prompt KV is physically shared
+        in the arena, not recomputed per sibling."""
+        return self.submit_request(parent.fork(sampling))
+
+    def check_request(self, req: Request) -> None:
+        """Raise ValueError when ``req`` can never be served by this
+        engine.  Pure read of immutable configuration."""
+        ec = self.engine_cfg
+        if len(req.prompt) + req.sampling.max_tokens > ec.s_max:
+            raise ValueError(
+                f"prompt ({len(req.prompt)}) + max_tokens "
+                f"({req.sampling.max_tokens}) exceeds s_max={ec.s_max}")
+        # the request must fit the pool at its FULL grown length, or decode
+        # would hit an unpreemptable dead end mid-flight
+        worst = min(len(req.prompt) + req.sampling.max_tokens, ec.s_max)
+        if self.pool.blocks_for(worst) > self.pool.n_blocks:
+            raise ValueError(
+                f"sequence needs up to {self.pool.blocks_for(worst)} KV "
+                f"blocks but the pool holds {self.pool.n_blocks}")
+
+    def submit_request(self, req: Request) -> Request:
+        """Validate + hand to the scheduler; bare callers get their TTFT
+        clock stamped here."""
+        if not req.submit_t:
+            req.submit_t = time.perf_counter()  # TTFT clock starts here
+        self.check_request(req)
+        self.scheduler.submit(req)
+        return req
+
+    def cancel(self, request_id: str) -> bool:
+        self._rngs.pop(request_id, None)
+        return self.scheduler.cancel(request_id)
+
+    # -- per-bucket step bodies --------------------------------------------
+
+    def _kernel(self, bucket: int, chunk: Optional[int]):
+        """``(name, body)`` of the step for this bucket and chunk length."""
+        key = (bucket, chunk or 0)
+        step = self._kernels.get(key)
+        if step is None:
+            stride = self.engine_cfg.block_pos_stride
+            if chunk is None:
+                step = (f"serve_step_bs{bucket}",
+                        functools.partial(decode_step, self.cfg,
+                                          stride=stride))
+            else:
+                step = (f"prefill_bs{bucket}_len{chunk}",
+                        functools.partial(prefill_chunk_step, self.cfg,
+                                          stride=stride))
+            self._kernels[key] = step
+        return step
+
+    # -- the drive loop ----------------------------------------------------
+
+    def _chunk_len(self, max_remaining: int) -> Optional[int]:
+        """Pick this launch's prefill chunk length: the largest ladder entry
+        the biggest backlog fills, else the smallest entry (covering the
+        tail with ``n_valid`` padding — so a prompt of P tokens always
+        ingests in <= ceil(P / min_chunk) launches, never P).  None means
+        no slot is mid-prefill (or chunking is disabled): use the
+        one-position decode step."""
+        if max_remaining <= 1 or not self._chunks:
+            return None
+        for c in reversed(self._chunks):
+            if c <= max_remaining:
+                return c
+        return self._chunks[0]
+
+    def step(self) -> bool:
+        """Schedule + enqueue one step; returns False when idle.
+
+        A step is ONE enqueue either way: a ``serve_step_bs{N}`` advancing
+        every slot by one position, or — whenever some slot still has a
+        prompt backlog — a ``prefill_bs{N}_len{L}`` advancing slot s by
+        ``min(remaining[s], L)`` positions."""
+        try:
+            sd = self.scheduler.schedule()
+            if sd is None:
+                return False
+            self._note_migration(sd)
+            chunk = self._chunk_len(sd.max_remaining)
+            rows, fed = self._launch(sd, chunk)
+            self._commit(sd, rows, fed)
+            self.queue.finish()     # clFinish: stamps KernelEvent.last_done_t
+            return True
+        finally:
+            # every prefix-cache mutation (admission adoption, eviction
+            # under allocation pressure) happens inside a step — fold the
+            # pool's counter deltas on every exit path
+            self._fold_prefix_stats()
+
+    def _launch(self, sd: ScheduledStep, chunk: Optional[int]):
+        """Build operands and enqueue ONE step for ``sd``; returns
+        ``(rows, fed)`` — the next-token logits rows on the host and the
+        positions each slot consumed.  Mutates NO host request state."""
+        B = sd.bucket
+        pos = np.zeros((B,), np.int32)
+        table = np.full((B, self._table_width), -1, np.int32)
+        fed = [0] * B
+        dev = lambda a: torch.as_tensor(a, device=self.device)
+        name, body = self._kernel(B, chunk)
+        if chunk is None:
+            tokens = np.zeros((B,), np.int32)
+            for s, r in enumerate(sd.slots):
+                if r is not None:
+                    tokens[s] = r.next_token
+                    pos[s] = r.num_cached
+                    table[s, :len(r.blocks.ids)] = r.blocks.ids
+                    fed[s] = 1
+            logits = self.queue.enqueue(
+                name, body, self.params, self.store.arena, dev(tokens),
+                dev(pos), dev(table))
+        else:
+            tokens = np.zeros((B, chunk), np.int32)
+            n_valid = np.zeros((B,), np.int32)
+            for s, r in enumerate(sd.slots):
+                if r is None:
+                    continue
+                n = min(r.remaining_known, chunk)
+                seq = r.seq_tokens
+                tokens[s, :n] = seq[r.num_cached:r.num_cached + n]
+                pos[s] = r.num_cached
+                n_valid[s] = n
+                table[s, :len(r.blocks.ids)] = r.blocks.ids
+                fed[s] = n
+            logits = self.queue.enqueue(
+                name, body, self.params, self.store.arena, dev(tokens),
+                dev(pos), dev(n_valid), dev(table))
+        if chunk is not None:
+            self.stats.prefill_chunk_launches += 1
+        self.stats.steps += 1
+        self.stats.peak_blocks_used = max(self.stats.peak_blocks_used,
+                                          self.pool.n_used)
+        if sd.is_prefill:
+            self.stats.prefill_launches += 1
+        else:
+            self.stats.decode_launches += 1
+        # only the real vocabulary crosses to the host
+        rows = logits[:, 0, :self.cfg.vocab_size].cpu().numpy()
+        return rows, fed
+
+    def _commit(self, sd: ScheduledStep, rows: np.ndarray, fed) -> None:
+        """Advance the request state machine with a launch's results."""
+        for s, r in enumerate(sd.slots):
+            if r is None:
+                continue
+            n = fed[s]
+            # the launch fed seq_tokens[num_cached : num_cached + n]; its
+            # logits extend the sequence iff that range ends at the last
+            # known token
+            will_sample = r.num_cached + n == len(r.seq_tokens)
+            # count only the fed positions inside the prompt: replayed
+            # OUTPUT tokens (recompute preemption) are not prompt ingestion
+            prev_cached = r.num_cached
+            self.stats.prompt_tokens_ingested += max(
+                0, min(prev_cached + n, len(r.prompt)) - prev_cached)
+            r.num_cached += n
+            self._publish_filled_pages(r, prev_cached, r.num_cached)
+            if not will_sample:
+                continue
+            tok = self._sample(r, rows[s])
+            r.output_tokens.append(tok)
+            if len(r.output_tokens) == 1:
+                r.first_token_t = time.perf_counter()
+            self.stats.tokens_generated += 1
+            if r.state == RequestState.PREFILL:
+                r.transition(RequestState.DECODE)
+            reason = r.finish_reason_for(tok, self.engine_cfg.s_max)
+            if reason is not None:
+                self.scheduler.complete(r, reason)
+                self._rngs.pop(r.request_id, None)
+
+    def _fold_prefix_stats(self) -> None:
+        """Fold the pool's monotone prefix counters into ``stats`` as
+        deltas (reset-tolerant)."""
+        p = self.pool
+        cur = (p.n_prefix_hits, p.n_prefix_tokens_reused,
+               p.n_prefix_evictions)
+        seen = self._prefix_seen
+        self.stats.prefix_hits += cur[0] - seen[0]
+        self.stats.prefix_tokens_reused += cur[1] - seen[1]
+        self.stats.prefix_evictions += cur[2] - seen[2]
+        self._prefix_seen = cur
+
+    def _note_migration(self, sd: ScheduledStep) -> None:
+        """Bucket/slot churn is pure table bookkeeping — the KV pages a slot
+        references are bucket-invariant, so nothing moves on the device.
+        The events are still counted."""
+        identity = all(m == -1 or m == s for s, m in enumerate(sd.slot_map))
+        survived = any(m != -1 for m in sd.slot_map)
+        if survived and (sd.bucket != self._bucket or not identity):
+            self.stats.migrations += 1
+        self._bucket = sd.bucket
+
+    def _publish_filled_pages(self, r: Request, old_nc: int,
+                              new_nc: int) -> None:
+        """Publish every page the launch completed in (old_nc, new_nc] that
+        covers prompt tokens only, so identical prompts (and forks) can
+        adopt it — one chunked launch may fill several pages at once."""
+        stride = self.pool.block_pos_stride
+        for t in range(old_nc // stride + 1, new_nc // stride + 1):
+            end = t * stride
+            if end <= len(r.prompt):
+                self.pool.publish_prefix(tuple(r.prompt[:end]),
+                                         r.blocks.ids[t - 1])
+
+    def _sample(self, req: Request, row: np.ndarray) -> int:
+        t = req.sampling.temperature
+        if t <= 0.0:
+            return int(np.argmax(row))
+        rng = self._rngs.get(req.request_id)
+        if rng is None:
+            rng = self._rngs[req.request_id] = \
+                np.random.default_rng(req.sampling.seed)
+        z = row.astype(np.float64) / t
+        z -= z.max()
+        p = np.exp(z)
+        return int(rng.choice(len(row), p=p / p.sum()))
+
+    def drain(self) -> None:
+        """Run until every submitted request reaches FINISHED."""
+        steps = 0
+        limit = self.engine_cfg.max_steps
+        while self.scheduler.has_work:
+            if not self.step():
+                break
+            steps += 1
+            if limit is not None and steps > limit:
+                raise RuntimeError(f"drain exceeded max_steps={limit}")
+        self.queue.finish()
+
+    def stream(self, prompt: Sequence[int],
+               sampling: Optional[SamplingParams] = None) -> Iterator[int]:
+        """Streaming facade: submit one request NOW and return a generator
+        yielding its tokens as they are sampled.  Each ``next()`` drives the
+        WHOLE engine forward; abandoning the generator early cancels the
+        request, releasing its KV blocks."""
+        req = self.submit(prompt, sampling)
+
+        def _gen():
+            emitted = 0
+            try:
+                while not req.is_finished:
+                    if not self.step():
+                        break
+                    while emitted < len(req.output_tokens):
+                        yield req.output_tokens[emitted]
+                        emitted += 1
+                while emitted < len(req.output_tokens):
+                    yield req.output_tokens[emitted]
+                    emitted += 1
+            finally:
+                if not req.is_finished:
+                    self.cancel(req.request_id)
+
+        return _gen()
+
+    # -- observability -----------------------------------------------------
+
+    @property
+    def prefill_chunk_ladder(self) -> Tuple[int, ...]:
+        """Effective chunked-prefill lengths (config ladder capped by s_max,
+        ascending; empty = token-stepped prefill)."""
+        return self._chunks
+
+    def kernel_events(self):
+        return {name: ev for name, ev in self.queue.events.items()
+                if name.startswith(("serve_step_bs", "prefill_bs",
+                                    "verify_bs"))}
+
+    def throughput_tok_s(self) -> float:
+        """Generated tokens / wall-span of step activity, derived purely
+        from CommandQueue KernelEvent timestamps."""
+        evs = [e for e in self.kernel_events().values() if e.first_enqueue_t]
+        if not evs or not self.stats.tokens_generated:
+            return 0.0
+        t0 = min(e.first_enqueue_t for e in evs)
+        t1 = max(e.last_done_t or e.last_enqueue_t for e in evs)
+        return self.stats.tokens_generated / max(t1 - t0, 1e-9)
+
+    def peak_kv_bytes(self) -> int:
+        """Peak resident KV bytes: pool occupancy x per-page footprint."""
+        return self.stats.peak_blocks_used * self.pool.layout.bytes_per_block

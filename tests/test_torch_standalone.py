@@ -1,0 +1,90 @@
+"""repro_torch stands alone: no JAX, no ``repro``, the card by default.
+
+The port imports ``torch`` and numpy only; importing ``repro`` would
+install JAX shims, and ``repro.serve`` pulls in JAX itself.  Its entry
+points run on ``cuda`` unless the caller asks for the CPU, and raise
+rather than fall back when there is no card.
+"""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import repro_torch
+from repro_torch import resolve_device
+from repro_torch.configs import get_config, reduced
+from repro_torch.serve.engine import (EngineConfig, SamplingParams,
+                                      ServingEngine, generate)
+
+PKG = pathlib.Path(repro_torch.__file__).parent
+
+
+def _modules():
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(PKG.parent).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        yield path, ".".join(parts)
+
+
+def test_importing_every_module_loads_no_jax_and_no_repro():
+    mods = [name for _, name in _modules()]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith(('jax.', 'jaxlib', 'repro.')) or m == 'repro')\n"
+        "print(len(sys.modules)); assert not bad, bad\n")
+    env = {"PYTHONPATH": str(PKG.parent), "PATH": "/usr/bin:/bin"}
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_no_source_file_imports_jax_or_repro():
+    for path, _ in _modules():
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for n in names:
+                top = n.split(".")[0]
+                assert top not in ("jax", "jaxlib", "repro"), (path, n)
+
+
+def test_cuda_is_the_default_device():
+    if torch.cuda.is_available():
+        assert resolve_device().type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServingEngine(reduced(get_config("qwen2-0.5b")))
+
+
+def test_cpu_only_when_asked():
+    assert resolve_device("cpu").type == "cpu"
+    cfg = reduced(get_config("qwen2-0.5b"))
+    eng = ServingEngine(cfg, engine_cfg=EngineConfig(
+        s_max=32, buckets=(1, 2), block_pos_stride=4, device="cpu"))
+    assert all(t.device.type == "cpu" for e in eng.store.arena
+               for t in e.values())
+    outs = generate(eng, [[1, 2, 3], [4, 5, 6, 7, 8]],
+                    SamplingParams(max_tokens=3))
+    assert [len(c.tokens) for c in outs] == [3, 3]
+
+
+def test_later_slices_raise_not_implemented():
+    for name in ("mamba2-780m", "qwen3-moe-235b-a22b", "whisper-base"):
+        with pytest.raises(NotImplementedError, match="slice"):
+            get_config(name)
