@@ -1,6 +1,6 @@
 """Architecture registry: ``--arch <id>`` resolves here.
 
-The port serves the dense attention families first; every other assigned
+The port serves the dense attention and SSM families; every other assigned
 architecture is known by name and raises ``NotImplementedError`` naming the
 slice of the port that brings it.
 """
@@ -9,20 +9,19 @@ from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.configs import qwen2_0_5b, qwen3_0_6b
+from repro_torch.configs import mamba2_780m, qwen2_0_5b, qwen3_0_6b
 from repro_torch.configs.registry import reduced
 from repro_torch.models.config import ModelConfig
 
 REGISTRY: Dict[str, ModelConfig] = {
-    m.CONFIG.name: m.CONFIG for m in (qwen3_0_6b, qwen2_0_5b)
+    m.CONFIG.name: m.CONFIG for m in (qwen3_0_6b, qwen2_0_5b, mamba2_780m)
 }
 
 # assigned architectures whose families the port does not serve yet
 LATER: Dict[str, str] = {
     "qwen3-moe-235b-a22b": "the MoE slice",
     "kimi-k2-1t-a32b": "the MoE slice",
-    "jamba-1.5-large-398b": "the SSM/hybrid slice",
-    "mamba2-780m": "the SSM/hybrid slice",
+    "jamba-1.5-large-398b": "the MoE slice",
     "stablelm-12b": "a later dense-config slice",
     "qwen2-7b": "a later dense-config slice",
     "whisper-base": "the encoder-decoder slice",

@@ -29,4 +29,7 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
                   head_dim=8)
     if cfg.d_ff:
         kw.update(d_ff=128)
+    if cfg.d_inner:
+        kw.update(d_inner=128, ssm_heads=8, ssm_headdim=16,
+                  ssm_state=16, ssm_groups=min(cfg.ssm_groups, 4))
     return dataclasses.replace(cfg, **kw)

@@ -1,0 +1,64 @@
+"""Build a CUDA source of the port into a shared library and load it.
+
+Each kernel family keeps its CUDA C++ under ``csrc/`` with a plain C
+interface.  At first use :func:`compile_library` compiles it with ``nvcc``
+for ``sm_90a`` into ``build/repro_torch/`` at the root of the checkout (the
+file name carries a hash of the source and the flags, so an edited kernel is
+rebuilt) and loads it with ``ctypes``.  Nothing here runs when a module is
+imported: the CPU tests import every module on machines with no ``nvcc``
+and no card.  Separate sources compile independently, so callers may build
+several libraries at once from threads.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Tuple
+
+# src/repro_torch/kernels/build.py -> checkout root
+_ROOT = Path(__file__).resolve().parents[3]
+BUILD_DIR = _ROOT / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+MAX_SMEM = 232448          # bytes a block may use on Hopper (227 KB)
+
+
+def _nvcc(src: Path) -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError(
+            f"nvcc not found: {src.name} is built at first use on a machine "
+            f"with the CUDA toolkit")
+    return found
+
+
+def compile_library(src: Path, stem: str) -> Tuple[ctypes.CDLL, Dict]:
+    """Compile ``src`` into ``build/repro_torch/lib<stem>_<hash>.so`` when
+    that library is missing, and load it.  Returns the library and what the
+    build did: its path, seconds, whether it compiled, and the ptxas
+    report (registers, shared memory and spills of every kernel)."""
+    code = src.read_bytes()
+    tag = hashlib.sha1(code + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    out = BUILD_DIR / f"lib{stem}_{tag}.so"
+    t0 = time.perf_counter()
+    log = ""
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(src), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed on {src.name} ({res.returncode}):\n"
+                f"{res.stdout}{res.stderr}")
+        os.replace(tmp, out)
+        log = res.stdout + res.stderr
+    info = dict(path=str(out), seconds=time.perf_counter() - t0,
+                built=bool(log), ptxas=log)
+    return ctypes.CDLL(str(out)), info

@@ -2,10 +2,9 @@
 
 The source is compiled at first use with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface under ``build/repro_torch/`` at the
-root of the checkout (the file name carries a hash of the source, so an
-edited kernel is rebuilt), and loaded with ``ctypes``.  Nothing is built
-or loaded when this module is imported: the CPU tests import it on
-machines with no ``nvcc`` and no card.
+root of the checkout (:func:`repro_torch.kernels.build.compile_library`),
+and loaded with ``ctypes``.  Nothing is built or loaded when this module is
+imported: the CPU tests import it on machines with no ``nvcc`` and no card.
 
 :func:`paged_attention_cuda` is the wrapper: it checks devices, dtypes,
 shapes and contiguity, allocates the fp32 partials with ``torch.empty``,
@@ -16,37 +15,19 @@ one to its ``launches`` count.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels.build import MAX_SMEM, compile_library
+
 _SRC = Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"
-# src/repro_torch/kernels/paged_attention/kernel.py -> checkout root
-_ROOT = Path(__file__).resolve().parents[4]
-BUILD_DIR = _ROOT / "build" / "repro_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 HEAD_DIMS = (8, 16, 32, 64, 128)
-MAX_SMEM = 232448          # bytes a block may use on Hopper (227 KB)
 
 _lib: Optional[ctypes.CDLL] = None
 # what the last build did: library path, seconds, ptxas report
 build_info: dict = {}
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(found):
-        raise RuntimeError(
-            "nvcc not found: the paged-attention kernel is built from "
-            f"{_SRC} at first use on a machine with the CUDA toolkit")
-    return found
 
 
 def build() -> ctypes.CDLL:
@@ -54,30 +35,14 @@ def build() -> ctypes.CDLL:
     global _lib
     if _lib is not None:
         return _lib
-    src = _SRC.read_bytes()
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"libpaged_attention_{tag}.so"
-    t0 = time.perf_counter()
-    log = ""
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{res.stdout}{res.stderr}")
-        os.replace(tmp, out)
-        log = res.stdout + res.stderr
-    lib = ctypes.CDLL(str(out))
+    lib, info = compile_library(_SRC, "paged_attention")
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.paged_attention_launch.argtypes = (
         [vp] * 8 + [i] * 10 + [ctypes.c_float, i, vp])
     lib.paged_attention_launch.restype = i
     lib.paged_attention_smem_bytes.argtypes = [i] * 5
     lib.paged_attention_smem_bytes.restype = ctypes.c_longlong
-    build_info.update(path=str(out), seconds=time.perf_counter() - t0,
-                      built=bool(log), ptxas=log)
+    build_info.update(info)
     _lib = lib
     return lib
 

@@ -1,0 +1,89 @@
+"""Public SSD scan op: the chunked algorithm, routed by device.
+
+A CUDA tensor goes to the two hand-written kernels (:mod:`.kernel`), or the
+call raises; a CPU tensor goes to their plain versions (:mod:`.ref`).  There
+is no backend string and no fallback.  Between the two passes the
+cross-chunk state passing is an affine recurrence ``s' = d * s + u`` over
+tiny (H, N, P) tensors, a plain torch op, as is the one-token
+:func:`ssd_decode_step` (jnp code in the JAX package, not a Pallas kernel).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels.ssd_scan.kernel import ssd_apply_cuda, ssd_chunk_cuda
+from repro_torch.kernels.ssd_scan.ref import ssd_apply_ref, ssd_chunk_ref
+
+
+def _state_passing(states: torch.Tensor, chunk_decay: torch.Tensor,
+                   init_state: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Affine prefix over chunks: the state entering chunk c is the
+    product of the earlier chunks' decays times ``init`` plus their
+    decayed contributions.
+
+    states (B, nc, H, N, P) fp32, chunk_decay (B, nc, H) fp32, init_state
+    (B, H, N, P).  Returns (states_in (B, nc, H, N, P), final (B, H, N, P)).
+    As in the JAX op, the inclusive (decay product, contribution) pair is
+    formed first and applied to ``init`` once, so at nc = 1 this is exactly
+    ``states_in = init`` and ``final = decay * init + state``."""
+    d = chunk_decay[..., None, None]                      # (B, nc, H, 1, 1)
+    dacc = torch.cumprod(d, dim=1)
+    acc, sacc = None, []
+    for c in range(states.shape[1]):
+        acc = states[:, c] if acc is None else d[:, c] * acc + states[:, c]
+        sacc.append(acc)
+    init = init_state[:, None].float()
+    s_after = dacc * init + torch.stack(sacc, dim=1)      # state AFTER chunk c
+    states_in = torch.cat([init, s_after[:, :-1]], dim=1)
+    return states_in, s_after[:, -1]
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             Bm: torch.Tensor, Cm: torch.Tensor,
+             init_state: Optional[torch.Tensor] = None, *, chunk: int
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD scan.  x (B, S, H, P), dt (B, S, H), A (H,), Bm/Cm
+    (B, S, G, N), init_state (B, H, N, P) fp32 (zeros when None).
+    Returns (y (B, S, H, P) in x's dtype, final state (B, H, N, P) fp32)."""
+    B, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    L = min(chunk, S)
+    if S % L:
+        raise ValueError(f"sequence {S} is not a multiple of chunk {L}")
+    nc = S // L
+    if init_state is None:
+        init_state = torch.zeros((B, H, N, P), dtype=torch.float32,
+                                 device=x.device)
+    if x.device.type == "cpu":
+        chunk_fn, apply_fn = ssd_chunk_ref, ssd_apply_ref
+    elif x.is_cuda:
+        chunk_fn, apply_fn = ssd_chunk_cuda, ssd_apply_cuda
+    else:
+        raise ValueError(f"ssd_scan: unsupported device {x.device}")
+    y_intra, states, cumexp = chunk_fn(x, dt, A, Bm, Cm, chunk=L)
+    states_in, final = _state_passing(states, cumexp[:, :, -1, :],
+                                      init_state)
+    y = apply_fn(y_intra, Cm.reshape(B, nc, L, G, N), cumexp, states_in)
+    return y.reshape(B, S, H, P), final
+
+
+def ssd_decode_step(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                    Bm: torch.Tensor, Cm: torch.Tensor, state: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single-token recurrence (serve decode).  x (B, H, P), dt (B, H),
+    Bm/Cm (B, G, N), state (B, H, N, P) -> (y (B, H, P) in x's dtype, new
+    state fp32)."""
+    rep = x.shape[1] // Bm.shape[1]
+    dt32 = dt.float()
+    dA = torch.exp(dt32 * A.float())                        # (B, H)
+    b_h = Bm.float().repeat_interleave(rep, dim=1)          # (B, H, N)
+    c_h = Cm.float().repeat_interleave(rep, dim=1)
+    state = (dA[:, :, None, None] * state
+             + (dt32[:, :, None] * b_h)[..., None]
+             * x.float()[:, :, None, :])
+    y = torch.einsum("bhn,bhnp->bhp", c_h, state)
+    return y.to(x.dtype), state

@@ -3,8 +3,11 @@ engine, on the card.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
       --engine --requests 8 --tokens 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \\
+      --engine
 
-serves the full-width model on ``cuda`` with random weights from seed 0.
+serves the full-width model on ``cuda`` with random weights from seed 0
+(attention layers page their K/V, mamba layers keep dense state slots).
 ``--smoke`` takes the ``reduced()`` config instead (as the JAX launcher
 always does); ``--device cpu`` runs the plain PyTorch versions of every
 kernel on the CPU.  Only the ``--engine`` path is ported so far; the
@@ -51,8 +54,11 @@ def _main_engine(cfg, args):
     ev = eng.kernel_events()
     st = eng.stats
     ttfts = [c.ttft_s for c in outs if c.ttft_s is not None]
+    kinds = " + ".join(k for k, on in (
+        ("paged KV", eng.store.needs_pages),
+        ("dense slots", eng.store.has_dense)) if on)
     print(f"served {len(outs)} requests / {st.tokens_generated} tokens "
-          f"({cfg.family}: paged KV, {eng.device}): "
+          f"({cfg.family}: {kinds}, {eng.device}): "
           f"{eng.throughput_tok_s():.1f} tok/s over {len(ev)} executables "
           f"{sorted(ev)}")
     ttft_ms = f"{np.mean(ttfts) * 1e3:.1f} ms" if ttfts else "n/a"
@@ -62,6 +68,10 @@ def _main_engine(cfg, args):
           f"({st.prefill_chunk_launches} chunked); "
           f"decode: {st.decode_launches} launches; "
           f"{tpl:.2f} tokens/launch; mean TTFT {ttft_ms}")
+    if eng.store.has_dense:
+        print(f"  dense slots: peak {st.peak_dense_slots_used} of "
+              f"{eng.store.slot_pool.n_slots} "
+              f"({eng.store.dense_slot_bytes} bytes each)")
     if st.prefix_hits or st.prefix_evictions:
         print(f"  prefix cache: {st.prefix_hits} page hits, "
               f"{st.prefix_tokens_reused} prompt tokens reused "

@@ -1,8 +1,10 @@
 """Model configuration shared by every architecture family (torch dtypes).
 
-The dense-attention subset of ``repro.models.config``: the fields and the
-grid-derived helpers the serving path reads.  MoE, SSM, encoder-decoder and
-vision fields arrive with the slices that serve those families.
+The dense-attention and SSM (Mamba2 / SSD) subset of
+``repro.models.config``: the fields and the grid-derived helpers the serving
+path reads.  MoE, encoder-decoder and vision fields arrive with the slices
+that serve those families.  There is no ``ssd_backend`` field: the device of
+the tensors picks the SSD scan's route, as it does for paged attention.
 """
 
 from __future__ import annotations
@@ -39,6 +41,13 @@ class ModelConfig:
     rope_theta: float = 1e6
     causal: bool = True
     attn_block_kv: int = 1024
+    # SSM (Mamba2 / SSD)
+    d_inner: int = 0
+    ssm_heads: int = 0
+    ssm_headdim: int = 64
+    ssm_state: int = 128
+    ssm_groups: int = 1
+    conv_kernel: int = 4
     # layer pattern; empty -> homogeneous ("attn", ffn_kind) x n_layers
     layer_pattern: LayerPattern = ()
     # numerics

@@ -5,24 +5,33 @@ True, paged=...)`` and ``make_prefill_chunk_body``, at q = r = 1: every
 SHMEM row/column collective is the identity, page routing ``p % q`` is
 trivial, and each gemv2d projection is one ``torch.matmul``.
 
-Both bodies read and write ONE paged arena: a list with one entry per
-pattern position, each ``{"k", "v"}`` of shape
+Both bodies read and write ONE state arena: a list with one entry per
+pattern position.  An attention entry is ``{"k", "v"}`` of shape
 ``(G, n_blocks, stride, kvh, hd)``, addressed through per-slot block tables
-``(B, s_max // stride)`` of physical page ids (-1 = unallocated).  The
+``(B, s_max // stride)`` of physical page ids (-1 = unallocated).  A mamba
+entry is ``{"conv", "ssm"}`` of shape ``(G, n_slots) + per-slot shape``,
+addressed through a per-lane ``slots`` vector (B,) of dense slot ids (-1 =
+idle lane).  The operands follow the StateSpec list, as in the JAX bodies:
+``table`` when any layer pages KV, ``slots`` when any layer is dense.  The
 arena is updated **in place** (the JAX bodies return a new arena that the
-engine donates through every enqueue; here the new K/V are written into
+engine donates through every enqueue; here the new state is written into
 the same storage), so the bodies return only the logits.
 
-A one-position decode step is the L = 1 case of the chunked-prefill body
-with every lane valid: the same RoPE, K/V write, masked paged attention and
-logits, so the port keeps one attention path where the JAX package has
-``_attn_decode_paged`` and ``_attn_prefill_chunk_paged``.
+For an attention layer a one-position decode step is the L = 1 case of the
+chunked-prefill path with every lane valid: the same RoPE, K/V write,
+masked paged attention and logits, so the port keeps one attention path
+where the JAX package has ``_attn_decode_paged`` and
+``_attn_prefill_chunk_paged``.  A mamba layer is different: decode runs
+``mamba_decode_step`` (an fp32 conv over the window and the one-token SSD
+recurrence), exactly what the JAX decode body runs, and only chunk
+launches run the chunked SSD scan and its kernels.  The two differ in
+bf16 rounding, so a decode step is not an L = 1 chunk there.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -31,6 +40,7 @@ from repro_torch.models.attention import combine_partials
 from repro_torch.models.config import ModelConfig, attn_static
 from repro_torch.models.layers import (apply_norm, apply_rope, mlp_apply,
                                        rms_norm_local, rope_tables)
+from repro_torch.models.ssm import mamba_chunk_step, mamba_decode_step
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,51 +149,91 @@ def _unstack(tree, n: int) -> List:
     return list(tree.unbind(0))
 
 
-def _decode_layer(cfg, mixer, ffn, p, x, cache, rope, pos2, widx, table,
-                  stride):
-    if mixer != "attn" or ffn != "mlp":
-        raise NotImplementedError(
-            f"({mixer}, {ffn}) layers: SSM/hybrid and MoE are later slices")
+def _dense_slot_gather(cache, slots: torch.Tensor):
+    """Each lane's dense state rows from the slot arena (leaves
+    ``(n_slots, ...)``); an idle lane (slot -1) reads slot 0 as a dummy and
+    never writes back."""
+    n_slots = next(iter(cache.values())).shape[0]
+    idx = slots.clamp(0, n_slots - 1).long()
+    return {name: a[idx] for name, a in cache.items()}
+
+
+def _dense_slot_scatter(cache, new, lanes) -> None:
+    """Write the advanced state of the live lanes back to their slot rows,
+    in place.  ``lanes`` is (lane index, slot id) of every lane with a slot:
+    idle lanes are dropped explicitly (the JAX body routes them out of
+    bounds with ``mode="drop"``, which torch has no counterpart of)."""
+    lane, sid = lanes
+    for name, a in cache.items():
+        a[sid] = new[name][lane].to(a.dtype)
+
+
+class _Operands(NamedTuple):
+    """What every layer of one launch shares."""
+    stride: int
+    n_valid: torch.Tensor
+    decode: bool                          # mamba layers: one-token step
+    rope: Optional[Tuple] = None          # paged layers
+    pos2: Optional[torch.Tensor] = None
+    widx: Optional[Tuple] = None
+    table: Optional[torch.Tensor] = None
+    slots: Optional[torch.Tensor] = None  # dense layers
+    lanes: Optional[Tuple] = None
+
+
+def _decode_layer(cfg, mixer, ffn, p, x, cache, op: _Operands):
     h = apply_norm(cfg, p["norm1"], x)
-    x = x + _attn_prefill_chunk_paged(p["mixer"], h, cfg, cache["k"],
-                                      cache["v"], rope, pos2, widx, table,
-                                      stride)
-    h = apply_norm(cfg, p["norm2"], x)
-    return x + mlp_apply(cfg, p["ffn"], h)
+    if mixer == "attn":
+        x = x + _attn_prefill_chunk_paged(p["mixer"], h, cfg, cache["k"],
+                                          cache["v"], op.rope, op.pos2,
+                                          op.widx, op.table, op.stride)
+    elif mixer in ("mamba", "ssm"):
+        st = _dense_slot_gather(cache, op.slots)
+        state = (st["conv"], st["ssm"])
+        if op.decode:
+            h, (conv, ssm) = mamba_decode_step(p["mixer"], h, state, cfg)
+        else:
+            h, (conv, ssm) = mamba_chunk_step(p["mixer"], h, state, cfg,
+                                              op.n_valid)
+        x = x + h
+        _dense_slot_scatter(cache, {"conv": conv, "ssm": ssm}, op.lanes)
+    else:
+        raise NotImplementedError(f"mixer {mixer!r}")
+    if ffn == "mlp":
+        h = apply_norm(cfg, p["norm2"], x)
+        x = x + mlp_apply(cfg, p["ffn"], h)
+    elif ffn != "none":
+        raise NotImplementedError(f"({mixer}, {ffn}) layers: MoE is a later "
+                                  f"slice")
+    return x
 
 
-# ---------------------------------------------------------------------------
-# The two step bodies.
-# ---------------------------------------------------------------------------
-
-def prefill_chunk_step(cfg: ModelConfig, params, arena, tokens: torch.Tensor,
-                       pos: torch.Tensor, n_valid: torch.Tensor,
-                       table: torch.Tensor, *, stride: int,
-                       all_logits: bool = False) -> torch.Tensor:
-    """The ``prefill_bs{N}_len{L}`` body: up to L tokens per slot per launch.
-
-    tokens (B, L), pos (B,), n_valid (B,), table (B, T), all int32.  Slot b
-    consumes ``tokens[b, :n_valid[b]]`` at cache positions
-    ``[pos[b], pos[b] + n_valid[b])``; its K/V scatter into its block-table
-    pages and the blocked causal mask makes chunk position j attend to
-    exactly [0, pos + j].  Returns fp32 logits ``(B, 1, Vpad)`` of each
-    slot's last valid position, or ``(B, L, Vpad)`` with ``all_logits``
-    (the speculative-verify variant).  ``arena`` is updated in place."""
+def _run(cfg: ModelConfig, params, arena, tokens, pos, n_valid, table,
+         slots, *, stride: int, decode: bool, all_logits: bool
+         ) -> torch.Tensor:
     B, L = tokens.shape
     G = cfg.n_groups()
-    x = _embed_decode(params["embed"], tokens, cfg.compute_dtype)
-    pos2 = (pos[:, None] + torch.arange(L, dtype=torch.int32,
-                                        device=pos.device)[None, :])
-    rope = rope_tables(pos2, cfg.hd(), cfg.rope_theta)
-    widx = _write_index(table, pos2, n_valid, stride)
     pattern = cfg.pattern()
+    x = _embed_decode(params["embed"], tokens, cfg.compute_dtype)
+    op = _Operands(stride=stride, n_valid=n_valid, decode=decode)
+    if any(m == "attn" for m, _ in pattern):
+        pos2 = (pos[:, None] + torch.arange(L, dtype=torch.int32,
+                                            device=pos.device)[None, :])
+        op = op._replace(rope=rope_tables(pos2, cfg.hd(), cfg.rope_theta),
+                         pos2=pos2, widx=_write_index(table, pos2, n_valid,
+                                                      stride),
+                         table=table)
+    if any(m in ("mamba", "ssm") for m, _ in pattern):
+        # one host sync per launch for the live-lane selection, shared by
+        # every dense layer
+        lane = torch.nonzero(slots >= 0).squeeze(1)
+        op = op._replace(slots=slots, lanes=(lane, slots[lane].long()))
     layers = [_unstack(lp, G) for lp in params["layers"]]
     caches = [_unstack(c, G) for c in arena]
     for g in range(G):
         for posn, (mixer, ffn) in enumerate(pattern):
             x = _decode_layer(cfg, mixer, ffn, layers[posn][g], x,
-                              caches[posn][g], rope, pos2, widx, table,
-                              stride)
+                              caches[posn][g], op)
     if not all_logits:
         # each slot's last VALID chunk position, before the final norm and
         # lm_head (both pointwise over positions, so the gather commutes)
@@ -193,12 +243,40 @@ def prefill_chunk_step(cfg: ModelConfig, params, arena, tokens: torch.Tensor,
     return _last_logits(params["lm_head"], x)
 
 
+# ---------------------------------------------------------------------------
+# The two step bodies.
+# ---------------------------------------------------------------------------
+
+def prefill_chunk_step(cfg: ModelConfig, params, arena, tokens: torch.Tensor,
+                       pos: torch.Tensor, n_valid: torch.Tensor,
+                       table: Optional[torch.Tensor] = None,
+                       slots: Optional[torch.Tensor] = None, *, stride: int,
+                       all_logits: bool = False) -> torch.Tensor:
+    """The ``prefill_bs{N}_len{L}`` body: up to L tokens per slot per launch.
+
+    tokens (B, L), pos (B,), n_valid (B,), table (B, T) when any layer
+    pages KV, slots (B,) when any layer is dense, all int32.  Slot b
+    consumes ``tokens[b, :n_valid[b]]`` at cache positions
+    ``[pos[b], pos[b] + n_valid[b])``: its K/V scatter into its block-table
+    pages and the blocked causal mask makes chunk position j attend to
+    exactly [0, pos + j], and its dense state advances through the valid
+    prefix in one :func:`mamba_chunk_step`.  Returns fp32 logits
+    ``(B, 1, Vpad)`` of each slot's last valid position, or ``(B, L, Vpad)``
+    with ``all_logits`` (the speculative-verify variant).  ``arena`` is
+    updated in place."""
+    return _run(cfg, params, arena, tokens, pos, n_valid, table, slots,
+                stride=stride, decode=False, all_logits=all_logits)
+
+
 def decode_step(cfg: ModelConfig, params, arena, tokens: torch.Tensor,
-                pos: torch.Tensor, table: torch.Tensor, *, stride: int
+                pos: torch.Tensor, table: Optional[torch.Tensor] = None,
+                slots: Optional[torch.Tensor] = None, *, stride: int
                 ) -> torch.Tensor:
     """The ``serve_step_bs{N}`` body: every slot advances one position.
 
-    tokens (B,), pos (B,), table (B, T) int32 -> fp32 logits (B, 1, Vpad).
-    Idle slots carry an all -1 table row and write nothing."""
-    return prefill_chunk_step(cfg, params, arena, tokens[:, None], pos,
-                              torch.ones_like(pos), table, stride=stride)
+    tokens (B,), pos (B,), table (B, T) and/or slots (B,) int32 -> fp32
+    logits (B, 1, Vpad).  Idle slots carry an all -1 table row and slot -1,
+    and write nothing."""
+    return _run(cfg, params, arena, tokens[:, None], pos,
+                torch.ones_like(pos), table, slots, stride=stride,
+                decode=True, all_logits=False)

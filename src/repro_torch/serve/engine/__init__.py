@@ -10,12 +10,15 @@ Layering (host side of the paper's OpenCL analogy):
           block_cache.BlockPool   physical KV pages (ref-counts, free list,
                                   radix prefix cache w/ generation-checked
                                   revival — repro_torch.serve.prefix)
+          state_store.StateStore  the device arena; dense (SSM) slots,
+                                  their snapshots and restores
           request.Request     WAITING -> PREFILL -> DECODE -> FINISHED
 """
 
 from repro_torch.serve.engine.api import (Completion, build_engine,
                                           completion_of, generate)
 from repro_torch.serve.engine.block_cache import (BlockLayout, BlockPool,
+                                                  DenseSlotPool,
                                                   PoolExhausted,
                                                   SequenceBlocks,
                                                   block_layout)
@@ -31,6 +34,7 @@ from repro_torch.serve.prefix import RadixNode, RadixPrefixCache
 
 __all__ = [
     "AdmissionPolicy", "BlockLayout", "BlockPool", "Completion",
+    "DenseSlotPool",
     "EngineConfig", "EngineStats", "FINISH_REASONS", "FifoAdmission",
     "NullStateHook", "PoolExhausted", "RadixNode", "RadixPrefixCache",
     "Request", "RequestState", "SamplingParams", "ScheduledStep",

@@ -30,8 +30,7 @@ host-side ownership layer over that arena:
                  from, so occupancy-in-bytes tracks the real arena.
 
 Pure host code: no device tensors are touched here (a copy of
-``repro.serve.engine.block_cache`` with identical behaviour; the dense
-slot pool arrives with the SSM/hybrid slice).
+``repro.serve.engine.block_cache`` with identical behaviour).
 """
 
 from __future__ import annotations
@@ -56,11 +55,13 @@ class BlockLayout:
     bytes_per_block: int
 
 
-def block_layout(specs) -> BlockLayout:
+def block_layout(specs, *, block_pos_stride: int) -> BlockLayout:
     """Price one page from the engine's StateSpec list
     (:class:`repro_torch.serve.state.ModelStateSpecs`), the single source
-    of truth for the arena's shapes."""
-    return BlockLayout(block_pos_stride=specs.stride,
+    of truth for the arena's shapes.  Dense-state layers contribute zero
+    page bytes: their residency is priced per slot
+    (:attr:`DenseSlotPool.slot_bytes`)."""
+    return BlockLayout(block_pos_stride=block_pos_stride,
                        bytes_per_block=specs.page_bytes())
 
 
@@ -247,6 +248,50 @@ class BlockPool:
         if node is None:
             return None
         return self._adopt_node(node)
+
+
+class DenseSlotPool:
+    """Fixed pool of dense per-sequence state slots (``DenseSpec`` layers).
+
+    Dense state is O(1) per sequence and — unlike KV pages — NOT
+    ref-countable: a slot belongs to exactly one request at a time, and
+    "sharing" dense state means physically copying a snapshot into a fresh
+    slot (``engine/state_store.py``).  The pool is pure host bookkeeping
+    over the slot rows of the device state arena; ``slot_bytes`` prices one
+    slot's device residency (``ModelStateSpecs.dense_slot_bytes``).
+    """
+
+    def __init__(self, n_slots: int, slot_bytes: int = 0):
+        if n_slots < 1:
+            raise ValueError("n_slots must be >= 1")
+        self.n_slots = n_slots
+        self.slot_bytes = slot_bytes
+        self._free: Deque[int] = deque(range(n_slots - 1, -1, -1))
+        self._used: set = set()
+
+    @property
+    def n_free(self) -> int:
+        return len(self._free)
+
+    @property
+    def n_used(self) -> int:
+        return len(self._used)
+
+    def can_alloc(self) -> bool:
+        return bool(self._free)
+
+    def alloc(self) -> int:
+        if not self._free:
+            raise PoolExhausted(f"all {self.n_slots} dense slots in use")
+        sid = self._free.pop()
+        self._used.add(sid)
+        return sid
+
+    def release(self, sid: int) -> None:
+        if sid not in self._used:
+            raise ValueError(f"release of free dense slot {sid}")
+        self._used.discard(sid)
+        self._free.append(sid)
 
 
 class SequenceBlocks:

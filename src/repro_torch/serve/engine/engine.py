@@ -3,9 +3,13 @@
 Every step is one enqueue of a named step body: ``serve_step_bs{N}``
 advances every occupied slot by one position, ``prefill_bs{N}_len{L}``
 advances each slot by up to L prompt positions (decode-phase slots ride
-along with one valid position).  Both consume the engine's paged KV arena
-plus per-slot ``tokens``/``pos`` vectors and a ``(B, T)`` block table of
-physical page ids, and return next-token logits.  The host loop scatters
+along with one valid position).  Both consume the engine's state arena
+plus per-slot ``tokens``/``pos`` vectors and the StateSpec-derived
+indirection operands — a ``(B, T)`` block table of physical page ids when
+any layer pages KV, a ``(B,)`` dense slot vector when any layer carries
+O(1) recurrent state — and return next-token logits.  ``dense``, ``ssm``
+and ``hybrid`` families serve through the same loop; only the operand list
+differs, and it differs by spec.  The host loop scatters
 request tokens in, gathers sampled tokens out, and drives the request state
 machine; ``queue.finish()`` after each launch is the paper's ``clFinish``
 and stamps the ``KernelEvent`` timestamps throughput is read from.
@@ -16,10 +20,13 @@ a bucket change costs nothing on the device and slot migration is a
 host-side permutation of table rows.  As prefill fills full prompt pages
 the engine publishes them to the pool's radix prefix cache, so requests
 sharing a token-block prefix adopt the same physical pages at admission.
+Dense-state configs clamp prefill launches to land on each prompt's
+snapshot boundary and publish the dense leaves there, so identical prompts
+and forks copy that state at admission instead of re-ingesting it.
 
 This is ``repro.serve.engine.engine`` at q = r = 1 with the host logic
 unchanged.  Speculation, fault injection and ``StepGuard``, drain/restore
-and checkpoints, and dense (SSM) slots come with later slices.
+and checkpoints come with later slices.
 """
 
 from __future__ import annotations
@@ -156,17 +163,24 @@ class ServingEngine:
             params = init_params(cfg, generator=gen, device=self.device)
         self.params = params
         # head geometry comes from the weights (native r=1, or the r=4
-        # storage of weights carried over from the JAX engine)
+        # storage of weights carried over from the JAX engine).  The
+        # per-layer state contract says which layers page KV and which
+        # carry dense per-slot state; every shape, operand and lifecycle
+        # rule below derives from it.
         _, kvh = stored_heads(params, cfg)
         self.state_specs = layer_state_specs(
             cfg, stride=ec.block_pos_stride, kvh=kvh)
 
         self.pool = BlockPool(self.paged.n_blocks, self.paged.block_pos_stride,
-                              layout=block_layout(self.state_specs),
+                              layout=block_layout(
+                                  self.state_specs,
+                                  block_pos_stride=ec.block_pos_stride),
                               prefix_cache=ec.prefix_cache)
         self.store = StateStore(self.state_specs,
                                 n_blocks=self.paged.n_blocks,
-                                device=self.device)
+                                device=self.device,
+                                n_slots=ec.buckets[-1],
+                                stride=ec.block_pos_stride, pool=self.pool)
         self.scheduler = Scheduler(self.pool, SchedulerConfig(ec.buckets),
                                    state=self.store)
 
@@ -195,7 +209,11 @@ class ServingEngine:
         """Submit a fork of ``parent`` (same prompt, e.g. n>1 sampling).
         Once the parent's prefill has published its full prompt pages, the
         fork's block table adopts them — the prompt KV is physically shared
-        in the arena, not recomputed per sibling."""
+        in the arena, not recomputed per sibling.  Dense (SSM) state is NOT
+        ref-countable: at admission the fork's slot receives a physical
+        *copy* of the parent's published boundary snapshot instead, so
+        hybrid forks share prompt KV pages while owning their own
+        recurrent state."""
         return self.submit_request(parent.fork(sampling))
 
     def check_request(self, req: Request) -> None:
@@ -207,9 +225,11 @@ class ServingEngine:
                 f"prompt ({len(req.prompt)}) + max_tokens "
                 f"({req.sampling.max_tokens}) exceeds s_max={ec.s_max}")
         # the request must fit the pool at its FULL grown length, or decode
-        # would hit an unpreemptable dead end mid-flight
+        # would hit an unpreemptable dead end mid-flight.  Page-free
+        # (dense-only) sequences have O(1) footprint: nothing to check.
         worst = min(len(req.prompt) + req.sampling.max_tokens, ec.s_max)
-        if self.pool.blocks_for(worst) > self.pool.n_blocks:
+        if self.store.needs_pages and \
+                self.pool.blocks_for(worst) > self.pool.n_blocks:
             raise ValueError(
                 f"sequence needs up to {self.pool.blocks_for(worst)} KV "
                 f"blocks but the pool holds {self.pool.n_blocks}")
@@ -262,6 +282,19 @@ class ServingEngine:
                 return c
         return self._chunks[0]
 
+    def _fed_count(self, r: Request, chunk: int) -> int:
+        """Positions slot ``r`` consumes this chunk launch.  Dense-state
+        configs clamp prefill to LAND on the request's snapshot boundary
+        (the last full-page boundary inside the prompt) so the dense leaves
+        there are observable on the device for prefix publication — at most
+        one extra launch per prompt, preserving O(prompt / L) ingestion."""
+        n = min(r.remaining_known, chunk)
+        if self.store.has_dense:
+            m0 = self.store.snapshot_boundary(r)
+            if r.num_cached < m0:
+                n = min(n, m0 - r.num_cached)
+        return n
+
     def step(self) -> bool:
         """Schedule + enqueue one step; returns False when idle.
 
@@ -291,7 +324,10 @@ class ServingEngine:
         positions each slot consumed.  Mutates NO host request state."""
         B = sd.bucket
         pos = np.zeros((B,), np.int32)
+        has_pages = self.store.needs_pages
+        has_dense = self.store.has_dense
         table = np.full((B, self._table_width), -1, np.int32)
+        slots = np.full((B,), -1, np.int32)
         fed = [0] * B
         dev = lambda a: torch.as_tensor(a, device=self.device)
         name, body = self._kernel(B, chunk)
@@ -301,32 +337,42 @@ class ServingEngine:
                 if r is not None:
                     tokens[s] = r.next_token
                     pos[s] = r.num_cached
-                    table[s, :len(r.blocks.ids)] = r.blocks.ids
                     fed[s] = 1
-            logits = self.queue.enqueue(
-                name, body, self.params, self.store.arena, dev(tokens),
-                dev(pos), dev(table))
         else:
             tokens = np.zeros((B, chunk), np.int32)
             n_valid = np.zeros((B,), np.int32)
             for s, r in enumerate(sd.slots):
                 if r is None:
                     continue
-                n = min(r.remaining_known, chunk)
+                n = self._fed_count(r, chunk)
                 seq = r.seq_tokens
                 tokens[s, :n] = seq[r.num_cached:r.num_cached + n]
                 pos[s] = r.num_cached
                 n_valid[s] = n
-                table[s, :len(r.blocks.ids)] = r.blocks.ids
                 fed[s] = n
+        for s, r in enumerate(sd.slots):
+            if r is not None:
+                if has_pages:
+                    table[s, :len(r.blocks.ids)] = r.blocks.ids
+                if has_dense:
+                    slots[s] = r.dense_slot
+        ops = (dev(table) if has_pages else None,
+               dev(slots) if has_dense else None)
+        if chunk is None:
             logits = self.queue.enqueue(
                 name, body, self.params, self.store.arena, dev(tokens),
-                dev(pos), dev(n_valid), dev(table))
-        if chunk is not None:
+                dev(pos), *ops)
+        else:
+            logits = self.queue.enqueue(
+                name, body, self.params, self.store.arena, dev(tokens),
+                dev(pos), dev(n_valid), *ops)
             self.stats.prefill_chunk_launches += 1
         self.stats.steps += 1
         self.stats.peak_blocks_used = max(self.stats.peak_blocks_used,
                                           self.pool.n_used)
+        if self.store.slot_pool is not None:
+            self.stats.peak_dense_slots_used = max(
+                self.stats.peak_dense_slots_used, self.store.slot_pool.n_used)
         if sd.is_prefill:
             self.stats.prefill_launches += 1
         else:
@@ -352,6 +398,7 @@ class ServingEngine:
                 0, min(prev_cached + n, len(r.prompt)) - prev_cached)
             r.num_cached += n
             self._publish_filled_pages(r, prev_cached, r.num_cached)
+            self._maybe_publish_dense(r)
             if not will_sample:
                 continue
             tok = self._sample(r, rows[s])
@@ -393,12 +440,28 @@ class ServingEngine:
         """Publish every page the launch completed in (old_nc, new_nc] that
         covers prompt tokens only, so identical prompts (and forks) can
         adopt it — one chunked launch may fill several pages at once."""
+        if not self.store.needs_pages:
+            return
         stride = self.pool.block_pos_stride
         for t in range(old_nc // stride + 1, new_nc // stride + 1):
             end = t * stride
             if end <= len(r.prompt):
                 self.pool.publish_prefix(tuple(r.prompt[:end]),
                                          r.blocks.ids[t - 1])
+
+    def _maybe_publish_dense(self, r: Request) -> None:
+        """Dense analogue of page publication: when a prefill launch lands
+        exactly on the request's snapshot boundary (prefill chunks are
+        clamped to guarantee it), snapshot the dense leaves there keyed by
+        the consumed prompt prefix — identical prompts and ``fork()``
+        siblings then *copy* that state at admission (dense state shares by
+        physical copy, never by ref-count)."""
+        if not self.store.has_dense:
+            return
+        m0 = self.store.snapshot_boundary(r)
+        if 0 < m0 == r.num_cached:
+            self.store.publish_dense_prefix(tuple(r.prompt[:m0]),
+                                            r.dense_slot)
 
     def _sample(self, req: Request, row: np.ndarray) -> int:
         t = req.sampling.temperature
@@ -475,5 +538,10 @@ class ServingEngine:
         return self.stats.tokens_generated / max(t1 - t0, 1e-9)
 
     def peak_kv_bytes(self) -> int:
-        """Peak resident KV bytes: pool occupancy x per-page footprint."""
-        return self.stats.peak_blocks_used * self.pool.layout.bytes_per_block
+        """Peak resident state bytes: pool occupancy x per-page footprint
+        plus dense slot occupancy x per-slot footprint (both priced by the
+        StateSpec list; either term is zero when that state kind is
+        absent)."""
+        dense = self.stats.peak_dense_slots_used * self.store.dense_slot_bytes
+        return self.stats.peak_blocks_used \
+            * self.pool.layout.bytes_per_block + dense

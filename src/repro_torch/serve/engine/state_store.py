@@ -1,26 +1,244 @@
 """Device-resident engine state, driven by the per-layer StateSpec list.
 
 The store owns the ONE bucket-independent state arena the step bodies
-consume — one allocation per leaf, on the engine's device, for the engine's
-whole lifetime — and is the scheduler's state hook (``needs_pages`` /
-``plan_resume`` / ``can_admit`` / ``commit_admit`` / ``on_release``).  This
-is the paged half of ``repro.serve.engine.state_store``: attention layers
-page their K/V, pages are the scheduler/pool's job, and every dense-state
-lifecycle event is a no-op.  Dense (SSM) slots come with the SSM/hybrid
-slice.
+consume — paged K/V leaves and dense slot leaves, one allocation per leaf on
+the engine's device for the engine's whole lifetime — and every host-side
+lifecycle operation on it (``repro.serve.engine.state_store`` at q = r = 1):
+
+  * **admission**   — allocate a dense slot; zero it (fresh sequence) or
+    physically copy a snapshot into it (prefix adoption, ``fork()``,
+    preemption restore).  Pages are the scheduler/pool's job — the store
+    only decides how far admission may fast-forward (``plan_resume``).
+  * **prefix snapshots** — when a prefill launch lands exactly on the
+    request's snapshot boundary (the last full-page boundary strictly
+    inside its prompt), the engine publishes the dense leaves at that
+    position keyed by the consumed token prefix.  Dense state is not
+    ref-countable, so adoption *copies* the snapshot into the adopter's
+    slot.
+  * **preemption**  — on page-free (ssm-family) configs the victim's dense
+    leaves are snapshotted onto the request for replay-free restore; on
+    hybrid configs the snapshot is dropped (the attention KV is gone, so a
+    consistent resume point must come from the prefix maps or position 0).
+
+Snapshots are host copies (CPU tensors), as the JAX store keeps numpy
+arrays.  The scheduler routes every lifecycle event through the hook face
+(``needs_pages`` / ``plan_resume`` / ``can_admit`` / ``commit_admit`` /
+``on_release``); :class:`NullStateHook` is that face for a scheduler with
+no state store at all.
 """
 
 from __future__ import annotations
 
+from collections import OrderedDict, deque
+from typing import Dict, List, Optional, Tuple
+
 import torch
 
-from repro_torch.serve.state import ModelStateSpecs
+from repro_torch.serve.engine.block_cache import DenseSlotPool
+from repro_torch.serve.state import DenseSpec, ModelStateSpecs
+
+HostLeaves = Dict[Tuple[int, str], torch.Tensor]
+
+
+class StateStore:
+    """One engine's resident device state + its lifecycle operations."""
+
+    MAX_PREFIX_SNAPSHOTS = 64      # dense prefix snapshots kept (FIFO)
+
+    def __init__(self, specs: ModelStateSpecs, *, n_blocks: int,
+                 device: torch.device, n_slots: int = 1,
+                 stride: Optional[int] = None, pool=None):
+        self.specs = specs
+        self.stride = stride if stride is not None else (
+            specs.stride if specs.has_paged else None)
+        if specs.has_dense and self.stride is None:
+            raise ValueError("a dense-state model needs the engine's stride "
+                             "(snapshot boundaries sit on page boundaries)")
+        # hybrid configs key dense snapshots by the SAME radix tree node
+        # that owns the prefix's last KV page, so the two state kinds can
+        # never disagree about which prefixes are adoptable; page-free
+        # configs, and pools without a cache, keep the token-tuple FIFO map
+        self._tree = pool.cache if (pool is not None and specs.has_paged
+                                    and pool.cache is not None) else None
+        self._snap_nodes: "deque" = deque()   # FIFO cap over tree snapshots
+        # ONE arena for the engine's lifetime; the step bodies write it in
+        # place.  Pages are never zeroed again: stale KV past a slot's
+        # position is causally masked in the kernel.  Dense slots are zeroed
+        # or snapshot-restored at admission — recurrent state has no mask.
+        self.arena = [{name: torch.zeros(shape, dtype=dt, device=device)
+                       for name, (shape, dt) in entry.items()}
+                      for entry in specs.arena_shapes(
+                          n_blocks, n_slots if specs.has_dense else 1)]
+        self.slot_pool: Optional[DenseSlotPool] = DenseSlotPool(
+            n_slots, slot_bytes=specs.dense_slot_bytes()) \
+            if specs.has_dense else None
+        self._dense_idx: List[int] = [
+            i for i, e in enumerate(specs.entries)
+            if isinstance(e, DenseSpec)]
+        # prefix-token tuple -> host dense leaves at that position (FIFO cap:
+        # the map must not grow with the number of distinct prompts served)
+        self._prefix: "OrderedDict[Tuple[int, ...], HostLeaves]" = \
+            OrderedDict()
+        self.n_restores = 0            # snapshot copies INTO a slot
+
+    # -- spec-derived facts -------------------------------------------------
+
+    @property
+    def needs_pages(self) -> bool:
+        return self.specs.has_paged
+
+    @property
+    def has_dense(self) -> bool:
+        return self.specs.has_dense
+
+    @property
+    def dense_slot_bytes(self) -> int:
+        return self.specs.dense_slot_bytes()
+
+    def arena_bytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for entry in self.arena for t in entry.values())
+
+    def snapshot_boundary(self, request) -> int:
+        """The position admission can fast-forward a same-prompt sibling to:
+        the last full-page boundary strictly before the final prompt token
+        (that token must still be fed to produce the first logits).  Dense
+        prefill launches are clamped to LAND on this boundary so the device
+        state there is observable for snapshotting."""
+        return (len(request.prompt) - 1) // self.stride * self.stride
+
+    # -- scheduler hook face ------------------------------------------------
+
+    def plan_resume(self, request, page_cap: int) -> int:
+        """Resume position admission may grant ``request`` (pure read).
+
+        ``page_cap`` is the furthest position adoptable KV pages cover
+        (0 when the config has no paged layers).  Attention-only configs
+        take the cap as-is; dense configs additionally require a dense
+        snapshot at *exactly* the resume position — either the request's
+        own preemption snapshot (page-free configs: replay-free restore at
+        an arbitrary position) or a published prefix snapshot at a page
+        boundary both state kinds can satisfy."""
+        if not self.has_dense:
+            return page_cap
+        if request.dense_snapshot is not None and not self.needs_pages:
+            return request.dense_snapshot[0]
+        cap = self.snapshot_boundary(request)
+        if self.needs_pages:
+            cap = min(cap, page_cap)
+        prompt = request.prompt
+        if self._tree is not None:
+            # hybrid: ONE radix walk, then the deepest matched node that
+            # also carries a dense snapshot
+            nodes = self._tree.match(prompt, cap // self.stride)
+            for d in range(len(nodes), 0, -1):
+                if nodes[d - 1].dense_snap is not None:
+                    return d * self.stride
+            return 0
+        for b in range(cap, 0, -self.stride):
+            if tuple(prompt[:b]) in self._prefix:
+                return b
+        return 0
+
+    def can_admit(self, request) -> bool:
+        return self.slot_pool is None or self.slot_pool.can_alloc()
+
+    def commit_admit(self, request, resume: int) -> None:
+        """Bind a dense slot and make its device rows consistent with
+        ``resume``: a snapshot copy (physical, not ref-counted) when
+        fast-forwarding, a zero-fill when starting from position 0."""
+        if not self.has_dense:
+            return
+        request.dense_slot = self.slot_pool.alloc()
+        snap = None
+        if resume > 0:
+            if request.dense_snapshot is not None \
+                    and request.dense_snapshot[0] == resume:
+                snap = request.dense_snapshot[1]
+            elif self._tree is not None:
+                node = self._tree.node_at(tuple(request.prompt[:resume]))
+                snap = node.dense_snap if node is not None else None
+            else:
+                snap = self._prefix.get(tuple(request.prompt[:resume]))
+            if snap is None:
+                raise RuntimeError(
+                    f"no dense snapshot at resume position {resume}")
+        request.dense_snapshot = None
+        if snap is None:
+            self._zero_slot(request.dense_slot)
+        else:
+            self._write_slot(request.dense_slot, snap)
+            self.n_restores += 1
+
+    def on_release(self, request, preempting: bool = False) -> None:
+        """Retire/preempt: free the dense slot — after snapshotting it onto
+        the request when the snapshot alone is a consistent resume point
+        (page-free configs with progress; hybrid preemption drops state
+        because its paged KV is released alongside)."""
+        if not self.has_dense or request.dense_slot is None:
+            return
+        if preempting and not self.needs_pages and request.num_cached > 0:
+            request.dense_snapshot = (request.num_cached,
+                                      self.read_slot(request.dense_slot))
+        self.slot_pool.release(request.dense_slot)
+        request.dense_slot = None
+
+    # -- dense prefix snapshots (engine-side) -------------------------------
+
+    def publish_dense_prefix(self, key: Tuple[int, ...], slot: int) -> None:
+        key = tuple(key)
+        if self._tree is not None:
+            # ride the page tree: the snapshot attaches to the node owning
+            # the prefix's last page.  No node means the page chain was
+            # already evicted — a dense snapshot there could never be
+            # adopted, skip it.
+            node = self._tree.node_at(key)
+            if node is None:
+                return
+            if node.dense_snap is None:
+                self._snap_nodes.append(node)
+            node.dense_snap = self.read_slot(slot)
+            while len(self._snap_nodes) > self.MAX_PREFIX_SNAPSHOTS:
+                old = self._snap_nodes.popleft()
+                if not old.detached:
+                    old.dense_snap = None
+            return
+        self._prefix[key] = self.read_slot(slot)
+        self._prefix.move_to_end(key)
+        while len(self._prefix) > self.MAX_PREFIX_SNAPSHOTS:
+            self._prefix.popitem(last=False)
+
+    def has_dense_prefix(self, key: Tuple[int, ...]) -> bool:
+        if self._tree is not None:
+            node = self._tree.node_at(tuple(key))
+            return node is not None and node.dense_snap is not None
+        return tuple(key) in self._prefix
+
+    # -- device slot ops (in place on the arena) ----------------------------
+
+    def _dense_leaves(self) -> Dict[Tuple[int, str], torch.Tensor]:
+        return {(i, name): leaf for i in self._dense_idx
+                for name, leaf in self.arena[i].items()}
+
+    def _zero_slot(self, slot: int) -> None:
+        for leaf in self._dense_leaves().values():
+            leaf[:, slot].zero_()
+
+    def _write_slot(self, slot: int, host_leaves: HostLeaves) -> None:
+        for key, leaf in self._dense_leaves().items():
+            leaf[:, slot].copy_(host_leaves[key])
+
+    def read_slot(self, slot: int) -> HostLeaves:
+        """Copy one dense slot's rows to the host (waits for in-flight
+        work on the card)."""
+        return {key: leaf[:, slot].to("cpu", copy=True)
+                for key, leaf in self._dense_leaves().items()}
 
 
 class NullStateHook:
-    """Hook face with no dense-state layers: pages are the whole story, so
-    every dense lifecycle event is a no-op and admission resumes exactly as
-    far as adoptable pages reach."""
+    """Hook face for a scheduler with no state store: pages are the whole
+    story, so every dense lifecycle event is a no-op and admission resumes
+    exactly as far as adoptable pages reach."""
 
     needs_pages = True
     has_dense = False
@@ -36,21 +254,3 @@ class NullStateHook:
 
     def on_release(self, request, preempting: bool = False) -> None:
         pass
-
-
-class StateStore(NullStateHook):
-    """One engine's resident device state + its lifecycle hook face."""
-
-    def __init__(self, specs: ModelStateSpecs, *, n_blocks: int,
-                 device: torch.device):
-        self.specs = specs
-        # ONE arena for the engine's lifetime; the step bodies write new
-        # K/V into it in place.  Pages are never zeroed again: stale KV past
-        # a slot's position is causally masked in the kernel.
-        self.arena = [{name: torch.zeros(shape, dtype=dt, device=device)
-                       for name, (shape, dt) in entry.items()}
-                      for entry in specs.arena_shapes(n_blocks)]
-
-    def arena_bytes(self) -> int:
-        return sum(t.numel() * t.element_size()
-                   for entry in self.arena for t in entry.values())

@@ -2,21 +2,34 @@
 
 The single source of truth for the device shapes of the engine's resident
 state arena, the step operands derived from it, and its bytes-resident
-accounting — ``repro.serve.state`` at q = r = 1.  This slice serves
-attention mixers, whose K/V grow with sequence length and so are split
-into physical pages addressed through per-slot block tables
-(:class:`PagedSpec`).  Recurrent (SSM) mixers, whose O(1) state lives in
-dense slots, come with the SSM/hybrid slice.
+accounting — ``repro.serve.state`` at q = r = 1.  Two state kinds cover
+every mixer the port serves:
+
+  :class:`PagedSpec`  — attention: K/V grow with sequence length, so they
+      are split into physical pages addressed through per-slot block
+      tables (a ``table`` step operand).
+  :class:`DenseSpec`  — SSM (Mamba2/SSD): state is O(1) per sequence, so
+      it lives in fixed per-sequence *slots* addressed through a per-lane
+      ``slots`` step operand.  Dense state is not ref-countable the way
+      pages are: sharing it means physically copying a snapshot
+      (``engine/state_store.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.models.config import ModelConfig
+
+
+def _nbytes(shape, dtype) -> int:
+    n = 1
+    for d in shape:
+        n *= d
+    return n * torch.empty((), dtype=dtype).element_size()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,10 +56,34 @@ class PagedSpec:
 
 
 @dataclasses.dataclass(frozen=True)
+class DenseSpec:
+    """Recurrent-mixer state: O(1) per sequence, held in dense slots.
+
+    ``leaves`` holds (name, per-slot shape, dtype); for Mamba2 that is
+    ``conv`` (the (k-1)-step pre-activation window) and ``ssm`` (the
+    (H, N, P) SSD state, fp32).  The arena leaf for one layer position is
+    ``(G, n_slots) + shape``."""
+
+    leaves: Tuple[Tuple[str, Tuple[int, ...], Any], ...]
+
+
+StateSpec = Union[PagedSpec, DenseSpec]
+
+
+def _mamba_dense_spec(cfg: ModelConfig) -> DenseSpec:
+    conv_ch = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+    return DenseSpec(leaves=(
+        ("conv", (cfg.conv_kernel - 1, conv_ch), cfg.compute_dtype),
+        ("ssm", (cfg.ssm_heads, cfg.ssm_state, cfg.ssm_headdim),
+         torch.float32),
+    ))
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelStateSpecs:
     """The per-layer state contract of one model on one device."""
 
-    entries: Tuple[PagedSpec, ...]     # one per pattern position
+    entries: Tuple[StateSpec, ...]     # one per pattern position
     groups: int                        # layer groups (leading arena dim)
 
     @property
@@ -54,42 +91,61 @@ class ModelStateSpecs:
         return any(isinstance(e, PagedSpec) for e in self.entries)
 
     @property
-    def stride(self) -> int:
-        return self.entries[0].stride
+    def has_dense(self) -> bool:
+        return any(isinstance(e, DenseSpec) for e in self.entries)
 
-    def arena_shapes(self, n_blocks: int) -> List[Dict[str, Tuple]]:
-        """name -> (shape, dtype) of every arena leaf, per pattern position."""
-        return [{name: ((self.groups, n_blocks) + shape, dt)
-                 for name, (shape, dt) in e.leaves.items()}
-                for e in self.entries]
+    @property
+    def stride(self) -> int:
+        for e in self.entries:
+            if isinstance(e, PagedSpec):
+                return e.stride
+        raise ValueError("no paged layer: stride is undefined")
+
+    def arena_shapes(self, n_blocks: int, n_slots: int = 1
+                     ) -> List[Dict[str, Tuple]]:
+        """name -> (shape, dtype) of every arena leaf, per pattern position:
+        ``(G, n_blocks) + page shape`` for paged leaves, ``(G, n_slots) +
+        slot shape`` for dense ones."""
+        out: List[Dict[str, Tuple]] = []
+        for e in self.entries:
+            if isinstance(e, PagedSpec):
+                out.append({name: ((self.groups, n_blocks) + shape, dt)
+                            for name, (shape, dt) in e.leaves.items()})
+            else:
+                out.append({name: ((self.groups, n_slots) + shape, dt)
+                            for name, shape, dt in e.leaves})
+        return out
 
     def page_bytes(self) -> int:
         """Device bytes of ONE physical page across all paged layers."""
-        total = 0
-        for e in self.entries:
-            for shape, dt in e.leaves.values():
-                n = 1
-                for d in shape:
-                    n *= d
-                total += self.groups * n * torch.empty((), dtype=dt) \
-                    .element_size()
-        return total
+        return sum(self.groups * _nbytes(shape, dt)
+                   for e in self.entries if isinstance(e, PagedSpec)
+                   for shape, dt in e.leaves.values())
+
+    def dense_slot_bytes(self) -> int:
+        """Device bytes of ONE dense slot across all dense layers."""
+        return sum(self.groups * _nbytes(shape, dt)
+                   for e in self.entries if isinstance(e, DenseSpec)
+                   for _, shape, dt in e.leaves)
 
 
 def layer_state_specs(cfg: ModelConfig, *, stride: int,
                       kvh: Optional[int] = None) -> ModelStateSpecs:
-    """Derive the per-layer state contract from ``ModelConfig.pattern()``.
+    """Derive the per-layer state contract from ``ModelConfig.pattern()``:
+    ``attn`` -> :class:`PagedSpec`, ``mamba``/``ssm`` -> :class:`DenseSpec`.
 
     ``kvh`` is the stored kv-head count of the weights being served (see
     :func:`repro_torch.models.params.stored_heads`); it defaults to the
     config's native count."""
-    kvh = kvh if kvh is not None else cfg.kv_stored(1)[0]
-    entries: List[PagedSpec] = []
+    entries: List[StateSpec] = []
     for (mixer, _) in cfg.pattern():
-        if mixer != "attn":
+        if mixer == "attn":
+            entries.append(PagedSpec(
+                kvh=kvh if kvh is not None else cfg.kv_stored(1)[0],
+                hd=cfg.hd(), stride=stride, dtype=cfg.compute_dtype))
+        elif mixer in ("mamba", "ssm"):
+            entries.append(_mamba_dense_spec(cfg))
+        else:
             raise NotImplementedError(
-                f"{cfg.name}: mixer {mixer!r} carries dense state — "
-                f"SSM/hybrid: later slice")
-        entries.append(PagedSpec(kvh=kvh, hd=cfg.hd(), stride=stride,
-                                 dtype=cfg.compute_dtype))
+                f"no StateSpec mapping for mixer {mixer!r}")
     return ModelStateSpecs(entries=tuple(entries), groups=cfg.n_groups())

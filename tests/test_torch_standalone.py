@@ -85,6 +85,7 @@ def test_cpu_only_when_asked():
 
 
 def test_later_slices_raise_not_implemented():
-    for name in ("mamba2-780m", "qwen3-moe-235b-a22b", "whisper-base"):
+    for name in ("jamba-1.5-large-398b", "qwen3-moe-235b-a22b",
+                 "whisper-base"):
         with pytest.raises(NotImplementedError, match="slice"):
             get_config(name)
