@@ -6,9 +6,10 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. environment — torch/CUDA versions, the card's name and power limit;
-2. build — compile both CUDA libraries (paged attention; the two SSD-scan
-   kernels) from the checkout's sources with nvcc for sm_90a, one nvcc
-   each, started together;
+2. build — compile the four CUDA libraries (paged attention; the two
+   SSD-scan kernels; the cannon_mm matmul; flash attention) from the
+   checkout's sources with nvcc for sm_90a, one nvcc each, started
+   together;
 3. paged-attention kernel against its plain version on the card — random scrambled block
    tables with holes, qwen2-0.5b head geometry (14 q heads over 2 kv heads,
    hd 64, stride 16), B in {1, 8}, L in {1, 16, 64, 256}, bf16 and fp32
@@ -39,6 +40,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    top kernels;
 8. the kernels line, the card line, and the result line.
 
+Between 4 and 5 run the phases of the paper core and the last two
+kernels:
+
+* mm_vs_plain — the cannon_mm matmul kernel against its plain version
+  (tests/test_kernels.py shapes, ragged shapes, a 16-PE stack, transposed
+  strides; fp32 and bf16; out_dtype fp32 and default) and its backward
+  against autograd through the plain version;
+* cannon — every strategy (Cannon natural and pre-skewed, C-rotating,
+  allgather, SUMMA, gemv2d) on the emulated 4x4 grid at the Table 1 sizes
+  (n = 128, 512, 4096, 8192 fp32; qwen2-0.5b's 4096 x 896 x 4864 MLP
+  up-projection in bf16) against a host fp64 product, with the matmul
+  kernel counted (q launches per Cannon and SUMMA call, 1 per allgather
+  and gemv2d call, the plain version never); then the Table 1 rows
+  (launch/table1.py: hybrid against allgather through the CommandQueue);
+* mm_timing — the matmul at 4096^3 bf16 and fp32 and at the n = 8192
+  Cannon round (16 x 2048^3 fp32) against its plain version, one
+  torch.matmul and its bound;
+* flash_vs_plain and flash_timing — the flash-attention kernel against
+  its plain version (tests/test_kernels.py shapes, ragged tails, an
+  offset block), then the op at qwen2-0.5b's and qwen3-0.6b's prefill
+  geometries (S 4096, B 1 and 4, causal, bf16), counted, and timed
+  against the plain version, scaled_dot_product_attention and the bound.
+
 It imports nothing of JAX and nothing of the ``repro`` package.  Without a
 card, or outside a checkout that holds ``src/repro_torch``, it exits
 non-zero and prints no result.
@@ -63,6 +87,10 @@ REPLACES = "src/repro/kernels/paged_attention/kernel.py:48"
 SSD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
 SSD_REPLACES = {"ssd_chunk": "src/repro/kernels/ssd_scan/kernel.py:74",
                 "ssd_apply": "src/repro/kernels/ssd_scan/kernel.py:117"}
+MM_SOURCE = "src/repro_torch/kernels/cannon_mm/csrc/cannon_mm.cu"
+MM_REPLACES = "src/repro/kernels/cannon_mm/kernel.py:51"
+FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:75"
 HBM_BYTES_S = 3.35e12                       # H100 SXM, data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PROMPT_LENS = [5, 17, 40, 64, 100, 200, 300, 33]
@@ -203,10 +231,13 @@ def phase_env():
 
 def phase_build():
     """One nvcc per source, all started together."""
+    from repro_torch.kernels.cannon_mm import kernel as mm
+    from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.paged_attention import kernel as paged
     from repro_torch.kernels.ssd_scan import kernel as ssd
     t0 = time.perf_counter()
-    mods = {"paged_attention": paged, "ssd_scan": ssd}
+    mods = {"paged_attention": paged, "ssd_scan": ssd, "cannon_mm": mm,
+            "flash_attention": flash}
     with ThreadPoolExecutor(len(mods)) as pool:
         for fut in [pool.submit(m.build) for m in mods.values()]:
             fut.result()
@@ -514,6 +545,368 @@ def phase_ssd_timing(n_sets=4):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# The paper core: the cannon_mm kernel, the emulated 4x4 grid, Table 1.
+# ---------------------------------------------------------------------------
+
+MM_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
+STRATEGY_LAUNCHES = {"cannon": 4, "cannon_preskewed": 4, "crot": 4,
+                     "allgather": 1, "summa": 4, "gemv2d": 1}
+
+
+def randn(rng, shape, dtype):
+    return torch.from_numpy(rng.standard_normal(shape, np.float32)) \
+        .to("cuda", dtype)
+
+
+def dname(dtype):
+    return str(dtype).split(".")[-1]
+
+
+def phase_mm_vs_plain():
+    """The matmul kernel against its plain version on the card: the
+    tests/test_kernels.py shapes, two ragged shapes, a P = 16 stack and a
+    transposed-stride case, fp32 and bf16 operands, ``out_dtype`` fp32 and
+    the default; then the backward of the op against autograd through the
+    plain version (P = 16).  Tolerance: max abs difference over max abs
+    value 2e-4 with fp32 operands (fp32 FMAs, never TF32, another summation
+    order), 3e-2 with bf16 (one rounding of the output to bf16)."""
+    from repro_torch.kernels.cannon_mm import blocked_matmul, matmul_ref
+    from repro_torch.kernels.cannon_mm.kernel import matmul_cuda
+    rng = np.random.default_rng(5)
+    cases = [((m, k), (k, n), False) for m, k, n in (
+        (256, 256, 256), (512, 256, 384), (128, 512, 128), (128, 128, 128),
+        (100, 37, 130), (257, 129, 65))]
+    cases += [((16, 64, 48), (16, 48, 80), False),
+              ((96, 200), (72, 96), True)]          # a.T @ b.T, as strides
+    worst = [0.0, 0.0]
+    for sa, sb, transposed in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            a, b = randn(rng, sa, dtype), randn(rng, sb, dtype)
+            if transposed:
+                a, b = a.t(), b.t()
+            for out_dtype in (None, torch.float32):
+                want = matmul_ref(a, b, out_dtype)
+                got = matmul_cuda(a, b, out_dtype=out_dtype)
+                torch.cuda.synchronize()
+                check(got.shape == want.shape and got.dtype == want.dtype,
+                      f"matmul {sa} {sb}: {tuple(got.shape)} {got.dtype}")
+                err, abs_err = rel_err(want, got), float(
+                    (want.double() - got.double()).abs().max())
+                emit("mm_vs_plain", a=list(a.shape), b=list(b.shape),
+                     a_strides=list(a.stride()), dtype=dname(dtype),
+                     out_dtype=dname(got.dtype), max_rel_err=err,
+                     max_abs_err=abs_err, tol=MM_TOL[dtype])
+                check(err <= MM_TOL[dtype],
+                      f"matmul kernel disagrees: {sa} {sb} {dtype} rel {err}")
+                worst = [max(worst[0], err), max(worst[1], abs_err)]
+    for dtype in (torch.float32, torch.bfloat16):
+        a, b = randn(rng, (16, 48, 64), dtype), randn(rng, (16, 64, 40), dtype)
+        g = randn(rng, (16, 48, 40), torch.float32)
+        grads = []
+        for fn in (lambda x, y: matmul_ref(x, y, torch.float32),
+                   lambda x, y: blocked_matmul(x, y, out_dtype=torch.float32)):
+            x, y = a.clone().requires_grad_(), b.clone().requires_grad_()
+            fn(x, y).backward(g)
+            grads.append((x.grad, y.grad))
+        torch.cuda.synchronize()
+        errs = [rel_err(w, o) for w, o in zip(*grads)]
+        emit("mm_backward_vs_autograd", dtype=dname(dtype), dA_rel_err=errs[0],
+             dB_rel_err=errs[1], tol=MM_TOL[dtype])
+        check(max(errs) <= MM_TOL[dtype], f"matmul backward disagrees: {errs}")
+    return worst
+
+
+def strategy_errors(A, B, C, scale, n_rows=8):
+    """Every strategy of repro_torch.core.cannon on the emulated 4x4 grid,
+    A @ B against the fp64 product C (max abs difference over max |C|);
+    gemv2d multiplies A's first ``n_rows`` rows.  Checks the matmul kernel
+    ran as many times as each strategy has rounds, and never its plain
+    version."""
+    from repro_torch.core import ShmemGrid, cannon
+    from repro_torch.kernels.cannon_mm import matmul_ref
+    from repro_torch.kernels.cannon_mm.kernel import matmul_cuda
+    q = 4
+    a = cannon.block_2d(A, q, q)
+    nat, pre = cannon.block_2d(B, q, q), cannon.block_2d(B, q, q, True)
+    crot_b = cannon.block_2d(B, q, q, "crot")
+
+    def crot(g, a_, _):
+        out = cannon.cannon_matmul_crot(g, a_, crot_b)  # at (i, j): N_(i+j)%q
+        order = [i * q + (j - i) % q for i in range(q) for j in range(q)]
+        return out[order]
+
+    def gemv(g, a_, b_):
+        x = A[:n_rows]
+        kb = x.shape[1] // q
+        xs = torch.stack([x[:, (p % q) * kb:(p % q + 1) * kb]
+                          for p in range(q * q)])
+        out = cannon.gemv2d(g, xs, b_)               # (P, n_rows, N/q)
+        check(bool((out == out[:q].repeat(q, 1, 1)).all()),
+              "gemv2d output is not replicated over grid rows")
+        return torch.cat(list(out[:q]), dim=1)
+
+    runs = {"cannon": (cannon.cannon_matmul, nat, {}),
+            "cannon_preskewed": (cannon.cannon_matmul, pre,
+                                 dict(preskewed_b=True)),
+            "crot": (crot, None, {}),
+            "allgather": (cannon.allgather_matmul, nat, {}),
+            "summa": (cannon.summa_matmul, nat, {}),
+            "gemv2d": (gemv, nat, {})}
+    errs = {}
+    for name, (fn, b, kw) in runs.items():
+        n_ker, n_ref = matmul_cuda.launches, matmul_ref.launches
+        out = fn(ShmemGrid(q, q), a, b, **kw)
+        torch.cuda.synchronize()
+        ran = (matmul_cuda.launches - n_ker, matmul_ref.launches - n_ref)
+        check(ran == (STRATEGY_LAUNCHES[name], 0),
+              f"{name}: kernel and plain launches {ran}, expected "
+              f"({STRATEGY_LAUNCHES[name]}, 0)")
+        got = out if name == "gemv2d" else cannon.unblock_2d(out, q, q)
+        want = C[:n_rows] if name == "gemv2d" else C
+        check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+        errs[name] = float((got.double() - want).abs().max()) / scale
+        del out, got
+    return errs
+
+
+def phase_cannon():
+    """The slice's main path: every strategy on the emulated 4x4 grid on the
+    card at the Table 1 sizes (fp32 n = 128, 512, 4096, 8192; qwen2-0.5b's
+    MLP up-projection in bf16), against a host fp64 product of the same
+    operands.  The kernel counts are set to 0 just before and read just
+    after.  Then the Table 1 measurement (launch/table1.py) on the same
+    operands: hybrid Cannon against the allgather baseline through the
+    CommandQueue."""
+    from repro_torch.core import CommandQueue
+    from repro_torch.core.epiphany_model import table1_report
+    from repro_torch.kernels.cannon_mm import matmul_ref
+    from repro_torch.kernels.cannon_mm.kernel import matmul_cuda
+    from repro_torch.launch import table1
+    rows, meta = table1_report()
+    for r in rows:
+        emit("table1_model", **r)
+    emit("table1_fit", **meta)
+    queue = CommandQueue("cuda")
+    worst, live = {}, []
+    counts = {"launches": 0, "plain": 0}
+    for spec in table1.DEFAULT_SIZES:
+        M, K, N, dtype = table1.parse_size(spec)
+        t0 = time.perf_counter()
+        A, B, C = table1.operands(M, K, N, dtype, 0, torch.device("cuda"))
+        setup_s = time.perf_counter() - t0
+        scale = float(C.abs().max())
+        matmul_cuda.launches = matmul_ref.launches = 0     # counts to 0 ...
+        errs = strategy_errors(A, B, C, scale)
+        counts["launches"] += matmul_cuda.launches          # ... read
+        counts["plain"] += matmul_ref.launches
+        tol = MM_TOL[dtype]
+        emit("cannon", size=spec, dtype=dname(dtype), operands_s=setup_s,
+             max_rel_err=errs, tol=tol)
+        for name, e in errs.items():
+            check(e <= tol, f"cannon {name} at {spec}: rel {e} > {tol}")
+            worst[name] = max(worst.get(name, 0.0), e)
+        row = table1.measure(queue, spec, A, B, C)
+        for name in ("hybrid", "opencl"):
+            check(row[f"{name}_max_rel_err"] <= tol,
+                  f"table1 {name} at {spec}: {row}")
+        emit("table1_live", **row)
+        live.append(row)
+        del A, B, C
+        torch.cuda.empty_cache()
+    expect = len(table1.DEFAULT_SIZES) * sum(STRATEGY_LAUNCHES.values())
+    check(counts == {"launches": expect, "plain": 0},
+          f"cannon main path: matmul launches {counts}, expected {expect} "
+          f"and 0 plain")
+    return counts["launches"], worst, live
+
+
+def mm_bound(P, M, K, N, dtype, out_dtype):
+    """Least time of one call: each input element read once and each output
+    element written once at 3.35 TB/s, against 2*P*M*N*K operations at the
+    input type's peak (fp32 FMAs: 67 TFLOP/s; bf16 tensor cores: 989)."""
+    esz = torch.tensor([], dtype=dtype).element_size()
+    osz = torch.tensor([], dtype=out_dtype).element_size()
+    tb = (P * (M * K + K * N) * esz + P * M * N * osz) / HBM_BYTES_S * 1e3
+    to = 2 * P * M * N * K / PEAK_FLOPS[dname(dtype)] * 1e3
+    return max(tb, to), "bytes" if tb >= to else "operations"
+
+
+def phase_mm_timing():
+    """Kernel, plain and library times of the matmul at 4096^3 in bf16 and
+    fp32, and at the n = 8192 Cannon round (16 PEs x 2048^3, fp32), the
+    main path's largest.  ``ms`` is CUDA events around back-to-back wrapper
+    calls, ``device_ms`` the kernel's own time from torch.profiler;
+    ``library_ms`` is one torch.matmul (TF32 off), timed and never used."""
+    from repro_torch.kernels.cannon_mm import matmul_ref
+    from repro_torch.kernels.cannon_mm.kernel import matmul_cuda
+    rng = np.random.default_rng(6)
+    rows = []
+    for label, P, M, K, N, dtype in (
+            ("4096^3 bf16", 1, 4096, 4096, 4096, torch.bfloat16),
+            ("4096^3 fp32", 1, 4096, 4096, 4096, torch.float32),
+            ("cannon round n=8192: 16 x 2048^3 fp32", 16, 2048, 2048, 2048,
+             torch.float32)):
+        a, b = randn(rng, (P, M, K), dtype), randn(rng, (P, K, N), dtype)
+        if P == 1:
+            a, b = a[0], b[0]
+        want, got = matmul_ref(a, b), matmul_cuda(a, b)
+        torch.cuda.synchronize()
+        t = dict(shape=label, P=P, M=M, K=K, N=N, dtype=dname(dtype),
+                 ms=cuda_ms(lambda i: matmul_cuda(a, b), 10),
+                 device_ms=device_ms(lambda i: matmul_cuda(a, b), 5,
+                                     ("mm_f32_kernel", "mm_bf16_kernel")),
+                 plain_ms=cuda_ms(lambda i: matmul_ref(a, b), 5),
+                 library_ms=cuda_ms(lambda i: torch.matmul(a, b), 10),
+                 max_rel_err=rel_err(want, got),
+                 max_abs_err=float((want.double() - got.double())
+                                   .abs().max()))
+        t["bound_ms"], t["bound_by"] = mm_bound(P, M, K, N, dtype, dtype)
+        emit("mm_timing", **t)
+        check(t["max_rel_err"] <= MM_TOL[dtype], f"matmul timing case {t}")
+        rows.append(t)
+        del a, b, want, got
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Flash attention.
+# ---------------------------------------------------------------------------
+
+def flash_inputs(rng, B, Hq, Hkv, Sq, Skv, D, dtype):
+    return (randn(rng, (B, Hq, Sq, D), dtype),
+            randn(rng, (B, Hkv, Skv, D), dtype),
+            randn(rng, (B, Hkv, Skv, D), dtype))
+
+
+FLASH_ATOL = {torch.float32: 2e-5, torch.bfloat16: 1e-5}
+
+
+def flash_elem_err(want, got):
+    """Largest elementwise |got - want| over its limit (a pass is <= 1):
+    fp32 2e-5 absolute; bf16 one bf16 ulp of |want| plus 1e-5.  Both
+    sides compute in fp32 and round once to the output type, so a
+    bf16 element is off by at most one ulp; the 1e-5 covers outputs near
+    zero, sums that cancel, where fp32's own rounding (about 1e-6 over a
+    few thousand keys) is several bf16 ulps.  Unlike the max over the
+    output's max, this holds every row to its own magnitude: a row that
+    averages thousands of values (std about 0.03) fails if one of its key
+    tiles is wrong."""
+    d = (want.double() - got.double()).abs()
+    lim = torch.full_like(d, FLASH_ATOL[got.dtype])
+    if got.dtype == torch.bfloat16:
+        w = want.double().abs().clamp_min(2.0 ** -126)
+        lim += torch.exp2(torch.floor(torch.log2(w)) - 7)
+    return float((d / lim).max())
+
+
+def phase_flash_vs_plain():
+    """The flash kernel against its plain version on the card: the
+    tests/test_kernels.py shapes, a ragged shape and a q_offset > 0 case
+    with ragged tails, fp32 and bf16, causal and not (offset 0).
+    Tolerance: max abs difference over max abs value 2e-4 (fp32) and 3e-2
+    (bf16: the output is rounded to bf16), and every element within
+    ``flash_elem_err``'s limit."""
+    from repro_torch.kernels.flash_attention import attention_ref
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_cuda
+    rng = np.random.default_rng(7)
+    worst = [0.0, 0.0, 0.0]
+    for shape in ((2, 4, 2, 256, 256, 64, 0), (1, 8, 8, 128, 512, 32, 384),
+                  (2, 4, 1, 128, 128, 128, 0), (1, 2, 2, 384, 384, 64, 0),
+                  (2, 14, 2, 100, 100, 64, 0), (1, 16, 8, 77, 301, 128, 224)):
+        B, Hq, Hkv, Sq, Skv, D, off = shape
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = flash_inputs(rng, B, Hq, Hkv, Sq, Skv, D, dtype)
+            for causal in (True, False):
+                o = off if causal else 0
+                want = attention_ref(q, k, v, causal=causal, q_offset=o)
+                got = flash_attention_cuda(q, k, v, causal=causal, q_offset=o)
+                torch.cuda.synchronize()
+                check(got.dtype == dtype and got.shape == q.shape,
+                      f"flash {shape}: {got.dtype} {tuple(got.shape)}")
+                check(bool(torch.isfinite(got).all()),
+                      f"flash {shape}: non-finite output")
+                err = rel_err(want, got)
+                abs_err = float((want.double() - got.double()).abs().max())
+                elem = flash_elem_err(want, got)
+                emit("flash_vs_plain", shape=list(shape), q_offset=o,
+                     causal=causal, dtype=dname(dtype), max_rel_err=err,
+                     max_abs_err=abs_err, tol=MM_TOL[dtype],
+                     elem_err=elem)
+                check(err <= MM_TOL[dtype] and elem <= 1.0,
+                      f"flash kernel disagrees: {shape} {dtype} {causal} "
+                      f"rel {err} elementwise {elem}")
+                worst = [max(worst[0], err), max(worst[1], abs_err),
+                         max(worst[2], elem)]
+    return worst
+
+
+FLASH_GEOMS = (("qwen2-0.5b B=1", 1, 14, 2, 64), ("qwen2-0.5b B=4", 4, 14, 2, 64),
+               ("qwen3-0.6b B=1", 1, 16, 8, 128),
+               ("qwen3-0.6b B=4", 4, 16, 8, 128))
+FLASH_S = 4096
+
+
+def flash_bound(B, Hq, Hkv, S, D, esz):
+    """Least time of one causal call: q, k, v read once and the output
+    written once at 3.35 TB/s, against the causal half of 4*B*Hq*S*S*D
+    (the S(S+1)/2 visible pairs) at the bf16 tensor-core peak."""
+    tb = (2 * B * Hq * S * D + 2 * B * Hkv * S * D) * esz / HBM_BYTES_S * 1e3
+    to = 4 * B * Hq * D * S * (S + 1) / 2 / PEAK_FLOPS["bfloat16"] * 1e3
+    return max(tb, to), "bytes" if tb >= to else "operations"
+
+
+def phase_flash_timing():
+    """The flash op's path: one causal bf16 call per prefill geometry
+    (qwen2-0.5b: 14 q over 2 kv heads, D 64; qwen3-0.6b: 16 over 8, D 128;
+    B 1 and 4; S 4096) through the public op, with the counts set to 0
+    just before and read just after; then kernel, plain and library times
+    at each.  The library call is scaled_dot_product_attention (is_causal)
+    on K/V repeated to Hq beforehand, timed and never used."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_cuda
+    rng = np.random.default_rng(8)
+    inputs = [flash_inputs(rng, B, Hq, Hkv, FLASH_S, FLASH_S, D,
+                           torch.bfloat16) for _, B, Hq, Hkv, D in FLASH_GEOMS]
+    flash_attention_cuda.launches = attention_ref.launches = 0
+    outs = [flash_attention(*x) for x in inputs]
+    torch.cuda.synchronize()
+    launches = flash_attention_cuda.launches
+    check((launches, attention_ref.launches) == (len(FLASH_GEOMS), 0),
+          f"flash path: kernel {launches}, plain {attention_ref.launches}")
+    rows = []
+    for (label, B, Hq, Hkv, D), (q, k, v), got in zip(FLASH_GEOMS, inputs,
+                                                       outs):
+        want = attention_ref(q, k, v)
+        kr = k.repeat_interleave(Hq // Hkv, dim=1)
+        vr = v.repeat_interleave(Hq // Hkv, dim=1)
+        t = dict(geometry=label, B=B, Hq=Hq, Hkv=Hkv, S=FLASH_S, D=D,
+                 dtype="bfloat16",
+                 ms=cuda_ms(lambda i: flash_attention_cuda(q, k, v), 5),
+                 device_ms=device_ms(lambda i: flash_attention_cuda(q, k, v),
+                                     3, ("flash_kernel",)),
+                 plain_ms=cuda_ms(lambda i: attention_ref(q, k, v), 2),
+                 library_ms=cuda_ms(lambda i: F.scaled_dot_product_attention(
+                     q, kr, vr, is_causal=True), 5),
+                 max_rel_err=rel_err(want, got),
+                 max_abs_err=float((want.double() - got.double())
+                                   .abs().max()),
+                 elem_err=flash_elem_err(want, got))
+        t["bound_ms"], t["bound_by"] = flash_bound(B, Hq, Hkv, FLASH_S, D, 2)
+        emit("flash_timing", **t)
+        check(t["max_rel_err"] <= MM_TOL[torch.bfloat16]
+              and t["elem_err"] <= 1.0, f"flash {t}")
+        rows.append(t)
+        del want, kr, vr
+    del inputs, outs
+    torch.cuda.empty_cache()
+    return launches, rows
+
+
 def checking_engine():
     """ServingEngine that refuses any non-finite logits row it samples."""
     from repro_torch.serve.engine import ServingEngine
@@ -808,6 +1201,11 @@ def main() -> int:
     timing = phase_timing(n_layers=24)
     ssd_worst = phase_ssd_vs_plain()
     ssd_timing = phase_ssd_timing()
+    mm_worst = phase_mm_vs_plain()
+    mm_launches, cannon_worst, table1_live = phase_cannon()
+    mm_timing = phase_mm_timing()
+    flash_worst = phase_flash_vs_plain()
+    flash_launches, flash_timing = phase_flash_timing()
     phase_reference()
     launches = {}
     for arch in ("qwen2-0.5b", "mamba2-780m"):
@@ -844,6 +1242,41 @@ def main() -> int:
             "per_L_ms": {str(t["L"]): t["ms"] for t in rows},
             "per_L_device_ms": {str(t["L"]): t["device_ms"] for t in rows},
         })
+    top = mm_timing[-1]               # the n = 8192 Cannon round
+    kernels.append({
+        "name": "cannon_mm", "route": "cuda", "source": MM_SOURCE,
+        "replaces": MM_REPLACES, "launches": mm_launches,
+        "max_abs_err": mm_worst[1], "max_rel_err": mm_worst[0],
+        "ms": top["ms"], "plain_ms": top["plain_ms"],
+        "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+        "library_ms": top["library_ms"], "device_ms": top["device_ms"],
+        "shape": top["shape"],
+        "cannon_vs_fp64_rel_err": cannon_worst,
+        "per_shape": {t["shape"]: {k: t[k] for k in (
+            "ms", "device_ms", "plain_ms", "library_ms", "bound_ms")}
+            for t in mm_timing},
+    })
+    top = flash_timing[0]             # qwen2-0.5b prefill, B = 1
+    kernels.append({
+        "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
+        "replaces": FLASH_REPLACES, "launches": flash_launches,
+        "max_abs_err": max([flash_worst[1]]
+                           + [t["max_abs_err"] for t in flash_timing]),
+        "max_rel_err": max([flash_worst[0]]
+                           + [t["max_rel_err"] for t in flash_timing]),
+        "elem_err": max([flash_worst[2]]
+                        + [t["elem_err"] for t in flash_timing]),
+        "ms": top["ms"], "plain_ms": top["plain_ms"],
+        "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+        "library_ms": top["library_ms"], "device_ms": top["device_ms"],
+        "shape": f"{top['geometry']}, S={FLASH_S}, causal, bf16",
+        "per_shape": {t["geometry"]: {k: t[k] for k in (
+            "ms", "device_ms", "plain_ms", "library_ms", "bound_ms")}
+            for t in flash_timing},
+    })
+    emit("table1_summary", rows=[{k: r[k] for k in (
+        "size", "hybrid_ms", "opencl_ms", "hybrid_wire_bytes",
+        "opencl_wire_bytes", "bytes_ratio")} for r in table1_live])
     print(json.dumps({"kernels": kernels}), flush=True)
     emit("done", seconds=round(time.perf_counter() - t_start, 1))
     print(smi, flush=True)

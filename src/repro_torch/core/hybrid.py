@@ -6,15 +6,24 @@ kernel name and dispatches it on the mesh.  PyTorch runs eagerly, so here a
 counts the launch and stamps ``KernelEvent`` times, and ``finish()`` is the
 ``clFinish`` — ``torch.cuda.synchronize()`` on the card, a no-op on the
 CPU (where every call has already completed when it returns).
+
+A :class:`HybridKernel` is the paper's object: an OpenSHMEM program
+``fn(grid, *blocks)`` nested in one launch, over the PE stacks of an
+emulated :class:`~repro_torch.core.shmem.ShmemGrid`.  ``enqueue(kernel,
+*blocks)`` runs it, and on its first launch stamps the event with the
+program's per-PE FLOPs and wire bytes, read off the grid's counters (the
+JAX queue reads them from the compiled executable on its first build).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional, Union
 
 import torch
+
+from repro_torch.core.shmem import ShmemGrid
 
 
 @dataclasses.dataclass
@@ -26,10 +35,25 @@ class KernelEvent:
     can be derived purely from event records."""
 
     name: str
+    flops: float = 0.0              # per PE per launch (hybrid kernels)
+    collective_bytes: float = 0.0   # per PE per launch (hybrid kernels)
     launches: int = 0
     first_enqueue_t: float = 0.0    # perf_counter at first enqueue (0 = never)
     last_enqueue_t: float = 0.0     # perf_counter at latest enqueue
     last_done_t: float = 0.0        # perf_counter at the finish() that drained it
+
+
+class HybridKernel:
+    """A device kernel: an OpenSHMEM program nested in one launch.
+
+    ``fn(grid, *blocks)`` is written in device-level style against the
+    :class:`ShmemGrid`; its operands and results are PE stacks."""
+
+    def __init__(self, fn: Callable, *, grid: ShmemGrid,
+                 name: Optional[str] = None):
+        self.fn = fn
+        self.grid = grid
+        self.name = name or getattr(fn, "__name__", "kernel")
 
 
 class CommandQueue:
@@ -45,11 +69,24 @@ class CommandQueue:
         """Distinct step names launched through this queue."""
         return len(self.events)
 
-    def enqueue(self, name: str, fn: Callable, *args):
-        """clEnqueueNDRangeKernel: run ``fn(*args)`` (asynchronously on the
-        card) and record the launch under ``name``."""
-        out = fn(*args)
-        ev = self.events.setdefault(name, KernelEvent(name))
+    def enqueue(self, kernel: Union[str, HybridKernel], *args):
+        """clEnqueueNDRangeKernel: ``enqueue(name, fn, *args)`` runs
+        ``fn(*args)``, ``enqueue(hybrid_kernel, *blocks)`` runs the kernel's
+        program on its grid (asynchronously on the card), and either records
+        the launch under its name."""
+        if isinstance(kernel, HybridKernel):
+            name, grid = kernel.name, kernel.grid
+            flops0, bytes0 = grid.flops, grid.comm_bytes
+            out = kernel.fn(grid, *args)
+            first = name not in self.events
+            ev = self.events.setdefault(name, KernelEvent(name))
+            if first:
+                ev.flops = float(grid.flops - flops0)
+                ev.collective_bytes = float(grid.comm_bytes - bytes0)
+        else:
+            name, fn, args = kernel, args[0], args[1:]
+            out = fn(*args)
+            ev = self.events.setdefault(name, KernelEvent(name))
         ev.launches += 1
         now = time.perf_counter()
         if not ev.first_enqueue_t:

@@ -46,6 +46,7 @@ namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 128;
+constexpr int kMaxDevices = 64;   // shared-memory grants kept per device
 constexpr int kRowTarget = 32;   // query rows per block: group heads x positions
 constexpr int kKeyTile = 64;     // key positions staged per iteration
 
@@ -240,13 +241,19 @@ int launch(const void* q, const void* kc, const void* vc, const void* table,
            int n_loc, int row, int qrows, float scale, cudaStream_t stream) {
   const Geometry geo = make_geometry(Hq, L, hd, kvh, stride);
   const size_t smem = smem_bytes(geo, hd);
-  static size_t smem_granted = 48 * 1024;   // per instantiation
-  if (smem > smem_granted) {
-    cudaError_t e = cudaFuncSetAttribute(
+  // The shared-memory limit is a per-device attribute: raise it on each
+  // device this instantiation launches on.
+  static size_t smem_granted[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (smem > 48 * 1024 && smem > smem_granted[dev]) {
+    e = cudaFuncSetAttribute(
         paged_flash_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
-    smem_granted = smem;
+    smem_granted[dev] = smem;
   }
   const dim3 grid((L + geo.tile_l - 1) / geo.tile_l, kvh, B);
   paged_flash_kernel<T><<<grid, kThreads, smem, stream>>>(

@@ -1,4 +1,6 @@
-"""The CUDA paged-attention kernel against its plain version, on the card.
+"""The port's CUDA kernels against their plain versions, on the card:
+paged attention, the two SSD-scan passes, the cannon_mm matmul (forward,
+backward, and one emulated Cannon call) and flash attention.
 
 Needs a CUDA card and nvcc; skips without a card.  The file imports no
 JAX, so on a machine without it run it past the suite's conftest:
@@ -243,3 +245,199 @@ def test_ssd_wrappers_refuse_bad_operands():
                        .contiguous())
     with pytest.raises(TypeError):
         ssd_apply_cuda(y, Cm.reshape(1, 1, 16, 2, 8).bfloat16(), ce, st)
+
+
+# ---------------------------------------------------------------------------
+# The cannon_mm matmul and flash attention against their plain versions.
+#
+# Tolerance, as max abs difference over max abs value of the plain output
+# (tests/test_kernels.py's): 2e-4 with fp32 operands (fp32 FMAs, never
+# TF32, summed over K in another order), 3e-2 with bf16 (exact products,
+# fp32 sums, one rounding of the output to bf16).
+# ---------------------------------------------------------------------------
+
+MM_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
+
+
+def _mm_operands(rng, P, M, K, N, dtype):
+    a = torch.from_numpy(rng.normal(size=(P, M, K)).astype(np.float32))
+    b = torch.from_numpy(rng.normal(size=(P, K, N)).astype(np.float32))
+    return a.to("cuda", dtype), b.to("cuda", dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pmkn", [
+    (1, 256, 256, 256), (1, 512, 256, 384), (1, 128, 512, 128),
+    (1, 100, 37, 130),                      # ragged, rows not 16-byte aligned
+    (1, 100, 64, 136),                      # ragged, rows 16-byte aligned
+    (16, 64, 48, 80),                       # one Cannon round of 16 PEs
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("out_dtype", [None, torch.float32])
+def test_matmul_kernel_matches_plain_version(pmkn, dtype, out_dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.cannon_mm import blocked_matmul, matmul_ref
+    P, M, K, N = pmkn
+    a, b = _mm_operands(np.random.default_rng(sum(pmkn)), P, M, K, N, dtype)
+    if P == 1:
+        a, b = a[0], b[0]
+    got = blocked_matmul(a, b, out_dtype=out_dtype)
+    want = matmul_ref(a, b, out_dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert _rel(want, got) < MM_TOL[dtype]
+    # transposed operands are read through their strides, not copied
+    got_t = blocked_matmul(b.transpose(-1, -2), a.transpose(-1, -2),
+                           out_dtype=out_dtype)
+    want_t = matmul_ref(b.transpose(-1, -2), a.transpose(-1, -2), out_dtype)
+    assert _rel(want_t, got_t) < MM_TOL[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_matmul_backward_matches_autograd_of_plain_version(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.cannon_mm import blocked_matmul, matmul_ref
+    from repro_torch.kernels.cannon_mm.kernel import matmul_cuda
+    a, b = _mm_operands(np.random.default_rng(7), 16, 48, 64, 40, dtype)
+    g = torch.from_numpy(np.random.default_rng(8).normal(
+        size=(16, 48, 40)).astype(np.float32)).cuda()
+    grads = []
+    for fn in (matmul_ref, blocked_matmul):
+        x, y = a.clone().requires_grad_(), b.clone().requires_grad_()
+        n0 = matmul_cuda.launches
+        out = fn(x, y, out_dtype=torch.float32) if fn is blocked_matmul \
+            else fn(x, y, torch.float32)
+        out.backward(g)
+        grads.append((x.grad, y.grad, matmul_cuda.launches - n0))
+    torch.cuda.synchronize()
+    (ga0, gb0, _), (ga1, gb1, n) = grads
+    assert n == 3                   # forward, dA and dB: the same kernel
+    assert ga1.dtype == dtype and gb1.dtype == dtype
+    assert _rel(ga0, ga1) < MM_TOL[dtype] and _rel(gb0, gb1) < MM_TOL[dtype]
+
+
+@pytest.mark.gpu
+def test_matmul_wrapper_refuses_bad_operands():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.cannon_mm.kernel import matmul_cuda
+    a = torch.zeros(8, 4, device="cuda")
+    b = torch.zeros(4, 6, device="cuda")
+    with pytest.raises(TypeError):                  # mixed dtypes
+        matmul_cuda(a, b.bfloat16())
+    with pytest.raises(TypeError):                  # fp16 output
+        matmul_cuda(a, b, out_dtype=torch.float16)
+    with pytest.raises(ValueError):                 # K does not chain
+        matmul_cuda(a, b[:3])
+    with pytest.raises(ValueError):                 # rank mismatch
+        matmul_cuda(a[None], b)
+    with pytest.raises(ValueError):                 # an operand on the CPU
+        matmul_cuda(a, b.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strategy", ["cannon", "preskewed", "crot",
+                                      "allgather", "summa"])
+def test_emulated_cannon_on_the_card_matches_the_plain_run(strategy):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.core import ShmemGrid, block_2d, cannon
+    from repro_torch.kernels.cannon_mm import matmul_ref
+    from repro_torch.kernels.cannon_mm.kernel import matmul_cuda
+    rng = np.random.default_rng(3)
+    A = torch.from_numpy(rng.normal(size=(128, 96)).astype(np.float32))
+    B = torch.from_numpy(rng.normal(size=(96, 64)).astype(np.float32))
+    skew = {"preskewed": True, "crot": "crot"}.get(strategy, False)
+    fn = {"cannon": cannon.cannon_matmul, "preskewed": cannon.cannon_matmul,
+          "crot": cannon.cannon_matmul_crot,
+          "allgather": cannon.allgather_matmul,
+          "summa": cannon.summa_matmul}[strategy]
+    kw = dict(preskewed_b=True) if strategy == "preskewed" else {}
+    n = 1 if strategy == "allgather" else 4       # launches per call
+    outs = []
+    for dev in ("cpu", "cuda"):
+        a, b = block_2d(A.to(dev), 4, 4), block_2d(B.to(dev), 4, 4, skew)
+        n_ker, n_ref = matmul_cuda.launches, matmul_ref.launches
+        outs.append(fn(ShmemGrid(4, 4), a, b, **kw).cpu())
+        ran = (matmul_cuda.launches - n_ker, matmul_ref.launches - n_ref)
+        assert ran == ((0, n) if dev == "cpu" else (n, 0)), ran
+    assert _rel(outs[0], outs[1]) < 2e-4
+
+
+# Flash attention is held twice: against the output's scale (FLASH_TOL,
+# as tests/test_kernels.py) and elementwise, so that every row answers for
+# its own magnitude: fp32 within 2e-5 absolute; bf16 within one bf16 ulp of
+# the plain element plus 1e-5 (both compute in fp32 and round once to bf16;
+# the 1e-5 covers outputs near zero, where fp32's own rounding is several
+# bf16 ulps).
+FLASH_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
+FLASH_ATOL = {torch.float32: 2e-5, torch.bfloat16: 1e-5}
+
+
+def _flash_within_elementwise(want, got):
+    d = (want.double() - got.double()).abs()
+    lim = torch.full_like(d, FLASH_ATOL[got.dtype])
+    if got.dtype == torch.bfloat16:
+        w = want.double().abs().clamp_min(2.0 ** -126)
+        lim += torch.exp2(torch.floor(torch.log2(w)) - 7)
+    return bool((d <= lim).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [
+    # (B, Hq, Hkv, Sq, Skv, D, q_offset): tests/test_kernels.py's, then
+    # ragged tails and an offset block of a longer sequence
+    (2, 4, 2, 256, 256, 64, 0),
+    (1, 8, 8, 128, 512, 32, 384),
+    (2, 4, 1, 128, 128, 128, 0),
+    (1, 2, 2, 384, 384, 64, 0),
+    (2, 14, 2, 100, 100, 64, 0),
+    (1, 16, 8, 77, 301, 128, 224),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_matches_plain_version(shape, dtype, causal):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+    B, Hq, Hkv, Sq, Skv, D, off = shape
+    rng = np.random.default_rng(sum(shape))
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+               .to("cuda", dtype) for s in ((B, Hq, Sq, D), (B, Hkv, Skv, D),
+                                            (B, Hkv, Skv, D)))
+    got = flash_attention(q, k, v, causal=causal, q_offset=off)
+    want = attention_ref(q, k, v, causal=causal, q_offset=off)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.isfinite(got.float()).all()
+    assert _rel(want, got) < FLASH_TOL[dtype]
+    assert _flash_within_elementwise(want, got)
+
+
+@pytest.mark.gpu
+def test_flash_wrapper_refuses_bad_operands():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_cuda
+    q = torch.zeros(1, 4, 16, 64, device="cuda")
+    k = torch.zeros(1, 2, 16, 64, device="cuda")
+    with pytest.raises(TypeError):                  # q and k types differ
+        flash_attention_cuda(q, k.bfloat16(), k)
+    with pytest.raises(ValueError):                 # D = 48 not taken
+        flash_attention_cuda(q[..., :48].contiguous(),
+                             k[..., :48].contiguous(), k[..., :48]
+                             .contiguous())
+    with pytest.raises(ValueError):                 # 3 kv heads into 4
+        flash_attention_cuda(q, k.repeat(1, 2, 1, 1)[:, :3].contiguous(),
+                             k.repeat(1, 2, 1, 1)[:, :3].contiguous())
+    with pytest.raises(ValueError):                 # not contiguous
+        flash_attention_cuda(q.transpose(2, 3), k, k)
+    with pytest.raises(ValueError):                 # negative offset
+        flash_attention_cuda(q, k, k, q_offset=-1)
+    with pytest.raises(ValueError):                 # an operand on the CPU
+        flash_attention_cuda(q, k.cpu(), k)
