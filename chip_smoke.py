@@ -14,9 +14,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    tables with holes, qwen2-0.5b head geometry (14 q heads over 2 kv heads,
    hd 64, stride 16), B in {1, 8}, L in {1, 16, 64, 256}, bf16 and fp32
    arenas, contexts up to 512, plus hd 8 with two grid rows sharing the
-   pages; then timings at the main path's shapes against the plain
-   version, one scaled_dot_product_attention call on the gathered K/V, and
-   the least time the card could take;
+   pages, B 1 decode at the end of a full 64-entry table (the bf16
+   kernel's split over the table, every split busy) and batch-8 decode
+   on two grid rows where one sees no visible key (the all-masked merge:
+   its m stays -1e30 and its l counts its keys); then timings at the main
+   path's shapes (events and the kernel's device time, with the split
+   count) against the plain version, one scaled_dot_product_attention
+   call on the gathered K/V, and the least time the card could take;
 4. SSD-scan kernels against their plain versions on the card — random
    inputs at the mamba2-780m geometry (48 heads x 64, state 128, 1 group)
    and the reduced one (8 x 16, state 16, 1 or 4 groups), B in {1, 8},
@@ -116,11 +120,14 @@ def rel_err(want, got):
 # ---------------------------------------------------------------------------
 
 def make_case(rng, *, B, L, hd, Hq, kvh, stride, s_max, dtype,
-              qrows=1, ctx=None, start=None, holes=True, layers=1):
+              qrows=1, ctx=None, start=None, holes=True, layers=1,
+              row0_masked=False):
     """Random q, per-layer K/V arenas (one per grid row), a scrambled table
     covering each slot's context, and query positions.  ``ctx[b]`` is the
     number of positions slot b's table covers; its L query rows sit at
-    ``start[b] + arange(L)``."""
+    ``start[b] + arange(L)``.  ``row0_masked`` (qrows 2): each slot's
+    entries on grid row 1 come first, and its rows sit below every label
+    of grid row 0, which sees no visible key."""
     T = s_max // stride
     if ctx is None:
         ctx = rng.integers(L, s_max + 1, size=B)
@@ -136,6 +143,12 @@ def make_case(rng, *, B, L, hd, Hq, kvh, stride, s_max, dtype,
         k += n
         if holes and n > 2 and b % 2:
             table[b, int(rng.integers(1, n))] = -1     # a hole mid-table
+        if row0_masked:
+            pages = table[b, :n].copy()
+            table[b, :n] = np.concatenate([pages[pages % 2 == 1],
+                                           pages[pages % 2 == 0]])
+            start[b] = int(rng.integers(0, (pages % 2 == 1).sum() * stride
+                                        - L + 1))
     n_loc = -(-n_blocks // qrows)
     q_pos = (torch.tensor(start, dtype=torch.int32)[:, None]
              + torch.arange(L, dtype=torch.int32)[None, :])
@@ -148,6 +161,15 @@ def make_case(rng, *, B, L, hd, Hq, kvh, stride, s_max, dtype,
     return dict(q=q.to("cuda", dtype), arenas=arenas,
                 table=torch.from_numpy(table).cuda(), q_pos=q_pos.cuda(),
                 stride=stride, qrows=qrows)
+
+
+def n_split(c):
+    """Blocks per tile over the block table, as the wrapper plans them."""
+    from repro_torch.kernels.paged_attention.kernel import launch_plan
+    q, kc = c["q"], c["arenas"][0][0][0]
+    B, Hq, L, hd = q.shape
+    return launch_plan(B, Hq, L, hd, kc.shape[2], c["table"].shape[1],
+                       c["stride"], q.dtype == torch.bfloat16)[0]
 
 
 def run_rows(fn, c, layer=0):
@@ -264,18 +286,39 @@ def phase_kernel_vs_plain():
     cases += [dict(B=3, L=L, hd=8, Hq=8, kvh=2, stride=4, s_max=64, dtype=dt,
                    qrows=2) for L in (1, 8)
               for dt in (torch.bfloat16, torch.float32)]
+    # the bf16 kernel's split over the table: B 1 decode at the end of a
+    # full 64-entry table (every split busy), and batch-8 decode on two
+    # grid rows where row 0 sees no visible key (the all-masked merge)
+    cases += [dict(B=1, L=1, hd=64, Hq=14, kvh=2, stride=16, s_max=1024,
+                   dtype=dt, ctx=[1024], start=[1023], holes=False)
+              for dt in (torch.bfloat16, torch.float32)]
+    cases += [dict(B=8, L=1, hd=64, Hq=14, kvh=2, stride=16, s_max=512,
+                   dtype=dt, qrows=2, ctx=[512] * 8, start=[0] * 8,
+                   holes=False, row0_masked=True)
+              for dt in (torch.bfloat16, torch.float32)]
     for spec in cases:
         c = make_case(rng, **spec)
         want = merge_rows(run_rows(paged_attention_ref, c))
-        got = merge_rows(run_rows(paged_attention_cuda, c))
+        parts = run_rows(paged_attention_cuda, c)
+        got = merge_rows(parts)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(got).all()), f"non-finite output {spec}")
         err = rel_err(want, got)
         abs_err = float((want - got).abs().max())
         name = str(spec["dtype"]).split(".")[-1]
+        if spec.get("row0_masked"):
+            # row 0's partials: m stays NEG_INF, l counts its owned keys
+            m0, l0, _ = parts[0]
+            t = c["table"]
+            owned = ((t >= 0) & (t % 2 == 0)).sum(1) * c["stride"]
+            check(bool((m0 == -1e30).all()) and torch.equal(
+                l0, owned.to(l0)[:, None, None].expand_as(l0)),
+                f"all-masked grid row: m or l off {spec}")
         emit("kernel_vs_plain", B=spec["B"], L=spec["L"], hd=spec["hd"],
              qrows=spec.get("qrows", 1), dtype=name, max_rel_err=err,
-             max_abs_err=abs_err, tol=tol[spec["dtype"]])
+             max_abs_err=abs_err, tol=tol[spec["dtype"]],
+             n_split=n_split(c), all_masked_row0=bool(
+                 spec.get("row0_masked")))
         check(err <= tol[spec["dtype"]], f"kernel disagrees: {spec} rel {err}")
         w = worst.setdefault(name, [0.0, 0.0])
         w[0], w[1] = max(w[0], err), max(w[1], abs_err)
@@ -286,7 +329,9 @@ def phase_timing(n_layers):
     """Kernel, plain and library times at the main path's shapes: batch 8
     of the smoke workload, bf16, cycling over ``n_layers`` arenas as the
     engine's layers do.  Decode rows sit 16 tokens into generation; chunk
-    rows are each prompt's first chunk."""
+    rows are each prompt's first chunk.  ``ms`` is CUDA events around
+    back-to-back wrapper calls (the wrapper's host time when that is the
+    longer); ``device_ms`` is the kernel's own time on the card."""
     from repro_torch.kernels.paged_attention import (merge_rows,
                                                      paged_attention_ref)
     from repro_torch.kernels.paged_attention.kernel import \
@@ -313,7 +358,9 @@ def phase_timing(n_layers):
         libs = [library_call(c, li) for li in range(n_layers)]
         want = merge_rows(run_rows(paged_attention_ref, c))
         got = merge_rows(run_rows(paged_attention_cuda, c))
-        t = dict(L=L, B=8, ms=cuda_ms(kern, 4 * n_layers),
+        t = dict(L=L, B=8, n_split=n_split(c),
+                 ms=cuda_ms(kern, 4 * n_layers),
+                 device_ms=device_ms(kern, n_layers, ("paged_",)),
                  plain_ms=cuda_ms(plain, n_layers),
                  library_ms=cuda_ms(lambda i: libs[i % n_layers](),
                                     n_layers))
@@ -466,7 +513,10 @@ def ssd_bound(B, nc, L, H, P, G, N, esz):
 def device_ms(fn, iters, names):
     """Device time per call of the CUDA kernels whose names contain one of
     ``names``, from torch.profiler: the card's own time, without the host
-    time of the wrapper that launches them."""
+    time of the wrapper that launches them.  Each matching kernel launches
+    once per call, so a call's time is the sum over them of their mean
+    time per launch: a trace that drops a launch record (one in three
+    calls was missing from some traces) still gives the right mean."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn(0)
@@ -476,10 +526,12 @@ def device_ms(fn, iters, names):
         for i in range(iters):
             fn(i)
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA
-             and any(n in e.key for n in names))
-    return us / 1e3 / iters if us else "not measured"
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.count
+            and any(n in e.key for n in names)]
+    if not rows:
+        return "not measured"
+    return sum(e.self_device_time_total / e.count for e in rows) / 1e3
 
 
 def phase_ssd_timing(n_sets=4):
@@ -888,7 +940,7 @@ def phase_flash_timing():
                  dtype="bfloat16",
                  ms=cuda_ms(lambda i: flash_attention_cuda(q, k, v), 5),
                  device_ms=device_ms(lambda i: flash_attention_cuda(q, k, v),
-                                     3, ("flash_kernel",)),
+                                     3, ("flash_bf16_kernel",)),
                  plain_ms=cuda_ms(lambda i: attention_ref(q, k, v), 2),
                  library_ms=cuda_ms(lambda i: F.scaled_dot_product_attention(
                      q, kr, vr, is_causal=True), 5),
@@ -1223,9 +1275,12 @@ def main() -> int:
         "max_rel_err": max(w[0] for w in worst.values()),
         "ms": decode["ms"], "plain_ms": decode["plain_ms"],
         "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],
-        "library_ms": decode["library_ms"],
+        "library_ms": decode["library_ms"], "device_ms": decode["device_ms"],
+        "n_split": decode["n_split"],
         "shape": "decode: B=8, L=1, Hq=14, kvh=2, hd=64, stride=16, bf16",
-        "per_L_ms": {str(t["L"]): t["ms"] for t in timing},
+        "per_L": {str(t["L"]): {k: t[k] for k in (
+            "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
+            "n_split")} for t in timing},
     }]
     for name in ("ssd_chunk", "ssd_apply"):
         rows = [t for t in ssd_timing if t["kernel"] == name]

@@ -3,11 +3,13 @@
 Each kernel family keeps its CUDA C++ under ``csrc/`` with a plain C
 interface.  At first use :func:`compile_library` compiles it with ``nvcc``
 for ``sm_90a`` into ``build/repro_torch/`` at the root of the checkout (the
-file name carries a hash of the source and the flags, so an edited kernel is
-rebuilt) and loads it with ``ctypes``.  Nothing here runs when a module is
-imported: the CPU tests import every module on machines with no ``nvcc``
-and no card.  Separate sources compile independently, so callers may build
-several libraries at once from threads.
+file name carries a hash of the source, of every header it includes with
+``#include "..."``, such as ``kernels/csrc/mma_tile.cuh``, and of the
+flags, so an edited kernel or header is rebuilt) and loads it with
+``ctypes``.  Nothing here runs when a module is imported: the CPU tests
+import every module on machines with no ``nvcc`` and no card.  Separate
+sources compile independently, so callers may build several libraries at
+once from threads.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -38,14 +41,40 @@ def _nvcc(src: Path) -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _sources(src: Path, seen=None) -> Dict[Path, bytes]:
+    """``src`` and the local headers it includes, transitively: path ->
+    bytes, in the order they are first met."""
+    seen = {} if seen is None else seen
+    src = src.resolve()
+    if src in seen:
+        return seen
+    seen[src] = src.read_bytes()
+    for name in _INCLUDE.findall(seen[src]):
+        dep = src.parent / name.decode()
+        if dep.exists():
+            _sources(dep, seen)
+    return seen
+
+
+def library_tag(src: Path) -> str:
+    """Hash of what the build of ``src`` depends on: its bytes, the bytes
+    of each header it includes, and the nvcc flags."""
+    h = hashlib.sha1()
+    for path, code in _sources(src).items():
+        h.update(path.name.encode() + b"\0" + code)
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:12]
+
+
 def compile_library(src: Path, stem: str) -> Tuple[ctypes.CDLL, Dict]:
     """Compile ``src`` into ``build/repro_torch/lib<stem>_<hash>.so`` when
     that library is missing, and load it.  Returns the library and what the
     build did: its path, seconds, whether it compiled, and the ptxas
     report (registers, shared memory and spills of every kernel)."""
-    code = src.read_bytes()
-    tag = hashlib.sha1(code + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"lib{stem}_{tag}.so"
+    out = BUILD_DIR / f"lib{stem}_{library_tag(src)}.so"
     t0 = time.perf_counter()
     log = ""
     if not out.exists():

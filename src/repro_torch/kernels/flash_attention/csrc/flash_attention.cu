@@ -14,20 +14,44 @@
 // falls back to the reference otherwise); here ragged tails are masked: a
 // query row past Sq is not stored and a key past Skv weighs exactly 0.
 //
-// Design.  One block of 128 threads per (b, q head, tile of 64 query rows).
-// The TPU's sequential kv grid dimension becomes a loop inside the block
-// over tiles of 64 keys, staged in shared memory as fp32 (K transposed so
-// the score loop reads both operands as float4).  Each thread owns 4 rows x
-// 8 keys of the score tile and 4 rows x D/8 columns of the accumulator, in
-// registers.  The 8 threads that share a row sit in one warp, so the row
-// max and sum are three shuffles each, and the probabilities go through
-// shared memory to the same warp only (a __syncwarp, not a block barrier).
-//
 // What bounds it on an H100.  4 * Sq * Skv * D operations per head (half of
 // it under the causal mask) on (Sq + 2 * Skv) * D elements: prefill-sized
-// calls are bound by operations.  This first version does them as fp32
-// FMAs on the CUDA cores (67 TFLOP/s), with synchronous staging; wgmma
-// tiles in bf16 with fp32 accumulators, fed by TMA, are a later change.
+// calls are bound by operations, the bf16 tensor cores' 989 TFLOP/s.  This
+// design stays well below that: mma.sync runs at a fraction of wgmma's
+// rate, and the softmax, the hi/lo split of P and the 1.5x P V work share
+// the SM's instruction slots with it.
+//
+// Design, bf16 (the path calls take).  One block per (b, q head, tile of
+// query rows): 8 warps and 128 rows at D 64 and 32, 4 warps and 64 rows at
+// D 128, two blocks to an SM.  Each warp owns 16 rows, and every product
+// is mma.sync m16n8k16 in bf16 with fp32 accumulators (the tile of
+// ../../csrc/mma_tile.cuh, shared with paged attention):
+//   * Q is loaded once as A fragments; S = Q K^T stays in registers and is
+//     scaled after the product (q * scale is not a bf16 value), in log2
+//     units so every exponential is one ex2.approx.
+//   * P V runs on P split into bf16 hi + lo parts (residual about 2^-17),
+//     so the output keeps fp32 P's precision; l sums the fp32 p.
+//   * K and V stay bf16 in shared memory, copied by 16-byte cp.async in two
+//     stages: the next key tile of 64 loads while this one is multiplied,
+//     behind one block barrier per tile.  Rows are padded by 16 bytes so
+//     ldmatrix reads them without bank conflicts.
+//   * A warp whose 16 rows all lie above a key tile skips its products
+//     (its p would be exactly 0 and its alpha exactly 1); a block stops at
+//     the last tile any of its rows can see.
+//   * Blocks are launched longest first (q tiles in reverse order when
+//     causal), so the last wave holds the shortest rows.
+// mma.sync rather than wgmma: a warp owns its rows, so the softmax needs no
+// cross-warp exchange and the accumulator of S is already P's A fragment.
+//
+// fp32 (kept as it was, for the fp32 gate of 2e-5: TF32 keeps about three
+// digits, so fp32 does not go through the tensor cores).  One block of 128
+// threads per (b, q head, tile of 64 query rows), key tiles of 64 staged as
+// fp32 (K transposed so the score loop reads both operands as float4);
+// each thread owns 4 rows x 8 keys of the score tile and 4 rows x D/8
+// columns of the accumulator in registers; the 8 threads that share a row
+// sit in one warp (row max and sum are three shuffles each), and the
+// probabilities go through shared memory to that warp only.  Scalar fp32
+// FMAs on the CUDA cores (67 TFLOP/s).
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC  (bound through ctypes).
@@ -36,28 +60,23 @@
 #include <cuda_runtime.h>
 
 #include <stddef.h>
+#include <stdint.h>
+
+#include "../../csrc/mma_tile.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
-constexpr int kThreads = 128;
+using tile::kNegInf;
 constexpr int kMaxDevices = 64;   // shared-memory grants kept per device
+
+// ---------------------------------------------------------------------------
+// fp32: scalar FMAs.
+// ---------------------------------------------------------------------------
+
+constexpr int kThreads = 128;
 constexpr int kBQ = 64;        // query rows per block
 constexpr int kBK = 64;        // keys per tile
 constexpr int kPitch = 68;     // row pitch of the [.][64] tiles (float4-aligned)
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16_rn(x);
-}
 
 template <int D>
 constexpr size_t smem_floats() {
@@ -66,12 +85,12 @@ constexpr size_t smem_floats() {
          + (size_t)kBK * kPitch;         // p_s[key][row]
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_kernel(
-    const T* __restrict__ q,     // (B, Hq, Sq, D)
-    const T* __restrict__ k,     // (B, Hkv, Skv, D)
-    const T* __restrict__ v,     // (B, Hkv, Skv, D)
-    T* __restrict__ out,         // (B, Hq, Sq, D)
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_f32_kernel(
+    const float* __restrict__ q,     // (B, Hq, Sq, D)
+    const float* __restrict__ k,     // (B, Hkv, Skv, D)
+    const float* __restrict__ v,     // (B, Hkv, Skv, D)
+    float* __restrict__ out,         // (B, Hq, Sq, D)
     int Hq, int Hkv, int Sq, int Skv, int q_offset, int causal,
     float scale) {
   constexpr int DC = D / 8;      // accumulator columns per thread
@@ -86,13 +105,13 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(
   const int g = h / (Hq / Hkv);
   const int tid = threadIdx.x;
   const int rg = tid / 8, cg = tid % 8;          // rows rg*4.., keys cg*8..
-  const T* qh = q + ((size_t)b * Hq + h) * Sq * D;
-  const T* kh = k + ((size_t)b * Hkv + g) * Skv * D;
-  const T* vh = v + ((size_t)b * Hkv + g) * Skv * D;
+  const float* qh = q + ((size_t)b * Hq + h) * Sq * D;
+  const float* kh = k + ((size_t)b * Hkv + g) * Skv * D;
+  const float* vh = v + ((size_t)b * Hkv + g) * Skv * D;
 
   for (int e = tid; e < kBQ * D; e += kThreads) {
     const int r = e / D, d = e % D;
-    q_s[d * kPitch + r] = q0 + r < Sq ? to_f32(qh[(size_t)(q0 + r) * D + d])
+    q_s[d * kPitch + r] = q0 + r < Sq ? qh[(size_t)(q0 + r) * D + d]
                                       : 0.f;
   }
 
@@ -118,8 +137,8 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(
       const int s = e / D, d = e % D;
       float kv = 0.f, vv = 0.f;
       if (k0 + s < Skv) {
-        kv = to_f32(kh[(size_t)(k0 + s) * D + d]);
-        vv = to_f32(vh[(size_t)(k0 + s) * D + d]);
+        kv = kh[(size_t)(k0 + s) * D + d];
+        vv = vh[(size_t)(k0 + s) * D + d];
       }
       k_s[d * kPitch + s] = kv;
       v_s[s * VP + d] = vv;
@@ -208,7 +227,7 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(
     }
   }
 
-  T* oh = out + ((size_t)b * Hq + h) * Sq * D;
+  float* oh = out + ((size_t)b * Hq + h) * Sq * D;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + rg * 4 + i;
@@ -216,60 +235,211 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(
     const float inv_l = 1.f / fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < DC; ++j)
-      oh[(size_t)row * D + cg * DC + j] = from_f32<T>(acc[i][j] * inv_l);
+      oh[(size_t)row * D + cg * DC + j] = acc[i][j] * inv_l;
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Hq, int Hkv, int Sq, int Skv, int q_offset, int causal,
-           float scale, cudaStream_t stream) {
-  const size_t smem = smem_floats<D>() * sizeof(float);
-  // The shared-memory limit is a per-device attribute: grant it once on
-  // each device this instantiation launches on.
-  static bool granted[kMaxDevices] = {};
+// ---------------------------------------------------------------------------
+// bf16: tensor-core tiles.
+// ---------------------------------------------------------------------------
+
+// 64 keys a tile: S is 32 fp32 registers a thread.  At D 64 and 32 the
+// kernel then fits 128 registers, so two blocks of 8 warps share an SM and
+// hide each other's staging and barrier waits; on an H100 that ran faster
+// than 128-key tiles at about 180 registers and one block.  At D 128 a
+// thread needs about 200 registers (Q alone is 32; 32-key tiles to cut
+// that spilled and ran no faster), so a block is 4 warps (64 rows) and
+// two of them share an SM: on an H100 that ran faster than one block of
+// 8 warps, whose barriers stall all 8 while the last one finishes.
+template <int D>
+struct Bf16Tile {
+  static constexpr int kWarps = D == 128 ? 4 : 8;     // 16 query rows each
+  static constexpr int kRows = 16 * kWarps;           // query rows per block
+  static constexpr int kKeys = 64;                    // keys per tile
+  static constexpr int kPitch = D + 8;                // bf16 per smem row
+  static constexpr int kBlocksPerSm = 2;
+  static constexpr size_t kSmem = 2 * 2 * (size_t)kKeys * kPitch * 2;
+};
+
+template <int D>
+__global__ void __launch_bounds__(32 * Bf16Tile<D>::kWarps,
+                                  Bf16Tile<D>::kBlocksPerSm)
+    flash_bf16_kernel(
+    const __nv_bfloat16* __restrict__ q,     // (B, Hq, Sq, D)
+    const __nv_bfloat16* __restrict__ k,     // (B, Hkv, Skv, D)
+    const __nv_bfloat16* __restrict__ v,     // (B, Hkv, Skv, D)
+    __nv_bfloat16* __restrict__ out,         // (B, Hq, Sq, D)
+    int B, int Hq, int Hkv, int Sq, int Skv, int q_offset, int causal,
+    float scale_log2) {
+  using T = Bf16Tile<D>;
+  constexpr int BK = T::kKeys, P = T::kPitch, CH = D / 8;
+  constexpr int ROWS = T::kRows, THREADS = 32 * T::kWarps;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* v_s = k_s + 2 * BK * P;
+
+  // longest first: with a causal mask the last q tile sees the most keys
+  const int n_qt = (Sq + ROWS - 1) / ROWS;
+  const int bh = blockIdx.x % (B * Hq);
+  const int qt = causal ? n_qt - 1 - (int)(blockIdx.x / (B * Hq))
+                        : (int)(blockIdx.x / (B * Hq));
+  const int b = bh / Hq, h = bh % Hq, g = h / (Hq / Hkv);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int q0 = qt * ROWS, r0 = q0 + warp * 16;
+  const __nv_bfloat16* qh = q + ((size_t)b * Hq + h) * Sq * D;
+  const __nv_bfloat16* kh = k + ((size_t)b * Hkv + g) * Skv * D;
+  const __nv_bfloat16* vh = v + ((size_t)b * Hkv + g) * Skv * D;
+
+  int n_tiles = (Skv + BK - 1) / BK;
+  if (causal) {   // last tile with a key at or below the block's last query
+    const int last_q = q_offset + min(q0 + ROWS, Sq) - 1;
+    n_tiles = min(n_tiles, last_q / BK + 1);
+  }
+
+  auto stage = [&](int t) {
+    const int k0 = t * BK, st = t & 1;
+    for (int i = tid; i < BK * CH; i += THREADS) {
+      const int r = i / CH, c = i - (i / CH) * CH;
+      const bool ok = k0 + r < Skv;
+      const size_t src = (size_t)(ok ? k0 + r : 0) * D + c * 8;
+      const int dst = (st * BK + r) * P + c * 8;
+      tile::cp_async16(k_s + dst, kh + src, ok ? 16 : 0);
+      tile::cp_async16(v_s + dst, vh + src, ok ? 16 : 0);
+    }
+  };
+  stage(0);
+  tile::cp_async_commit();
+
+  uint32_t qf[D / 16][4];
+  tile::load_q<D>(qf, lane, [&](int r, int c) -> uint32_t {
+    return r0 + r < Sq ? *reinterpret_cast<const uint32_t*>(
+                             qh + (size_t)(r0 + r) * D + c)
+                       : 0u;
+  });
+  tile::Rows<D> st;
+  st.init();
+
+  for (int t = 0; t < n_tiles; ++t) {
+    tile::cp_async_wait<0>();
+    __syncthreads();   // tile t has landed; every warp is done with t - 1
+    if (t + 1 < n_tiles) stage(t + 1);   // into the stage t - 1 used
+    tile::cp_async_commit();
+    const int k0 = t * BK;
+    if (!causal || q_offset + r0 + 15 >= k0) {
+      float s[BK / 8][4];
+      const int off = (t & 1) * BK * P;
+      tile::scores<D, BK>(s, qf, k_s + off, P, lane);
+      const bool edge = (causal && q_offset + r0 < k0 + BK - 1) ||
+                        k0 + BK > Skv;
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[n][e] * scale_log2;
+          if (edge) {
+            const int key = k0 + n * 8 + 2 * tig + (e & 1);
+            const int qpos = q_offset + r0 + gid + 8 * (e >> 1);
+            if (causal && qpos < key) x = kNegInf;
+            if (key >= Skv) x = -INFINITY;           // past the tail: weight 0
+          }
+          s[n][e] = x;
+        }
+      }
+      tile::fold<D, BK, true>(st, s, v_s + off, P, lane);
+    }
+  }
+
+  st.reduce();
+  __nv_bfloat16* oh = out + ((size_t)b * Hq + h) * Sq * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + gid + 8 * i;
+    if (row >= Sq) continue;
+    const float inv_l = 1.f / fmaxf(st.l[i], 1e-30f);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(oh + (size_t)row * D + n * 8 +
+                                         2 * tig) =
+          __floats2bfloat162_rn(st.o[n][2 * i] * inv_l,
+                                st.o[n][2 * i + 1] * inv_l);
+  }
+}
+
+// The shared-memory limit is a per-device attribute: grant it once on each
+// device a kernel launches on.
+template <typename Kernel>
+cudaError_t grant_smem(Kernel kernel, size_t smem,
+                       bool (&granted)[kMaxDevices]) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (e != cudaSuccess) return e;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (!granted[dev]) {
-    e = cudaFuncSetAttribute(
-        flash_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return e;
     granted[dev] = true;
   }
+  return cudaSuccess;
+}
+
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
+               int Hq, int Hkv, int Sq, int Skv, int q_offset, int causal,
+               float scale, cudaStream_t stream) {
+  const size_t smem = smem_floats<D>() * sizeof(float);
+  static bool granted[kMaxDevices] = {};
+  cudaError_t e = grant_smem(flash_f32_kernel<D>, smem, granted);
+  if (e != cudaSuccess) return (int)e;
   const dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
-  flash_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Hq, Hkv, Sq, Skv,
-      q_offset, causal, scale);
+  flash_f32_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), Hq, Hkv, Sq,
+      Skv, q_offset, causal, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_d(const void* q, const void* k, const void* v, void* out, int B,
-             int Hq, int Hkv, int Sq, int Skv, int D, int q_offset,
-             int causal, float scale, cudaStream_t s) {
-  switch (D) {
-    case 32:
-      return launch<T, 32>(q, k, v, out, B, Hq, Hkv, Sq, Skv, q_offset,
-                           causal, scale, s);
-    case 64:
-      return launch<T, 64>(q, k, v, out, B, Hq, Hkv, Sq, Skv, q_offset,
-                           causal, scale, s);
-    case 128:
-      return launch<T, 128>(q, k, v, out, B, Hq, Hkv, Sq, Skv, q_offset,
-                            causal, scale, s);
-  }
+template <int D>
+int launch_bf16(const void* q, const void* k, const void* v, void* out,
+                int B, int Hq, int Hkv, int Sq, int Skv, int q_offset,
+                int causal, float scale, cudaStream_t stream) {
+  const size_t smem = Bf16Tile<D>::kSmem;
+  static bool granted[kMaxDevices] = {};
+  cudaError_t e = grant_smem(flash_bf16_kernel<D>, smem, granted);
+  if (e != cudaSuccess) return (int)e;
+  constexpr int rows = Bf16Tile<D>::kRows;
+  const long long blocks = (long long)((Sq + rows - 1) / rows) * Hq * B;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  flash_bf16_kernel<D><<<(unsigned)blocks, 32 * Bf16Tile<D>::kWarps, smem,
+                         stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v),
+      static_cast<__nv_bfloat16*>(out), B, Hq, Hkv, Sq, Skv, q_offset,
+      causal, scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* out, int B,
+           int Hq, int Hkv, int Sq, int Skv, int q_offset, int causal,
+           float scale, int dtype, cudaStream_t s) {
+  if (dtype == 0)
+    return launch_f32<D>(q, k, v, out, B, Hq, Hkv, Sq, Skv, q_offset, causal,
+                         scale, s);
+  if (dtype == 1)
+    return launch_bf16<D>(q, k, v, out, B, Hq, Hkv, Sq, Skv, q_offset,
+                          causal, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // C entry point for ctypes.  dtype: 0 = float32, 1 = bfloat16 (q, k, v and
-// the output).  All four tensors contiguous.  Returns cudaGetLastError()
-// after the launch (0 = launched).
+// the output).  All four tensors contiguous; bf16 ones 16-byte aligned.
+// Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int B, int Hq,
                                       int Hkv, int Sq, int Skv, int D,
@@ -279,11 +449,16 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
       Hq % Hkv != 0 || Sq < 1 || Skv < 1 || q_offset < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_d<float>(q, k, v, out, B, Hq, Hkv, Sq, Skv, D, q_offset,
-                           causal, scale, s);
-  if (dtype == 1)
-    return launch_d<__nv_bfloat16>(q, k, v, out, B, Hq, Hkv, Sq, Skv, D,
-                                   q_offset, causal, scale, s);
+  switch (D) {
+    case 32:
+      return launch<32>(q, k, v, out, B, Hq, Hkv, Sq, Skv, q_offset, causal,
+                        scale, dtype, s);
+    case 64:
+      return launch<64>(q, k, v, out, B, Hq, Hkv, Sq, Skv, q_offset, causal,
+                        scale, dtype, s);
+    case 128:
+      return launch<128>(q, k, v, out, B, Hq, Hkv, Sq, Skv, q_offset, causal,
+                         scale, dtype, s);
+  }
   return (int)cudaErrorInvalidValue;
 }

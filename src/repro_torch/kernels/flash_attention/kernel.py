@@ -48,8 +48,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, q_offset: int = 0,
                          scale: Optional[float] = None) -> torch.Tensor:
     """Flash attention on the card.  q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D),
-    contiguous, one dtype (float32 or bfloat16), D in ``HEAD_DIMS``, Hkv
-    dividing Hq, ``q_offset`` >= 0.  Returns (B, Hq, Sq, D) in q's dtype."""
+    contiguous, one dtype (float32 or bfloat16; bf16 16-byte aligned), D in
+    ``HEAD_DIMS``, Hkv dividing Hq, ``q_offset`` >= 0.  Returns
+    (B, Hq, Sq, D) in q's dtype."""
     tensors = (q, k, v)
     if not all(t.is_cuda and t.device == q.device for t in tensors):
         raise ValueError("flash_attention_cuda: every operand must be on one "
@@ -71,6 +72,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(k.shape)} (D in {HEAD_DIMS}, Hkv | Hq)")
     if q_offset < 0:
         raise ValueError(f"q_offset {q_offset} < 0")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("flash_attention_cuda: bf16 operands must be 16-byte "
+                         "aligned")
     lib = build()
     scale = float(scale if scale is not None else D ** -0.5)
     out = torch.empty_like(q)

@@ -8,7 +8,9 @@ JAX, so on a machine without it run it past the suite's conftest:
     PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_cuda.py
 
 Tolerances: rel < 1e-5 with fp32 arenas, < 1e-3 with bf16 arenas (the
-same bf16 inputs, fp32 arithmetic in both, another summation order).
+same bf16 inputs; products exact and sums in fp32 in both, another
+summation order; the bf16 kernel scales the scores after the product and
+carries its probabilities as two bf16 parts, about 2^-17 apart from fp32).
 """
 
 import numpy as np
@@ -19,38 +21,65 @@ from repro_torch.kernels.paged_attention import (merge_rows, paged_attention,
                                                  paged_attention_ref)
 
 
-def _case(rng, *, B, T, stride, kvh, hd, Hq, qrows, L):
+def _case(rng, *, B, T, stride, kvh, hd, Hq, qrows, L, mode="random"):
+    """Block tables and positions.  mode "random": a scrambled table with a
+    hole and an unallocated tail, positions anywhere; "full": every entry
+    allocated, the last L positions of the table; "masked" (qrows 2): each
+    slot's first half of entries on grid row 1, the second half on grid
+    row 0, positions below all of row 0's labels; "causal0": a full table,
+    the chunk from position 0."""
     n_blocks = B * T
     table = rng.permutation(n_blocks).astype(np.int32).reshape(B, T)
-    table[-1, -1] = -1                       # unallocated tail entry
-    table[0, 1] = -1                         # a hole mid-table
+    if mode == "random":
+        table[-1, -1] = -1                   # unallocated tail entry
+        table[0, 1] = -1                     # a hole mid-table
+    elif mode == "masked":
+        h = T // 2
+        odd, even = table[table % 2 == 1], table[table % 2 == 0]
+        for b in range(B):
+            table[b] = np.concatenate([odd[b * h:(b + 1) * h],
+                                       even[b * h:(b + 1) * h]])
     n_loc = -(-n_blocks // qrows)
     arenas = [(rng.normal(size=(n_loc, stride, kvh, hd)).astype(np.float32),
                rng.normal(size=(n_loc, stride, kvh, hd)).astype(np.float32))
               for _ in range(qrows)]
     q = rng.normal(size=(B, Hq, L, hd)).astype(np.float32)
     pos = rng.integers(0, T * stride - L + 1, size=B).astype(np.int32)
+    if mode == "full":
+        pos[:] = T * stride - L
+    elif mode == "masked":
+        pos = rng.integers(0, T // 2 * stride - L + 1, size=B).astype(np.int32)
+    elif mode == "causal0":
+        pos[:] = 0
     return table, arenas, q, pos[:, None] + np.arange(L, dtype=np.int32)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("geometry", [
-    # B, T, stride, kvh, hd, Hq, L, qrows
+    # B, T, stride, kvh, hd, Hq, L, qrows[, mode]
     (8, 32, 16, 2, 64, 14, 1, 1),        # qwen2-0.5b decode
     (2, 32, 16, 2, 64, 14, 256, 1),      # qwen2-0.5b prefill chunk
     (2, 8, 16, 8, 128, 16, 16, 1),       # hd 128, group 2
     (3, 4, 4, 4, 8, 8, 8, 2),            # reduced hd 8, two grid rows
     (2, 4, 8, 1, 32, 8, 3, 2),           # group 8, hd 32
     (2, 8, 8, 4, 16, 4, 5, 1),           # group 1, hd 16
+    # the bf16 kernel's split over the table and its causal skip:
+    (1, 64, 16, 2, 64, 14, 1, 1, "full"),     # 64 splits, every one busy
+    (2, 32, 16, 2, 64, 14, 1, 2, "masked"),   # grid row 0 all masked
+    (8, 32, 16, 2, 64, 14, 256, 1, "causal0"),  # one split, tiles skipped
+    (2, 32, 16, 2, 64, 14, 256, 1, "causal0"),  # 3 splits and the skip
+    (3, 16, 4, 2, 8, 8, 1, 1, "full"),        # hd 8 split decode
+    (2, 16, 8, 4, 16, 8, 1, 1, "full"),       # hd 16 split decode
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_kernel_matches_plain_version(geometry, dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    B, T, stride, kvh, hd, Hq, L, qrows = geometry
-    rng = np.random.default_rng(sum(geometry))
+    B, T, stride, kvh, hd, Hq, L, qrows, *mode = geometry
+    mode = mode[0] if mode else "random"
+    rng = np.random.default_rng(sum(geometry[:8]))
     table, arenas, q, q_pos = _case(rng, B=B, T=T, stride=stride, kvh=kvh,
-                                    hd=hd, Hq=Hq, qrows=qrows, L=L)
+                                    hd=hd, Hq=Hq, qrows=qrows, L=L, mode=mode)
     dev = lambda a, d=None: torch.from_numpy(a).to(device="cuda", dtype=d)
     ref, ker = [], []
     for row, (kc, vc) in enumerate(arenas):
@@ -65,6 +94,37 @@ def test_cuda_kernel_matches_plain_version(geometry, dtype):
     assert torch.isfinite(got).all()
     rel = float((want - got).abs().max() / want.abs().max())
     assert rel < (1e-5 if dtype == torch.float32 else 1e-3), rel
+    if mode == "masked":
+        # grid row 0 saw no visible key: m stays NEG_INF and l counts its
+        # owned masked keys exactly, however the table was split
+        m0, l0, _ = ker[0]
+        owned = ((table >= 0) & (table % 2 == 0)).sum(1) * stride
+        assert bool((m0 == -1e30).all())
+        assert torch.equal(l0, torch.from_numpy(owned).to(l0)
+                           [:, None, None].expand_as(l0))
+
+
+@pytest.mark.gpu
+def test_cuda_split_calls_repeat_bitwise():
+    """Two calls on the same inputs give the same bits: the split merge runs
+    in split order, and the per-tile counters are back at zero."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.paged_attention.kernel import (
+        paged_attention_cuda, split_count)
+    rng = np.random.default_rng(9)
+    table, arenas, q, q_pos = _case(rng, B=8, T=32, stride=16, kvh=2, hd=64,
+                                    Hq=14, qrows=1, L=1, mode="full")
+    assert split_count(8, 2, 1, 32) > 1
+    dev = lambda a: torch.from_numpy(a).to("cuda", torch.bfloat16)
+    args = (dev(q), dev(arenas[0][0]), dev(arenas[0][1]),
+            torch.from_numpy(table).cuda(), torch.from_numpy(q_pos).cuda())
+    first = paged_attention_cuda(*args, stride=16)
+    for _ in range(3):
+        again = paged_attention_cuda(*args, stride=16)
+        torch.cuda.synchronize()
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
@@ -83,6 +143,10 @@ def test_cuda_wrapper_refuses_bad_operands():
         paged_attention_cuda(q, kc, kc, table, q_pos, stride=8)
     with pytest.raises(ValueError):
         paged_attention_cuda(q, kc.cpu(), kc, table, q_pos, stride=4)
+    kb = torch.zeros(kc.numel() + 1, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError):                 # bf16 arena misaligned
+        paged_attention_cuda(q.bfloat16(), kb[1:].view(kc.shape),
+                             kc.bfloat16(), table, q_pos, stride=4)
 
 
 # ---------------------------------------------------------------------------
@@ -396,6 +460,9 @@ def _flash_within_elementwise(want, got):
     (1, 2, 2, 384, 384, 64, 0),
     (2, 14, 2, 100, 100, 64, 0),
     (1, 16, 8, 77, 301, 128, 224),
+    # qwen2-0.5b and qwen3-0.6b prefill geometry
+    (1, 14, 2, 1024, 1024, 64, 0),
+    (1, 16, 8, 1024, 1024, 128, 0),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
