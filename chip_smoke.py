@@ -47,20 +47,24 @@ Phases, in order; any failure raises and the script exits non-zero:
 Between 4 and 5 run the phases of the paper core and the last two
 kernels:
 
-* mm_vs_plain — the cannon_mm matmul kernel against its plain version
-  (tests/test_kernels.py shapes, ragged shapes, a 16-PE stack, transposed
-  strides; fp32 and bf16; out_dtype fp32 and default) and its backward
-  against autograd through the plain version;
+* mm_vs_plain — the cannon_mm matmul kernels against their plain version
+  (tests/test_kernels.py shapes, ragged shapes, 16-PE stacks, transposed
+  strides, the fast variants' ragged edges; fp32 and bf16; out_dtype fp32
+  and default), each case on the variant kernel.py::plan names, all four
+  variants met, and the backward against autograd through the plain
+  version;
 * cannon — every strategy (Cannon natural and pre-skewed, C-rotating,
   allgather, SUMMA, gemv2d) on the emulated 4x4 grid at the Table 1 sizes
   (n = 128, 512, 4096, 8192 fp32; qwen2-0.5b's 4096 x 896 x 4864 MLP
   up-projection in bf16) against a host fp64 product, with the matmul
   kernel counted (q launches per Cannon and SUMMA call, 1 per allgather
-  and gemv2d call, the plain version never); then the Table 1 rows
+  and gemv2d call, the plain version never; every bf16 launch on
+  wgmma_tma, every fp32 launch on f32_vec); then the Table 1 rows
   (launch/table1.py: hybrid against allgather through the CommandQueue);
-* mm_timing — the matmul at 4096^3 bf16 and fp32 and at the n = 8192
-  Cannon round (16 x 2048^3 fp32) against its plain version, one
-  torch.matmul and its bound;
+* mm_timing — the matmul at 4096^3 bf16 and fp32, at the n = 8192
+  Cannon round (16 x 2048^3 fp32) and at the bf16 Cannon round of the
+  4096x896x4864 GEMM (16 x (1024x224)@(224x1216), fp32 out) against its
+  plain version, one torch.matmul (torch.bmm) and its bound;
 * flash_vs_plain and flash_timing — the flash-attention kernel against
   its plain version (tests/test_kernels.py shapes, ragged tails, an
   offset block), then the op at qwen2-0.5b's and qwen3-0.6b's prefill
@@ -616,42 +620,57 @@ def dname(dtype):
 
 
 def phase_mm_vs_plain():
-    """The matmul kernel against its plain version on the card: the
-    tests/test_kernels.py shapes, two ragged shapes, a P = 16 stack and a
-    transposed-stride case, fp32 and bf16 operands, ``out_dtype`` fp32 and
-    the default; then the backward of the op against autograd through the
-    plain version (P = 16).  Tolerance: max abs difference over max abs
-    value 2e-4 with fp32 operands (fp32 FMAs, never TF32, another summation
+    """The matmul kernels against their plain version on the card: the
+    tests/test_kernels.py shapes, two ragged shapes, a P = 16 stack, a
+    transposed-stride case, and the fast variants' edges (K not a multiple
+    of the depth tile, M and N not multiples of the output tile, P = 1 and
+    16, the bf16 Cannon round's block), fp32 and bf16 operands,
+    ``out_dtype`` fp32 and the default; each case takes the variant
+    ``plan`` names (``by_variant`` must move so), and every variant must be
+    met.  Then the backward of the op against autograd through the plain
+    version (P = 16).  Tolerance: max abs difference over max abs value
+    2e-4 with fp32 operands (fp32 FMAs, never TF32, another summation
     order), 3e-2 with bf16 (one rounding of the output to bf16)."""
     from repro_torch.kernels.cannon_mm import blocked_matmul, matmul_ref
-    from repro_torch.kernels.cannon_mm.kernel import matmul_cuda
+    from repro_torch.kernels.cannon_mm.kernel import (VARIANTS, matmul_cuda,
+                                                      plan)
     rng = np.random.default_rng(5)
     cases = [((m, k), (k, n), False) for m, k, n in (
         (256, 256, 256), (512, 256, 384), (128, 512, 128), (128, 128, 128),
-        (100, 37, 130), (257, 129, 65))]
+        (100, 37, 130), (257, 129, 65), (200, 200, 328))]
     cases += [((16, 64, 48), (16, 48, 80), False),
+              ((16, 136, 104), (16, 104, 264), False),
+              ((16, 1024, 224), (16, 224, 1216), False),
               ((96, 200), (72, 96), True)]          # a.T @ b.T, as strides
     worst = [0.0, 0.0]
+    seen = set()
     for sa, sb, transposed in cases:
         for dtype in (torch.float32, torch.bfloat16):
             a, b = randn(rng, sa, dtype), randn(rng, sb, dtype)
             if transposed:
                 a, b = a.t(), b.t()
+            variant = plan(a, b).variant
+            seen.add(variant)
             for out_dtype in (None, torch.float32):
                 want = matmul_ref(a, b, out_dtype)
+                n0 = matmul_cuda.by_variant[variant]
                 got = matmul_cuda(a, b, out_dtype=out_dtype)
                 torch.cuda.synchronize()
+                check(matmul_cuda.by_variant[variant] == n0 + 1,
+                      f"matmul {sa} {sb}: {variant} not counted")
                 check(got.shape == want.shape and got.dtype == want.dtype,
                       f"matmul {sa} {sb}: {tuple(got.shape)} {got.dtype}")
                 err, abs_err = rel_err(want, got), float(
                     (want.double() - got.double()).abs().max())
                 emit("mm_vs_plain", a=list(a.shape), b=list(b.shape),
                      a_strides=list(a.stride()), dtype=dname(dtype),
-                     out_dtype=dname(got.dtype), max_rel_err=err,
-                     max_abs_err=abs_err, tol=MM_TOL[dtype])
+                     out_dtype=dname(got.dtype), variant=variant,
+                     max_rel_err=err, max_abs_err=abs_err, tol=MM_TOL[dtype])
                 check(err <= MM_TOL[dtype],
-                      f"matmul kernel disagrees: {sa} {sb} {dtype} rel {err}")
+                      f"matmul kernel disagrees: {sa} {sb} {dtype} "
+                      f"{variant} rel {err}")
                 worst = [max(worst[0], err), max(worst[1], abs_err)]
+    check(seen == set(VARIANTS), f"variants met: {sorted(seen)}")
     for dtype in (torch.float32, torch.bfloat16):
         a, b = randn(rng, (16, 48, 64), dtype), randn(rng, (16, 64, 40), dtype)
         g = randn(rng, (16, 48, 40), torch.float32)
@@ -733,7 +752,8 @@ def phase_cannon():
     from repro_torch.core import CommandQueue
     from repro_torch.core.epiphany_model import table1_report
     from repro_torch.kernels.cannon_mm import matmul_ref
-    from repro_torch.kernels.cannon_mm.kernel import matmul_cuda
+    from repro_torch.kernels.cannon_mm.kernel import (VARIANTS, matmul_cuda,
+                                                      reset_counts)
     from repro_torch.launch import table1
     rows, meta = table1_report()
     for r in rows:
@@ -742,19 +762,28 @@ def phase_cannon():
     queue = CommandQueue("cuda")
     worst, live = {}, []
     counts = {"launches": 0, "plain": 0}
+    by_variant = dict.fromkeys(VARIANTS, 0)
     for spec in table1.DEFAULT_SIZES:
         M, K, N, dtype = table1.parse_size(spec)
         t0 = time.perf_counter()
         A, B, C = table1.operands(M, K, N, dtype, 0, torch.device("cuda"))
         setup_s = time.perf_counter() - t0
         scale = float(C.abs().max())
-        matmul_cuda.launches = matmul_ref.launches = 0     # counts to 0 ...
+        reset_counts()                                      # counts to 0 ...
+        matmul_ref.launches = 0
         errs = strategy_errors(A, B, C, scale)
         counts["launches"] += matmul_cuda.launches          # ... read
         counts["plain"] += matmul_ref.launches
+        ran = {k: n for k, n in matmul_cuda.by_variant.items() if n}
+        for k, n in ran.items():
+            by_variant[k] += n
+        fast = "wgmma_tma" if dtype == torch.bfloat16 else "f32_vec"
+        check(ran == {fast: matmul_cuda.launches},
+              f"cannon at {spec}: launches by variant {ran}, expected all "
+              f"{matmul_cuda.launches} on {fast}")
         tol = MM_TOL[dtype]
         emit("cannon", size=spec, dtype=dname(dtype), operands_s=setup_s,
-             max_rel_err=errs, tol=tol)
+             by_variant=ran, max_rel_err=errs, tol=tol)
         for name, e in errs.items():
             check(e <= tol, f"cannon {name} at {spec}: rel {e} > {tol}")
             worst[name] = max(worst.get(name, 0.0), e)
@@ -770,7 +799,7 @@ def phase_cannon():
     check(counts == {"launches": expect, "plain": 0},
           f"cannon main path: matmul launches {counts}, expected {expect} "
           f"and 0 plain")
-    return counts["launches"], worst, live
+    return counts["launches"], by_variant, worst, live
 
 
 def mm_bound(P, M, K, N, dtype, out_dtype):
@@ -786,34 +815,48 @@ def mm_bound(P, M, K, N, dtype, out_dtype):
 
 def phase_mm_timing():
     """Kernel, plain and library times of the matmul at 4096^3 in bf16 and
-    fp32, and at the n = 8192 Cannon round (16 PEs x 2048^3, fp32), the
-    main path's largest.  ``ms`` is CUDA events around back-to-back wrapper
-    calls, ``device_ms`` the kernel's own time from torch.profiler;
-    ``library_ms`` is one torch.matmul (TF32 off), timed and never used."""
+    fp32, at the n = 8192 Cannon round (16 PEs x 2048^3, fp32), the main
+    path's largest, and at the bf16 Cannon round of qwen2-0.5b's MLP
+    up-projection (16 PEs x (1024 x 224) @ (224 x 1216), bf16 in, fp32 out,
+    as core/cannon.py::_mm asks).  ``ms`` is CUDA events around
+    back-to-back wrapper calls, ``device_ms`` the planned variant's kernel
+    time from torch.profiler; ``library_ms`` is one torch.matmul (TF32
+    off), timed and never used; for the bf16 round it is one torch.bmm in
+    bf16, whose output is bf16 (the kernel's is fp32)."""
     from repro_torch.kernels.cannon_mm import matmul_ref
-    from repro_torch.kernels.cannon_mm.kernel import matmul_cuda
+    from repro_torch.kernels.cannon_mm.kernel import (VARIANTS, matmul_cuda,
+                                                      plan)
     rng = np.random.default_rng(6)
     rows = []
-    for label, P, M, K, N, dtype in (
-            ("4096^3 bf16", 1, 4096, 4096, 4096, torch.bfloat16),
-            ("4096^3 fp32", 1, 4096, 4096, 4096, torch.float32),
+    for label, P, M, K, N, dtype, out_dtype in (
+            ("4096^3 bf16", 1, 4096, 4096, 4096, torch.bfloat16, None),
+            ("4096^3 fp32", 1, 4096, 4096, 4096, torch.float32, None),
             ("cannon round n=8192: 16 x 2048^3 fp32", 16, 2048, 2048, 2048,
-             torch.float32)):
+             torch.float32, None),
+            ("cannon round 4096x896x4864 bf16: 16 x (1024x224)@(224x1216) "
+             "-> fp32", 16, 1024, 224, 1216, torch.bfloat16, torch.float32)):
         a, b = randn(rng, (P, M, K), dtype), randn(rng, (P, K, N), dtype)
         if P == 1:
             a, b = a[0], b[0]
-        want, got = matmul_ref(a, b), matmul_cuda(a, b)
+        variant = plan(a, b).variant
+        def kern(i, a=a, b=b, out_dtype=out_dtype):
+            return matmul_cuda(a, b, out_dtype=out_dtype)
+
+        want, got = matmul_ref(a, b, out_dtype), kern(0)
         torch.cuda.synchronize()
         t = dict(shape=label, P=P, M=M, K=K, N=N, dtype=dname(dtype),
-                 ms=cuda_ms(lambda i: matmul_cuda(a, b), 10),
-                 device_ms=device_ms(lambda i: matmul_cuda(a, b), 5,
-                                     ("mm_f32_kernel", "mm_bf16_kernel")),
-                 plain_ms=cuda_ms(lambda i: matmul_ref(a, b), 5),
+                 out_dtype=dname(got.dtype), variant=variant,
+                 ms=cuda_ms(kern, 10),
+                 device_ms=device_ms(kern, 5, (VARIANTS[variant].kernel,)),
+                 plain_ms=cuda_ms(lambda i: matmul_ref(a, b, out_dtype), 5),
                  library_ms=cuda_ms(lambda i: torch.matmul(a, b), 10),
                  max_rel_err=rel_err(want, got),
                  max_abs_err=float((want.double() - got.double())
                                    .abs().max()))
-        t["bound_ms"], t["bound_by"] = mm_bound(P, M, K, N, dtype, dtype)
+        if P > 1 and dtype == torch.bfloat16:
+            t["library"] = "torch.bmm, bf16 out"
+        t["bound_ms"], t["bound_by"] = mm_bound(P, M, K, N, dtype,
+                                                got.dtype)
         emit("mm_timing", **t)
         check(t["max_rel_err"] <= MM_TOL[dtype], f"matmul timing case {t}")
         rows.append(t)
@@ -1254,7 +1297,7 @@ def main() -> int:
     ssd_worst = phase_ssd_vs_plain()
     ssd_timing = phase_ssd_timing()
     mm_worst = phase_mm_vs_plain()
-    mm_launches, cannon_worst, table1_live = phase_cannon()
+    mm_launches, mm_by_variant, cannon_worst, table1_live = phase_cannon()
     mm_timing = phase_mm_timing()
     flash_worst = phase_flash_vs_plain()
     flash_launches, flash_timing = phase_flash_timing()
@@ -1297,10 +1340,11 @@ def main() -> int:
             "per_L_ms": {str(t["L"]): t["ms"] for t in rows},
             "per_L_device_ms": {str(t["L"]): t["device_ms"] for t in rows},
         })
-    top = mm_timing[-1]               # the n = 8192 Cannon round
+    top = mm_timing[2]                # the n = 8192 Cannon round
     kernels.append({
         "name": "cannon_mm", "route": "cuda", "source": MM_SOURCE,
         "replaces": MM_REPLACES, "launches": mm_launches,
+        "by_variant": mm_by_variant,
         "max_abs_err": mm_worst[1], "max_rel_err": mm_worst[0],
         "ms": top["ms"], "plain_ms": top["plain_ms"],
         "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
@@ -1308,8 +1352,8 @@ def main() -> int:
         "shape": top["shape"],
         "cannon_vs_fp64_rel_err": cannon_worst,
         "per_shape": {t["shape"]: {k: t[k] for k in (
-            "ms", "device_ms", "plain_ms", "library_ms", "bound_ms")}
-            for t in mm_timing},
+            "variant", "ms", "device_ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by")} for t in mm_timing},
     })
     top = flash_timing[0]             # qwen2-0.5b prefill, B = 1
     kernels.append({

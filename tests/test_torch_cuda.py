@@ -335,27 +335,56 @@ def _mm_operands(rng, P, M, K, N, dtype):
     (1, 100, 37, 130),                      # ragged, rows not 16-byte aligned
     (1, 100, 64, 136),                      # ragged, rows 16-byte aligned
     (16, 64, 48, 80),                       # one Cannon round of 16 PEs
+    # K not a multiple of 64 (wgmma) or 16 (f32_vec), M and N not
+    # multiples of any tile, rows 16-byte aligned: the fast variants
+    (1, 200, 200, 328), (16, 136, 104, 264),
+    (16, 1024, 224, 1216),                  # the bf16 Cannon round's block
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("out_dtype", [None, torch.float32])
 def test_matmul_kernel_matches_plain_version(pmkn, dtype, out_dtype):
+    """Every variant of the family, as plan() routes these layouts; the
+    per-variant counts move as plan() said."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from repro_torch.kernels.cannon_mm import blocked_matmul, matmul_ref
+    from repro_torch.kernels.cannon_mm.kernel import matmul_cuda, plan
     P, M, K, N = pmkn
     a, b = _mm_operands(np.random.default_rng(sum(pmkn)), P, M, K, N, dtype)
     if P == 1:
         a, b = a[0], b[0]
+    before = dict(matmul_cuda.by_variant)
     got = blocked_matmul(a, b, out_dtype=out_dtype)
     want = matmul_ref(a, b, out_dtype)
     torch.cuda.synchronize()
     assert got.dtype == want.dtype and got.shape == want.shape
     assert _rel(want, got) < MM_TOL[dtype]
     # transposed operands are read through their strides, not copied
-    got_t = blocked_matmul(b.transpose(-1, -2), a.transpose(-1, -2),
-                           out_dtype=out_dtype)
-    want_t = matmul_ref(b.transpose(-1, -2), a.transpose(-1, -2), out_dtype)
+    at, bt = b.transpose(-1, -2), a.transpose(-1, -2)
+    got_t = blocked_matmul(at, bt, out_dtype=out_dtype)
+    want_t = matmul_ref(at, bt, out_dtype)
     assert _rel(want_t, got_t) < MM_TOL[dtype]
+    moved = {k: n - before[k] for k, n in matmul_cuda.by_variant.items()}
+    expect = dict.fromkeys(moved, 0)
+    for x, y in ((a, b), (at, bt)):
+        expect[plan(x, y).variant] += 1
+    assert moved == expect
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pmkn", [(1, 200, 200, 328), (16, 136, 104, 264),
+                                  (1, 100, 37, 130)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_matmul_calls_repeat_bitwise(pmkn, dtype):
+    """No variant uses atomics: two calls give equal bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.cannon_mm.kernel import matmul_cuda
+    a, b = _mm_operands(np.random.default_rng(11), *pmkn, dtype)
+    one = matmul_cuda(a, b, out_dtype=torch.float32)
+    two = matmul_cuda(a, b, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(one, two)
 
 
 @pytest.mark.gpu
@@ -400,6 +429,27 @@ def test_matmul_wrapper_refuses_bad_operands():
         matmul_cuda(a[None], b)
     with pytest.raises(ValueError):                 # an operand on the CPU
         matmul_cuda(a, b.cpu())
+
+
+@pytest.mark.gpu
+def test_matmul_launcher_refuses_a_variant_the_layout_does_not_allow(
+        monkeypatch):
+    """The C launcher checks the planned variant against dtypes and layout:
+    a wrong plan is refused (the wrapper raises), never run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.cannon_mm import kernel
+    a = torch.zeros(100, 37, device="cuda")
+    b = torch.zeros(37, 130, device="cuda")
+    real = kernel.plan(a, b)
+    assert real.variant == "f32_general"
+    for wrong in ("f32_vec", "mma_general", "wgmma_tma"):
+        monkeypatch.setattr(kernel, "plan", lambda *_, w=wrong: real._replace(
+            variant=w, layout=0))
+        n = kernel.matmul_cuda.launches
+        with pytest.raises(RuntimeError, match="launch failed"):
+            kernel.matmul_cuda(a, b)
+        assert kernel.matmul_cuda.launches == n
 
 
 @pytest.mark.gpu

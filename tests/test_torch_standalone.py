@@ -45,19 +45,29 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
     assert res.returncode == 0, res.stderr
 
 
+def _assert_no_jax_or_repro_import(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for n in names:
+            top = n.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), (path, n)
+
+
 def test_no_source_file_imports_jax_or_repro():
     for path, _ in _modules():
-        tree = ast.parse(path.read_text(), filename=str(path))
-        for node in ast.walk(tree):
-            if isinstance(node, ast.Import):
-                names = [a.name for a in node.names]
-            elif isinstance(node, ast.ImportFrom):
-                names = [node.module or ""]
-            else:
-                continue
-            for n in names:
-                top = n.split(".")[0]
-                assert top not in ("jax", "jaxlib", "repro"), (path, n)
+        _assert_no_jax_or_repro_import(path)
+
+
+def test_chip_smoke_imports_no_jax_or_repro():
+    """The chip smoke drives the port on a machine without JAX: it imports
+    repro_torch only, never the JAX package."""
+    _assert_no_jax_or_repro_import(PKG.parents[1] / "chip_smoke.py")
 
 
 def test_cuda_is_the_default_device():
