@@ -6,8 +6,8 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. environment — torch/CUDA versions, the card's name and power limit;
-2. build — compile the four CUDA libraries (paged attention; the two
-   SSD-scan kernels; the cannon_mm matmul; flash attention) from the
+2. build — compile the four CUDA libraries (paged attention; the SSD-scan
+   kernels; the cannon_mm matmul; flash attention) from the
    checkout's sources with nvcc for sm_90a, one nvcc each, started
    together;
 3. paged-attention kernel against its plain version on the card — random scrambled block
@@ -25,12 +25,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    inputs at the mamba2-780m geometry (48 heads x 64, state 128, 1 group)
    and the reduced one (8 x 16, state 16, 1 or 4 groups), B in {1, 8},
    L in {1, 16, 64, 256}, one or two chunks, zero and non-zero initial
-   state, padding columns with dt = 0, bf16 and fp32 x; then timings of
-   both kernels at batch 8, L in {16, 64, 256}, bf16, against the plain
-   versions and the least time the card could take;
+   state, padding columns with dt = 0, bf16 and fp32 x, packed and
+   contiguous: the two passes, then the op ``ssd_scan`` at one chunk of
+   every case on the route kernel.py::plan names (the fused launch for
+   bf16, the two passes for fp32) against ``ssd_scan_fused_ref``; then
+   timings against the plain versions and the least time the card could
+   take: the fused scan and the two tensor-core (mma) passes at batch 8,
+   L in {16, 64, 256}, bf16, mamba2-780m geometry; the two CUDA-core
+   (simt) passes at the fp32 reference configs' chunk step (batch 4,
+   L 16, the reduced geometry);
 5. end-to-end reference checks — the reduced qwen2, the reduced mamba2 and
    a small hybrid (attention + mamba) config in fp32, served on the card
-   and on the CPU (plain versions) from the same weights;
+   and on the CPU (plain versions) from the same weights (fp32 takes the
+   two SSD passes on their simt variant: their launches here are the ones
+   the kernels line reports);
 6. the engine at full width — qwen2-0.5b (24 layers, d_model 896, vocab
    151936, bf16), then mamba2-780m (48 layers, d_model 1536, 48 SSD heads,
    vocab 50280, bf16), each with random weights from seed 0: 8 requests
@@ -38,10 +46,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    prompts of the same lengths arriving one per step — checking that
    every request ends with its 32 tokens, that no logits row is
    non-finite, and that the kernels carried every attention (qwen2) or
-   mamba (mamba2) layer of every launch that runs them;
+   mamba (mamba2: the fused SSD launch) layer of every launch that runs
+   them, the plain versions none;
 7. profile — eight batch-8 decode steps of each model under
    torch.profiler: step wall time, device busy time and idle share, the
-   top kernels;
+   top kernels; for mamba2 also one batch-8 len256 chunked-prefill step:
+   its wall time, device busy time and the SSD kernels' share of it;
 8. the kernels line, the card line, and the result line.
 
 Between 4 and 5 run the phases of the paper core and the last two
@@ -94,7 +104,13 @@ SOURCE = "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu"
 REPLACES = "src/repro/kernels/paged_attention/kernel.py:48"
 SSD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
 SSD_REPLACES = {"ssd_chunk": "src/repro/kernels/ssd_scan/kernel.py:74",
-                "ssd_apply": "src/repro/kernels/ssd_scan/kernel.py:117"}
+                "ssd_apply": "src/repro/kernels/ssd_scan/kernel.py:117",
+                "ssd_scan_fused":
+                    "src/repro/kernels/ssd_scan/kernel.py:74,117"}
+# the SSD kernels' names in a profile, per wrapper
+SSD_KERNELS = {"ssd_chunk": ("chunk_mma_kernel", "chunk_simt_kernel"),
+               "ssd_apply": ("apply_mma_kernel", "apply_simt_kernel"),
+               "ssd_scan_fused": ("fused_mma_kernel",)}
 MM_SOURCE = "src/repro_torch/kernels/cannon_mm/csrc/cannon_mm.cu"
 MM_REPLACES = "src/repro/kernels/cannon_mm/kernel.py:51"
 FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
@@ -381,6 +397,7 @@ def phase_timing(n_layers):
 # ---------------------------------------------------------------------------
 
 MAMBA2_GEOM = dict(H=48, P=64, G=1, N=128)          # mamba2-780m
+REDUCED_GEOM = dict(H=8, P=16, G=1, N=16)           # reduced mamba2-780m
 SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
 
@@ -443,14 +460,52 @@ def ssd_case_errors(ops, chunk):
     return out
 
 
+def ssd_fused_errors(ops):
+    """The op ``ssd_scan`` on one chunk of ``ops``, on the card, against
+    ``ssd_scan_fused_ref`` on the same inputs; checks that the kernels of
+    the route kernel.py::plan names launched once each and no other SSD
+    kernel did.  Returns (route, {output: (max rel err, max abs err)})."""
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.kernels.ssd_scan.kernel import plan
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_fused_ref
+    x, dt, A, Bm, Cm, s0 = ops
+    S = x.shape[1]
+    rt = plan(x, Bm, Cm, chunk=S).route
+    ran = ("ssd_scan_fused",) if rt == "fused" else ("ssd_chunk",
+                                                     "ssd_apply")
+    kerns = {k: kern for k, (kern, _) in kernel_counters().items()
+             if k in SSD_KERNELS}
+    before = {k: kern.launches for k, kern in kerns.items()}
+    got = ssd_scan(x, dt, A, Bm, Cm, s0, chunk=S)
+    for k, kern in kerns.items():
+        check(kern.launches - before[k] == (k in ran),
+              f"ssd_scan on route {rt}: {k} launched "
+              f"{kern.launches - before[k]} times")
+    want = ssd_scan_fused_ref(x, dt, A, Bm, Cm, s0, chunk=S)
+    torch.cuda.synchronize()
+    out = {}
+    for name, w, g in zip(("y", "final"), want, got):
+        check(g.shape == w.shape and g.dtype == w.dtype,
+              f"{name}: {tuple(g.shape)} {g.dtype} vs {tuple(w.shape)} "
+              f"{w.dtype}")
+        check(bool(torch.isfinite(g).all()), f"non-finite {name}")
+        out[name] = (rel_err(w, g), float((w.double() - g.double())
+                                          .abs().max()))
+    return rt, out
+
+
 def phase_ssd_vs_plain():
-    """Both SSD kernels against their plain versions over the cases of the
-    main path and the reduced geometry.  Tolerances (max abs difference
-    over max abs value): y_intra and y 1e-4 with fp32 x, 1e-2 with bf16 x
-    (each rounded to bf16: a last-bit flip is 2^-8 of an element); states
-    and cumexp, fp32 in both, 1e-4 (the cumsum of dt * A and the sums over
-    s and n run in another order than torch).  Half the cases hand x, B and
-    C over as slices of one packed tensor, the rest contiguous."""
+    """The SSD kernels against their plain versions over the cases of the
+    main path and the reduced geometry: the two passes on each case, then
+    the op at one chunk of the same geometry (fresh inputs) against the
+    fused plain version.  Tolerances (max abs difference over max abs
+    value): y_intra and y 1e-4 with fp32 x, 1e-2 with bf16 x (each rounded
+    to bf16: a last-bit flip is 2^-8 of an element); states, cumexp and
+    the final state, fp32 in all, 1e-4 (the cumsum of dt * A and the sums
+    over s and n run in another order than torch).  Half the cases hand x,
+    B and C over as slices of one packed tensor, the rest contiguous.
+    Returns the worst (rel, abs) error per ``"kernel/variant"``."""
+    from repro_torch.kernels.ssd_scan.kernel import plan
     rng = np.random.default_rng(3)
     cases = []
     for B in (1, 8):
@@ -474,42 +529,73 @@ def phase_ssd_vs_plain():
         ops = ssd_inputs(rng, B=c["B"], S=c["L"] * c["nc"], H=c["H"],
                          P=c["P"], G=c["G"], N=c["N"], dtype=c["dtype"],
                          pad=c["pad"], init=c["init"], packed=c["packed"])
+        var = plan(ops[0], ops[3], ops[4], chunk=c["L"]).variant
         errs = ssd_case_errors(ops, c["L"])
         name = str(c["dtype"]).split(".")[-1]
         tol = {"y_intra": SSD_TOL[c["dtype"]], "y": SSD_TOL[c["dtype"]],
                "states": 1e-4, "cumexp": 1e-4}
         emit("ssd_vs_plain", **{k: v for k, v in c.items() if k != "dtype"},
-             dtype=name, max_rel_err={k: e[0] for k, e in errs.items()},
+             dtype=name, variant=var,
+             max_rel_err={k: e[0] for k, e in errs.items()},
              max_abs_err={k: e[1] for k, e in errs.items()}, tol=tol)
         for k, (rel, abs_) in errs.items():
             check(rel <= tol[k], f"ssd kernels disagree on {k}: {c} "
                   f"rel {rel}")
             kern = "ssd_apply" if k == "y" else "ssd_chunk"
+            w = worst.setdefault(f"{kern}/{var}", [0.0, 0.0])
+            w[0], w[1] = max(w[0], rel), max(w[1], abs_)
+        ops = ssd_inputs(rng, B=c["B"], S=c["L"], H=c["H"], P=c["P"],
+                         G=c["G"], N=c["N"], dtype=c["dtype"], pad=c["pad"],
+                         init=c["init"], packed=c["packed"])
+        rt, errs = ssd_fused_errors(ops)
+        tol = {"y": SSD_TOL[c["dtype"]], "final": 1e-4}
+        emit("ssd_fused_vs_plain", **{k: v for k, v in c.items()
+                                      if k not in ("dtype", "nc")},
+             nc=1, dtype=name, route=rt,
+             max_rel_err={k: e[0] for k, e in errs.items()},
+             max_abs_err={k: e[1] for k, e in errs.items()}, tol=tol)
+        for k, (rel, abs_) in errs.items():
+            check(rel <= tol[k], f"ssd_scan ({rt}) disagrees with the "
+                  f"fused plain version on {k}: {c} rel {rel}")
+            kern = "ssd_scan_fused/mma" if rt == "fused" else \
+                f"{'ssd_apply' if k == 'y' else 'ssd_chunk'}/{var}"
             w = worst.setdefault(kern, [0.0, 0.0])
             w[0], w[1] = max(w[0], rel), max(w[1], abs_)
+    check("ssd_scan_fused/mma" in worst, "no case took the fused route")
     return worst
 
 
 def ssd_bound(B, nc, L, H, P, G, N, esz):
-    """Least time of each pass on these inputs, against 3.35 TB/s and the
-    fp32 peak (the kernels compute in fp32 on the CUDA cores).  Bytes: every
-    input read once, every output written once.  Operations: the causal
-    half of the work the data needs — pass 1 the scores C.B (s <= t), the
-    decayed weights, y_intra and the chunk states; pass 2 C.state_in, the
-    cumexp scale and the add."""
+    """Least time of each kernel on these inputs: every input read once
+    and every output written once, against 3.35 TB/s; against that, the
+    matrix products the function needs at the peak of its operands' type
+    (bf16 x: the tensor cores' 989 TFLOP/s; fp32 x: 67 TFLOP/s) plus its
+    elementwise work at the fp32 peak.  Products: the causal half of the
+    scores C.B (per group), y_intra and the chunk states in pass 1;
+    C.state_in in pass 2.  Elementwise: the decayed weights (an exp and two
+    products a pair s <= t), sdecay * B, pass 2's scale and add, and the
+    fused scan's exp(cum_last) * init + state.  The fused scan (nc = 1)
+    reads x, dt, A, B, C and init and writes y and the final state."""
     S, tri = nc * L, L * (L + 1) // 2
-    chunk_bytes = (B * S * H * P * esz * 2 + B * S * H * 4 * 2 + H * 4
-                   + 2 * B * S * G * N * esz + B * nc * H * N * P * 4)
-    chunk_ops = B * nc * (2 * G * N * tri + 3 * H * tri + 2 * H * P * tri
-                          + 2 * H * N * P * L + H * N * L)
-    apply_bytes = (B * S * H * P * esz * 2 + B * S * G * N * esz
-                   + B * S * H * 4 + B * nc * H * N * P * 4)
-    apply_ops = B * S * H * P * (2 * N + 2)
+    x_b, dt_b = B * S * H * P * esz, B * S * H * 4
+    bc_b, st_b = 2 * B * S * G * N * esz, B * nc * H * N * P * 4
+    chunk_mat = B * nc * (2 * G * N * tri + 2 * H * P * tri
+                          + 2 * H * N * P * L)
+    chunk_ew = B * nc * (3 * H * tri + H * N * L)
+    apply_mat, apply_ew = 2 * B * S * H * P * N, 2 * B * S * H * P
+    work = {"ssd_chunk": (2 * x_b + 2 * dt_b + H * 4 + bc_b + st_b,
+                          chunk_mat, chunk_ew),
+            "ssd_apply": (2 * x_b + bc_b // 2 + dt_b + st_b, apply_mat,
+                          apply_ew),
+            "ssd_scan_fused": (2 * x_b + dt_b + H * 4 + bc_b
+                               + 2 * B * H * N * P * 4,
+                               chunk_mat + apply_mat,
+                               chunk_ew + apply_ew + 2 * B * H * N * P)}
+    peak = PEAK_FLOPS["bfloat16" if esz == 2 else "float32"]
     out = {}
-    for name, by, ops in (("ssd_chunk", chunk_bytes, chunk_ops),
-                          ("ssd_apply", apply_bytes, apply_ops)):
+    for name, (by, mat, ew) in work.items():
         tb = by / HBM_BYTES_S * 1e3
-        to = ops / PEAK_FLOPS["float32"] * 1e3
+        to = (mat / peak + ew / PEAK_FLOPS["float32"]) * 1e3
         out[name] = (max(tb, to), "bytes" if tb >= to else "operations")
     return out
 
@@ -538,67 +624,106 @@ def device_ms(fn, iters, names):
     return sum(e.self_device_time_total / e.count for e in rows) / 1e3
 
 
-def phase_ssd_timing(n_sets=4):
-    """Kernel and plain times of both passes at the main path's shapes:
-    batch 8, one chunk of L in {16, 64, 256}, mamba2-780m geometry, bf16,
-    x, B and C packed as the mamba layer gives them, cycling over
-    ``n_sets`` input sets.  ``ms`` is CUDA events around back-to-back
-    wrapper calls (it includes the wrapper's host time when that is the
-    longer); ``device_ms`` is the kernels' own device time; the chunk
-    pass's ``copy_ms`` is what making x, B and C contiguous would add to
-    it (the kernels read them in place)."""
+def ssd_timing_rows(rng, *, B, L, geom, dtype, n_sets):
+    """Kernel and plain times of the two passes, and for bf16 of the fused
+    scan, at batch ``B``, one chunk of ``L``, geometry ``geom``, with x, B
+    and C packed as the mamba layer gives them, cycling over ``n_sets``
+    input sets.  ``ms`` is CUDA events around back-to-back wrapper calls
+    (it includes the wrapper's host time when that is the longer);
+    ``device_ms`` is the kernel's own device time; the chunk pass's
+    ``copy_ms`` is what making x, B and C contiguous would add to it (the
+    kernels read them in place).  Each row names the variant timed."""
     from repro_torch.kernels.ssd_scan import _state_passing
-    from repro_torch.kernels.ssd_scan.kernel import (ssd_apply_cuda,
-                                                     ssd_chunk_cuda)
-    from repro_torch.kernels.ssd_scan.ref import ssd_apply_ref, ssd_chunk_ref
+    from repro_torch.kernels.ssd_scan.kernel import (plan, ssd_apply_cuda,
+                                                     ssd_chunk_cuda,
+                                                     ssd_scan_fused_cuda)
+    from repro_torch.kernels.ssd_scan.ref import (ssd_apply_ref,
+                                                  ssd_chunk_ref,
+                                                  ssd_scan_fused_ref)
+    sets = []
+    for _ in range(n_sets):
+        ops = ssd_inputs(rng, B=B, S=L, dtype=dtype, **geom)
+        x, dt, A, Bm, Cm, s0 = ops
+        p1 = ssd_chunk_ref(x, dt, A, Bm, Cm, chunk=L)
+        s_in, _ = _state_passing(p1[1], p1[2][:, :, -1, :], s0)
+        sets.append((ops, p1, Cm.reshape(B, 1, L, geom["G"], geom["N"]),
+                     s_in))
+
+    def chunk(fn, i):
+        x, dt, A, Bm, Cm, _ = sets[i % n_sets][0]
+        fn(x, dt, A, Bm, Cm, chunk=L)
+
+    def apply(fn, i):
+        _, p1, cr, s_in = sets[i % n_sets]
+        fn(p1[0], cr, p1[2], s_in)
+
+    def fused(fn, i):
+        x, dt, A, Bm, Cm, s0 = sets[i % n_sets][0]
+        fn(x, dt, A, Bm, Cm, s0, chunk=L)
+
+    def copies(i):
+        x, _, _, Bm, Cm, _ = sets[i % n_sets][0]
+        for t in (x, Bm, Cm):
+            t.contiguous()
+
+    x, _, _, Bm, Cm, _ = sets[0][0]
+    var = plan(x, Bm, Cm, chunk=L).variant
+    esz = 2 if dtype == torch.bfloat16 else 4
+    bounds = ssd_bound(B, 1, L, geom["H"], geom["P"], geom["G"], geom["N"],
+                       esz)
+    errs = ssd_case_errors(sets[0][0], L)
+    runs = [("ssd_chunk", chunk, ssd_chunk_cuda, ssd_chunk_ref, var),
+            ("ssd_apply", apply, ssd_apply_cuda, ssd_apply_ref, var)]
+    if dtype == torch.bfloat16:
+        route, fused_errs = ssd_fused_errors(sets[0][0])
+        check(route == "fused", f"the main path's scan took {route}")
+        errs.update({f"fused_{k}": e for k, e in fused_errs.items()})
+        runs.append(("ssd_scan_fused", fused, ssd_scan_fused_cuda,
+                     ssd_scan_fused_ref, "mma"))
+    names = {"ssd_chunk": {"mma": ("chunk_mma_kernel",),
+                           "simt": ("chunk_simt_kernel",)},
+             "ssd_apply": {"mma": ("apply_mma_kernel",),
+                           "simt": ("apply_simt_kernel",)},
+             "ssd_scan_fused": {"mma": ("fused_mma_kernel",)}}
+    rows = []
+    for name, run, kern, plain, v in runs:
+        t = dict(kernel=name, variant=v, L=L, B=B,
+                 dtype=str(dtype).split(".")[-1],
+                 geometry=dict(geom),
+                 ms=cuda_ms(lambda i: run(kern, i), 20),
+                 device_ms=device_ms(lambda i: run(kern, i), 20,
+                                     names[name][v]),
+                 plain_ms=cuda_ms(lambda i: run(plain, i), 5),
+                 bound_ms=bounds[name][0], bound_by=bounds[name][1],
+                 library_ms=None)
+        if name == "ssd_chunk":
+            t["copy_ms"] = cuda_ms(copies, 20)
+        keys = {"ssd_chunk": ("y_intra", "states", "cumexp"),
+                "ssd_apply": ("y",),
+                "ssd_scan_fused": ("fused_y", "fused_final")}[name]
+        t["max_rel_err"] = max(errs[k][0] for k in keys)
+        t["max_abs_err"] = max(errs[k][1] for k in keys)
+        emit("ssd_timing", **t)
+        rows.append(t)
+    return rows
+
+
+def phase_ssd_timing(n_sets=4):
+    """The SSD kernels timed on the variants the driven paths run: the
+    fused scan (mamba2-780m's main path) beside the two tensor-core passes
+    at batch 8, L in {16, 64, 256}, bf16, mamba2-780m geometry; then the
+    two CUDA-core (simt) passes at the shape the fp32 reference configs'
+    chunk step gives them (batch 4, L 16, reduced mamba2 geometry)."""
     rng = np.random.default_rng(4)
-    g = MAMBA2_GEOM
     rows = []
     for L in (16, 64, 256):
-        sets = []
-        for _ in range(n_sets):
-            ops = ssd_inputs(rng, B=8, S=L, dtype=torch.bfloat16, **g)
-            x, dt, A, Bm, Cm, s0 = ops
-            p1 = ssd_chunk_ref(x, dt, A, Bm, Cm, chunk=L)
-            s_in, _ = _state_passing(p1[1], p1[2][:, :, -1, :], s0)
-            sets.append((ops, p1, Cm.reshape(8, 1, L, g["G"], g["N"]), s_in))
-
-        def chunk(fn, i):
-            x, dt, A, Bm, Cm, _ = sets[i % n_sets][0]
-            fn(x, dt, A, Bm, Cm, chunk=L)
-
-        def apply(fn, i):
-            _, p1, cr, s_in = sets[i % n_sets]
-            fn(p1[0], cr, p1[2], s_in)
-
-        def copies(i):
-            x, _, _, Bm, Cm, _ = sets[i % n_sets][0]
-            for t in (x, Bm, Cm):
-                t.contiguous()
-
-        bounds = ssd_bound(8, 1, L, g["H"], g["P"], g["G"], g["N"], 2)
-        errs = ssd_case_errors(sets[0][0], L)
-        for name, run, kern, plain, dev_names in (
-                ("ssd_chunk", chunk, ssd_chunk_cuda, ssd_chunk_ref,
-                 ("scores_kernel", "intra_kernel", "state_kernel")),
-                ("ssd_apply", apply, ssd_apply_cuda, ssd_apply_ref,
-                 ("apply_kernel",))):
-            t = dict(kernel=name, L=L, B=8, dtype="bfloat16",
-                     ms=cuda_ms(lambda i: run(kern, i), 20),
-                     device_ms=device_ms(lambda i: run(kern, i), 20,
-                                         dev_names),
-                     plain_ms=cuda_ms(lambda i: run(plain, i), 5),
-                     bound_ms=bounds[name][0], bound_by=bounds[name][1],
-                     library_ms=None)
-            if name == "ssd_chunk":
-                t["copy_ms"] = cuda_ms(copies, 20)
-            keys = ("y",) if name == "ssd_apply" else \
-                ("y_intra", "states", "cumexp")
-            t["max_rel_err"] = max(errs[k][0] for k in keys)
-            t["max_abs_err"] = max(errs[k][1] for k in keys)
-            emit("ssd_timing", **t)
-            rows.append(t)
-    return rows
+        rows += ssd_timing_rows(rng, B=8, L=L, geom=MAMBA2_GEOM,
+                                dtype=torch.bfloat16, n_sets=n_sets)
+    simt = ssd_timing_rows(rng, B=4, L=16, geom=REDUCED_GEOM,
+                           dtype=torch.float32, n_sets=n_sets)
+    check(all(t["variant"] == "simt" for t in simt),
+          f"fp32 passes took {[t['variant'] for t in simt]}")
+    return rows + simt
 
 
 # ---------------------------------------------------------------------------
@@ -1097,10 +1222,41 @@ def reference_check(cfg):
 
 
 def phase_reference():
+    """The three fp32 reference configs.  Their scans take the two SSD
+    passes on the CUDA cores (fp32 x: kernel.py::plan's simt variant): the
+    passes' counts are set to 0 just before and read just after, and each
+    must have run, every launch on simt, the fused kernel never.  Each
+    check also serves the config on the CPU through the plain versions;
+    their counts are reported, not checked."""
     from repro_torch.configs import get_config, reduced
-    for cfg in (reduced(get_config("qwen2-0.5b")),
-                reduced(get_config("mamba2-780m")), hybrid_config()):
+    from repro_torch.kernels.ssd_scan.ref import (ssd_apply_ref,
+                                                  ssd_chunk_ref,
+                                                  ssd_scan_fused_ref)
+    mamba = reduced(get_config("mamba2-780m"))
+    check((mamba.ssm_heads, mamba.ssm_headdim, mamba.ssm_groups,
+           mamba.ssm_state) == tuple(REDUCED_GEOM.values()),
+          "the reduced mamba2 geometry is not REDUCED_GEOM")
+    ssd = {k: v for k, v in kernel_counters().items() if k in SSD_KERNELS}
+    for kern, _ in ssd.values():
+        kern.launches = 0
+    two_pass = [ssd[k][0] for k in ("ssd_chunk", "ssd_apply")]
+    for kern in two_pass:
+        kern.by_variant = {v: 0 for v in kern.by_variant}
+    for cfg in (reduced(get_config("qwen2-0.5b")), mamba, hybrid_config()):
         reference_check(cfg)
+    launches = {k: kern.launches for k, (kern, _) in ssd.items()}
+    by_variant = {k: dict(ssd[k][0].by_variant)
+                  for k in ("ssd_chunk", "ssd_apply")}
+    check(launches["ssd_chunk"] > 0 and launches["ssd_apply"] > 0
+          and launches["ssd_scan_fused"] == 0,
+          f"the fp32 reference scans did not take the two passes: "
+          f"{launches}")
+    check(all(v["simt"] == launches[k] for k, v in by_variant.items()),
+          f"the fp32 reference scans left the simt variant: {by_variant}")
+    emit("reference_ssd_launches", **launches, by_variant=by_variant,
+         plain_on_cpu={f.__name__: f.launches for f in (
+             ssd_chunk_ref, ssd_apply_ref, ssd_scan_fused_ref)})
+    return launches
 
 
 def kernel_counters():
@@ -1110,11 +1266,15 @@ def kernel_counters():
     from repro_torch.kernels.paged_attention.kernel import \
         paged_attention_cuda
     from repro_torch.kernels.ssd_scan.kernel import (ssd_apply_cuda,
-                                                     ssd_chunk_cuda)
-    from repro_torch.kernels.ssd_scan.ref import ssd_apply_ref, ssd_chunk_ref
+                                                     ssd_chunk_cuda,
+                                                     ssd_scan_fused_cuda)
+    from repro_torch.kernels.ssd_scan.ref import (ssd_apply_ref,
+                                                  ssd_chunk_ref,
+                                                  ssd_scan_fused_ref)
     return {"paged_attention": (paged_attention_cuda, paged_attention_ref),
             "ssd_chunk": (ssd_chunk_cuda, ssd_chunk_ref),
-            "ssd_apply": (ssd_apply_cuda, ssd_apply_ref)}
+            "ssd_apply": (ssd_apply_cuda, ssd_apply_ref),
+            "ssd_scan_fused": (ssd_scan_fused_cuda, ssd_scan_fused_ref)}
 
 
 def serve_passes(eng, cfg, prompts, arrivals, sampling):
@@ -1180,8 +1340,9 @@ def phase_engine(arch):
     """The main path of one full-width model: its kernels' counts are set
     to 0 just before the three passes and read just after.  An attention
     layer launches the paged-attention kernel on every engine launch; a
-    mamba layer launches both SSD kernels on every chunk launch (decode
-    runs the one-token recurrence)."""
+    mamba layer (bf16, state 128, the engine's one chunk) launches the fused
+    scan on every chunk launch and the two passes never, and decode runs
+    the one-token recurrence."""
     from repro_torch.configs import get_config
     from repro_torch.models.params import init_params, param_bytes
     from repro_torch.serve.engine import EngineConfig, SamplingParams
@@ -1195,6 +1356,8 @@ def phase_engine(arch):
          cfg.vocab_size), (48, 1536, 3072, 48, 64, 128, 1, 4, 50280))}
     got, want = widths[arch]
     check(got == want, f"{arch} is not at its published width: {got}")
+    check(cfg.compute_dtype == torch.bfloat16,
+          f"{arch} computes in {cfg.compute_dtype}, not bf16")
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator("cuda").manual_seed(0)
     params = init_params(cfg, generator=gen, device="cuda")
@@ -1220,11 +1383,11 @@ def phase_engine(arch):
     launches = {k: kern.launches for k, (kern, _) in counters.items()}
     plain = {k: p.launches for k, (_, p) in counters.items()}  # ... read
     mixers = [m for m, _ in cfg.pattern()]
+    # bf16 at N 128 and the engine's one chunk: every mamba layer of every
+    # chunk launch is one fused scan, and the two passes never run
+    scans = mixers.count("mamba") * totals["prefill_chunk_launches"]
     per_group = {"paged_attention": mixers.count("attn") * totals["launches"],
-                 "ssd_chunk": mixers.count("mamba")
-                 * totals["prefill_chunk_launches"],
-                 "ssd_apply": mixers.count("mamba")
-                 * totals["prefill_chunk_launches"]}
+                 "ssd_chunk": 0, "ssd_apply": 0, "ssd_scan_fused": scans}
     for k, n in per_group.items():
         expect = cfg.n_groups() * n
         check(launches[k] == expect,
@@ -1277,6 +1440,54 @@ def phase_profile(eng, prompts, sampling, n_steps=8):
                "calls_per_step": e.count / n_steps} for e in top])
 
 
+def phase_prefill_profile(eng, prompt_len=300, batch=8):
+    """Where a batch-8 len256 chunked-prefill step's time goes (mamba2):
+    ``batch`` fresh prompts of ``prompt_len`` tokens arrive at once, so the
+    first step feeds every slot 256 tokens; that one step runs under
+    torch.profiler.  Device busy time is the sum of the kernels' own
+    times; the SSD share is the SSD kernels' part of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serve.engine import SamplingParams
+    rng = np.random.default_rng(7)
+    reqs = [eng.submit(rng.integers(0, eng.cfg.vocab_size,
+                                    prompt_len).tolist(),
+                       SamplingParams(max_tokens=1)) for _ in range(batch)]
+    n0 = eng.stats.prefill_chunk_launches
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    step = max(eng.kernel_events().items(),
+               key=lambda kv: kv[1].last_enqueue_t)[0]
+    check(eng.stats.prefill_chunk_launches == n0 + 1
+          and step == f"prefill_bs{batch}_len256",
+          f"the profiled step was {step}, not prefill_bs{batch}_len256")
+    eng.drain()
+    check(all(r.output_tokens for r in reqs), "a profiled prompt got no token")
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    names = [n for ns in SSD_KERNELS.values() for n in ns]
+    ssd = [e for e in kern if any(n in e.key for n in names)]
+    ssd_ms = sum(e.self_device_time_total for e in ssd) / 1e3
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:10]
+    emit("prefill_profile", config=eng.cfg.name, step=step,
+         step_wall_ms=wall_ms,
+         device_busy_ms=busy_ms if kern else "not measured",
+         device_idle_share=1 - busy_ms / wall_ms if kern
+         else "not measured",
+         kernels=sum(e.count for e in kern),
+         ssd_ms=ssd_ms if kern else "not measured",
+         ssd_launches=sum(e.count for e in ssd),
+         ssd_share=ssd_ms / busy_ms if kern else "not measured",
+         top=[{"name": e.key[:80], "ms": e.self_device_time_total / 1e3,
+               "calls": e.count} for e in top])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1301,12 +1512,14 @@ def main() -> int:
     mm_timing = phase_mm_timing()
     flash_worst = phase_flash_vs_plain()
     flash_launches, flash_timing = phase_flash_timing()
-    phase_reference()
+    ref_launches = phase_reference()
     launches = {}
     for arch in ("qwen2-0.5b", "mamba2-780m"):
         counts, eng, prompts, sampling = phase_engine(arch)
         launches.update({k: n for k, n in counts.items() if n})
         phase_profile(eng, prompts, sampling)
+        if eng.store.has_dense:
+            phase_prefill_profile(eng)
         del eng
         torch.cuda.empty_cache()
 
@@ -1325,21 +1538,46 @@ def main() -> int:
             "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
             "n_split")} for t in timing},
     }]
-    for name in ("ssd_chunk", "ssd_apply"):
-        rows = [t for t in ssd_timing if t["kernel"] == name]
-        top = rows[-1]                                    # L = 256
-        kernels.append({
-            "name": name, "route": "cuda", "source": SSD_SOURCE,
-            "replaces": SSD_REPLACES[name], "launches": launches[name],
-            "max_abs_err": ssd_worst[name][1],
-            "max_rel_err": ssd_worst[name][0],
+    # the fused scan (mma) carries mamba2's main path; the two passes carry
+    # the fp32 reference configs on their simt variant, whose launches,
+    # times and errors they report.  The passes' mma variant runs on no
+    # driven path: its bf16 times stand apart under "mma".
+    def ssd_entry(name, variant, rows, launches_, launches_from):
+        top = rows[-1]
+        return {
+            "name": name, "variant": variant, "route": "cuda",
+            "source": SSD_SOURCE, "replaces": SSD_REPLACES[name],
+            "launches": launches_, "launches_from": launches_from,
+            "max_abs_err": ssd_worst[f"{name}/{variant}"][1],
+            "max_rel_err": ssd_worst[f"{name}/{variant}"][0],
             "ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "library_ms": None, "device_ms": top["device_ms"],
-            "shape": "B=8, L=256, H=48, P=64, N=128, G=1, bf16 x",
+            "shape": (f"B={top['B']}, L={top['L']}, " + ", ".join(
+                f"{k}={v}" for k, v in top["geometry"].items())
+                + f", {top['dtype']} x"),
             "per_L_ms": {str(t["L"]): t["ms"] for t in rows},
-            "per_L_device_ms": {str(t["L"]): t["device_ms"] for t in rows},
-        })
+            "per_L_device_ms": {str(t["L"]): t["device_ms"] for t in rows}}
+
+    def ssd_rows(name, variant):
+        return [t for t in ssd_timing
+                if t["kernel"] == name and t["variant"] == variant]
+
+    kernels.append(ssd_entry("ssd_scan_fused", "mma",
+                             ssd_rows("ssd_scan_fused", "mma"),
+                             launches["ssd_scan_fused"],
+                             "engine (mamba2-780m)"))
+    for name in ("ssd_chunk", "ssd_apply"):
+        entry = ssd_entry(name, "simt", ssd_rows(name, "simt"),
+                          ref_launches[name],
+                          "reference (fp32 reduced mamba2 and hybrid)")
+        mma = ssd_entry(name, "mma", ssd_rows(name, "mma"), 0, "none")
+        entry["mma"] = {k: mma[k] for k in (
+            "max_abs_err", "max_rel_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "device_ms", "shape", "per_L_ms",
+            "per_L_device_ms")}
+        entry["mma"]["callers"] = "no driven path (bf16 at several chunks)"
+        kernels.append(entry)
     top = mm_timing[2]                # the n = 8192 Cannon round
     kernels.append({
         "name": "cannon_mm", "route": "cuda", "source": MM_SOURCE,

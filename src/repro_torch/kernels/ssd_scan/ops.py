@@ -1,11 +1,14 @@
 """Public SSD scan op: the chunked algorithm, routed by device.
 
-A CUDA tensor goes to the two hand-written kernels (:mod:`.kernel`), or the
-call raises; a CPU tensor goes to their plain versions (:mod:`.ref`).  There
-is no backend string and no fallback.  Between the two passes the
-cross-chunk state passing is an affine recurrence ``s' = d * s + u`` over
-tiny (H, N, P) tensors, a plain torch op, as is the one-token
-:func:`ssd_decode_step` (jnp code in the JAX package, not a Pallas kernel).
+A CUDA tensor goes to the hand-written kernels (:mod:`.kernel`) on the
+route :func:`.kernel.plan` names: a sequence of one chunk with bf16 x (the
+engine's every call) to the one fused launch, anything else to the chunk
+pass, the state passing and the apply pass.  A CPU tensor goes to the
+plain versions of the same route (:mod:`.ref`).  There is no backend
+string and no fallback; any other device raises.  The cross-chunk state
+passing is an affine recurrence ``s' = d * s + u`` over tiny (H, N, P)
+tensors, a plain torch op, as is the one-token :func:`ssd_decode_step`
+(jnp code in the JAX package, not a Pallas kernel).
 """
 
 from __future__ import annotations
@@ -14,32 +17,12 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.ssd_scan.kernel import ssd_apply_cuda, ssd_chunk_cuda
-from repro_torch.kernels.ssd_scan.ref import ssd_apply_ref, ssd_chunk_ref
-
-
-def _state_passing(states: torch.Tensor, chunk_decay: torch.Tensor,
-                   init_state: torch.Tensor
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Affine prefix over chunks: the state entering chunk c is the
-    product of the earlier chunks' decays times ``init`` plus their
-    decayed contributions.
-
-    states (B, nc, H, N, P) fp32, chunk_decay (B, nc, H) fp32, init_state
-    (B, H, N, P).  Returns (states_in (B, nc, H, N, P), final (B, H, N, P)).
-    As in the JAX op, the inclusive (decay product, contribution) pair is
-    formed first and applied to ``init`` once, so at nc = 1 this is exactly
-    ``states_in = init`` and ``final = decay * init + state``."""
-    d = chunk_decay[..., None, None]                      # (B, nc, H, 1, 1)
-    dacc = torch.cumprod(d, dim=1)
-    acc, sacc = None, []
-    for c in range(states.shape[1]):
-        acc = states[:, c] if acc is None else d[:, c] * acc + states[:, c]
-        sacc.append(acc)
-    init = init_state[:, None].float()
-    s_after = dacc * init + torch.stack(sacc, dim=1)      # state AFTER chunk c
-    states_in = torch.cat([init, s_after[:, :-1]], dim=1)
-    return states_in, s_after[:, -1]
+from repro_torch.kernels.ssd_scan.kernel import (plan, route, ssd_apply_cuda,
+                                                 ssd_chunk_cuda,
+                                                 ssd_scan_fused_cuda)
+from repro_torch.kernels.ssd_scan.ref import (_state_passing, ssd_apply_ref,
+                                              ssd_chunk_ref,
+                                              ssd_scan_fused_ref)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -59,11 +42,17 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         init_state = torch.zeros((B, H, N, P), dtype=torch.float32,
                                  device=x.device)
     if x.device.type == "cpu":
-        chunk_fn, apply_fn = ssd_chunk_ref, ssd_apply_ref
+        rt = route(x.dtype, N, nc)[0]
+        fused_fn, chunk_fn, apply_fn = (ssd_scan_fused_ref, ssd_chunk_ref,
+                                        ssd_apply_ref)
     elif x.is_cuda:
-        chunk_fn, apply_fn = ssd_chunk_cuda, ssd_apply_cuda
+        rt = plan(x, Bm, Cm, chunk=L).route
+        fused_fn, chunk_fn, apply_fn = (ssd_scan_fused_cuda, ssd_chunk_cuda,
+                                        ssd_apply_cuda)
     else:
         raise ValueError(f"ssd_scan: unsupported device {x.device}")
+    if rt == "fused":
+        return fused_fn(x, dt, A, Bm, Cm, init_state.float(), chunk=L)
     y_intra, states, cumexp = chunk_fn(x, dt, A, Bm, Cm, chunk=L)
     states_in, final = _state_passing(states, cumexp[:, :, -1, :],
                                       init_state)

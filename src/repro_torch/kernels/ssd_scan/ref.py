@@ -6,10 +6,13 @@
     s_t = exp(dt_t * A_h) * s_{t-1} + dt_t * B_t (x) x_t,   y_t = C_t . s_t
 
 :func:`ssd_chunk_ref` and :func:`ssd_apply_ref` are the plain versions of
-the two CUDA kernels: the same functions as the JAX package's
-``_chunk_math_jnp`` and ``_apply_math_jnp``, with the full (H, L, L) decay
-tensor materialized.  They are what :func:`repro_torch.kernels.ssd_scan.
-ssd_scan` runs for tensors on the CPU, and each counts its calls.
+the two passes: the same functions as the JAX package's ``_chunk_math_jnp``
+and ``_apply_math_jnp``, with the full (H, L, L) decay tensor
+materialized; :func:`_state_passing` is the JAX op's affine prefix over
+chunks; :func:`ssd_scan_fused_ref`, the plain version of the fused kernel,
+is the three in a row for a one-chunk sequence.  They are what
+:func:`repro_torch.kernels.ssd_scan.ssd_scan` runs for tensors on the CPU,
+and each kernel's plain version counts its calls.
 
 Shapes: x (B, S, H, P), dt (B, S, H) [post-softplus, >= 0], A (H,)
 [negative], B/C (B, S, G, N) with G groups broadcast over H, state
@@ -99,3 +102,49 @@ def ssd_apply_ref(y_intra, Cm, cumexp, states_in) -> torch.Tensor:
 
 
 ssd_apply_ref.launches = 0
+
+
+def _state_passing(states: torch.Tensor, chunk_decay: torch.Tensor,
+                   init_state: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Affine prefix over chunks: the state entering chunk c is the
+    product of the earlier chunks' decays times ``init`` plus their
+    decayed contributions.
+
+    states (B, nc, H, N, P) fp32, chunk_decay (B, nc, H) fp32, init_state
+    (B, H, N, P).  Returns (states_in (B, nc, H, N, P), final (B, H, N, P)).
+    As in the JAX op, the inclusive (decay product, contribution) pair is
+    formed first and applied to ``init`` once, so at nc = 1 this is exactly
+    ``states_in = init`` and ``final = decay * init + state``."""
+    d = chunk_decay[..., None, None]                      # (B, nc, H, 1, 1)
+    dacc = torch.cumprod(d, dim=1)
+    acc, sacc = None, []
+    for c in range(states.shape[1]):
+        acc = states[:, c] if acc is None else d[:, c] * acc + states[:, c]
+        sacc.append(acc)
+    init = init_state[:, None].float()
+    s_after = dacc * init + torch.stack(sacc, dim=1)      # state AFTER chunk c
+    states_in = torch.cat([init, s_after[:, :-1]], dim=1)
+    return states_in, s_after[:, -1]
+
+
+def ssd_scan_fused_ref(x, dt, A, Bm, Cm, init_state, *, chunk: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The scan of a one-chunk sequence (S == ``chunk``): pass 1, the state
+    passing from ``init_state`` (B, H, N, P) fp32, pass 2.  Returns (y
+    (B, S, H, P) in x's dtype, final (B, H, N, P) fp32).  Adds one to
+    ``ssd_scan_fused_ref.launches`` per call."""
+    ssd_scan_fused_ref.launches += 1
+    B, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    if S != chunk:
+        raise ValueError(f"ssd_scan_fused_ref: one chunk only, got S={S} "
+                         f"chunk={chunk}")
+    y_intra, states, cumexp = ssd_chunk_ref(x, dt, A, Bm, Cm, chunk=chunk)
+    states_in, final = _state_passing(states, cumexp[:, :, -1, :],
+                                      init_state)
+    y = ssd_apply_ref(y_intra, Cm.reshape(B, 1, S, G, N), cumexp, states_in)
+    return y.reshape(B, S, H, P), final
+
+
+ssd_scan_fused_ref.launches = 0

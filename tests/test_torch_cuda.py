@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain versions, on the card:
-paged attention, the two SSD-scan passes, the cannon_mm matmul (forward,
-backward, and one emulated Cannon call) and flash attention.
+paged attention, the two SSD-scan passes and their fused launch, the
+cannon_mm matmul (forward, backward, and one emulated Cannon call) and
+flash attention.
 
 Needs a CUDA card and nvcc; skips without a card.  The file imports no
 JAX, so on a machine without it run it past the suite's conftest:
@@ -192,6 +193,7 @@ def _rel(want, got):
     (2, 96, 32, 8, 16, 4, 16, 7),          # reduced G = 4, nc = 3
     (1, 40, 40, 6, 8, 3, 8, 0),            # ragged L, P = 8
     (1, 70, 70, 4, 128, 2, 40, 0),         # P = 128, ragged N
+    (1, 300, 300, 4, 32, 1, 160, 9),       # N > 128: bf16 on the CUDA cores
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_kernels_match_plain_versions(geometry, dtype):
@@ -309,6 +311,144 @@ def test_ssd_wrappers_refuse_bad_operands():
                        .contiguous())
     with pytest.raises(TypeError):
         ssd_apply_cuda(y, Cm.reshape(1, 1, 16, 2, 8).bfloat16(), ce, st)
+
+
+# The fused scan of one chunk (bf16, tensor cores) against its plain
+# version at the tolerances above, and against the two passes it fuses:
+# the same device code up to where each stores, so its y is within one bf16
+# ulp of theirs and its final state within 1e-4.
+
+def _bf16_ulps(want, got):
+    """Largest |got - want| in units of want's bf16 ulp."""
+    want, got = want.double(), got.double()
+    e = torch.floor(torch.log2(want.abs().clamp_min(2.0 ** -126)))
+    return float(((got - want).abs() / 2.0 ** (e - 7)).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("geometry", [
+    # B, S (= chunk), H, P, G, N, pad
+    (8, 256, 48, 64, 1, 128, 0),           # mamba2-780m, L = 256
+    (2, 64, 48, 64, 1, 128, 20),           # L = 64, padding columns
+    (1, 16, 48, 64, 1, 128, 5),            # L = 16
+    (3, 1, 48, 64, 1, 128, 0),             # L = 1
+    (2, 64, 8, 16, 4, 16, 7),              # reduced, G = 4
+    (1, 40, 6, 8, 3, 8, 0),                # ragged L, P = 8
+    (1, 70, 4, 128, 2, 40, 0),             # P = 128, ragged N
+    (1, 300, 4, 32, 1, 96, 9),             # three row tiles
+    (1, 1024, 2, 64, 1, 128, 0),           # the longest chunk
+])
+def test_ssd_fused_kernel_matches_plain_version(geometry):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.ssd_scan import _state_passing
+    from repro_torch.kernels.ssd_scan.kernel import (ssd_apply_cuda,
+                                                     ssd_chunk_cuda,
+                                                     ssd_scan_fused_cuda)
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_fused_ref
+    B, S, H, P, G, N, pad = geometry
+    rng = np.random.default_rng(sum(geometry))
+    x, dt, A, Bm, Cm, s0 = _ssd_case(rng, B=B, S=S, H=H, P=P, G=G, N=N,
+                                     dtype=torch.bfloat16, pad=pad)
+    y, fin = ssd_scan_fused_cuda(x, dt, A, Bm, Cm, s0, chunk=S)
+    yr, fr = ssd_scan_fused_ref(x, dt, A, Bm, Cm, s0, chunk=S)
+    torch.cuda.synchronize()
+    assert y.shape == (B, S, H, P) and y.dtype == torch.bfloat16
+    assert fin.shape == (B, H, N, P) and fin.dtype == torch.float32
+    assert torch.isfinite(y).all() and torch.isfinite(fin).all()
+    assert _rel(yr, y) < 1e-2, _rel(yr, y)
+    assert _rel(fr, fin) < 1e-4, _rel(fr, fin)
+    yi, st, ce = ssd_chunk_cuda(x, dt, A, Bm, Cm, chunk=S)
+    s_in, f2 = _state_passing(st, ce[:, :, -1, :], s0)
+    y2 = ssd_apply_cuda(yi, Cm.reshape(B, 1, S, G, N), ce, s_in)
+    torch.cuda.synchronize()
+    assert _bf16_ulps(y2.reshape(y.shape), y) <= 1.0
+    assert _rel(f2, fin) < 1e-4, _rel(f2, fin)
+
+
+@pytest.mark.gpu
+def test_ssd_fused_kernel_reads_packed_slices_in_place():
+    """The engine's packed slices (16-byte aligned rows: cp.async staging)
+    and a packed layout whose rows are not 16-byte aligned (scalar
+    staging) give exactly what contiguous copies give."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.ssd_scan.kernel import plan, ssd_scan_fused_cuda
+    B, S, H, P, G, N = 2, 64, 8, 64, 1, 128
+    rng = np.random.default_rng(12)
+    _, dt, A, _, _, s0 = _ssd_case(rng, B=B, S=S, H=H, P=P, G=G, N=N,
+                                   dtype=torch.bfloat16, pad=5)
+    di, gn = H * P, G * N
+    for extra, staging in ((0, "async"), (3, "scalar")):
+        packed = torch.from_numpy(rng.normal(size=(B, S, di + 2 * gn + extra))
+                                  .astype(np.float32) * 0.4).to(
+                                      "cuda", torch.bfloat16)
+        x = packed[..., :di].reshape(B, S, H, P)
+        Bm = packed[..., di:di + gn].reshape(B, S, G, N)
+        Cm = packed[..., di + gn:di + 2 * gn].reshape(B, S, G, N)
+        assert not x.is_contiguous()
+        assert plan(x, Bm, Cm, chunk=S).staging == staging
+        xc, bc, cc = x.contiguous(), Bm.contiguous(), Cm.contiguous()
+        assert plan(xc, bc, cc, chunk=S).staging == "async"
+        got = ssd_scan_fused_cuda(x, dt, A, Bm, Cm, s0, chunk=S)
+        want = ssd_scan_fused_cuda(xc, dt, A, bc, cc, s0, chunk=S)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+def test_ssd_fused_wrapper_refuses_bad_operands():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_fused_cuda
+    rng = np.random.default_rng(1)
+    x, dt, A, Bm, Cm, s0 = _ssd_case(rng, B=1, S=16, H=4, P=16, G=2, N=8,
+                                     dtype=torch.bfloat16)
+    with pytest.raises(TypeError):                  # fp32 takes two passes
+        ssd_scan_fused_cuda(x.float(), dt, A, Bm.float(), Cm.float(), s0,
+                            chunk=16)
+    with pytest.raises(ValueError):                 # two chunks
+        ssd_scan_fused_cuda(x, dt, A, Bm, Cm, s0, chunk=8)
+    with pytest.raises(ValueError):                 # init of another N
+        ssd_scan_fused_cuda(x, dt, A, Bm, Cm, s0[:, :, :4].contiguous(),
+                            chunk=16)
+    with pytest.raises(ValueError):                 # init not fp32
+        ssd_scan_fused_cuda(x, dt, A, Bm, Cm, s0.bfloat16(), chunk=16)
+    with pytest.raises(ValueError):                 # init on the CPU
+        ssd_scan_fused_cuda(x, dt, A, Bm, Cm, s0.cpu(), chunk=16)
+    with pytest.raises(ValueError):                 # N > 128: two passes
+        big = torch.zeros((1, 16, 2, 136), dtype=torch.bfloat16,
+                          device="cuda")
+        ssd_scan_fused_cuda(x, dt, A, big, big,
+                            torch.zeros((1, 4, 136, 16), device="cuda"),
+                            chunk=16)
+
+
+@pytest.mark.gpu
+def test_ssd_scan_launch_counts_follow_plan():
+    """ssd_scan on the card: one fused launch for bf16 at one chunk, the
+    two passes for fp32 or several chunks, and never a plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.kernels.ssd_scan.kernel import (ssd_apply_cuda,
+                                                     ssd_chunk_cuda,
+                                                     ssd_scan_fused_cuda)
+    from repro_torch.kernels.ssd_scan.ref import (ssd_apply_ref,
+                                                  ssd_chunk_ref,
+                                                  ssd_scan_fused_ref)
+    kerns = (ssd_scan_fused_cuda, ssd_chunk_cuda, ssd_apply_cuda)
+    plains = (ssd_scan_fused_ref, ssd_chunk_ref, ssd_apply_ref)
+    rng = np.random.default_rng(2)
+    for dtype, chunk, want in ((torch.bfloat16, 32, (1, 0, 0)),
+                               (torch.bfloat16, 8, (0, 1, 1)),
+                               (torch.float32, 32, (0, 1, 1))):
+        ops = _ssd_case(rng, B=2, S=32, H=8, P=16, G=2, N=16, dtype=dtype,
+                        pad=3)
+        n0 = [k.launches for k in kerns]
+        p0 = [p.launches for p in plains]
+        ssd_scan(*ops, chunk=chunk)
+        assert tuple(k.launches - n for k, n in zip(kerns, n0)) == want
+        assert [p.launches for p in plains] == p0
 
 
 # ---------------------------------------------------------------------------
