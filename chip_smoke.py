@@ -47,12 +47,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    every request ends with its 32 tokens, that no logits row is
    non-finite, and that the kernels carried every attention (qwen2) or
    mamba (mamba2: the fused SSD launch) layer of every launch that runs
-   them, the plain versions none;
-7. profile — eight batch-8 decode steps of each model under
-   torch.profiler: step wall time, device busy time and idle share, the
-   top kernels; for mamba2 also one batch-8 len256 chunked-prefill step:
-   its wall time, device busy time and the SSD kernels' share of it;
-8. the kernels line, the card line, and the result line.
+   them, the plain versions none.  Each (bucket, L) step is captured once
+   as a CUDA graph and replayed (``CommandQueue.build``): the queue must
+   hold exactly one graph per step that ran, and the kernels' counts are
+   added per replay;
+7. graphs — the same engine, weights and passes on a queue that runs every
+   step body eagerly (the engine before its steps were captured): each
+   pass's greedy tokens and ``EngineStats`` must be identical;
+8. profile — eight batch-8 decode steps of each model under
+   torch.profiler, every one a replay: step wall time, device busy time
+   and idle share, the top kernels; for mamba2 also one batch-8 len256
+   chunked-prefill step (a replay): its wall time, device busy time and
+   the SSD kernels' share of it;
+9. the kernels line, the card line, and the result line.
 
 Between 4 and 5 run the phases of the paper core and the last two
 kernels:
@@ -88,6 +95,7 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -1277,9 +1285,11 @@ def kernel_counters():
             "ssd_scan_fused": (ssd_scan_fused_cuda, ssd_scan_fused_ref)}
 
 
-def serve_passes(eng, cfg, prompts, arrivals, sampling):
-    """Cold, warm and one-per-step arrival passes; returns per-pass stats
-    and the engine launches of all three (by kind)."""
+def serve_passes(eng, cfg, prompts, arrivals, sampling,
+                 queue_kind="graphs"):
+    """Cold, warm and one-per-step arrival passes; returns per-pass stats,
+    the engine launches of all three (by kind), the steps that ran and
+    each pass's greedy tokens and ``EngineStats``."""
     from repro_torch.serve.engine import EngineStats, completion_of, generate
 
     def at_once(batch):
@@ -1296,7 +1306,7 @@ def serve_passes(eng, cfg, prompts, arrivals, sampling):
         eng.drain()
         return [completion_of(r) for r in reqs]
 
-    passes = {}
+    passes, outputs = {}, {}
     totals = {"launches": 0, "prefill_chunk_launches": 0}
     for label, serve_fn, batch in (("cold", at_once, prompts),
                                    ("warm", at_once, prompts),
@@ -1326,14 +1336,16 @@ def serve_passes(eng, cfg, prompts, arrivals, sampling):
             prefix_hits=st.prefix_hits, prefix_hit_rate=st.prefix_hit_rate,
             peak_dense_slots_used=st.peak_dense_slots_used,
             peak_kv_bytes=eng.peak_kv_bytes())
-        emit("engine_pass", config=cfg.name, run=label, **passes[label])
+        outputs[label] = ([c.tokens for c in outs], dataclasses.asdict(st))
+        emit("engine_pass", config=cfg.name, run=label, queue=queue_kind,
+             **passes[label])
     names = sorted(eng.kernel_events())
     for L in (16, 64, 256):
         check(any(n.endswith(f"_len{L}") for n in names),
               f"no prefill_bs*_len{L} step ran: {names}")
     check(any(n.startswith("serve_step_bs") for n in names),
           f"no serve_step_bs* step ran: {names}")
-    return passes, totals, names
+    return passes, totals, names, outputs
 
 
 def phase_engine(arch):
@@ -1378,10 +1390,11 @@ def phase_engine(arch):
     counters = kernel_counters()
     for kern, plain in counters.values():      # every count to 0 ...
         kern.launches = plain.launches = 0
-    passes, totals, names = serve_passes(eng, cfg, prompts, arrivals,
-                                         sampling)
+    passes, totals, names, outputs = serve_passes(eng, cfg, prompts,
+                                                  arrivals, sampling)
     launches = {k: kern.launches for k, (kern, _) in counters.items()}
     plain = {k: p.launches for k, (_, p) in counters.items()}  # ... read
+    graphs = check_graphs(eng)
     mixers = [m for m, _ in cfg.pattern()]
     # bf16 at N 128 and the engine's one chunk: every mamba layer of every
     # chunk launch is one fused scan, and the two passes never run
@@ -1404,8 +1417,69 @@ def phase_engine(arch):
          peak_dense_slots_used=max(p["peak_dense_slots_used"]
                                    for p in passes.values()),
          max_memory_allocated=torch.cuda.max_memory_allocated(),
-         warm=passes["warm"])
-    return launches, eng, arrivals, sampling
+         graphs=graphs, warm=passes["warm"])
+    return launches, eng, prompts, arrivals, sampling, outputs
+
+
+def check_graphs(eng):
+    """Every step the engine launched is one CUDA graph, built once: the
+    queue holds one executable per distinct (bucket, L) step that ran, each
+    a StepGraph with its build time stamped."""
+    from repro_torch.core.hybrid import StepGraph
+    events = eng.kernel_events()
+    ran = sorted(n for n, ev in events.items() if ev.launches)
+    exes = eng.queue._compiled
+    check(eng.queue.n_executables == len(ran) and sorted(exes) == ran,
+          f"graphs built {sorted(exes)} != steps that ran {ran}")
+    check(all(isinstance(e, StepGraph) for e in exes.values()),
+          "a step of the engine is not a captured graph")
+    check(all(events[n].build_time_s > 0 for n in ran),
+          "a step has no build time")
+    return dict(n=len(ran), build_s=sum(events[n].build_time_s for n in ran),
+                max_build_s=max(events[n].build_time_s for n in ran))
+
+
+def eager_engine():
+    """``checking_engine`` on a queue whose build makes each step body,
+    run eagerly on operands uploaded at every enqueue, its executable: the
+    engine as it was before its steps were captured."""
+    from repro_torch.core import CommandQueue
+
+    class EagerQueue(CommandQueue):
+        def _executable(self, fn, example_args):
+            dev = self.device
+
+            def run(*args):
+                return fn(*(a.to(dev) if isinstance(a, torch.Tensor) else a
+                            for a in args))
+            return run
+
+    class Eager(checking_engine()):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.queue = EagerQueue(self.device)
+    return Eager
+
+
+def phase_graphs(eng, prompts, arrivals, sampling, outputs):
+    """The same engine on the same weights and workload, every step run
+    eagerly: each pass's greedy tokens and ``EngineStats`` must equal those
+    of the engine that replays graphs (``outputs``)."""
+    ec = eng.engine_cfg
+    eager = eager_engine()(eng.cfg, params=eng.params, engine_cfg=ec)
+    passes, _, _, got = serve_passes(eager, eng.cfg, prompts, arrivals,
+                                     sampling, queue_kind="eager")
+    for label, (tokens, stats) in outputs.items():
+        check(got[label][0] == tokens,
+              f"{eng.cfg.name} {label}: replayed tokens differ from eager "
+              f"ones")
+        check(got[label][1] == stats,
+              f"{eng.cfg.name} {label}: EngineStats differ: graphs {stats} "
+              f"eager {got[label][1]}")
+    emit("graphs", config=eng.cfg.name, tokens_match=True, stats_match=True,
+         eager_warm=passes["warm"])
+    del eager
+    torch.cuda.empty_cache()
 
 
 def phase_profile(eng, prompts, sampling, n_steps=8):
@@ -1418,6 +1492,7 @@ def phase_profile(eng, prompts, sampling, n_steps=8):
     while not all(r.output_tokens for r in reqs):
         eng.step()
     torch.cuda.synchronize()
+    built = eng.queue.n_executables
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1425,19 +1500,24 @@ def phase_profile(eng, prompts, sampling, n_steps=8):
             eng.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    check(eng.queue.n_executables == built,
+          "a step was built inside the profiled window")
     eng.drain()
     kern = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 / n_steps
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:10]
-    emit("profile", config=eng.cfg.name, steps=n_steps, batch=len(prompts),
-         step_wall_ms=wall_ms,
-         device_busy_ms=busy_ms if kern else "not measured",
-         device_idle_share=1 - busy_ms / wall_ms if kern else "not measured",
-         kernels_per_step=sum(e.count for e in kern) / n_steps,
-         top=[{"name": e.key[:80], "ms_per_step":
-               e.self_device_time_total / 1e3 / n_steps,
-               "calls_per_step": e.count / n_steps} for e in top])
+    row = dict(
+        config=eng.cfg.name, steps=n_steps, batch=len(prompts),
+        step_wall_ms=wall_ms,
+        device_busy_ms=busy_ms if kern else "not measured",
+        device_idle_share=1 - busy_ms / wall_ms if kern else "not measured",
+        kernels_per_step=sum(e.count for e in kern) / n_steps,
+        top=[{"name": e.key[:80], "ms_per_step":
+              e.self_device_time_total / 1e3 / n_steps,
+              "calls_per_step": e.count / n_steps} for e in top])
+    emit("profile", **row)
+    return row
 
 
 def phase_prefill_profile(eng, prompt_len=300, batch=8):
@@ -1455,6 +1535,7 @@ def phase_prefill_profile(eng, prompt_len=300, batch=8):
                        SamplingParams(max_tokens=1)) for _ in range(batch)]
     n0 = eng.stats.prefill_chunk_launches
     torch.cuda.synchronize()
+    built = eng.queue.n_executables
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1466,6 +1547,8 @@ def phase_prefill_profile(eng, prompt_len=300, batch=8):
     check(eng.stats.prefill_chunk_launches == n0 + 1
           and step == f"prefill_bs{batch}_len256",
           f"the profiled step was {step}, not prefill_bs{batch}_len256")
+    check(eng.queue.n_executables == built,
+          "the profiled step was built inside the profiled window")
     eng.drain()
     check(all(r.output_tokens for r in reqs), "a profiled prompt got no token")
     kern = [e for e in prof.key_averages()
@@ -1475,17 +1558,20 @@ def phase_prefill_profile(eng, prompt_len=300, batch=8):
     ssd = [e for e in kern if any(n in e.key for n in names)]
     ssd_ms = sum(e.self_device_time_total for e in ssd) / 1e3
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:10]
-    emit("prefill_profile", config=eng.cfg.name, step=step,
-         step_wall_ms=wall_ms,
-         device_busy_ms=busy_ms if kern else "not measured",
-         device_idle_share=1 - busy_ms / wall_ms if kern
-         else "not measured",
-         kernels=sum(e.count for e in kern),
-         ssd_ms=ssd_ms if kern else "not measured",
-         ssd_launches=sum(e.count for e in ssd),
-         ssd_share=ssd_ms / busy_ms if kern else "not measured",
-         top=[{"name": e.key[:80], "ms": e.self_device_time_total / 1e3,
-               "calls": e.count} for e in top])
+    row = dict(
+        config=eng.cfg.name, step=step,
+        step_wall_ms=wall_ms,
+        device_busy_ms=busy_ms if kern else "not measured",
+        device_idle_share=1 - busy_ms / wall_ms if kern
+        else "not measured",
+        kernels=sum(e.count for e in kern),
+        ssd_ms=ssd_ms if kern else "not measured",
+        ssd_launches=sum(e.count for e in ssd),
+        ssd_share=ssd_ms / busy_ms if kern else "not measured",
+        top=[{"name": e.key[:80], "ms": e.self_device_time_total / 1e3,
+              "calls": e.count} for e in top])
+    emit("prefill_profile", **row)
+    return row
 
 
 def main() -> int:
@@ -1515,9 +1601,11 @@ def main() -> int:
     ref_launches = phase_reference()
     launches = {}
     for arch in ("qwen2-0.5b", "mamba2-780m"):
-        counts, eng, prompts, sampling = phase_engine(arch)
+        counts, eng, prompts, arrivals, sampling, outputs = \
+            phase_engine(arch)
         launches.update({k: n for k, n in counts.items() if n})
-        phase_profile(eng, prompts, sampling)
+        phase_graphs(eng, prompts, arrivals, sampling, outputs)
+        phase_profile(eng, arrivals, sampling)
         if eng.store.has_dense:
             phase_prefill_profile(eng)
         del eng

@@ -35,6 +35,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import counted
 from repro_torch.kernels.build import compile_library
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "cannon_mm.cu"
@@ -231,4 +232,5 @@ def reset_counts() -> None:
     matmul_cuda.by_variant = dict.fromkeys(VARIANTS, 0)
 
 
+counted(matmul_cuda)
 reset_counts()

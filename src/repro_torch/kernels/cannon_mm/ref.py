@@ -11,6 +11,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import counted
+
 
 def matmul_ref(a: torch.Tensor, b: torch.Tensor,
                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
@@ -21,4 +23,4 @@ def matmul_ref(a: torch.Tensor, b: torch.Tensor,
     return torch.matmul(a.float(), b.float()).to(out_dtype)
 
 
-matmul_ref.launches = 0
+counted(matmul_ref)

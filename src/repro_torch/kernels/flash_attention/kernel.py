@@ -19,6 +19,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import counted
 from repro_torch.kernels.build import compile_library
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
@@ -91,4 +92,4 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-flash_attention_cuda.launches = 0
+counted(flash_attention_cuda)

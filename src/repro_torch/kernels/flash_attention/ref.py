@@ -11,6 +11,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import counted
+
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, q_offset: int = 0,
@@ -33,4 +35,4 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.einsum("bhqk,bhkd->bhqd", p, vv).to(q.dtype)
 
 
-attention_ref.launches = 0
+counted(attention_ref)

@@ -19,16 +19,19 @@ the last split of a tile to finish, counted by a per-tile atomic counter,
 merges them all.  The counters are zeroed once per device and kept on
 the wrapper (``paged_attention_cuda.counters``; the kernel leaves them
 zero), so two calls must not run at once on two streams of one device.
+An engine that captures its steps as CUDA graphs sizes them first
+(:func:`reserve_split_counters`).
 """
 
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import counted
 from repro_torch.kernels.build import MAX_SMEM, compile_library
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"
@@ -97,13 +100,32 @@ def launch_plan(B: int, Hq: int, L: int, hd: int, kvh: int, T: int,
 def _split_counters(device: torch.device, n: int) -> torch.Tensor:
     """The int32 split counters of ``device``, one per (slot, kv head,
     q tile), zeroed once and kept on the wrapper (the kernel leaves them
-    zero); at least ``n`` of them."""
+    zero); at least ``n`` of them.  A buffer that grows is replaced, and
+    the old one is kept alive: a captured CUDA graph may still hold its
+    address.  Growing is refused while a graph is being captured, where
+    the zeroing would run only on replay: :func:`reserve_split_counters`
+    sizes the buffer before any capture."""
     held = paged_attention_cuda.counters
     buf = held.get(device.index)
     if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"paged_attention_cuda: {n} split counters are needed "
+                f"during a CUDA graph capture; reserve them before it")
+        if buf is not None:
+            paged_attention_cuda.retired.append(buf)
         buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
         held[device.index] = buf
     return buf
+
+
+def reserve_split_counters(device: torch.device, B: int, Hq: int, kvh: int,
+                           lengths) -> None:
+    """Size ``device``'s split counters for every launch at batch up to
+    ``B`` with query lengths ``lengths`` (bf16 operands), before a step
+    that launches the kernel is captured."""
+    n = max(B * kvh * -(-L // tc_tile_l(Hq // kvh, L)) for L in lengths)
+    _split_counters(torch.device(device), n)
 
 
 def build() -> ctypes.CDLL:
@@ -190,5 +212,6 @@ def paged_attention_cuda(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
     return m, l, acc
 
 
-paged_attention_cuda.launches = 0
+counted(paged_attention_cuda)
 paged_attention_cuda.counters: Dict[int, torch.Tensor] = {}
+paged_attention_cuda.retired: List[torch.Tensor] = []

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import counted
 from repro_torch.models.attention import attention_partial
 
 UNOWNED_POS = 2 ** 30     # past any q_pos: causally masked out
@@ -54,7 +55,7 @@ def paged_attention_ref(q, kc, vc, table, q_pos, *, stride, row=0, qrows=1,
         q_pos=q_pos, scale=scale))
 
 
-paged_attention_ref.launches = 0
+counted(paged_attention_ref)
 
 
 def merge_rows(partials):

@@ -29,6 +29,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import counted
 from repro_torch.kernels.build import compile_library
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
@@ -224,7 +225,7 @@ def ssd_chunk_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y, states, cumexp
 
 
-ssd_chunk_cuda.launches = 0
+counted(ssd_chunk_cuda)
 ssd_chunk_cuda.by_variant = {"mma": 0, "simt": 0}
 
 
@@ -276,7 +277,7 @@ def ssd_apply_cuda(y_intra: torch.Tensor, Cm: torch.Tensor,
     return out
 
 
-ssd_apply_cuda.launches = 0
+counted(ssd_apply_cuda)
 ssd_apply_cuda.by_variant = {"mma": 0, "simt": 0}
 
 
@@ -326,4 +327,4 @@ def ssd_scan_fused_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y, final
 
 
-ssd_scan_fused_cuda.launches = 0
+counted(ssd_scan_fused_cuda)

@@ -25,6 +25,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import counted
+
 
 def ssd_ref(x, dt, A, Bm, Cm, init_state: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -86,7 +88,7 @@ def ssd_chunk_ref(x, dt, A, Bm, Cm, *, chunk: int
             cumexp.contiguous())
 
 
-ssd_chunk_ref.launches = 0
+counted(ssd_chunk_ref)
 
 
 def ssd_apply_ref(y_intra, Cm, cumexp, states_in) -> torch.Tensor:
@@ -101,7 +103,7 @@ def ssd_apply_ref(y_intra, Cm, cumexp, states_in) -> torch.Tensor:
     return (y_intra.float() + y_inter).to(y_intra.dtype).contiguous()
 
 
-ssd_apply_ref.launches = 0
+counted(ssd_apply_ref)
 
 
 def _state_passing(states: torch.Tensor, chunk_decay: torch.Tensor,
@@ -147,4 +149,4 @@ def ssd_scan_fused_ref(x, dt, A, Bm, Cm, init_state, *, chunk: int
     return y.reshape(B, S, H, P), final
 
 
-ssd_scan_fused_ref.launches = 0
+counted(ssd_scan_fused_ref)

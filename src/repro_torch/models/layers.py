@@ -9,6 +9,7 @@ input dtype.
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -51,21 +52,27 @@ def rms_norm_local(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
 # Rotary position embedding.
 # ---------------------------------------------------------------------------
 
+@functools.lru_cache(maxsize=16)
+def _rope_freqs(head_dim: int, theta: float, device: torch.device
+                ) -> torch.Tensor:
+    """``theta ** (-arange(half) / half)`` in fp32 on ``device``, made once:
+    the exponent is formed in fp32, as the JAX package does, and the power
+    is taken in fp64 on the host and rounded once, which gives the
+    correctly rounded fp32 value (XLA's fp32 power agrees with it; an fp32
+    ``torch.pow`` can be an ulp off, which grows with the position).  The
+    one upload happens at the first call, outside any graph capture."""
+    half = head_dim // 2
+    expo = -torch.arange(0, half, dtype=torch.float32) / half
+    freqs = torch.pow(torch.tensor(float(theta), dtype=torch.float64),
+                      expo.double()).float()
+    return freqs.to(device)
+
+
 def rope_tables(positions: torch.Tensor, head_dim: int, theta: float
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """cos/sin tables ``(..., head_dim/2)`` in fp32.
-
-    The frequencies are ``theta ** (-arange(half) / half)`` with the
-    exponent formed in fp32, as the JAX package does; the power itself is
-    taken in fp64 and rounded once, which gives the correctly rounded fp32
-    value (XLA's fp32 power agrees with it; an fp32 ``torch.pow`` can be an
-    ulp off, which grows with the position)."""
-    half = head_dim // 2
-    expo = -torch.arange(0, half, dtype=torch.float32,
-                         device=positions.device) / half
-    freqs = torch.pow(torch.tensor(float(theta), dtype=torch.float64,
-                                   device=positions.device),
-                      expo.double()).float()
+    """cos/sin tables ``(..., head_dim/2)`` in fp32 (frequencies from
+    :func:`_rope_freqs`)."""
+    freqs = _rope_freqs(head_dim, float(theta), positions.device)
     ang = positions.float()[..., None] * freqs
     return torch.cos(ang), torch.sin(ang)
 

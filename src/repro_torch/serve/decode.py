@@ -17,6 +17,15 @@ arena is updated **in place** (the JAX bodies return a new arena that the
 engine donates through every enqueue; here the new state is written into
 the same storage), so the bodies return only the logits.
 
+Every write has a fixed shape, so a body holds no host sync and no
+data-dependent shape and can be captured as a CUDA graph: the last page
+of a paged leaf and the last row of a dense leaf are **scratch**, which
+no block table and no slot vector names (``StateStore`` allocates them
+past the pool).  Writes the JAX bodies drop (``.at[].set(mode="drop")``)
+land there: the K/V of padding columns, of idle slots and of positions
+whose table entry is unallocated, and the state of idle lanes.  Nothing
+reads scratch.
+
 For an attention layer a one-position decode step is the L = 1 case of the
 chunked-prefill path with every lane valid: the same RoPE, K/V write,
 masked paged attention and logits, so the port keeps one attention path
@@ -79,29 +88,34 @@ def _embed_decode(embed: torch.Tensor, tokens: torch.Tensor, compute_dtype
 
 
 def _last_logits(lm_head: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """x (B, n, D) -> logits (B, n, Vpad) in fp32.  The product is taken in
-    fp32 (operands upcast), as the JAX package's fp32-accumulated
-    ``out_dtype=float32`` gemv; a bf16 product would round the logits to
-    bf16."""
+    """x (B, n, D) -> logits (B, n, Vpad) in fp32, the JAX package's
+    fp32-accumulated ``out_dtype=float32`` gemv; a bf16 product would round
+    the logits to bf16.  On the card a bf16 lm_head is multiplied as it
+    is, with fp32 output (``aten::mm.dtype``); on the CPU, which has no
+    such product, the operands are upcast (the same math up to summation
+    order), as are fp32 ones (a no-op)."""
+    if x.is_cuda and x.dtype == lm_head.dtype != torch.float32:
+        B, n, D = x.shape
+        return torch.mm(x.reshape(B * n, D), lm_head,
+                        out_dtype=torch.float32).reshape(B, n, -1)
     return torch.matmul(x.float(), lm_head.float())
 
 
 def _write_index(table: torch.Tensor, pos2: torch.Tensor,
-                 n_valid: torch.Tensor, stride: int
-                 ) -> Tuple[torch.Tensor, ...]:
-    """(slot, chunk column, page, offset) of every K/V position a launch
-    writes: the valid chunk columns (``j < n_valid``) whose table entry is
-    allocated.  Padding columns, idle slots (table -1) and positions past
-    the table write nothing — the JAX bodies' ``.at[].set(mode="drop")``.
-    Computed once per launch (one host sync for the boolean selection) and
-    shared by every layer."""
+                 n_valid: torch.Tensor, stride: int, scratch: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(page, offset), each (B, L), of every K/V position a launch writes:
+    a valid chunk column (``j < n_valid``) writes its table page (the
+    entry clipped to the table, as in the JAX body), and a padding column,
+    an idle slot (table -1) or an unallocated entry writes the ``scratch``
+    page instead.  Computed once per launch and shared by every layer."""
     B, T = table.shape
     L = pos2.shape[1]
     valid = torch.arange(L, device=pos2.device)[None, :] < n_valid[:, None]
     tidx = (pos2 // stride).clamp(0, T - 1).long()
     pid = torch.gather(table, 1, tidx)
-    b, j = torch.nonzero(valid & (pid >= 0), as_tuple=True)
-    return b, j, pid[b, j].long(), (pos2[b, j] % stride).long()
+    page = torch.where(valid & (pid >= 0), pid, scratch).long()
+    return page, (pos2 % stride).long()
 
 
 def _attn_prefill_chunk_paged(p, x, cfg, kc, vc, rope, pos2, widx, table,
@@ -130,9 +144,8 @@ def _attn_prefill_chunk_paged(p, x, cfg, kc, vc, rope, pos2, widx, table,
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
 
-    b, j, page, off = widx
-    kc.index_put_((page, off), k[b, j].to(kc.dtype))
-    vc.index_put_((page, off), v[b, j].to(vc.dtype))
+    kc.index_put_(widx, k.to(kc.dtype))
+    vc.index_put_(widx, v.to(vc.dtype))
 
     part = paged_attention(q.transpose(1, 2).contiguous(), kc, vc, table,
                            pos2, stride=stride)
@@ -149,23 +162,26 @@ def _unstack(tree, n: int) -> List:
     return list(tree.unbind(0))
 
 
-def _dense_slot_gather(cache, slots: torch.Tensor):
+def _dense_index(slots: torch.Tensor, scratch: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(gather, scatter) rows of every lane in the slot arena: an idle lane
+    (slot -1) reads slot 0 as a dummy and writes the ``scratch`` row (the
+    JAX body routes it out of bounds with ``mode="drop"``).  Computed once
+    per launch and shared by every dense layer."""
+    return (slots.clamp(min=0).long(),
+            torch.where(slots >= 0, slots, scratch).long())
+
+
+def _dense_slot_gather(cache, idx: torch.Tensor):
     """Each lane's dense state rows from the slot arena (leaves
-    ``(n_slots, ...)``); an idle lane (slot -1) reads slot 0 as a dummy and
-    never writes back."""
-    n_slots = next(iter(cache.values())).shape[0]
-    idx = slots.clamp(0, n_slots - 1).long()
+    ``(n_slots + 1, ...)``)."""
     return {name: a[idx] for name, a in cache.items()}
 
 
-def _dense_slot_scatter(cache, new, lanes) -> None:
-    """Write the advanced state of the live lanes back to their slot rows,
-    in place.  ``lanes`` is (lane index, slot id) of every lane with a slot:
-    idle lanes are dropped explicitly (the JAX body routes them out of
-    bounds with ``mode="drop"``, which torch has no counterpart of)."""
-    lane, sid = lanes
+def _dense_slot_scatter(cache, new, idx: torch.Tensor) -> None:
+    """Write every lane's advanced state back to its row, in place."""
     for name, a in cache.items():
-        a[sid] = new[name][lane].to(a.dtype)
+        a[idx] = new[name].to(a.dtype)
 
 
 class _Operands(NamedTuple):
@@ -177,8 +193,7 @@ class _Operands(NamedTuple):
     pos2: Optional[torch.Tensor] = None
     widx: Optional[Tuple] = None
     table: Optional[torch.Tensor] = None
-    slots: Optional[torch.Tensor] = None  # dense layers
-    lanes: Optional[Tuple] = None
+    dense: Optional[Tuple] = None         # dense layers: _dense_index
 
 
 def _decode_layer(cfg, mixer, ffn, p, x, cache, op: _Operands):
@@ -188,7 +203,7 @@ def _decode_layer(cfg, mixer, ffn, p, x, cache, op: _Operands):
                                           cache["v"], op.rope, op.pos2,
                                           op.widx, op.table, op.stride)
     elif mixer in ("mamba", "ssm"):
-        st = _dense_slot_gather(cache, op.slots)
+        st = _dense_slot_gather(cache, op.dense[0])
         state = (st["conv"], st["ssm"])
         if op.decode:
             h, (conv, ssm) = mamba_decode_step(p["mixer"], h, state, cfg)
@@ -196,7 +211,7 @@ def _decode_layer(cfg, mixer, ffn, p, x, cache, op: _Operands):
             h, (conv, ssm) = mamba_chunk_step(p["mixer"], h, state, cfg,
                                               op.n_valid)
         x = x + h
-        _dense_slot_scatter(cache, {"conv": conv, "ssm": ssm}, op.lanes)
+        _dense_slot_scatter(cache, {"conv": conv, "ssm": ssm}, op.dense[1])
     else:
         raise NotImplementedError(f"mixer {mixer!r}")
     if ffn == "mlp":
@@ -219,15 +234,14 @@ def _run(cfg: ModelConfig, params, arena, tokens, pos, n_valid, table,
     if any(m == "attn" for m, _ in pattern):
         pos2 = (pos[:, None] + torch.arange(L, dtype=torch.int32,
                                             device=pos.device)[None, :])
+        scratch = next(e["k"].shape[1] for e in arena if "k" in e) - 1
         op = op._replace(rope=rope_tables(pos2, cfg.hd(), cfg.rope_theta),
                          pos2=pos2, widx=_write_index(table, pos2, n_valid,
-                                                      stride),
+                                                      stride, scratch),
                          table=table)
     if any(m in ("mamba", "ssm") for m, _ in pattern):
-        # one host sync per launch for the live-lane selection, shared by
-        # every dense layer
-        lane = torch.nonzero(slots >= 0).squeeze(1)
-        op = op._replace(slots=slots, lanes=(lane, slots[lane].long()))
+        scratch = next(e["ssm"].shape[1] for e in arena if "ssm" in e) - 1
+        op = op._replace(dense=_dense_index(slots, scratch))
     layers = [_unstack(lp, G) for lp in params["layers"]]
     caches = [_unstack(c, G) for c in arena]
     for g in range(G):
@@ -276,7 +290,7 @@ def decode_step(cfg: ModelConfig, params, arena, tokens: torch.Tensor,
 
     tokens (B,), pos (B,), table (B, T) and/or slots (B,) int32 -> fp32
     logits (B, 1, Vpad).  Idle slots carry an all -1 table row and slot -1,
-    and write nothing."""
+    and write only scratch."""
     return _run(cfg, params, arena, tokens[:, None], pos,
                 torch.ones_like(pos), table, slots, stride=stride,
                 decode=True, all_logits=False)

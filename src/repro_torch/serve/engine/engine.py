@@ -41,6 +41,8 @@ import torch
 
 from repro_torch.core.hybrid import CommandQueue
 from repro_torch.device import resolve_device
+from repro_torch.kernels.paged_attention.kernel import \
+    reserve_split_counters
 from repro_torch.models.params import init_params, stored_heads
 from repro_torch.serve.decode import PagedKV, decode_step, prefill_chunk_step
 from repro_torch.serve.engine.block_cache import BlockPool, block_layout
@@ -136,6 +138,26 @@ class EngineStats:
             + self.spec_launches
 
 
+@dataclasses.dataclass
+class _Step:
+    """One (bucket, L) step: its name, body and host operand buffers
+    (tokens, pos, n_valid for a chunk step, table, slots; None where the
+    config has no such operand), with numpy views of them, and the host
+    buffer its logits rows are copied to (pinned on the card, like the
+    operands)."""
+    name: str
+    body: object
+    ops: Dict[str, Optional[torch.Tensor]]
+    views: Dict[str, np.ndarray]
+    rows: torch.Tensor            # (B, vocab) fp32 logits rows on the host
+
+    def idle(self) -> None:
+        """Every lane idle: zero tokens, positions and counts, all -1 table
+        rows and slots."""
+        for k, a in self.views.items():
+            a.fill(-1 if k in ("table", "slots") else 0)
+
+
 class ServingEngine:
     """Batch-generate service over one device."""
 
@@ -167,7 +189,7 @@ class ServingEngine:
         # per-layer state contract says which layers page KV and which
         # carry dense per-slot state; every shape, operand and lifecycle
         # rule below derives from it.
-        _, kvh = stored_heads(params, cfg)
+        hq, kvh = stored_heads(params, cfg)
         self.state_specs = layer_state_specs(
             cfg, stride=ec.block_pos_stride, kvh=kvh)
 
@@ -185,9 +207,15 @@ class ServingEngine:
                                    state=self.store)
 
         self.queue = CommandQueue(self.device)
+        if self.device.type == "cuda" and self.store.needs_pages:
+            # the paged kernel's split counters, sized before any capture
+            reserve_split_counters(self.device, ec.buckets[-1], hq, kvh,
+                                   (1,) + self._chunks)
         # step cache keyed by (bucket, L): L=0 is the one-position decode
-        # step, L>0 a chunked-prefill step from the ladder
-        self._kernels: Dict[Tuple[int, int], Tuple[str, object]] = {}
+        # step, L>0 a chunked-prefill step from the ladder.  On the card
+        # each step is a CUDA graph bound to self.params and to the arena's
+        # storage, which is never replaced (StateStore).
+        self._kernels: Dict[Tuple[int, int], _Step] = {}
         self._bucket: Optional[int] = None
         self._rngs: Dict[str, np.random.Generator] = {}
         self.stats = EngineStats()
@@ -249,20 +277,41 @@ class ServingEngine:
 
     # -- per-bucket step bodies --------------------------------------------
 
-    def _kernel(self, bucket: int, chunk: Optional[int]):
-        """``(name, body)`` of the step for this bucket and chunk length."""
+    def _kernel(self, bucket: int, chunk: Optional[int]) -> "_Step":
+        """The step for this bucket and chunk length.  The first call makes
+        its operand buffers on the host (pinned on the card), which every
+        launch of the step fills, and builds it (a CUDA graph on the card)
+        with every lane idle: all -1 table rows and slots, whose writes
+        land only in the arena's scratch page and row."""
         key = (bucket, chunk or 0)
         step = self._kernels.get(key)
         if step is None:
             stride = self.engine_cfg.block_pos_stride
             if chunk is None:
-                step = (f"serve_step_bs{bucket}",
-                        functools.partial(decode_step, self.cfg,
-                                          stride=stride))
+                name = f"serve_step_bs{bucket}"
+                body = functools.partial(decode_step, self.cfg, stride=stride)
+                shapes = {"tokens": (bucket,), "pos": (bucket,)}
             else:
-                step = (f"prefill_bs{bucket}_len{chunk}",
-                        functools.partial(prefill_chunk_step, self.cfg,
-                                          stride=stride))
+                name = f"prefill_bs{bucket}_len{chunk}"
+                body = functools.partial(prefill_chunk_step, self.cfg,
+                                         stride=stride)
+                shapes = {"tokens": (bucket, chunk), "pos": (bucket,),
+                          "n_valid": (bucket,)}
+            shapes["table"] = (bucket, self._table_width) \
+                if self.store.needs_pages else None
+            shapes["slots"] = (bucket,) if self.store.has_dense else None
+            pin = self.device.type == "cuda"
+            ops = {k: None if shp is None else torch.zeros(
+                shp, dtype=torch.int32, pin_memory=pin)
+                for k, shp in shapes.items()}
+            step = _Step(name, body, ops,
+                         {k: t.numpy() for k, t in ops.items()
+                          if t is not None},
+                         torch.empty((bucket, self.cfg.vocab_size),
+                                     dtype=torch.float32, pin_memory=pin))
+            step.idle()
+            self.queue.build(name, body, self.params, self.store.arena,
+                             *ops.values())
             self._kernels[key] = step
         return step
 
@@ -323,49 +372,32 @@ class ServingEngine:
         ``(rows, fed)`` — the next-token logits rows on the host and the
         positions each slot consumed.  Mutates NO host request state."""
         B = sd.bucket
-        pos = np.zeros((B,), np.int32)
-        has_pages = self.store.needs_pages
-        has_dense = self.store.has_dense
-        table = np.full((B, self._table_width), -1, np.int32)
-        slots = np.full((B,), -1, np.int32)
         fed = [0] * B
-        dev = lambda a: torch.as_tensor(a, device=self.device)
-        name, body = self._kernel(B, chunk)
-        if chunk is None:
-            tokens = np.zeros((B,), np.int32)
-            for s, r in enumerate(sd.slots):
-                if r is not None:
-                    tokens[s] = r.next_token
-                    pos[s] = r.num_cached
-                    fed[s] = 1
-        else:
-            tokens = np.zeros((B, chunk), np.int32)
-            n_valid = np.zeros((B,), np.int32)
-            for s, r in enumerate(sd.slots):
-                if r is None:
-                    continue
+        step = self._kernel(B, chunk)
+        step.idle()
+        v = step.views
+        tokens, pos = v["tokens"], v["pos"]
+        table, slots = v.get("table"), v.get("slots")
+        for s, r in enumerate(sd.slots):
+            if r is None:
+                continue
+            if chunk is None:
+                tokens[s] = r.next_token
+                fed[s] = 1
+            else:
                 n = self._fed_count(r, chunk)
                 seq = r.seq_tokens
                 tokens[s, :n] = seq[r.num_cached:r.num_cached + n]
-                pos[s] = r.num_cached
-                n_valid[s] = n
+                v["n_valid"][s] = n
                 fed[s] = n
-        for s, r in enumerate(sd.slots):
-            if r is not None:
-                if has_pages:
-                    table[s, :len(r.blocks.ids)] = r.blocks.ids
-                if has_dense:
-                    slots[s] = r.dense_slot
-        ops = (dev(table) if has_pages else None,
-               dev(slots) if has_dense else None)
-        if chunk is None:
-            logits = self.queue.enqueue(
-                name, body, self.params, self.store.arena, dev(tokens),
-                dev(pos), *ops)
-        else:
-            logits = self.queue.enqueue(
-                name, body, self.params, self.store.arena, dev(tokens),
-                dev(pos), dev(n_valid), *ops)
+            pos[s] = r.num_cached
+            if table is not None:
+                table[s, :len(r.blocks.ids)] = r.blocks.ids
+            if slots is not None:
+                slots[s] = r.dense_slot
+        logits = self.queue.enqueue(step.name, step.body, self.params,
+                                    self.store.arena, *step.ops.values())
+        if chunk is not None:
             self.stats.prefill_chunk_launches += 1
         self.stats.steps += 1
         self.stats.peak_blocks_used = max(self.stats.peak_blocks_used,
@@ -377,9 +409,12 @@ class ServingEngine:
             self.stats.prefill_launches += 1
         else:
             self.stats.decode_launches += 1
-        # only the real vocabulary crosses to the host
-        rows = logits[:, 0, :self.cfg.vocab_size].cpu().numpy()
-        return rows, fed
+        # only the real vocabulary crosses to the host, into the step's
+        # rows (read before the step's next launch)
+        step.rows.copy_(logits[:, 0, :self.cfg.vocab_size], non_blocking=True)
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        return step.rows.numpy(), fed
 
     def _commit(self, sd: ScheduledStep, rows: np.ndarray, fed) -> None:
         """Advance the request state machine with a launch's results."""

@@ -62,13 +62,18 @@ class StateStore:
                                     and pool.cache is not None) else None
         self._snap_nodes: "deque" = deque()   # FIFO cap over tree snapshots
         # ONE arena for the engine's lifetime; the step bodies write it in
-        # place.  Pages are never zeroed again: stale KV past a slot's
-        # position is causally masked in the kernel.  Dense slots are zeroed
-        # or snapshot-restored at admission — recurrent state has no mask.
+        # place, and captured step graphs hold its addresses, so no leaf is
+        # ever replaced.  Pages are never zeroed again: stale KV past a
+        # slot's position is causally masked in the kernel.  Dense slots are
+        # zeroed or snapshot-restored at admission — recurrent state has no
+        # mask.  Each leaf has one scratch page or slot row past the pool
+        # (index n_blocks, n_slots), which takes the writes the step bodies
+        # drop (repro_torch.serve.decode); the pools never hand it out.
         self.arena = [{name: torch.zeros(shape, dtype=dt, device=device)
                        for name, (shape, dt) in entry.items()}
                       for entry in specs.arena_shapes(
-                          n_blocks, n_slots if specs.has_dense else 1)]
+                          n_blocks + 1,
+                          (n_slots if specs.has_dense else 1) + 1)]
         self.slot_pool: Optional[DenseSlotPool] = DenseSlotPool(
             n_slots, slot_bytes=specs.dense_slot_bytes()) \
             if specs.has_dense else None

@@ -698,3 +698,147 @@ def test_flash_wrapper_refuses_bad_operands():
         flash_attention_cuda(q, k, k, q_offset=-1)
     with pytest.raises(ValueError):                 # an operand on the CPU
         flash_attention_cuda(q, k.cpu(), k)
+
+
+# ---------------------------------------------------------------------------
+# Steps captured as CUDA graphs (CommandQueue.build): a replay against the
+# eager body on a copy of the same arena with the same operands, bit for
+# bit (the same kernels on the same inputs; the scratch page and row, where
+# duplicate dropped writes land in no fixed order, are left out).
+# ---------------------------------------------------------------------------
+
+STEP_B, STEP_STRIDE, STEP_T, STEP_SLOTS = 4, 16, 32, 6
+
+
+def _step_case(name, dtype):
+    """A reduced config in ``dtype``, its params (seed 0), an arena of
+    random values on the card, and host operands at the engine's widths:
+    a full lane, a partial one, a one-token rider and an idle lane."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.params import init_params, stored_heads
+    from repro_torch.serve.engine.state_store import StateStore
+    from repro_torch.serve.state import layer_state_specs
+    cfg = dataclasses.replace(reduced(get_config(name)), param_dtype=dtype,
+                              compute_dtype=dtype)
+    gen = torch.Generator("cuda").manual_seed(0)
+    params = init_params(cfg, generator=gen, device="cuda")
+    specs = layer_state_specs(cfg, stride=STEP_STRIDE,
+                              kvh=stored_heads(params, cfg)[1])
+    arena = StateStore(specs, n_blocks=STEP_B * STEP_T,
+                       device=torch.device("cuda"), n_slots=STEP_SLOTS,
+                       stride=STEP_STRIDE).arena
+    for entry in arena:
+        for leaf in entry.values():
+            leaf.copy_(torch.randn(leaf.shape, generator=gen,
+                                   device="cuda"))
+    rng = np.random.default_rng(3)
+    table = rng.permutation(STEP_B * STEP_T).astype(np.int32).reshape(
+        STEP_B, STEP_T)
+    table[3] = -1
+    ops = dict(pos=np.array([0, 17, 100, 0], np.int32),
+               table=table if specs.has_paged else None,
+               slots=np.array([1, 0, 2, -1], np.int32)
+               if specs.has_dense else None)
+    return cfg, params, arena, ops, rng
+
+
+def _step_operands(cfg, ops, rng, L, idle=False):
+    """Pinned host operands of a decode step (L = 0) or a chunk step."""
+    B = STEP_B
+    shape = (B,) if L == 0 else (B, L)
+    out = {"tokens": rng.integers(0, cfg.vocab_size, shape, dtype=np.int32),
+           "pos": ops["pos"]}
+    if L:
+        out["n_valid"] = np.array([L, L // 2, 1, 0], np.int32)
+    out["table"], out["slots"] = ops["table"], ops["slots"]
+    if idle:
+        out = {k: None if a is None else np.full_like(
+            a, -1 if k in ("table", "slots") else 0) for k, a in out.items()}
+    return tuple(None if a is None else torch.from_numpy(a).pin_memory()
+                 for a in out.values())
+
+
+def _max_diff(a, b):
+    return float((a.double() - b.double()).abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L", [0, 16, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["qwen2-0.5b", "mamba2-780m"])
+def test_replayed_step_matches_eager_body(name, dtype, L):
+    """Build with every lane idle (as the engine does), replay once for
+    real operands: logits and the arena's pool equal the eager body's,
+    and the kernels' counts move by what the eager body launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import functools
+    from repro_torch.core import CommandQueue
+    from repro_torch.kernels import count_delta, launch_counts
+    from repro_torch.serve.decode import decode_step, prefill_chunk_step
+    cfg, params, arena, ops, rng = _step_case(name, dtype)
+    twin = [{k: v.clone() for k, v in e.items()} for e in arena]
+    body = functools.partial(decode_step if L == 0 else prefill_chunk_step,
+                             cfg, stride=STEP_STRIDE)
+    queue = CommandQueue("cuda")
+    c0 = launch_counts()
+    queue.build("step", body, params, arena,
+                *_step_operands(cfg, ops, rng, L, idle=True))
+    assert count_delta(c0, launch_counts()) == {}  # building is no launch
+    args = _step_operands(cfg, ops, rng, L)
+    c0 = launch_counts()
+    got = queue.enqueue("step", body, params, arena, *args).clone()
+    replayed = count_delta(c0, launch_counts())
+    c0 = launch_counts()
+    want = body(params, twin, *(None if a is None else a.cuda()
+                                for a in args))
+    eager = count_delta(c0, launch_counts())
+    torch.cuda.synchronize()
+    assert replayed == eager
+    assert torch.equal(got, want), _max_diff(got, want)
+    for e, e0 in zip(arena, twin):
+        for leaf, a in e.items():
+            assert torch.equal(a[:, :-1], e0[leaf][:, :-1]), \
+                (leaf, _max_diff(a[:, :-1], e0[leaf][:, :-1]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["qwen2-0.5b", "mamba2-780m"])
+def test_step_bodies_make_no_sync_on_the_card(name):
+    """After one call outside it, a decode and a chunk step run under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.serve.decode import decode_step, prefill_chunk_step
+    cfg, params, arena, ops, rng = _step_case(name, torch.bfloat16)
+    for L, body in ((0, decode_step), (16, prefill_chunk_step)):
+        args = [None if a is None else a.cuda()
+                for a in _step_operands(cfg, ops, rng, L)]
+        body(cfg, params, arena, *args, stride=STEP_STRIDE)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            body(cfg, params, arena, *args, stride=STEP_STRIDE)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_bf16_logits_keep_fp32_sums():
+    """The card's lm_head product (bf16 in, fp32 out, ``aten::mm.dtype``)
+    against the fp32 product of the same bf16 values, at qwen2-0.5b's
+    width: the products are exact in fp32 and only the summation order
+    differs (rel < 1e-5)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.serve.decode import _last_logits
+    gen = torch.Generator("cuda").manual_seed(0)
+    x = torch.randn(8, 1, 896, generator=gen, device="cuda").bfloat16()
+    w = (torch.randn(896, 151936, generator=gen, device="cuda")
+         * 896 ** -0.5).bfloat16()
+    got = _last_logits(w, x)
+    want = torch.matmul(x.float(), w.float())
+    assert got.dtype == torch.float32 and got.shape == (8, 1, 151936)
+    assert _rel(want, got) < 1e-5

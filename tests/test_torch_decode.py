@@ -111,9 +111,12 @@ def _port_layout(jarena, q=4, r=4):
 
 
 def _check_arenas(jarena, tarena):
+    """Every page of the pool; the port's arena has one scratch page past
+    it (repro_torch.serve.decode)."""
     for je, te in zip(_port_layout(jarena), tarena):
         for name in je:
-            assert _rel(je[name], te[name].numpy()) < KV_TOL, name
+            n = je[name].shape[1]
+            assert _rel(je[name], te[name][:, :n].numpy()) < KV_TOL, name
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
