@@ -12,7 +12,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    together;
 3. paged-attention kernel against its plain version on the card — random scrambled block
    tables with holes, qwen2-0.5b head geometry (14 q heads over 2 kv heads,
-   hd 64, stride 16), B in {1, 8}, L in {1, 16, 64, 256}, bf16 and fp32
+   hd 64, stride 16), B in {1, 8}, L in {1, 5, 16, 64, 256} (5: the
+   speculative verify step at k = 4), bf16 and fp32
    arenas, contexts up to 512, plus hd 8 with two grid rows sharing the
    pages, B 1 decode at the end of a full 64-entry table (the bf16
    kernel's split over the table, every split busy) and batch-8 decode
@@ -24,21 +25,24 @@ Phases, in order; any failure raises and the script exits non-zero:
 4. SSD-scan kernels against their plain versions on the card — random
    inputs at the mamba2-780m geometry (48 heads x 64, state 128, 1 group)
    and the reduced one (8 x 16, state 16, 1 or 4 groups), B in {1, 8},
-   L in {1, 16, 64, 256}, one or two chunks, zero and non-zero initial
+   L in {1, 5, 16, 64, 256}, one or two chunks, zero and non-zero initial
    state, padding columns with dt = 0, bf16 and fp32 x, packed and
    contiguous: the two passes, then the op ``ssd_scan`` at one chunk of
    every case on the route kernel.py::plan names (the fused launch for
    bf16, the two passes for fp32) against ``ssd_scan_fused_ref``; then
    timings against the plain versions and the least time the card could
    take: the fused scan and the two tensor-core (mma) passes at batch 8,
-   L in {16, 64, 256}, bf16, mamba2-780m geometry; the two CUDA-core
-   (simt) passes at the fp32 reference configs' chunk step (batch 4,
-   L 16, the reduced geometry);
+   L in {5, 16, 64, 256}, bf16, mamba2-780m geometry; the two CUDA-core
+   (simt) passes at the fp32 reference configs' chunk and verify steps
+   (batch 4, L 16 and 5, the reduced geometry);
 5. end-to-end reference checks — the reduced qwen2, the reduced mamba2 and
    a small hybrid (attention + mamba) config in fp32, served on the card
    and on the CPU (plain versions) from the same weights (fp32 takes the
    two SSD passes on their simt variant: their launches here are the ones
-   the kernels line reports);
+   the kernels line reports); each is also served with n-gram speculation
+   on the card and on the CPU and without it on the card, with identical
+   tokens, and the reduced qwen2 self-drafts through DraftModelDrafter on
+   its own weights, every draft token accepted;
 6. the engine at full width — qwen2-0.5b (24 layers, d_model 896, vocab
    151936, bf16), then mamba2-780m (48 layers, d_model 1536, 48 SSD heads,
    vocab 50280, bf16), each with random weights from seed 0: 8 requests
@@ -59,7 +63,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    and idle share, the top kernels; for mamba2 also one batch-8 len256
    chunked-prefill step (a replay): its wall time, device busy time and
    the SSD kernels' share of it;
-9. the kernels line, the card line, and the result line.
+9. speculation — n-gram speculative decoding (k = 4) on each model, same
+   weights and engine setting: eight repetitive prompts of the smoke's
+   lengths, 32 greedy tokens, cold then warm, on a plain and on a
+   speculative engine.  Gates: every request ends ``"length"`` with its
+   32 tokens, no logits row (verify rows included) is non-finite, drafts
+   were proposed and verified, proposed = accepted + rejected, launches =
+   decode + prefill + verify, no page or slot left held, one graph per
+   step that ran (``verify_bs{N}_len5`` among them), paged attention on
+   every attention layer of every launch and the fused scan on every
+   mamba layer of every chunk and verify launch with the plain versions
+   at 0, for mamba2 at least one restore per rollback, and greedy tokens
+   equal to the plain engine's except where the plain run's top-2 margin
+   is a near-tie (``phase_speculation``); then the same workload on the
+   eager queue (identical tokens and ``EngineStats``) and three replayed
+   batch-8 verify steps under torch.profiler;
+10. the kernels line, the card line, and the result line.
 
 Between 4 and 5 run the phases of the paper core and the last two
 kernels:
@@ -127,6 +146,7 @@ HBM_BYTES_S = 3.35e12                       # H100 SXM, data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PROMPT_LENS = [5, 17, 40, 64, 100, 200, 300, 33]
 MAX_TOKENS = 32
+SPEC_K = 4                  # draft tokens a verify step checks: L = k + 1
 
 
 def check(cond, msg):
@@ -309,7 +329,7 @@ def phase_kernel_vs_plain():
     tol = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
     worst = {}
     cases = [dict(B=B, L=L, hd=64, Hq=14, kvh=2, stride=16, s_max=512,
-                  dtype=dt) for B in (1, 8) for L in (1, 16, 64, 256)
+                  dtype=dt) for B in (1, 8) for L in (1, 5, 16, 64, 256)
              for dt in (torch.bfloat16, torch.float32)]
     cases += [dict(B=3, L=L, hd=8, Hq=8, kvh=2, stride=4, s_max=64, dtype=dt,
                    qrows=2) for L in (1, 8)
@@ -356,19 +376,20 @@ def phase_kernel_vs_plain():
 def phase_timing(n_layers):
     """Kernel, plain and library times at the main path's shapes: batch 8
     of the smoke workload, bf16, cycling over ``n_layers`` arenas as the
-    engine's layers do.  Decode rows sit 16 tokens into generation; chunk
-    rows are each prompt's first chunk.  ``ms`` is CUDA events around
-    back-to-back wrapper calls (the wrapper's host time when that is the
-    longer); ``device_ms`` is the kernel's own time on the card."""
+    engine's layers do.  Decode and verify (L = 5) rows sit 16 tokens into
+    generation; chunk rows are each prompt's first chunk.  ``ms`` is CUDA
+    events around back-to-back wrapper calls (the wrapper's host time when
+    that is the longer); ``device_ms`` is the kernel's own time on the
+    card."""
     from repro_torch.kernels.paged_attention import (merge_rows,
                                                      paged_attention_ref)
     from repro_torch.kernels.paged_attention.kernel import \
         paged_attention_cuda
     rng = np.random.default_rng(1)
     rows = []
-    for L in (1, 16, 64, 256):
-        if L == 1:
-            ctx = [p + 16 + 1 for p in PROMPT_LENS]
+    for L in (1, SPEC_K + 1, 16, 64, 256):
+        if L in (1, SPEC_K + 1):        # decode, and a verify at k = 4
+            ctx = [p + 16 + L for p in PROMPT_LENS]
             start = [p + 16 for p in PROMPT_LENS]
         else:
             ctx = [p + 1 for p in PROMPT_LENS]
@@ -529,6 +550,12 @@ def phase_ssd_vs_plain():
                     cases.append(dict(B=8 if nc == 1 else 1, L=L, nc=nc,
                                       dtype=dt, pad=3 * (nc == 1),
                                       init=nc == 2, H=8, P=16, G=G, N=16))
+    # the verify step at k = 4: one chunk of 5, zero and non-zero state
+    for B in (1, 8):
+        for init in (False, True):
+            for dt in (torch.bfloat16, torch.float32):
+                cases.append(dict(B=B, L=SPEC_K + 1, nc=1, dtype=dt,
+                                  pad=int(B == 1), init=init, **MAMBA2_GEOM))
     worst = {}
     for i, c in enumerate(cases):
         # each bf16/fp32 pair of cases runs one packed, the other
@@ -724,11 +751,13 @@ def phase_ssd_timing(n_sets=4):
     chunk step gives them (batch 4, L 16, reduced mamba2 geometry)."""
     rng = np.random.default_rng(4)
     rows = []
-    for L in (16, 64, 256):
+    for L in (SPEC_K + 1, 16, 64, 256):
         rows += ssd_timing_rows(rng, B=8, L=L, geom=MAMBA2_GEOM,
                                 dtype=torch.bfloat16, n_sets=n_sets)
-    simt = ssd_timing_rows(rng, B=4, L=16, geom=REDUCED_GEOM,
-                           dtype=torch.float32, n_sets=n_sets)
+    simt = []
+    for L in (SPEC_K + 1, 16):
+        simt += ssd_timing_rows(rng, B=4, L=L, geom=REDUCED_GEOM,
+                                dtype=torch.float32, n_sets=n_sets)
     check(all(t["variant"] == "simt" for t in simt),
           f"fp32 passes took {[t['variant'] for t in simt]}")
     return rows + simt
@@ -1136,16 +1165,49 @@ def phase_flash_timing():
 
 
 def checking_engine():
-    """ServingEngine that refuses any non-finite logits row it samples."""
+    """ServingEngine that refuses any non-finite logits row it samples,
+    the verify rows of its speculative rounds included, while its
+    ``checking`` is on (a pass timed for tokens/s turns it off: the check
+    reads every row on the host, five per slot in a verify round)."""
     from repro_torch.serve.engine import ServingEngine
 
     class Checked(ServingEngine):
+        checking = True
+
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            if self.spec is not None:
+                check_verify_rows(self.spec)
+
         def _commit(self, sd, rows, fed):
             live = [s for s, r in enumerate(sd.slots) if r is not None]
-            check(bool(np.isfinite(rows[live]).all()),
+            check(not self.checking or bool(np.isfinite(rows[live]).all()),
                   "non-finite logits row")
             super()._commit(sd, rows, fed)
     return Checked
+
+
+def check_verify_rows(spec):
+    """Make ``spec`` refuse a round whose verify rows (those its slots fed)
+    hold a non-finite logit."""
+    commit = spec.commit
+
+    def checked(rnd, rows):
+        for s, r in enumerate(rnd.sd.slots):
+            check(r is None or not spec.eng.checking or bool(
+                np.isfinite(rows[s, :rnd.fed[s]]).all()),
+                "non-finite verify logits row")
+        commit(rnd, rows)
+    spec.commit = checked
+
+
+def to_dtype(tree, dtype):
+    """A copy of a weight tree with every floating leaf cast to dtype."""
+    if isinstance(tree, dict):
+        return {k: to_dtype(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_dtype(v, dtype) for v in tree]
+    return tree.to(dtype) if tree.is_floating_point() else tree
 
 
 def to_device(tree, dev):
@@ -1227,6 +1289,67 @@ def reference_check(cfg):
           f"card {tokens['kernel']}")
     emit("reference", config=cfg.name, step_logits_rel_err=step_err,
          greedy_tokens_match=True, tokens=tokens["kernel"])
+    reference_speculation(cfg, runs, prompts, tokens["kernel"],
+                          self_draft=not specs.has_dense)
+
+
+def reference_speculation(cfg, runs, prompts, plain_tokens, self_draft):
+    """``cfg`` (fp32) served with n-gram speculation (k = 4) on the card
+    and on the CPU, and without it on the card, over repetitive prompts:
+    the greedy tokens of the three must be identical, and the two
+    speculative runs' counters too.  An attention-only config then
+    self-drafts on the card through ``DraftModelDrafter`` with its own
+    weights (buckets 1, as tests/test_speculative.py:289): every draft
+    token must be accepted and the tokens must be the plain run's."""
+    from repro_torch.serve.engine import (EngineConfig, SamplingParams,
+                                          generate)
+    from repro_torch.serve.spec import DraftModelDrafter, SpeculationConfig
+    ngram = SpeculationConfig("ngram", k=SPEC_K)
+    work = spec_prompts(cfg.vocab_size, lens=(12, 20, 7, 30))
+    sampling = SamplingParams(max_tokens=16)
+    tokens, stats = {}, {}
+    for label, dev, params, speculation in (
+            ("card_spec", "cuda", runs["kernel"][1], ngram),
+            ("cpu_spec", "cpu", runs["plain"][1], ngram),
+            ("card_plain", "cuda", runs["kernel"][1], None)):
+        ec = EngineConfig(s_max=64, buckets=(1, 2, 4), block_pos_stride=4,
+                          prefill_chunks=(4, 16), device=dev,
+                          speculation=speculation)
+        eng = checking_engine()(cfg, params=params, engine_cfg=ec)
+        tokens[label] = [c.tokens for c in generate(eng, work, sampling)]
+        stats[label] = {k: v for k, v in dataclasses.asdict(eng.stats)
+                        .items() if k.startswith(("spec_", "decode_",
+                                                  "prefill_"))}
+    check(tokens["card_spec"] == tokens["cpu_spec"] == tokens["card_plain"],
+          f"{cfg.name}: speculative tokens differ: {tokens}")
+    check(stats["card_spec"] == stats["cpu_spec"],
+          f"{cfg.name}: speculative counters differ, card and cpu: {stats}")
+    check(stats["card_spec"]["spec_launches"] > 0,
+          f"{cfg.name}: no verify launch in the speculative run")
+    row = dict(config=cfg.name, tokens_match=True, spec=stats["card_spec"])
+    if self_draft:
+        ec = EngineConfig(s_max=64, buckets=(1,), block_pos_stride=4,
+                          prefill_chunks=(4, 16), device="cuda",
+                          speculation=SpeculationConfig("ngram", k=3))
+        eng = checking_engine()(cfg, params=runs["kernel"][1],
+                                engine_cfg=ec)
+        drafter = DraftModelDrafter(cfg, s_max=64, stride=4,
+                                    params=eng.params, chunk=8,
+                                    device="cuda")
+        set_drafter(eng, drafter)
+        got = [c.tokens for c in generate(eng, prompts,
+                                          SamplingParams(max_tokens=8))]
+        st = eng.stats
+        check(got == plain_tokens, f"{cfg.name}: self-drafted tokens "
+              f"differ: {got} != {plain_tokens}")
+        check(st.spec_proposed_tokens > 0 and st.spec_accept_rate == 1.0,
+              f"{cfg.name}: self-draft accepted {st.spec_accepted_tokens} "
+              f"of {st.spec_proposed_tokens}")
+        row.update(self_draft_proposed=st.spec_proposed_tokens,
+                   self_draft_accept_rate=st.spec_accept_rate,
+                   draft_launches=drafter.n_launches,
+                   draft_graphs=drafter.queue.n_executables)
+    emit("reference_speculation", **row)
 
 
 def phase_reference():
@@ -1267,6 +1390,18 @@ def phase_reference():
     return launches
 
 
+def spec_prompts(vocab, lens=PROMPT_LENS):
+    """Repetitive prompts, built as tests/test_speculative.py:49 builds
+    them: tiled patterns of 2-4 tokens from ``default_rng(0)``, cut to
+    ``lens``."""
+    rng = np.random.default_rng(0)
+    out = []
+    for n in lens:
+        pat = rng.integers(0, vocab, size=int(rng.integers(2, 5))).tolist()
+        out.append((pat * -(-n // len(pat)))[:n])
+    return out
+
+
 def kernel_counters():
     """name -> (the wrapper whose count is the kernel's launches, the plain
     version that must not run on the main path)."""
@@ -1285,12 +1420,47 @@ def kernel_counters():
             "ssd_scan_fused": (ssd_scan_fused_cuda, ssd_scan_fused_ref)}
 
 
+def run_pass(eng, label, serve_fn, queue_kind):
+    """One pass of ``serve_fn()`` on fresh ``EngineStats`` and event
+    stamps; checks every request ended ``"length"`` with its tokens and
+    returns (the pass's numbers, its greedy tokens, its EngineStats)."""
+    from repro_torch.serve.engine import EngineStats
+    eng.stats = EngineStats()
+    for ev in eng.kernel_events().values():
+        ev.first_enqueue_t = ev.last_enqueue_t = ev.last_done_t = 0.0
+    t0 = time.perf_counter()
+    outs = serve_fn()
+    wall = time.perf_counter() - t0
+    st = eng.stats
+    for c in outs:
+        check(c.finish_reason == "length" and len(c.tokens) == MAX_TOKENS,
+              f"{c.request_id}: {c.finish_reason} after "
+              f"{len(c.tokens)} tokens")
+    ttft = [c.ttft_s for c in outs]
+    row = dict(
+        wall_s=wall, tokens=st.tokens_generated,
+        tokens_per_s=eng.throughput_tok_s(),
+        mean_ttft_ms=1e3 * float(np.mean(ttft)),
+        launches=st.launches, decode_launches=st.decode_launches,
+        prefill_launches=st.prefill_launches,
+        prefill_chunk_launches=st.prefill_chunk_launches,
+        spec_launches=st.spec_launches,
+        tokens_per_launch=st.tokens_generated / max(st.launches, 1),
+        prompt_tokens_ingested=st.prompt_tokens_ingested,
+        prefix_hits=st.prefix_hits, prefix_hit_rate=st.prefix_hit_rate,
+        peak_dense_slots_used=st.peak_dense_slots_used,
+        peak_kv_bytes=eng.peak_kv_bytes())
+    emit("engine_pass", config=eng.cfg.name, run=label, queue=queue_kind,
+         **row)
+    return row, [c.tokens for c in outs], dataclasses.asdict(st)
+
+
 def serve_passes(eng, cfg, prompts, arrivals, sampling,
                  queue_kind="graphs"):
     """Cold, warm and one-per-step arrival passes; returns per-pass stats,
     the engine launches of all three (by kind), the steps that ran and
     each pass's greedy tokens and ``EngineStats``."""
-    from repro_torch.serve.engine import EngineStats, completion_of, generate
+    from repro_torch.serve.engine import completion_of, generate
 
     def at_once(batch):
         return generate(eng, batch, sampling)
@@ -1311,34 +1481,12 @@ def serve_passes(eng, cfg, prompts, arrivals, sampling,
     for label, serve_fn, batch in (("cold", at_once, prompts),
                                    ("warm", at_once, prompts),
                                    ("arrivals", one_per_step, arrivals)):
-        eng.stats = EngineStats()
-        for ev in eng.kernel_events().values():
-            ev.first_enqueue_t = ev.last_enqueue_t = ev.last_done_t = 0.0
-        t0 = time.perf_counter()
-        outs = serve_fn(batch)
-        wall = time.perf_counter() - t0
-        st = eng.stats
-        totals["launches"] += st.launches
-        totals["prefill_chunk_launches"] += st.prefill_chunk_launches
-        for c in outs:
-            check(c.finish_reason == "length" and len(c.tokens) == MAX_TOKENS,
-                  f"{c.request_id}: {c.finish_reason} after "
-                  f"{len(c.tokens)} tokens")
-        ttft = [c.ttft_s for c in outs]
-        passes[label] = dict(
-            wall_s=wall, tokens=st.tokens_generated,
-            tokens_per_s=eng.throughput_tok_s(),
-            mean_ttft_ms=1e3 * float(np.mean(ttft)),
-            launches=st.launches, decode_launches=st.decode_launches,
-            prefill_launches=st.prefill_launches,
-            prefill_chunk_launches=st.prefill_chunk_launches,
-            prompt_tokens_ingested=st.prompt_tokens_ingested,
-            prefix_hits=st.prefix_hits, prefix_hit_rate=st.prefix_hit_rate,
-            peak_dense_slots_used=st.peak_dense_slots_used,
-            peak_kv_bytes=eng.peak_kv_bytes())
-        outputs[label] = ([c.tokens for c in outs], dataclasses.asdict(st))
-        emit("engine_pass", config=cfg.name, run=label, queue=queue_kind,
-             **passes[label])
+        passes[label], tokens, stats = run_pass(
+            eng, label, lambda: serve_fn(batch), queue_kind)
+        totals["launches"] += stats["decode_launches"] \
+            + stats["prefill_launches"] + stats["spec_launches"]
+        totals["prefill_chunk_launches"] += stats["prefill_chunk_launches"]
+        outputs[label] = (tokens, stats)
     names = sorted(eng.kernel_events())
     for L in (16, 64, 256):
         check(any(n.endswith(f"_len{L}") for n in names),
@@ -1482,6 +1630,450 @@ def phase_graphs(eng, prompts, arrivals, sampling, outputs):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Speculative decoding at full width.
+# ---------------------------------------------------------------------------
+
+SPEC_MARGIN = 0.02      # top-2 margin / row std below which greedy may flip
+
+
+def record_rows(eng):
+    """Record, per (prompt, output index), the logits row each committed
+    token came from: every row the plain sampler draws from, or, with
+    speculation, every verify row a round commits.  Returns the dict the
+    wrapper fills (rows copied: the engine reuses its buffers) and a
+    function that takes the wrapper off."""
+    rec = {}
+    if eng.spec is None:
+        sample = eng._sample
+
+        def sampled(req, row):
+            rec[(tuple(req.prompt), len(req.output_tokens))] = row.copy()
+            return sample(req, row)
+        eng._sample = sampled
+        return rec, lambda: delattr(eng, "_sample")
+    commit = eng.spec.commit
+
+    def committed(rnd, rows):
+        n0 = {s: (r, len(r.output_tokens))
+              for s, r in enumerate(rnd.sd.slots) if r is not None}
+        commit(rnd, rows)
+        for s, (r, n) in n0.items():
+            for j in range(len(r.output_tokens) - n):
+                rec[(tuple(r.prompt), n + j)] = rows[s, j].copy()
+    eng.spec.commit = committed
+    return rec, lambda: setattr(eng.spec, "commit", commit)
+
+
+WARM_TIMED = ("warm", "warm2", "warm3")
+
+
+def spec_passes(eng, prompts, sampling, queue_kind):
+    """The speculation workload: a cold pass, three warm passes (timed: no
+    rows recorded or checked on the host; the host clock spreads, so the
+    median is the one reported), and the warm pass again with every
+    committed row recorded and checked.  Every warm pass must give the
+    same tokens.  Returns per-pass numbers (``warm`` holding the median
+    tokens/s and TTFT of the timed ones), tokens and ``EngineStats``, and
+    the recorded rows of the cold and warm passes."""
+    from repro_torch.serve.engine import generate
+    passes, outputs, recs = {}, {}, {}
+    drafter = eng.spec.drafter if eng.spec is not None else None
+    for label in ("cold",) + WARM_TIMED + ("warm_rec",):
+        if isinstance(drafter, ReplayDrafter):
+            drafter.plain = drafter.tables[label[:4]]
+        timed = label in WARM_TIMED
+        if not timed:
+            rec, unwrap = record_rows(eng)
+            recs[label[:4]] = rec
+        eng.checking = not timed
+        passes[label], tokens, stats = run_pass(
+            eng, label, lambda: generate(eng, prompts, sampling), queue_kind)
+        eng.checking = True
+        outputs[label] = (tokens, stats)
+        if not timed:
+            unwrap()
+        check(label[:4] != "warm" or tokens == outputs["warm"][0],
+              f"{eng.cfg.name}: warm pass {label} gave other tokens")
+    for key in ("tokens_per_s", "mean_ttft_ms"):
+        runs = [passes[label][key] for label in WARM_TIMED]
+        passes["warm"][key + "_runs"] = runs
+        passes["warm"][key] = float(np.median(runs))
+    return passes, outputs, recs
+
+
+def greedy_against_plain(prompts, plain, spec, plain_rows, verify_rows):
+    """Per request: the first index where the speculative tokens leave the
+    plain ones (None: identical), that position's plain top-2 margin over
+    its row's std, and over every position before it where a verify row
+    produced the token, max |verify row - plain row| / std(plain row)."""
+    firsts, margins, diffs = [], [], []
+    for p, a, b in zip(prompts, plain, spec):
+        key = tuple(p)
+        i = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        firsts.append(i)
+        if i is not None:
+            row = plain_rows[(key, i)]
+            top = np.partition(row, -2)[-2:]
+            margins.append(float((top[1] - top[0]) / row.std()))
+        for j in range(len(a) if i is None else i):
+            v = verify_rows.get((key, j))
+            if v is not None:
+                row = plain_rows[(key, j)]
+                diffs.append(float(np.abs(v - row).max() / row.std()))
+    return firsts, margins, diffs
+
+
+class ReplayDrafter:
+    """A drafter of this script, not of the package: it proposes the plain
+    run's own next tokens (of the same pass, set by ``spec_passes``) with
+    the last one changed, so a round whose sequence still follows the
+    plain run accepts up to k - 1 tokens and rejects the last — a partial
+    acceptance every round, which rolls dense state back.  It drafts
+    whatever the model's output looks like, where the n-gram drafter needs
+    the output to repeat itself (random mamba2-780m weights never do on
+    this workload)."""
+
+    name = "replay"
+
+    def __init__(self, tables, vocab):
+        self.tables = tables        # pass -> prompt tuple -> plain tokens
+        self.plain = tables["cold"]
+        self.vocab = vocab
+
+    def propose(self, request, k):
+        i = len(request.output_tokens)
+        toks = list(self.plain[tuple(request.prompt)][i:i + k])
+        if toks:
+            toks[-1] = (toks[-1] + 1) % self.vocab
+        return toks
+
+    def rollback(self, request):
+        pass
+
+    def release(self, request_id):
+        pass
+
+
+def set_drafter(eng, drafter):
+    """Give ``eng`` a fresh SpecDecoder with ``drafter`` (None: the
+    configured one), its verify rows checked as ``checking_engine``
+    checks them."""
+    from repro_torch.serve.spec import SpecDecoder
+    eng.spec = SpecDecoder(eng, eng.engine_cfg.speculation, drafter=drafter)
+    check_verify_rows(eng.spec)
+
+
+def phase_speculation(arch, params, dtype=torch.bfloat16,
+                      drafters=("ngram", "replay")):
+    """Speculative decoding (k = 4) at full width on the main path's
+    engine setting and weights (bf16; in fp32 the same weights widened):
+    eight repetitive prompts of the smoke's lengths, 32 greedy tokens
+    each, served cold, warm, and warm again with every committed row
+    recorded, on a plain engine and then on a speculative one per drafter:
+    the package's n-gram drafter, and ``ReplayDrafter`` (every round a
+    partial acceptance).  Each speculative run is checked by
+    ``speculation_run``; one of the runs must have verified drafts.
+    Returns the kernels' launches over the runs' passes."""
+    from repro_torch.configs import get_config
+    from repro_torch.serve.engine import EngineConfig, SamplingParams
+    from repro_torch.serve.spec import SpeculationConfig
+    cfg = dataclasses.replace(get_config(arch), param_dtype=dtype,
+                              compute_dtype=dtype)
+    ec = EngineConfig(s_max=512, buckets=(1, 2, 4, 8), block_pos_stride=16,
+                      prefill_chunks=(16, 64, 256), device="cuda")
+    prompts = spec_prompts(cfg.vocab_size)
+    sampling = SamplingParams(max_tokens=MAX_TOKENS)
+    plain = checking_engine()(cfg, params=params, engine_cfg=ec)
+    base = spec_passes(plain, prompts, sampling, "graphs")
+    del plain
+    torch.cuda.empty_cache()
+    tables = {label: dict(zip(map(tuple, prompts), base[1][label][0]))
+              for label in ("cold", "warm")}
+    spec_ec = dataclasses.replace(
+        ec, speculation=SpeculationConfig("ngram", k=SPEC_K))
+    launches, verified = {}, 0
+    for kind in drafters:
+        drafter = ReplayDrafter(tables, cfg.vocab_size) \
+            if kind == "replay" else None
+        got, n_verify = speculation_run(cfg, params, spec_ec, drafter,
+                                        prompts, sampling, base)
+        verified += n_verify
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+    check(verified > 0, f"{arch}: no drafter's tokens were verified")
+    return launches
+
+
+def speculation_run(cfg, params, ec, drafter, prompts, sampling, base):
+    """One drafter's speculative engine: the kernels' counts are set to 0
+    just before its passes and read just after.  Gates: every request
+    ends ``"length"`` with its 32 tokens; no logits row, verify rows
+    included, is non-finite; proposed = accepted + rejected; launches =
+    decode + prefill + verify; no page or dense slot left held; one graph
+    per step that ran; paged attention on every attention layer of every
+    launch and the fused SSD scan on every mamba layer of every chunk and
+    verify launch, the plain versions at 0; for a dense model at least one
+    restore per rollback; greedy tokens equal to the plain engine's,
+    except that a request may leave them at a position where the plain
+    run's top-2 margin is below SPEC_MARGIN of its row's std — or, if
+    verify and plain rows at agreeing positions differ by more than that,
+    below twice the largest such difference (a row perturbation of d
+    moves the top-2 gap by at most 2d).  A run that verified drafts must
+    hold ``verify_bs{N}_len5`` graphs, and ``ReplayDrafter`` must draft.
+    Then the same passes on the eager queue, the verify-step profile, and
+    for a dense model the snapshot and restore times.  Returns (launches,
+    verify launches)."""
+    name = "ngram" if drafter is None else drafter.name
+    eng = checking_engine()(cfg, params=params, engine_cfg=ec)
+    if drafter is not None:
+        set_drafter(eng, drafter)
+    counters = kernel_counters()
+    for kern, plain_fn in counters.values():    # every count to 0 ...
+        kern.launches = plain_fn.launches = 0
+    restores0 = eng.store.n_restores
+    passes, outputs, recs = spec_passes(eng, prompts, sampling, "graphs")
+    launches = {k: kern.launches for k, (kern, _) in counters.items()}
+    plain_runs = {k: p.launches for k, (_, p) in counters.items()}  # read
+    restores = eng.store.n_restores - restores0
+
+    tot = {k: sum(o[1][k] for o in outputs.values()) for k in (
+        "decode_launches", "prefill_launches", "spec_launches",
+        "prefill_chunk_launches", "spec_proposed_tokens",
+        "spec_accepted_tokens", "spec_rejected_tokens", "spec_rollbacks")}
+    n_launches = tot["decode_launches"] + tot["prefill_launches"] \
+        + tot["spec_launches"]
+    arch = f"{cfg.name} ({name})"
+    check(drafter is None or tot["spec_launches"] > 0,
+          f"{arch}: the replay drafter's rounds never ran")
+    for label, (_, st) in outputs.items():
+        check(st["spec_proposed_tokens"] == st["spec_accepted_tokens"]
+              + st["spec_rejected_tokens"],
+              f"{arch} {label}: proposed != accepted + rejected")
+    check(eng.pool.n_free == eng.pool.n_blocks,
+          f"{arch}: {eng.pool.n_blocks - eng.pool.n_free} pages still held")
+    check(eng.store.slot_pool is None or eng.store.slot_pool.n_used == 0,
+          f"{arch}: dense slots still held")
+    graphs = check_graphs(eng)
+    verify = sorted(n for n in eng.kernel_events()
+                    if n.startswith("verify_bs"))
+    check(bool(verify) == (tot["spec_launches"] > 0) and all(
+        n.endswith(f"_len{SPEC_K + 1}") for n in verify),
+        f"{arch}: verify steps {verify}")
+    mixers = [m for m, _ in cfg.pattern()]
+    # kernel.py::plan: bf16 (state 128) at one chunk takes the fused scan,
+    # fp32 the two passes on the CUDA cores
+    fused = cfg.compute_dtype == torch.bfloat16
+    scans = mixers.count("mamba") * (tot["prefill_chunk_launches"]
+                                     + tot["spec_launches"])
+    per_group = {"paged_attention": mixers.count("attn") * n_launches,
+                 "ssd_chunk": 0 if fused else scans,
+                 "ssd_apply": 0 if fused else scans,
+                 "ssd_scan_fused": scans if fused else 0}
+    for k, n in per_group.items():
+        check(launches[k] == cfg.n_groups() * n,
+              f"{arch}: {k} launches {launches[k]} != {cfg.n_groups() * n}")
+        check(plain_runs[k] == 0,
+              f"{arch}: the plain {k} ran {plain_runs[k]} times")
+    if eng.store.has_dense:
+        check(restores >= tot["spec_rollbacks"],
+              f"{arch}: {restores} restores < {tot['spec_rollbacks']} "
+              f"rollbacks")
+
+    base_passes, base_out, base_recs = base
+    compared = {label: greedy_against_plain(
+        prompts, base_out[label][0], outputs[label][0], base_recs[label],
+        recs[label]) for label in ("cold", "warm")}
+    diffs = [d for _, _, ds in compared.values() for d in ds]
+    d_max = max(diffs) if diffs else 0.0
+    bound = SPEC_MARGIN if 2 * d_max <= SPEC_MARGIN else 2 * d_max
+    for label, (firsts, margins, _) in compared.items():
+        for m in margins:
+            check(m < bound, f"{arch} {label}: speculative tokens leave the "
+                  f"plain ones where the plain top-2 margin is {m:.4f} of "
+                  f"the row std (bound {bound:.4f}): {firsts}")
+    ev = eng.kernel_events()
+    emit("speculation", config=cfg.name, drafter=name, k=SPEC_K,
+         dtype=dname(cfg.compute_dtype),
+         kernel_launches=launches, plain_launches=plain_runs,
+         engine_launches=n_launches, restores=restores, **tot,
+         accept_rate=tot["spec_accepted_tokens"]
+         / max(tot["spec_proposed_tokens"], 1),
+         identical_requests={k: sum(i is None for i in v[0])
+                             for k, v in compared.items()},
+         first_divergence={k: v[0] for k, v in compared.items()},
+         divergence_margins={k: v[1] for k, v in compared.items()},
+         verify_vs_plain_row_diff=dict(
+             n=len(diffs), max=d_max,
+             p50=float(np.percentile(diffs, 50)) if diffs else None,
+             p90=float(np.percentile(diffs, 90)) if diffs else None,
+             p99=float(np.percentile(diffs, 99)) if diffs else None),
+         margin_bound=bound,
+         tokens_per_launch={
+             "spec": {k: p["tokens_per_launch"] for k, p in passes.items()},
+             "plain": {k: p["tokens_per_launch"]
+                       for k, p in base_passes.items()}},
+         warm_tokens_per_s={
+             "spec": passes["warm"]["tokens_per_s_runs"],
+             "plain": base_passes["warm"]["tokens_per_s_runs"]},
+         warm_mean_ttft_ms={
+             "spec": passes["warm"]["mean_ttft_ms_runs"],
+             "plain": base_passes["warm"]["mean_ttft_ms_runs"]},
+         verify_build_s={n: ev[n].build_time_s for n in verify},
+         graphs=graphs)
+    phase_graphs_spec(eng, drafter, prompts, sampling, outputs)
+    if any(n.startswith("verify_bs8_") for n in verify):
+        phase_verify_profile(eng, name, prompts, sampling)
+    if eng.store.has_dense and drafter is not None:
+        emit("snapshot_restore", config=cfg.name,
+             dtype=dname(cfg.compute_dtype), **snapshot_restore_ms(eng))
+    del eng
+    torch.cuda.empty_cache()
+    return launches, tot["spec_launches"]
+
+
+def snapshot_restore_ms(eng, reps=5):
+    """Wall time of a verify round's dense snapshot of 8 slots (one gather
+    per dense leaf) and of restoring all 8 (the worst round), host clock
+    around each with a synchronize, least and mean of ``reps``; and the
+    bytes snapshotted.  Runs on the free slots after the passes."""
+    store = eng.store
+    slots = list(range(8))
+    snap_ms, restore_ms = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        snaps = store.snapshot_slots(slots)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for slot, snap in zip(slots, snaps):
+            store.restore_slot(slot, snap)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        snap_ms.append((t1 - t0) * 1e3)
+        restore_ms.append((t2 - t1) * 1e3)
+    return dict(slots=len(slots), bytes=len(slots) * store.dense_slot_bytes,
+                snapshot_ms_min=min(snap_ms),
+                snapshot_ms_mean=float(np.mean(snap_ms)),
+                restore_all_ms_min=min(restore_ms),
+                restore_all_ms_mean=float(np.mean(restore_ms)))
+
+
+def phase_graphs_spec(eng, drafter, prompts, sampling, outputs):
+    """The same speculative passes on a queue that runs every step body
+    eagerly, the verify steps included: each pass's greedy tokens and
+    ``EngineStats`` must equal the replaying engine's."""
+    eager = eager_engine()(eng.cfg, params=eng.params,
+                           engine_cfg=eng.engine_cfg)
+    if drafter is not None:
+        set_drafter(eager, drafter)
+    passes, got, _ = spec_passes(eager, prompts, sampling, "eager")
+    for label in ("cold",) + WARM_TIMED + ("warm_rec",):
+        check(got[label][0] == outputs[label][0],
+              f"{eng.cfg.name} speculation {label}: replayed tokens differ "
+              f"from eager ones")
+        check(got[label][1] == outputs[label][1],
+              f"{eng.cfg.name} speculation {label}: EngineStats differ: "
+              f"graphs {outputs[label][1]} eager {got[label][1]}")
+    emit("graphs_speculation", config=eng.cfg.name,
+         drafter=eng.spec.drafter.name, tokens_match=True, stats_match=True,
+         eager_warm=passes["warm"])
+    del eager
+    torch.cuda.empty_cache()
+
+
+def verify_steps(eng, prompts, sampling, measure, n_keep=3, max_steps=60):
+    """Serve ``prompts`` again and call ``measure(step)`` around each step
+    after the first tokens until ``n_keep`` steps were batch-8 verify
+    launches; ``measure`` returns that step's row.  Returns the rows of
+    the verify steps."""
+    name = f"verify_bs8_len{SPEC_K + 1}"
+    reqs = [eng.submit(p, sampling) for p in prompts]
+    while not all(r.output_tokens for r in reqs):
+        eng.step()
+    built = eng.queue.n_executables
+    ev = eng.kernel_events()[name]
+    rows = []
+    for _ in range(max_steps):
+        if len(rows) == n_keep or not eng.scheduler.has_work:
+            break
+        n0 = ev.launches
+        torch.cuda.synchronize()
+        row = measure(eng.step)
+        if ev.launches == n0 + 1:
+            rows.append(row)
+    check(eng.queue.n_executables == built,
+          "a step was built inside the measured window")
+    eng.drain()
+    check(len(rows) == n_keep, f"{len(rows)} {name} steps in {max_steps}")
+    return rows
+
+
+def phase_verify_profile(eng, drafter, prompts, sampling):
+    """Where a replayed batch-8 verify step's time goes.  First without
+    the profiler: the step's host wall split into the round's phases
+    (``prepare``: drafting, page ensures and the dense snapshot;
+    ``launch``: operand fill, graph replay, logits rows to the host and
+    the wait; ``commit``: accept/reject, bookkeeping and restores) and the
+    rest (scheduling, ``finish``).  Then each step under its own
+    torch.profiler window: wall, device busy time, idle share and top
+    kernels.  The host checks of the rows are off (the passes made
+    them)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    spec, parts = eng.spec, {}
+    eng.checking = False
+
+    def timed(fn, key):
+        def run(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            parts[key] = parts.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        return run
+    saved = {key: getattr(spec, key) for key in ("prepare", "launch",
+                                                "commit")}
+    for key, fn in saved.items():
+        setattr(spec, key, timed(fn, key))
+
+    def split(step):
+        parts.clear()
+        t0 = time.perf_counter()
+        step()
+        wall = time.perf_counter() - t0
+        row = {f"{k}_ms": v * 1e3 for k, v in parts.items()}
+        row["rest_ms"] = (wall - sum(parts.values())) * 1e3
+        row["step_wall_ms"] = wall * 1e3
+        return row
+    host = verify_steps(eng, prompts, sampling, split)
+    for key, fn in saved.items():
+        setattr(spec, key, fn)
+
+    def profiled(step):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kern = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in kern) / 1e3
+        top = sorted(kern, key=lambda e: -e.self_device_time_total)[:10]
+        return dict(
+            step_wall_ms=wall_ms,
+            device_busy_ms=busy if kern else "not measured",
+            device_idle_share=1 - busy / wall_ms if kern
+            else "not measured",
+            kernels=sum(e.count for e in kern),
+            top=[{"name": e.key[:80], "ms": e.self_device_time_total / 1e3,
+                  "calls": e.count} for e in top])
+    rows = verify_steps(eng, prompts, sampling, profiled)
+    emit("verify_profile", config=eng.cfg.name, drafter=drafter,
+         step=f"verify_bs8_len{SPEC_K + 1}", host=host, steps=rows)
+    return rows
+
+
 def phase_profile(eng, prompts, sampling, n_steps=8):
     """Where a batch-8 decode step's time goes: ``n_steps`` steps under
     torch.profiler after the prompts are in.  Device busy time is the sum
@@ -1599,22 +2191,39 @@ def main() -> int:
     flash_worst = phase_flash_vs_plain()
     flash_launches, flash_timing = phase_flash_timing()
     ref_launches = phase_reference()
-    launches = {}
+    launches, by_path = {}, {}
     for arch in ("qwen2-0.5b", "mamba2-780m"):
         counts, eng, prompts, arrivals, sampling, outputs = \
             phase_engine(arch)
-        launches.update({k: n for k, n in counts.items() if n})
         phase_graphs(eng, prompts, arrivals, sampling, outputs)
         phase_profile(eng, arrivals, sampling)
         if eng.store.has_dense:
             phase_prefill_profile(eng)
+        params = eng.params
         del eng
         torch.cuda.empty_cache()
+        spec_counts = phase_speculation(arch, params)
+        if arch == "mamba2-780m":
+            # the same weights in fp32: verify and decode rows then differ
+            # by the order of fp32 sums only (the bf16 run's differences
+            # are the two paths' bf16 roundings)
+            fp32 = phase_speculation(arch, to_dtype(params, torch.float32),
+                                     dtype=torch.float32,
+                                     drafters=("replay",))
+            for k, n in fp32.items():
+                spec_counts[k] = spec_counts.get(k, 0) + n
+        del params
+        for path, got in (("engine", counts), ("speculation", spec_counts)):
+            for k, n in got.items():
+                if n:
+                    launches[k] = launches.get(k, 0) + n
+                    by_path.setdefault(k, {})[f"{arch} {path}"] = n
 
     decode = timing[0]
     kernels = [{
         "name": "paged_attention", "route": "cuda", "source": SOURCE,
         "replaces": REPLACES, "launches": launches["paged_attention"],
+        "launches_by_path": by_path["paged_attention"],
         "max_abs_err": decode["max_abs_err"],
         "max_rel_err": max(w[0] for w in worst.values()),
         "ms": decode["ms"], "plain_ms": decode["plain_ms"],
@@ -1654,11 +2263,15 @@ def main() -> int:
     kernels.append(ssd_entry("ssd_scan_fused", "mma",
                              ssd_rows("ssd_scan_fused", "mma"),
                              launches["ssd_scan_fused"],
-                             "engine (mamba2-780m)"))
+                             "engine and speculation (mamba2-780m)"))
+    kernels[-1]["launches_by_path"] = by_path["ssd_scan_fused"]
     for name in ("ssd_chunk", "ssd_apply"):
         entry = ssd_entry(name, "simt", ssd_rows(name, "simt"),
-                          ref_launches[name],
-                          "reference (fp32 reduced mamba2 and hybrid)")
+                          ref_launches[name] + launches.get(name, 0),
+                          "reference (fp32 reduced mamba2 and hybrid) and "
+                          "speculation (mamba2-780m in fp32)")
+        entry["launches_by_path"] = {"reference": ref_launches[name],
+                                     **by_path.get(name, {})}
         mma = ssd_entry(name, "mma", ssd_rows(name, "mma"), 0, "none")
         entry["mma"] = {k: mma[k] for k in (
             "max_abs_err", "max_rel_err", "ms", "plain_ms", "bound_ms",

@@ -10,9 +10,12 @@ serves the full-width model on ``cuda`` with random weights from seed 0
 (attention layers page their K/V, mamba layers keep dense state slots).
 ``--smoke`` takes the ``reduced()`` config instead (as the JAX launcher
 always does); ``--device cpu`` runs the plain PyTorch versions of every
-kernel on the CPU.  Only the ``--engine`` path is ported so far; the
-fixed-batch, ``--service`` and ``--supervised`` paths come with later
-slices.
+kernel on the CPU.  ``--speculation ngram`` (or ``draft_model``, which
+self-drafts with the reduced target config and so needs ``--smoke``)
+verifies up to ``--spec-k`` draft tokens per slot in one
+``verify_bs{N}_len{k+1}`` launch.  Only the ``--engine`` path is ported so
+far; the fixed-batch, ``--service`` and ``--supervised`` paths come with
+later slices.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import numpy as np
 from repro_torch.configs import ARCH_NAMES, get_config, reduced
 from repro_torch.serve.engine import (EngineConfig, SamplingParams,
                                       build_engine, generate)
+from repro_torch.serve.spec import SpeculationConfig
 
 
 def _engine_cfg(args) -> EngineConfig:
@@ -31,10 +35,18 @@ def _engine_cfg(args) -> EngineConfig:
     s_max = -(-max(args.s_max, args.tokens + 12) // stride) * stride
     buckets = tuple(b for b in (1, 2, 4, 8) if b <= max(args.batch, 1))
     chunks = tuple(int(c) for c in args.prefill_chunks.split(",") if c)
+    speculation = None
+    if args.speculation != "off":
+        speculation = SpeculationConfig(
+            drafter=args.speculation, k=args.spec_k,
+            # self-drafting: the reduced target config itself runs on the
+            # draft queue (vocabs match by construction)
+            draft_config=args.arch if args.speculation == "draft_model"
+            else None)
     return EngineConfig(s_max=s_max, buckets=buckets,
                         block_pos_stride=stride, prefill_chunks=chunks,
                         prefix_cache=args.prefix_cache != "off",
-                        device=args.device)
+                        device=args.device, speculation=speculation)
 
 
 def _workload(cfg, args):
@@ -68,6 +80,12 @@ def _main_engine(cfg, args):
           f"({st.prefill_chunk_launches} chunked); "
           f"decode: {st.decode_launches} launches; "
           f"{tpl:.2f} tokens/launch; mean TTFT {ttft_ms}")
+    if st.spec_launches:
+        print(f"  speculation: {st.spec_launches} verify launches, "
+              f"{st.spec_proposed_tokens} proposed / "
+              f"{st.spec_accepted_tokens} accepted "
+              f"(accept rate {st.spec_accept_rate:.2f}, "
+              f"{st.spec_rollbacks} rollbacks)")
     if eng.store.has_dense:
         print(f"  dense slots: peak {st.peak_dense_slots_used} of "
               f"{eng.store.slot_pool.n_slots} "
@@ -96,6 +114,14 @@ def main(argv=None):
                     help="chunked-prefill length ladder (comma-separated; "
                          "empty string disables chunking)")
     ap.add_argument("--prefix-cache", default="on", choices=["on", "off"])
+    ap.add_argument("--speculation", default="off",
+                    choices=["off", "ngram", "draft_model"],
+                    help="speculative decoding: draft k tokens per slot "
+                         "(prompt-lookup, or the reduced config on a second "
+                         "CommandQueue) and verify them in one "
+                         "verify_bs{N}_len{k+1} launch")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="max draft tokens per slot per verify launch")
     ap.add_argument("--smoke", action="store_true",
                     help="serve the reduced config instead of full width")
     ap.add_argument("--device", default=None, choices=["cuda", "cpu"],
@@ -103,6 +129,10 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if not args.engine:
         ap.error("only the --engine path is ported so far")
+    if args.speculation == "draft_model" and not args.smoke:
+        ap.error("--speculation draft_model self-drafts with the reduced "
+                 "config, whose vocab only the reduced target shares: add "
+                 "--smoke")
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = reduced(cfg)

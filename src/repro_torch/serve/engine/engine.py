@@ -24,9 +24,14 @@ Dense-state configs clamp prefill launches to land on each prompt's
 snapshot boundary and publish the dense leaves there, so identical prompts
 and forks copy that state at admission instead of re-ingesting it.
 
+With ``EngineConfig.speculation`` set, a step that would be a pure decode
+launch is instead one ``verify_bs{N}_len{k+1}`` launch whenever some slot
+yields a draft (:mod:`repro_torch.serve.spec`): the chunk body with every
+position's logits, kept apart from a ladder chunk of the same length.
+
 This is ``repro.serve.engine.engine`` at q = r = 1 with the host logic
-unchanged.  Speculation, fault injection and ``StepGuard``, drain/restore
-and checkpoints come with later slices.
+unchanged.  Fault injection and ``StepGuard``, drain/restore and
+checkpoints come with later slices.
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import time
-from typing import Dict, Iterator, Optional, Sequence, Tuple
+from typing import TYPE_CHECKING, Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -53,6 +58,9 @@ from repro_torch.serve.engine.scheduler import (ScheduledStep, Scheduler,
 from repro_torch.serve.engine.state_store import StateStore
 from repro_torch.serve.state import layer_state_specs
 
+if TYPE_CHECKING:
+    from repro_torch.serve.spec.config import SpeculationConfig
+
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
@@ -69,6 +77,10 @@ class EngineConfig:
     prefix_cache: bool = True
     # "cuda" (the default, None) or "cpu" (plain versions of every kernel)
     device: Optional[str] = None
+    # speculative decoding (repro_torch.serve.spec): None = off.  When set,
+    # pure-decode steps become verify_bs{N}_len{k+1} launches whenever some
+    # slot yields a draft; greedy output is unchanged token for token.
+    speculation: Optional["SpeculationConfig"] = None
 
     def __post_init__(self):
         pc = tuple(int(c) for c in self.prefill_chunks)
@@ -96,12 +108,12 @@ class EngineStats:
     migrations: int = 0                   # host-side table permutations only
     peak_blocks_used: int = 0             # pool occupancy high-water mark
     peak_dense_slots_used: int = 0        # dense slot high-water mark
-    # speculative decoding (0 until the speculation slice)
-    spec_launches: int = 0
-    spec_proposed_tokens: int = 0
-    spec_accepted_tokens: int = 0
-    spec_rejected_tokens: int = 0
-    spec_rollbacks: int = 0
+    # speculative decoding (0 everywhere when speculation is off)
+    spec_launches: int = 0                # verify_bs{N}_len{L} launches
+    spec_proposed_tokens: int = 0         # draft tokens fed to verification
+    spec_accepted_tokens: int = 0         # of which the target accepted
+    spec_rejected_tokens: int = 0         # of which were rolled back
+    spec_rollbacks: int = 0               # partial-acceptance rewinds
     # resilience counters (0 until the resilience slice)
     fault_launch_failures: int = 0
     fault_retries: int = 0
@@ -139,23 +151,56 @@ class EngineStats:
 
 
 @dataclasses.dataclass
-class _Step:
-    """One (bucket, L) step: its name, body and host operand buffers
-    (tokens, pos, n_valid for a chunk step, table, slots; None where the
-    config has no such operand), with numpy views of them, and the host
-    buffer its logits rows are copied to (pinned on the card, like the
-    operands)."""
+class Step:
+    """One named step of a command queue: its body and host operand
+    buffers (tokens, pos, n_valid for a chunk step, table, slots; None
+    where the config has no such operand), with numpy views of them, and
+    the host buffer its logits rows are copied to (pinned on the card, like
+    the operands): ``(B, 1, vocab)``, or ``(B, L, vocab)`` for a step that
+    returns every position's logits."""
     name: str
     body: object
     ops: Dict[str, Optional[torch.Tensor]]
     views: Dict[str, np.ndarray]
-    rows: torch.Tensor            # (B, vocab) fp32 logits rows on the host
+    rows: torch.Tensor            # fp32 logits rows on the host
+
+    @classmethod
+    def build(cls, queue: CommandQueue, name: str, body, params, arena,
+              shapes: Dict[str, Optional[tuple]], rows_shape) -> "Step":
+        """Make the step's int32 operand buffers (``shapes``; None = no
+        such operand) on the host, pinned on the card, and build it on
+        ``queue`` (a CUDA graph on the card) with every lane idle: all -1
+        table rows and slots, whose writes land only in the arena's scratch
+        page and row."""
+        pin = queue.device.type == "cuda"
+        ops = {k: None if shp is None else torch.zeros(
+            shp, dtype=torch.int32, pin_memory=pin)
+            for k, shp in shapes.items()}
+        step = cls(name, body, ops,
+                   {k: t.numpy() for k, t in ops.items() if t is not None},
+                   torch.empty(rows_shape, dtype=torch.float32,
+                               pin_memory=pin))
+        step.idle()
+        queue.build(name, body, params, arena, *ops.values())
+        return step
 
     def idle(self) -> None:
         """Every lane idle: zero tokens, positions and counts, all -1 table
         rows and slots."""
         for k, a in self.views.items():
             a.fill(-1 if k in ("table", "slots") else 0)
+
+    def run(self, queue: CommandQueue, params, arena) -> np.ndarray:
+        """Enqueue the step on its operands as filled; return its logits
+        rows on the host (only the real vocabulary crosses, into
+        ``rows``; valid until the step's next run)."""
+        logits = queue.enqueue(self.name, self.body, params, arena,
+                               *self.ops.values())
+        n, vocab = self.rows.shape[1:]
+        self.rows.copy_(logits[:, :n, :vocab], non_blocking=True)
+        if queue.device.type == "cuda":
+            torch.cuda.current_stream(queue.device).synchronize()
+        return self.rows.numpy()
 
 
 class ServingEngine:
@@ -207,21 +252,34 @@ class ServingEngine:
                                    state=self.store)
 
         self.queue = CommandQueue(self.device)
-        if self.device.type == "cuda" and self.store.needs_pages:
-            # the paged kernel's split counters, sized before any capture
-            reserve_split_counters(self.device, ec.buckets[-1], hq, kvh,
-                                   (1,) + self._chunks)
-        # step cache keyed by (bucket, L): L=0 is the one-position decode
-        # step, L>0 a chunked-prefill step from the ladder.  On the card
+        self._heads = (hq, kvh)
+        self.reserve_split_counters((1,) + self._chunks)
+        # step cache keyed by (bucket, L, verify): L=0 is the one-position
+        # decode step, L>0 a chunked-prefill step from the ladder or, with
+        # verify, a speculative verify step (every position's logits), a
+        # different step even where L equals a ladder entry.  On the card
         # each step is a CUDA graph bound to self.params and to the arena's
         # storage, which is never replaced (StateStore).
-        self._kernels: Dict[Tuple[int, int], _Step] = {}
+        self._kernels: Dict[Tuple[int, int, bool], Step] = {}
         self._bucket: Optional[int] = None
         self._rngs: Dict[str, np.random.Generator] = {}
         self.stats = EngineStats()
         # pool prefix counters are monotone; the engine folds DELTAS into
         # stats so `eng.stats = EngineStats()` resets stay correct
         self._prefix_seen = (0, 0, 0)
+        self.spec = None
+        if ec.speculation is not None:
+            # deferred import: spec builds on the engine package
+            from repro_torch.serve.spec.decoder import SpecDecoder
+            self.spec = SpecDecoder(self, ec.speculation)
+
+    def reserve_split_counters(self, lengths) -> None:
+        """On the card, size the paged kernel's split counters for this
+        engine's steps at query lengths ``lengths``, before any of them is
+        captured (a capture may not grow them)."""
+        if self.device.type == "cuda" and self.store.needs_pages:
+            reserve_split_counters(self.device, self.engine_cfg.buckets[-1],
+                                   *self._heads, lengths)
 
     # -- request intake ----------------------------------------------------
 
@@ -273,20 +331,24 @@ class ServingEngine:
 
     def cancel(self, request_id: str) -> bool:
         self._rngs.pop(request_id, None)
+        if self.spec is not None:
+            self.spec.release(request_id)
         return self.scheduler.cancel(request_id)
 
     # -- per-bucket step bodies --------------------------------------------
 
-    def _kernel(self, bucket: int, chunk: Optional[int]) -> "_Step":
-        """The step for this bucket and chunk length.  The first call makes
-        its operand buffers on the host (pinned on the card), which every
-        launch of the step fills, and builds it (a CUDA graph on the card)
-        with every lane idle: all -1 table rows and slots, whose writes
-        land only in the arena's scratch page and row."""
-        key = (bucket, chunk or 0)
+    def _kernel(self, bucket: int, chunk: Optional[int],
+                verify: bool = False) -> Step:
+        """The step for this bucket and chunk length: ``serve_step_bs{N}``
+        (chunk None), ``prefill_bs{N}_len{L}``, or with ``verify`` the
+        speculative ``verify_bs{N}_len{L}`` (the chunk body returning every
+        position's logits).  The first call makes its operand buffers and
+        builds it (:meth:`Step.build`); every launch fills them."""
+        key = (bucket, chunk or 0, verify)
         step = self._kernels.get(key)
         if step is None:
             stride = self.engine_cfg.block_pos_stride
+            rows = 1
             if chunk is None:
                 name = f"serve_step_bs{bucket}"
                 body = functools.partial(decode_step, self.cfg, stride=stride)
@@ -295,23 +357,18 @@ class ServingEngine:
                 name = f"prefill_bs{bucket}_len{chunk}"
                 body = functools.partial(prefill_chunk_step, self.cfg,
                                          stride=stride)
+                if verify:
+                    name = f"verify_bs{bucket}_len{chunk}"
+                    body = functools.partial(body, all_logits=True)
+                    rows = chunk
                 shapes = {"tokens": (bucket, chunk), "pos": (bucket,),
                           "n_valid": (bucket,)}
             shapes["table"] = (bucket, self._table_width) \
                 if self.store.needs_pages else None
             shapes["slots"] = (bucket,) if self.store.has_dense else None
-            pin = self.device.type == "cuda"
-            ops = {k: None if shp is None else torch.zeros(
-                shp, dtype=torch.int32, pin_memory=pin)
-                for k, shp in shapes.items()}
-            step = _Step(name, body, ops,
-                         {k: t.numpy() for k, t in ops.items()
-                          if t is not None},
-                         torch.empty((bucket, self.cfg.vocab_size),
-                                     dtype=torch.float32, pin_memory=pin))
-            step.idle()
-            self.queue.build(name, body, self.params, self.store.arena,
-                             *ops.values())
+            step = Step.build(self.queue, name, body, self.params,
+                              self.store.arena, shapes,
+                              (bucket, rows, self.cfg.vocab_size))
             self._kernels[key] = step
         return step
 
@@ -357,6 +414,12 @@ class ServingEngine:
                 return False
             self._note_migration(sd)
             chunk = self._chunk_len(sd.max_remaining)
+            # speculative decoding replaces the pure-decode launch when any
+            # slot yields a usable draft; with no drafts this round the
+            # plain serve_step launch below runs unchanged
+            if chunk is None and self.spec is not None \
+                    and self.spec.step(sd):
+                return True
             rows, fed = self._launch(sd, chunk)
             self._commit(sd, rows, fed)
             self.queue.finish()     # clFinish: stamps KernelEvent.last_done_t
@@ -395,26 +458,25 @@ class ServingEngine:
                 table[s, :len(r.blocks.ids)] = r.blocks.ids
             if slots is not None:
                 slots[s] = r.dense_slot
-        logits = self.queue.enqueue(step.name, step.body, self.params,
-                                    self.store.arena, *step.ops.values())
+        rows = step.run(self.queue, self.params, self.store.arena)
         if chunk is not None:
             self.stats.prefill_chunk_launches += 1
-        self.stats.steps += 1
-        self.stats.peak_blocks_used = max(self.stats.peak_blocks_used,
-                                          self.pool.n_used)
-        if self.store.slot_pool is not None:
-            self.stats.peak_dense_slots_used = max(
-                self.stats.peak_dense_slots_used, self.store.slot_pool.n_used)
+        self._count_launch()
         if sd.is_prefill:
             self.stats.prefill_launches += 1
         else:
             self.stats.decode_launches += 1
-        # only the real vocabulary crosses to the host, into the step's
-        # rows (read before the step's next launch)
-        step.rows.copy_(logits[:, 0, :self.cfg.vocab_size], non_blocking=True)
-        if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
-        return step.rows.numpy(), fed
+        return rows[:, 0], fed
+
+    def _count_launch(self) -> None:
+        """A step was enqueued: count it and the pools' high-water
+        marks."""
+        st = self.stats
+        st.steps += 1
+        st.peak_blocks_used = max(st.peak_blocks_used, self.pool.n_used)
+        if self.store.slot_pool is not None:
+            st.peak_dense_slots_used = max(st.peak_dense_slots_used,
+                                           self.store.slot_pool.n_used)
 
     def _commit(self, sd: ScheduledStep, rows: np.ndarray, fed) -> None:
         """Advance the request state machine with a launch's results."""
@@ -447,6 +509,8 @@ class ServingEngine:
             if reason is not None:
                 self.scheduler.complete(r, reason)
                 self._rngs.pop(r.request_id, None)
+                if self.spec is not None:
+                    self.spec.release(r.request_id)
 
     def _fold_prefix_stats(self) -> None:
         """Fold the pool's monotone prefix counters into ``stats`` as

@@ -20,17 +20,21 @@ lifecycle operation on it (``repro.serve.engine.state_store`` at q = r = 1):
     hybrid configs the snapshot is dropped (the attention KV is gone, so a
     consistent resume point must come from the prefix maps or position 0).
 
-Snapshots are host copies (CPU tensors), as the JAX store keeps numpy
-arrays.  The scheduler routes every lifecycle event through the hook face
-(``needs_pages`` / ``plan_resume`` / ``can_admit`` / ``commit_admit`` /
-``on_release``); :class:`NullStateHook` is that face for a scheduler with
-no state store at all.
+Prefix and preemption snapshots are host copies (CPU tensors), as the JAX
+store keeps numpy arrays.  The speculative-decoding snapshot
+(:meth:`StateStore.snapshot_slots`) holds the same values on the card: it
+is taken and restored every verify round, where a host copy of every
+active slot would cost as much as the step itself.  The scheduler routes
+every lifecycle event through the hook face (``needs_pages`` /
+``plan_resume`` / ``can_admit`` / ``commit_admit`` / ``on_release``);
+:class:`NullStateHook` is that face for a scheduler with no state store at
+all.
 """
 
 from __future__ import annotations
 
 from collections import OrderedDict, deque
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -238,6 +242,29 @@ class StateStore:
         work on the card)."""
         return {key: leaf[:, slot].to("cpu", copy=True)
                 for key, leaf in self._dense_leaves().items()}
+
+    def snapshot_slots(self, slots: Sequence[int]) -> List[HostLeaves]:
+        """Snapshot the dense rows of ``slots`` where the arena lives: one
+        gather per dense leaf, in stream order on the engine's device, and
+        no wait.  Entry i holds the same values :meth:`read_slot`
+        ``(slots[i])`` would copy to the host, as views of the gathered
+        leaves; :meth:`restore_slot` takes either."""
+        idx = torch.tensor(list(slots), dtype=torch.long)
+        rows = {key: leaf.index_select(1, idx.to(leaf.device))
+                for key, leaf in self._dense_leaves().items()}
+        return [{key: g[:, i] for key, g in rows.items()}
+                for i in range(len(idx))]
+
+    def restore_slot(self, slot: int, snapshot: HostLeaves) -> None:
+        """Overwrite a live slot's rows with a snapshot taken by
+        :meth:`read_slot` or :meth:`snapshot_slots` — the speculative
+        rollback: a verify launch advanced the slot's recurrent state
+        through all k+1 fed positions, and a partial acceptance rewinds it
+        to the pre-launch snapshot (re-fed accepted tokens then re-advance
+        it deterministically).  Unlike :meth:`commit_admit` the slot stays
+        bound to its request."""
+        self._write_slot(slot, snapshot)
+        self.n_restores += 1
 
 
 class NullStateHook:

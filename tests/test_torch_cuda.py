@@ -59,6 +59,8 @@ def _case(rng, *, B, T, stride, kvh, hd, Hq, qrows, L, mode="random"):
 @pytest.mark.parametrize("geometry", [
     # B, T, stride, kvh, hd, Hq, L, qrows[, mode]
     (8, 32, 16, 2, 64, 14, 1, 1),        # qwen2-0.5b decode
+    (8, 32, 16, 2, 64, 14, 5, 1),        # qwen2-0.5b verify, k = 4
+    (1, 32, 16, 2, 64, 14, 5, 1, "full"),  # verify at a full table, B 1
     (2, 32, 16, 2, 64, 14, 256, 1),      # qwen2-0.5b prefill chunk
     (2, 8, 16, 8, 128, 16, 16, 1),       # hd 128, group 2
     (3, 4, 4, 4, 8, 8, 8, 2),            # reduced hd 8, two grid rows
@@ -189,6 +191,7 @@ def _rel(want, got):
     (2, 64, 64, 48, 64, 1, 128, 20),       # L = 64, padding columns
     (1, 16, 16, 48, 64, 1, 128, 5),        # L = 16
     (3, 1, 1, 48, 64, 1, 128, 0),          # L = 1
+    (4, 5, 5, 8, 16, 1, 16, 1),            # reduced, L = 5: fp32 verify
     (2, 128, 64, 8, 16, 1, 16, 0),         # reduced, nc = 2
     (2, 96, 32, 8, 16, 4, 16, 7),          # reduced G = 4, nc = 3
     (1, 40, 40, 6, 8, 3, 8, 0),            # ragged L, P = 8
@@ -332,6 +335,8 @@ def _bf16_ulps(want, got):
     (2, 64, 48, 64, 1, 128, 20),           # L = 64, padding columns
     (1, 16, 48, 64, 1, 128, 5),            # L = 16
     (3, 1, 48, 64, 1, 128, 0),             # L = 1
+    (8, 5, 48, 64, 1, 128, 0),             # L = 5: verify at k = 4
+    (1, 5, 48, 64, 1, 128, 2),             # L = 5, padding columns
     (2, 64, 8, 16, 4, 16, 7),              # reduced, G = 4
     (1, 40, 6, 8, 3, 8, 0),                # ragged L, P = 8
     (1, 70, 4, 128, 2, 40, 0),             # P = 128, ragged N
@@ -763,24 +768,21 @@ def _max_diff(a, b):
     return float((a.double() - b.double()).abs().max())
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("L", [0, 16, 256])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("name", ["qwen2-0.5b", "mamba2-780m"])
-def test_replayed_step_matches_eager_body(name, dtype, L):
+def _replay_against_eager(name, dtype, L, all_logits=False):
     """Build with every lane idle (as the engine does), replay once for
-    real operands: logits and the arena's pool equal the eager body's,
-    and the kernels' counts move by what the eager body launches."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
+    real operands: logits (every row) and the arena's pool equal the eager
+    body's, and the kernels' counts move by what the eager body
+    launches."""
     import functools
     from repro_torch.core import CommandQueue
     from repro_torch.kernels import count_delta, launch_counts
     from repro_torch.serve.decode import decode_step, prefill_chunk_step
     cfg, params, arena, ops, rng = _step_case(name, dtype)
     twin = [{k: v.clone() for k, v in e.items()} for e in arena]
-    body = functools.partial(decode_step if L == 0 else prefill_chunk_step,
-                             cfg, stride=STEP_STRIDE)
+    body = functools.partial(decode_step, cfg, stride=STEP_STRIDE) \
+        if L == 0 else functools.partial(prefill_chunk_step, cfg,
+                                         stride=STEP_STRIDE,
+                                         all_logits=all_logits)
     queue = CommandQueue("cuda")
     c0 = launch_counts()
     queue.build("step", body, params, arena,
@@ -797,10 +799,32 @@ def test_replayed_step_matches_eager_body(name, dtype, L):
     torch.cuda.synchronize()
     assert replayed == eager
     assert torch.equal(got, want), _max_diff(got, want)
+    assert got.shape[1] == (L if all_logits else 1)
     for e, e0 in zip(arena, twin):
         for leaf, a in e.items():
             assert torch.equal(a[:, :-1], e0[leaf][:, :-1]), \
                 (leaf, _max_diff(a[:, :-1], e0[leaf][:, :-1]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L", [0, 16, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["qwen2-0.5b", "mamba2-780m"])
+def test_replayed_step_matches_eager_body(name, dtype, L):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    _replay_against_eager(name, dtype, L)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["qwen2-0.5b", "mamba2-780m"])
+def test_replayed_verify_step_matches_eager_body(name, dtype):
+    """The speculative ``verify_bs{N}_len5`` step (k = 4: every position's
+    logits) replayed against its eager body, all rows compared."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    _replay_against_eager(name, dtype, 5, all_logits=True)
 
 
 @pytest.mark.gpu
