@@ -6,9 +6,9 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. environment — torch/CUDA versions, the card's name and power limit;
-2. build — compile the four CUDA libraries (paged attention; the SSD-scan
-   kernels; the cannon_mm matmul; flash attention) from the
-   checkout's sources with nvcc for sm_90a, one nvcc each, started
+2. build — compile the five CUDA libraries (paged attention; the SSD-scan
+   kernels; the cannon_mm matmul; flash attention; the grouped GEMM) from
+   the checkout's sources with nvcc for sm_90a, one nvcc each, started
    together;
 3. paged-attention kernel against its plain version on the card — random scrambled block
    tables with holes, qwen2-0.5b head geometry (14 q heads over 2 kv heads,
@@ -16,9 +16,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    speculative verify step at k = 4), bf16 and fp32
    arenas, contexts up to 512, plus hd 8 with two grid rows sharing the
    pages, B 1 decode at the end of a full 64-entry table (the bf16
-   kernel's split over the table, every split busy) and batch-8 decode
+   kernel's split over the table, every split busy), batch-8 decode
    on two grid rows where one sees no visible key (the all-masked merge:
-   its m stays -1e30 and its l counts its keys); then timings at the main
+   its m stays -1e30 and its l counts its keys) and qwen3-moe's geometry
+   (64 q heads over 4 kv heads, group 16, hd 64 as the repo's config
+   gives it; B 8, L in {1, 5, 16, 256}; and at hd 128, the published
+   Qwen3-235B-A22B head size, L in {1, 16, 256}); then timings at the main
    path's shapes (events and the kernel's device time, with the split
    count) against the plain version, one scaled_dot_product_attention
    call on the gathered K/V, and the least time the card could take;
@@ -35,14 +38,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    L in {5, 16, 64, 256}, bf16, mamba2-780m geometry; the two CUDA-core
    (simt) passes at the fp32 reference configs' chunk and verify steps
    (batch 4, L 16 and 5, the reduced geometry);
-5. end-to-end reference checks — the reduced qwen2, the reduced mamba2 and
-   a small hybrid (attention + mamba) config in fp32, served on the card
+5. end-to-end reference checks — the reduced qwen2, the reduced mamba2, a
+   small hybrid (attention + mamba) config, the reduced qwen3-moe and the
+   reduced jamba (attention, mamba and MoE layers) in fp32, served on the card
    and on the CPU (plain versions) from the same weights (fp32 takes the
    two SSD passes on their simt variant: their launches here are the ones
    the kernels line reports); each is also served with n-gram speculation
    on the card and on the CPU and without it on the card, with identical
-   tokens, and the reduced qwen2 self-drafts through DraftModelDrafter on
-   its own weights, every draft token accepted;
+   tokens, and the reduced qwen2 and qwen3-moe self-draft through
+   DraftModelDrafter on their own weights, every draft token accepted; the
+   MoE configs' experts take the grouped GEMM's fp32 (simt) variant;
 6. the engine at full width — qwen2-0.5b (24 layers, d_model 896, vocab
    151936, bf16), then mamba2-780m (48 layers, d_model 1536, 48 SSD heads,
    vocab 50280, bf16), each with random weights from seed 0: 8 requests
@@ -78,7 +83,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    is a near-tie (``phase_speculation``); then the same workload on the
    eager queue (identical tokens and ``EngineStats``) and three replayed
    batch-8 verify steps under torch.profiler;
-10. the kernels line, the card line, and the result line.
+10. the engine at full width on an MoE model, last and after the cache is
+   emptied — qwen3-moe-235b-a22b at the repo config's full width (d_model
+   4096, 64 q heads over 4 kv heads, hd 64, qk_norm, 128 experts top-8 of
+   d_ff_expert 1536, vocab 151936, bf16; the config sets no head_dim, so
+   hd is 4096 / 64, where the published model's head_dim is 128, and its
+   attention projections are half the published size) with its depth cut
+   to 8 of its 94
+   layers (41.7 GB of weights: all 94 are 464 GB), random weights from
+   seed 0, through the same engine setting, workload and phases as 6-8:
+   engine (gates: paged attention on every attention layer of every
+   launch, the grouped GEMM on 2 x MoE layers of every launch, the plain
+   versions never), graphs, profile (batch-8 decode, and one batch-8
+   len256 prefill step with the grouped GEMM's share);
+11. the kernels line, the card line, and the result line.
 
 Between 4 and 5 run the phases of the paper core and the last two
 kernels:
@@ -105,7 +123,16 @@ kernels:
   its plain version (tests/test_kernels.py shapes, ragged tails, an
   offset block), then the op at qwen2-0.5b's and qwen3-0.6b's prefill
   geometries (S 4096, B 1 and 4, causal, bf16), counted, and timed
-  against the plain version, scaled_dot_product_attention and the bound.
+  against the plain version, scaled_dot_product_attention and the bound;
+* gmm_vs_plain and gmm_timing — the grouped GEMM against its plain
+  version at qwen3-moe's two expert products (K 4096 -> N 3072 and
+  K 1536 -> N 4096, 128 experts, rows routed top-8) at M = T*k of batch-8
+  decode (64), verify at k = 4 (320) and the len16/64/256 chunks (1024,
+  4096, 16384), bf16 and (decode, verify) fp32, and at edge cases (empty
+  experts, every row in one expert, ragged M, K and N, rows past
+  offsets[E] and before offsets[0]); then timed at decode, verify and
+  len256 against the plain version, one torch._grouped_mm call where the
+  card's PyTorch has it, and the bound.
 
 It imports nothing of JAX and nothing of the ``repro`` package.  Without a
 card, or outside a checkout that holds ``src/repro_torch``, it exits
@@ -142,6 +169,8 @@ MM_SOURCE = "src/repro_torch/kernels/cannon_mm/csrc/cannon_mm.cu"
 MM_REPLACES = "src/repro/kernels/cannon_mm/kernel.py:51"
 FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:75"
+GMM_SOURCE = "src/repro_torch/kernels/grouped_mm/csrc/grouped_mm.cu"
+GMM_REPLACES = "src/repro/models/moe.py:116,120"
 HBM_BYTES_S = 3.35e12                       # H100 SXM, data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PROMPT_LENS = [5, 17, 40, 64, 100, 200, 300, 33]
@@ -303,11 +332,12 @@ def phase_build():
     """One nvcc per source, all started together."""
     from repro_torch.kernels.cannon_mm import kernel as mm
     from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.grouped_mm import kernel as gmm
     from repro_torch.kernels.paged_attention import kernel as paged
     from repro_torch.kernels.ssd_scan import kernel as ssd
     t0 = time.perf_counter()
     mods = {"paged_attention": paged, "ssd_scan": ssd, "cannon_mm": mm,
-            "flash_attention": flash}
+            "flash_attention": flash, "grouped_mm": gmm}
     with ThreadPoolExecutor(len(mods)) as pool:
         for fut in [pool.submit(m.build) for m in mods.values()]:
             fut.result()
@@ -344,6 +374,15 @@ def phase_kernel_vs_plain():
                    dtype=dt, qrows=2, ctx=[512] * 8, start=[0] * 8,
                    holes=False, row0_masked=True)
               for dt in (torch.bfloat16, torch.float32)]
+    # qwen3-moe-235b-a22b: 64 q heads over 4 kv heads (group 16: the bf16
+    # tile holds 8 query positions), hd 64 as the repo's config gives it,
+    # and hd 128, the published model's head_dim
+    cases += [dict(B=8, L=L, hd=64, Hq=64, kvh=4, stride=16, s_max=512,
+                   dtype=dt) for L in (1, 5, 16, 256)
+              for dt in (torch.bfloat16, torch.float32)]
+    cases += [dict(B=8, L=L, hd=128, Hq=64, kvh=4, stride=16, s_max=512,
+                   dtype=dt) for L in (1, 16, 256)
+              for dt in (torch.bfloat16, torch.float32)]
     for spec in cases:
         c = make_case(rng, **spec)
         want = merge_rows(run_rows(paged_attention_ref, c))
@@ -363,6 +402,7 @@ def phase_kernel_vs_plain():
                 l0, owned.to(l0)[:, None, None].expand_as(l0)),
                 f"all-masked grid row: m or l off {spec}")
         emit("kernel_vs_plain", B=spec["B"], L=spec["L"], hd=spec["hd"],
+             Hq=spec["Hq"], kvh=spec["kvh"],
              qrows=spec.get("qrows", 1), dtype=name, max_rel_err=err,
              max_abs_err=abs_err, tol=tol[spec["dtype"]],
              n_split=n_split(c), all_masked_row0=bool(
@@ -1164,6 +1204,202 @@ def phase_flash_timing():
     return launches, rows
 
 
+# ---------------------------------------------------------------------------
+# The grouped GEMM (the MoE experts).
+# ---------------------------------------------------------------------------
+
+QWEN3_MOE_EXPERTS = dict(E=128, k=8)
+# (K, N) of the two expert products: w1 (D, 2F) gate | up, w2 (F, D)
+GMM_PRODUCTS = {"w1": (4096, 2 * 1536), "w2": (1536, 4096)}
+GMM_M = {"decode": 64, "verify": 320, "len16": 1024, "len64": 4096,
+         "len256": 16384}                # M = T*k at batch 8, top-8
+# the kernel and its plain version both sum in fp32 and round once: where
+# the two sums straddle a rounding boundary the bf16 outputs differ by one
+# bf16 ulp (at most 2^-7 of the value, so of the largest value); fp32 ones
+# by the summation order over K
+GMM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7}
+
+
+def routed_offsets(rng, T, E, k):
+    """Offsets (E + 1,) of T tokens, each routed to k distinct experts
+    drawn uniformly (random router weights route about so)."""
+    e = np.argsort(rng.random((T, E)), axis=1)[:, :k]
+    counts = np.bincount(e.ravel(), minlength=E)
+    return np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+
+
+def gmm_weights(E, K, N, dtype, seed):
+    gen = torch.Generator("cuda").manual_seed(seed)
+    return torch.randn((E, K, N), generator=gen, device="cuda",
+                       dtype=dtype) * K ** -0.5
+
+
+def gmm_errors(x, w, offsets):
+    """(rel, abs) error of the kernel against the plain version on the
+    card; the rows of no expert must be exactly zero."""
+    from repro_torch.kernels.grouped_mm import grouped_mm_ref
+    from repro_torch.kernels.grouped_mm.kernel import grouped_mm_cuda
+    off = torch.from_numpy(offsets).cuda()
+    want = grouped_mm_ref(x, w, off)
+    got = grouped_mm_cuda(x, w, off)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), "grouped_mm: non-finite output")
+    lo, hi = int(offsets[0]), int(offsets[-1])
+    check(not got[:lo].any() and not got[hi:].any(),
+          "grouped_mm: a row of no expert is not zero")
+    return rel_err(want, got), float((want.double() - got.double())
+                                     .abs().max())
+
+
+def phase_gmm_vs_plain():
+    rng = np.random.default_rng(8)
+    E, k = QWEN3_MOE_EXPERTS["E"], QWEN3_MOE_EXPERTS["k"]
+    worst = [0.0, 0.0]
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for prod, (K, N) in GMM_PRODUCTS.items():
+            w = gmm_weights(E, K, N, dtype, seed=len(cases))
+            for stage, M in GMM_M.items():
+                if dtype == torch.float32 and M > 320:
+                    continue
+                offsets = routed_offsets(rng, M // k, E, k)
+                x = torch.from_numpy(rng.standard_normal(
+                    (M, K), "float32")).to("cuda", dtype)
+                cases.append((f"{prod} {stage}", M, K, N, E, dtype,
+                              *gmm_errors(x, w, offsets)))
+            del w
+    # edge cases: (label, M, K, N, E, group sizes, rows before offsets[0])
+    edges = [("empty experts", 77, 64, 64, 16,
+              [0, 9, 0, 0, 30, 0, 0, 1, 0, 0, 0, 17, 0, 0, 20, 0], 0),
+             ("one expert, several M tiles", 300, 64, 136, 16,
+              [0] * 5 + [300] + [0] * 10, 0),
+             ("ragged K and N, rows past offsets[E]", 100, 40, 72, 6,
+              [13, 0, 25, 2, 0, 30], 0),
+             ("rows before offsets[0] and past offsets[E]", 90, 32, 64, 4,
+              [20, 0, 31, 9], 11),
+             ("no expert has a row", 33, 32, 64, 8, [0] * 8, 5)]
+    for label, M, K, N, E_, sizes, head in edges:
+        offsets = (head + np.concatenate([[0], np.cumsum(sizes)])
+                   ).astype(np.int32)
+        for dtype in (torch.bfloat16, torch.float32):
+            w = gmm_weights(E_, K, N, dtype, seed=M)
+            x = torch.from_numpy(rng.standard_normal(
+                (M, K), "float32")).to("cuda", dtype)
+            cases.append((label, M, K, N, E_, dtype,
+                          *gmm_errors(x, w, offsets)))
+    # fp32 at a K and an N that no tile divides (the simt variant only)
+    offsets = np.array([0, 7, 7, 31, 50], np.int32)
+    w = gmm_weights(4, 37, 70, torch.float32, seed=3)
+    x = torch.from_numpy(rng.standard_normal((53, 37), "float32")).cuda()
+    cases.append(("fp32 K 37, N 70", 53, 37, 70, 4, torch.float32,
+                  *gmm_errors(x, w, offsets)))
+    for label, M, K, N, E_, dtype, err, abs_err in cases:
+        emit("gmm_vs_plain", case=label, M=M, K=K, N=N, E=E_,
+             dtype=dname(dtype), max_rel_err=err, max_abs_err=abs_err,
+             tol=GMM_TOL[dtype])
+        check(err <= GMM_TOL[dtype],
+              f"grouped_mm disagrees: {label} {dname(dtype)} rel {err}")
+        worst[0], worst[1] = max(worst[0], err), max(worst[1], abs_err)
+    torch.cuda.empty_cache()
+    return worst
+
+
+def gmm_bound(offsets, K, N, dtype):
+    """Least time of one call on these offsets: the active experts'
+    weights, the routed rows of x and the output each moved once at
+    3.35 TB/s, against 2 * rows * K * N operations at the type's peak."""
+    esz = torch.tensor([], dtype=dtype).element_size()
+    rows = int(offsets[-1] - offsets[0])
+    active = int((np.diff(offsets) > 0).sum())
+    tb = (active * K * N + rows * (K + N)) * esz / HBM_BYTES_S * 1e3
+    to = 2 * rows * K * N / PEAK_FLOPS[dname(dtype)] * 1e3
+    return max(tb, to), "bytes" if tb >= to else "operations", active
+
+
+def library_gmm(x, w, offsets):
+    """One ``torch._grouped_mm`` call on the same inputs (end offsets of
+    each group), timed as the yardstick and never used by the port; w as
+    it is or column-major, whichever the card's PyTorch takes.  Returns
+    (callable or None, what it was or why there is none)."""
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None:
+        return None, "this PyTorch has no torch._grouped_mm"
+    offs = offsets[1:].contiguous()
+    why = ""
+    for label, b in (("w row-major", w),
+                     ("w column-major", w.transpose(-2, -1).contiguous()
+                      .transpose(-2, -1))):
+        try:
+            fn(x, b, offs=offs)
+            torch.cuda.synchronize()
+            return (lambda b=b: fn(x, b, offs=offs)), \
+                f"torch._grouped_mm, {label}"
+        except Exception as e:          # noqa: BLE001  a yardstick only
+            why = f"torch._grouped_mm refused: {str(e)[:160]}"
+    return None, why
+
+
+def phase_gmm_timing():
+    """Kernel, plain and library times of the grouped GEMM at qwen3-moe's
+    two expert products, rows routed top-8 of 128 as the engine routes
+    random weights: batch-8 decode (M 64, about 52 experts active), verify
+    at k = 4 (M 320) and the batch-8 len256 chunk (M 16384, every expert
+    active), bf16; decode also in fp32 (the simt variant).  ``ms`` is CUDA
+    events around back-to-back wrapper calls, ``device_ms`` the kernel's
+    own time from torch.profiler."""
+    from repro_torch.kernels.grouped_mm import grouped_mm_ref
+    from repro_torch.kernels.grouped_mm.kernel import (VARIANTS,
+                                                       grouped_mm_cuda, plan)
+    rng = np.random.default_rng(9)
+    E, k = QWEN3_MOE_EXPERTS["E"], QWEN3_MOE_EXPERTS["k"]
+    rows = []
+    for dtype, stages in ((torch.bfloat16, ("decode", "verify", "len256")),
+                          (torch.float32, ("decode",))):
+        for prod, (K, N) in GMM_PRODUCTS.items():
+            w = gmm_weights(E, K, N, dtype, seed=11)
+            for stage in stages:
+                M = GMM_M[stage]
+                offsets = routed_offsets(rng, M // k, E, k)
+                off = torch.from_numpy(offsets).cuda()
+                x = torch.from_numpy(rng.standard_normal(
+                    (M, K), "float32")).to("cuda", dtype)
+                variant = plan(x, w)
+
+                def kern(i, x=x, w=w, off=off):
+                    return grouped_mm_cuda(x, w, off)
+
+                def plain(i, x=x, w=w, off=off):
+                    return grouped_mm_ref(x, w, off)
+                want, got = plain(0), kern(0)
+                lib, lib_what = library_gmm(x, w, off) \
+                    if dtype == torch.bfloat16 else (None, "bf16 only")
+                t = dict(shape=f"{prod} {stage}", M=M, K=K, N=N, E=E,
+                         dtype=dname(dtype), variant=variant,
+                         ms=cuda_ms(kern, 10),
+                         device_ms=device_ms(kern, 5,
+                                             (VARIANTS[variant],)),
+                         plain_ms=cuda_ms(plain, 3),
+                         library_ms=cuda_ms(lambda i: lib(), 10)
+                         if lib else None, library=lib_what,
+                         max_rel_err=rel_err(want, got),
+                         max_abs_err=float((want.double() - got.double())
+                                           .abs().max()))
+                if lib:
+                    lo, hi = int(offsets[0]), int(offsets[-1])
+                    t["library_vs_kernel_rel_err"] = rel_err(
+                        got[lo:hi], lib()[lo:hi])
+                t["bound_ms"], t["bound_by"], t["active_experts"] = \
+                    gmm_bound(offsets, K, N, dtype)
+                emit("gmm_timing", **t)
+                check(t["max_rel_err"] <= GMM_TOL[dtype],
+                      f"grouped_mm timing case {t}")
+                rows.append(t)
+                del x, want, got, lib
+            del w
+            torch.cuda.empty_cache()
+    return rows
+
+
 def checking_engine():
     """ServingEngine that refuses any non-finite logits row it samples,
     the verify rows of its speculative rounds included, while its
@@ -1353,13 +1589,16 @@ def reference_speculation(cfg, runs, prompts, plain_tokens, self_draft):
 
 
 def phase_reference():
-    """The three fp32 reference configs.  Their scans take the two SSD
-    passes on the CUDA cores (fp32 x: kernel.py::plan's simt variant): the
-    passes' counts are set to 0 just before and read just after, and each
-    must have run, every launch on simt, the fused kernel never.  Each
-    check also serves the config on the CPU through the plain versions;
-    their counts are reported, not checked."""
+    """The five fp32 reference configs.  Their scans take the two SSD
+    passes on the CUDA cores (fp32 x: kernel.py::plan's simt variant), and
+    their experts the grouped GEMM's simt variant: the counts are set to 0
+    just before and read just after, and each must have run, every launch
+    on simt, the fused scan never.  Each check also serves the config on
+    the CPU through the plain versions; their counts are reported, not
+    checked."""
     from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels.grouped_mm import grouped_mm_ref
+    from repro_torch.kernels.grouped_mm.kernel import grouped_mm_cuda
     from repro_torch.kernels.ssd_scan.ref import (ssd_apply_ref,
                                                   ssd_chunk_ref,
                                                   ssd_scan_fused_ref)
@@ -1371,9 +1610,12 @@ def phase_reference():
     for kern, _ in ssd.values():
         kern.launches = 0
     two_pass = [ssd[k][0] for k in ("ssd_chunk", "ssd_apply")]
-    for kern in two_pass:
+    for kern in two_pass + [grouped_mm_cuda]:
         kern.by_variant = {v: 0 for v in kern.by_variant}
-    for cfg in (reduced(get_config("qwen2-0.5b")), mamba, hybrid_config()):
+    grouped_mm_cuda.launches = 0
+    for cfg in (reduced(get_config("qwen2-0.5b")), mamba, hybrid_config(),
+                reduced(get_config("qwen3-moe-235b-a22b")),
+                reduced(get_config("jamba-1.5-large-398b"))):
         reference_check(cfg)
     launches = {k: kern.launches for k, (kern, _) in ssd.items()}
     by_variant = {k: dict(ssd[k][0].by_variant)
@@ -1384,9 +1626,17 @@ def phase_reference():
           f"{launches}")
     check(all(v["simt"] == launches[k] for k, v in by_variant.items()),
           f"the fp32 reference scans left the simt variant: {by_variant}")
-    emit("reference_ssd_launches", **launches, by_variant=by_variant,
+    gmm = dict(grouped_mm_cuda.by_variant)
+    check(grouped_mm_cuda.launches > 0
+          and gmm["simt"] == grouped_mm_cuda.launches,
+          f"the fp32 reference experts did not take the simt grouped GEMM: "
+          f"{grouped_mm_cuda.launches} launches, {gmm}")
+    launches["grouped_mm"] = grouped_mm_cuda.launches
+    by_variant["grouped_mm"] = gmm
+    emit("reference_kernel_launches", **launches, by_variant=by_variant,
          plain_on_cpu={f.__name__: f.launches for f in (
-             ssd_chunk_ref, ssd_apply_ref, ssd_scan_fused_ref)})
+             ssd_chunk_ref, ssd_apply_ref, ssd_scan_fused_ref,
+             grouped_mm_ref)})
     return launches
 
 
@@ -1405,6 +1655,8 @@ def spec_prompts(vocab, lens=PROMPT_LENS):
 def kernel_counters():
     """name -> (the wrapper whose count is the kernel's launches, the plain
     version that must not run on the main path)."""
+    from repro_torch.kernels.grouped_mm import grouped_mm_ref
+    from repro_torch.kernels.grouped_mm.kernel import grouped_mm_cuda
     from repro_torch.kernels.paged_attention import paged_attention_ref
     from repro_torch.kernels.paged_attention.kernel import \
         paged_attention_cuda
@@ -1417,7 +1669,8 @@ def kernel_counters():
     return {"paged_attention": (paged_attention_cuda, paged_attention_ref),
             "ssd_chunk": (ssd_chunk_cuda, ssd_chunk_ref),
             "ssd_apply": (ssd_apply_cuda, ssd_apply_ref),
-            "ssd_scan_fused": (ssd_scan_fused_cuda, ssd_scan_fused_ref)}
+            "ssd_scan_fused": (ssd_scan_fused_cuda, ssd_scan_fused_ref),
+            "grouped_mm": (grouped_mm_cuda, grouped_mm_ref)}
 
 
 def run_pass(eng, label, serve_fn, queue_kind):
@@ -1496,35 +1749,54 @@ def serve_passes(eng, cfg, prompts, arrivals, sampling,
     return passes, totals, names, outputs
 
 
+# full-width models served with their depth cut, to fit one card
+ENGINE_LAYERS = {"qwen3-moe-235b-a22b": 8}
+
+
 def phase_engine(arch):
     """The main path of one full-width model: its kernels' counts are set
     to 0 just before the three passes and read just after.  An attention
     layer launches the paged-attention kernel on every engine launch; a
     mamba layer (bf16, state 128, the engine's one chunk) launches the fused
     scan on every chunk launch and the two passes never, and decode runs
-    the one-token recurrence."""
+    the one-token recurrence; an MoE layer launches the grouped GEMM twice
+    on every engine launch (w1, then w2)."""
     from repro_torch.configs import get_config
-    from repro_torch.models.params import init_params, param_bytes
+    from repro_torch.models.params import (config_param_bytes, init_params,
+                                           param_bytes)
     from repro_torch.serve.engine import EngineConfig, SamplingParams
     cfg = get_config(arch)
+    if arch in ENGINE_LAYERS:
+        cfg = dataclasses.replace(cfg, n_layers=ENGINE_LAYERS[arch])
     widths = {"qwen2-0.5b": (
         (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd(),
          cfg.d_ff, cfg.vocab_size), (24, 896, 14, 2, 64, 4864, 151936)),
         "mamba2-780m": (
         (cfg.n_layers, cfg.d_model, cfg.d_inner, cfg.ssm_heads,
          cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_groups, cfg.conv_kernel,
-         cfg.vocab_size), (48, 1536, 3072, 48, 64, 128, 1, 4, 50280))}
+         cfg.vocab_size), (48, 1536, 3072, 48, 64, 128, 1, 4, 50280)),
+        "qwen3-moe-235b-a22b": (
+        (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd(),
+         cfg.qk_norm, cfg.n_experts, cfg.top_k, cfg.d_ff_expert,
+         cfg.vocab_size), (8, 4096, 64, 4, 64, True, 128, 8, 1536, 151936))}
     got, want = widths[arch]
-    check(got == want, f"{arch} is not at its published width: {got}")
+    check(got == want, f"{arch} is not at its config's full width: {got}")
     check(cfg.compute_dtype == torch.bfloat16,
           f"{arch} computes in {cfg.compute_dtype}, not bf16")
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator("cuda").manual_seed(0)
+    t0 = time.perf_counter()
     params = init_params(cfg, generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    check(param_bytes(params) == config_param_bytes(cfg),
+          f"{arch}: the reckoned weight bytes {config_param_bytes(cfg)} "
+          f"are not the allocated {param_bytes(params)}")
     ec = EngineConfig(s_max=512, buckets=(1, 2, 4, 8), block_pos_stride=16,
                       prefill_chunks=(16, 64, 256), device="cuda")
     eng = checking_engine()(cfg, params=params, engine_cfg=ec)
-    emit("engine_setup", config=cfg.name, param_bytes=param_bytes(params),
+    emit("engine_setup", config=cfg.name, n_layers=cfg.n_layers,
+         init_s=init_s, param_bytes=param_bytes(params),
          arena_bytes=eng.store.arena_bytes(), n_kv_blocks=eng.pool.n_blocks,
          dense_slot_bytes=eng.store.dense_slot_bytes)
     rng = np.random.default_rng(0)
@@ -1547,8 +1819,10 @@ def phase_engine(arch):
     # bf16 at N 128 and the engine's one chunk: every mamba layer of every
     # chunk launch is one fused scan, and the two passes never run
     scans = mixers.count("mamba") * totals["prefill_chunk_launches"]
+    ffns = [f for _, f in cfg.pattern()]
     per_group = {"paged_attention": mixers.count("attn") * totals["launches"],
-                 "ssd_chunk": 0, "ssd_apply": 0, "ssd_scan_fused": scans}
+                 "ssd_chunk": 0, "ssd_apply": 0, "ssd_scan_fused": scans,
+                 "grouped_mm": 2 * ffns.count("moe") * totals["launches"]}
     for k, n in per_group.items():
         expect = cfg.n_groups() * n
         check(launches[k] == expect,
@@ -1869,7 +2143,9 @@ def speculation_run(cfg, params, ec, drafter, prompts, sampling, base):
     per_group = {"paged_attention": mixers.count("attn") * n_launches,
                  "ssd_chunk": 0 if fused else scans,
                  "ssd_apply": 0 if fused else scans,
-                 "ssd_scan_fused": scans if fused else 0}
+                 "ssd_scan_fused": scans if fused else 0,
+                 "grouped_mm": 2 * [f for _, f in cfg.pattern()].count("moe")
+                 * n_launches}
     for k, n in per_group.items():
         check(launches[k] == cfg.n_groups() * n,
               f"{arch}: {k} launches {launches[k]} != {cfg.n_groups() * n}")
@@ -2074,10 +2350,23 @@ def phase_verify_profile(eng, drafter, prompts, sampling):
     return rows
 
 
-def phase_profile(eng, prompts, sampling, n_steps=8):
+def kernel_shares(kern, busy_ms, shares, per=1):
+    """label -> (ms, launches, share of the busy time) of the profiled
+    kernels whose names contain one of ``shares[label]``, per step."""
+    out = {}
+    for label, names in shares.items():
+        rows = [e for e in kern if any(n in e.key for n in names)]
+        ms = sum(e.self_device_time_total for e in rows) / 1e3 / per
+        out[label] = dict(ms=ms, launches=sum(e.count for e in rows) / per,
+                          share=ms / busy_ms if busy_ms else "not measured")
+    return out
+
+
+def phase_profile(eng, prompts, sampling, n_steps=8, shares=None):
     """Where a batch-8 decode step's time goes: ``n_steps`` steps under
     torch.profiler after the prompts are in.  Device busy time is the sum
-    of the kernels' own times; the rest of the host wall is device idle."""
+    of the kernels' own times; the rest of the host wall is device idle.
+    ``shares``: label -> kernel names whose part of it is reported."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     reqs = [eng.submit(p, sampling) for p in prompts]
@@ -2105,6 +2394,8 @@ def phase_profile(eng, prompts, sampling, n_steps=8):
         device_busy_ms=busy_ms if kern else "not measured",
         device_idle_share=1 - busy_ms / wall_ms if kern else "not measured",
         kernels_per_step=sum(e.count for e in kern) / n_steps,
+        kernel_shares=kernel_shares(kern, busy_ms, shares or {}, n_steps)
+        if kern else "not measured",
         top=[{"name": e.key[:80], "ms_per_step":
               e.self_device_time_total / 1e3 / n_steps,
               "calls_per_step": e.count / n_steps} for e in top])
@@ -2112,12 +2403,13 @@ def phase_profile(eng, prompts, sampling, n_steps=8):
     return row
 
 
-def phase_prefill_profile(eng, prompt_len=300, batch=8):
-    """Where a batch-8 len256 chunked-prefill step's time goes (mamba2):
-    ``batch`` fresh prompts of ``prompt_len`` tokens arrive at once, so the
-    first step feeds every slot 256 tokens; that one step runs under
+def phase_prefill_profile(eng, shares=None, prompt_len=300, batch=8):
+    """Where a batch-8 len256 chunked-prefill step's time goes: ``batch``
+    fresh prompts of ``prompt_len`` tokens arrive at once, so the first
+    step feeds every slot 256 tokens; that one step runs under
     torch.profiler.  Device busy time is the sum of the kernels' own
-    times; the SSD share is the SSD kernels' part of it."""
+    times; ``shares`` (label -> kernel names; by default ``ssd``, every
+    SSD kernel; qwen3-moe's grouped GEMM) names the parts reported of it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve.engine import SamplingParams
@@ -2146,9 +2438,6 @@ def phase_prefill_profile(eng, prompt_len=300, batch=8):
     kern = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
-    names = [n for ns in SSD_KERNELS.values() for n in ns]
-    ssd = [e for e in kern if any(n in e.key for n in names)]
-    ssd_ms = sum(e.self_device_time_total for e in ssd) / 1e3
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:10]
     row = dict(
         config=eng.cfg.name, step=step,
@@ -2157,9 +2446,9 @@ def phase_prefill_profile(eng, prompt_len=300, batch=8):
         device_idle_share=1 - busy_ms / wall_ms if kern
         else "not measured",
         kernels=sum(e.count for e in kern),
-        ssd_ms=ssd_ms if kern else "not measured",
-        ssd_launches=sum(e.count for e in ssd),
-        ssd_share=ssd_ms / busy_ms if kern else "not measured",
+        kernel_shares=kernel_shares(kern, busy_ms, shares or {"ssd": [
+            n for ns in SSD_KERNELS.values() for n in ns]})
+        if kern else "not measured",
         top=[{"name": e.key[:80], "ms": e.self_device_time_total / 1e3,
               "calls": e.count} for e in top])
     emit("prefill_profile", **row)
@@ -2190,6 +2479,8 @@ def main() -> int:
     mm_timing = phase_mm_timing()
     flash_worst = phase_flash_vs_plain()
     flash_launches, flash_timing = phase_flash_timing()
+    gmm_worst = phase_gmm_vs_plain()
+    gmm_timing = phase_gmm_timing()
     ref_launches = phase_reference()
     launches, by_path = {}, {}
     for arch in ("qwen2-0.5b", "mamba2-780m"):
@@ -2218,6 +2509,20 @@ def main() -> int:
                 if n:
                     launches[k] = launches.get(k, 0) + n
                     by_path.setdefault(k, {})[f"{arch} {path}"] = n
+    # the MoE model last, on an emptied cache: 41.7 GB of weights
+    torch.cuda.empty_cache()
+    arch = "qwen3-moe-235b-a22b"
+    counts, eng, prompts, arrivals, sampling, outputs = phase_engine(arch)
+    phase_graphs(eng, prompts, arrivals, sampling, outputs)
+    moe_shares = {"grouped_mm": ("gmm_",), "paged_attention": ("paged_",)}
+    phase_profile(eng, arrivals, sampling, shares=moe_shares)
+    phase_prefill_profile(eng, moe_shares)
+    for k, n in counts.items():
+        if n:
+            launches[k] = launches.get(k, 0) + n
+            by_path.setdefault(k, {})[f"{arch} engine"] = n
+    del eng
+    torch.cuda.empty_cache()
 
     decode = timing[0]
     kernels = [{
@@ -2311,6 +2616,27 @@ def main() -> int:
         "per_shape": {t["geometry"]: {k: t[k] for k in (
             "ms", "device_ms", "plain_ms", "library_ms", "bound_ms")}
             for t in flash_timing},
+    })
+    top = gmm_timing[0]               # w1 at batch-8 decode, bf16
+    kernels.append({
+        "name": "grouped_mm", "variant": top["variant"], "route": "cuda",
+        "source": GMM_SOURCE, "replaces": GMM_REPLACES,
+        "replaces_note": "lax.ragged_dot, an XLA op and not a Pallas kernel",
+        "launches": launches["grouped_mm"],
+        "launches_by_path": {**by_path["grouped_mm"],
+                             "reference (fp32, simt)":
+                                 ref_launches["grouped_mm"]},
+        "max_abs_err": gmm_worst[1], "max_rel_err": gmm_worst[0],
+        "ms": top["ms"], "plain_ms": top["plain_ms"],
+        "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+        "library_ms": top["library_ms"], "library": top["library"],
+        "device_ms": top["device_ms"],
+        "shape": (f"{top['shape']}: M={top['M']}, K={top['K']}, "
+                  f"N={top['N']}, E={top['E']}, {top['active_experts']} "
+                  f"experts active, {top['dtype']}"),
+        "per_shape": {f"{t['shape']} {t['dtype']}": {k: t[k] for k in (
+            "variant", "ms", "device_ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by", "active_experts")} for t in gmm_timing},
     })
     emit("table1_summary", rows=[{k: r[k] for k in (
         "size", "hybrid_ms", "opencl_ms", "hybrid_wire_bytes",

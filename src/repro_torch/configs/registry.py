@@ -29,6 +29,9 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
                   head_dim=8)
     if cfg.d_ff:
         kw.update(d_ff=128)
+    if cfg.n_experts:
+        kw.update(n_experts=16, top_k=min(cfg.top_k, 2), d_ff_expert=32,
+                  capacity_factor=2.0)
     if cfg.d_inner:
         kw.update(d_inner=128, ssm_heads=8, ssm_headdim=16,
                   ssm_state=16, ssm_groups=min(cfg.ssm_groups, 4))

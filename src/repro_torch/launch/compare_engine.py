@@ -17,7 +17,8 @@ prints, per model, one JSON row with
   cold and arrival passes' as well;
 * eight batch-8 decode steps under torch.profiler (``phase_profile``) and
   one batch-8 len256 chunked-prefill step (``phase_prefill_profile``):
-  host wall ms, device busy ms, device idle share, kernels launched;
+  host wall ms, device busy ms, device idle share, kernels launched, and
+  the prefill step's SSD kernels' ms (``ssd_ms``);
 * the steps its queue built (``n_executables``) and their build seconds
   (``KernelEvent.build_time_s``; 0 where the checkout's queue has none);
 
@@ -66,12 +67,15 @@ def serve(cs, arch):
                              for ev in events.values()))
     decode = cs.phase_profile(eng, arrivals, sampling)
     prefill = cs.phase_prefill_profile(eng)
+    shares = prefill["kernel_shares"]
     keys = ("step_wall_ms", "device_busy_ms", "device_idle_share")
     row = dict(config=arch, **{
         f"{label}_{k}": passes[label][k] for label in passes
         for k in ("tokens_per_s", "mean_ttft_ms", "wall_s")},
         decode={k: decode[k] for k in keys + ("kernels_per_step",)},
-        prefill={k: prefill[k] for k in keys + ("kernels", "ssd_ms")},
+        prefill=dict({k: prefill[k] for k in keys + ("kernels",)},
+                     ssd_ms=shares["ssd"]["ms"] if isinstance(shares, dict)
+                     else shares),
         **built)
     tokens = {label: out[0] for label, out in outputs.items()}
     del eng, params

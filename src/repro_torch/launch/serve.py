@@ -7,24 +7,35 @@ engine, on the card.
       --engine
 
 serves the full-width model on ``cuda`` with random weights from seed 0
-(attention layers page their K/V, mamba layers keep dense state slots).
-``--smoke`` takes the ``reduced()`` config instead (as the JAX launcher
-always does); ``--device cpu`` runs the plain PyTorch versions of every
-kernel on the CPU.  ``--speculation ngram`` (or ``draft_model``, which
-self-drafts with the reduced target config and so needs ``--smoke``)
-verifies up to ``--spec-k`` draft tokens per slot in one
-``verify_bs{N}_len{k+1}`` launch.  Only the ``--engine`` path is ported so
+(attention layers page their K/V, mamba layers keep dense state slots, MoE
+layers run their experts on the grouped GEMM).  ``--smoke`` takes the
+``reduced()`` config instead (as the JAX launcher always does); ``--device
+cpu`` runs the plain PyTorch versions of every kernel on the CPU.
+``--speculation ngram`` (or ``draft_model``, which self-drafts with the
+reduced target config and so needs ``--smoke``) verifies up to
+``--spec-k`` draft tokens per slot in one ``verify_bs{N}_len{k+1}``
+launch.  Only the ``--engine`` path is ported so
 far; the fixed-batch, ``--service`` and ``--supervised`` paths come with
 later slices.
+
+Before it allocates, the launcher reckons the weights' bytes from the
+config and raises, naming the device's memory, when they do not fit: the
+full MoE configs do not fit one H100 (qwen3-moe-235b-a22b's 94 layers hold
+464 GB of bf16 weights; chip_smoke.py serves it at 8 layers, 41.7 GB).  It
+never cuts depth on its own; ``--smoke`` is the way to a small model.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 
 import numpy as np
+import torch
 
 from repro_torch.configs import ARCH_NAMES, get_config, reduced
+from repro_torch.device import resolve_device
+from repro_torch.models.params import config_param_bytes
 from repro_torch.serve.engine import (EngineConfig, SamplingParams,
                                       build_engine, generate)
 from repro_torch.serve.spec import SpeculationConfig
@@ -56,7 +67,35 @@ def _workload(cfg, args):
             for _ in range(args.requests)]
 
 
+# share of the device's memory the weights may take; the rest holds the KV
+# arena, the dense slots, the step graphs' pools and the activations
+FIT_SHARE = 0.9
+
+
+def check_fit(cfg, device) -> int:
+    """The bytes of ``cfg``'s weights, reckoned from the config; raises
+    ``MemoryError`` naming the device's memory when they take more than
+    ``FIT_SHARE`` of it."""
+    need = config_param_bytes(cfg)
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        props = torch.cuda.get_device_properties(dev)
+        have, where = props.total_memory, f"{props.name}'s"
+    else:
+        have = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+        where = "the host's"
+    if need > FIT_SHARE * have:
+        raise MemoryError(
+            f"{cfg.name} at {cfg.n_layers} layers needs {need / 1e9:.1f} GB "
+            f"of weights, more than {FIT_SHARE:.0%} of {where} "
+            f"{have / 1e9:.1f} GB: serve the reduced config (--smoke)")
+    return need
+
+
 def _main_engine(cfg, args):
+    need = check_fit(cfg, args.device)
+    print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{need / 1e9:.2f} GB of weights")
     eng = build_engine(cfg, seed=0, engine_cfg=_engine_cfg(args))
     prompts = _workload(cfg, args)
     outs = generate(eng, prompts, SamplingParams(max_tokens=args.tokens))

@@ -1,9 +1,9 @@
 """Model configuration shared by every architecture family (torch dtypes).
 
-The dense-attention and SSM (Mamba2 / SSD) subset of
+The dense-attention, MoE and SSM (Mamba2 / SSD) subset of
 ``repro.models.config``: the fields and the grid-derived helpers the serving
-path reads.  MoE, encoder-decoder and vision fields arrive with the slices
-that serve those families.  There is no ``ssd_backend`` field: the device of
+path reads.  Encoder-decoder and vision fields arrive with the slices that
+serve those families.  There is no ``ssd_backend`` field: the device of
 the tensors picks the SSD scan's route, as it does for paged attention.
 """
 
@@ -41,6 +41,15 @@ class ModelConfig:
     rope_theta: float = 1e6
     causal: bool = True
     attn_block_kv: int = 1024
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    d_ff_expert: int = 0
+    capacity_factor: float = 1.25
+    router_renorm: bool = True
+    moe_aux_coef: float = 1e-2
+    moe_z_coef: float = 1e-3
+    moe_wire_dtype: str = "native"   # native | int8  (dispatch/combine)
     # SSM (Mamba2 / SSD)
     d_inner: int = 0
     ssm_heads: int = 0

@@ -1,0 +1,138 @@
+"""Mixture-of-Experts block on one device: ``repro.models.moe.moe_block``
+on a 1x1 grid.
+
+On one card every expert is local and the dispatch and combine exchanges
+(``all_to_all`` over the flat PE space) are the identity; what is left is
+the router, the capacity rule, the grouped expert FFN and the weighted
+combine, each rounded where the JAX block rounds:
+
+  * router logits ``x.float() @ router`` in fp32 (the router is an fp32
+    leaf even in bf16 models), softmax, ``topk``, the ``router_renorm``
+    division with its 1e-9 floor;
+  * capacity ``cap = ceil(T * k / n_pes * capacity_factor)`` at n_pes = 1.
+    With one PE a pair's rank among the pairs bound for its PE is its index
+    in flat ``(token, k)`` order, so the pairs at index ``>= cap`` drop:
+    none at ``capacity_factor >= 1``;
+  * the pairs sorted by expert (stable), dropped pairs last under the
+    sentinel id E; offsets from a fixed-size count and a cumsum;
+  * ``grouped_mm`` with ``w1`` (gate | up along the last axis), ``silu`` of
+    the gate in fp32 rounded to x's dtype, times the up half in x's dtype;
+    ``grouped_mm`` with ``w2``; unsorted;
+  * the fp32 combine, one fixed-shape sum over k (the JAX block's
+    ``.at[ft].add`` adds each token's k contributions), then cast to x's
+    dtype;
+  * with ``moe_wire_dtype == "int8"`` the rows are quantised and
+    dequantised where the JAX block sends them (per row, scale
+    ``max|x| / 127 + 1e-12``): on one card the exchange is the identity,
+    the rounding is not.
+
+Every shape is fixed by (T, k): M = T * k rows always, dropped pairs parked
+past ``offsets[E]`` where the grouped GEMM writes zeros.  Nothing reads a
+count on the host (no ``bincount``, ``nonzero``, boolean indexing or
+``.item()``), so a step body holding the block can be captured as a CUDA
+graph, and the combine uses no atomics, so a replay gives the same bits.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.kernels.grouped_mm import grouped_mm
+
+
+def _int8_wire(t: torch.Tensor) -> torch.Tensor:
+    """The int8 dispatch/combine round trip of ``moe.py:88-94``, per row."""
+    f = t.float()
+    sc = f.abs().amax(-1, keepdim=True) / 127.0 + 1e-12
+    q8 = torch.clamp(torch.round(f / sc), -127, 127).to(torch.int8)
+    return (q8.float() * sc).to(t.dtype)
+
+
+def _moe(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg):
+    """x (B, S, D) -> (y same shape and dtype, router logits (T, E) fp32,
+    probs (T, E), top_e (T, k)).  ``p``: router (D, E) fp32, w1 (E, D, 2F),
+    w2 (E, F, D) in the global layout."""
+    B, S, D = x.shape
+    T = B * S
+    E, k = cfg.n_experts, cfg.top_k
+    n = T * k
+    dev = x.device
+
+    x2 = x.reshape(T, D)
+    logits = x2.float() @ p["router"].float()
+    probs = torch.softmax(logits, dim=-1)
+    top_w, top_e = torch.topk(probs, k, dim=-1)            # (T, k)
+    if cfg.router_renorm:
+        top_w = top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
+
+    # ---- dispatch: sort the (token, k) pairs by expert ----------------------
+    fe = top_e.reshape(n)
+    fw = top_w.reshape(n).float()
+    ft = torch.arange(T, device=dev)[:, None].expand(T, k).reshape(n)
+    valid = torch.arange(n, device=dev) < _n_kept(n, cfg)
+    key = torch.where(valid, fe, E)                        # E: dropped
+    perm = torch.argsort(key, stable=True)
+    counts = torch.zeros(E + 1, dtype=torch.int32, device=dev).scatter_add_(
+        0, key, torch.ones(n, dtype=torch.int32, device=dev))
+    offsets = torch.zeros(E + 1, dtype=torch.int32, device=dev)
+    offsets[1:] = torch.cumsum(counts[:E], 0)
+    xs = x2[ft[perm]]                                      # (n, D)
+    if cfg.moe_wire_dtype == "int8":
+        xs = _int8_wire(xs)
+
+    # ---- grouped expert FFN ------------------------------------------------
+    F = p["w2"].shape[1]
+    h = grouped_mm(xs, p["w1"], offsets)                   # (n, 2F)
+    h = torch.nn.functional.silu(h[:, :F].float()).to(h.dtype) * h[:, F:]
+    ye = grouped_mm(h, p["w2"], offsets)                   # (n, D)
+    if cfg.moe_wire_dtype == "int8":
+        ye = _int8_wire(ye)
+    inv = torch.empty_like(perm).scatter_(
+        0, perm, torch.arange(n, device=dev))
+    yp = ye[inv]                                           # flat order
+
+    # ---- weighted combine: one fixed-order sum over k in fp32 --------------
+    # dropped pairs' rows are exact zeros (the grouped GEMM zeroes rows past
+    # offsets[E], and the int8 round trip keeps zeros), so they add nothing
+    y = (yp.float().reshape(T, k, D) * fw.reshape(T, k, 1)).sum(1)
+    return y.to(x.dtype).reshape(B, S, D), logits, probs, top_e
+
+
+def _n_kept(n: int, cfg) -> int:
+    """Pairs kept of ``n``: ``cap = ceil(T*k/n_pes*capacity_factor)`` at
+    n_pes = 1."""
+    return min(math.ceil(n * cfg.capacity_factor), n)
+
+
+def moe_ffn(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg
+            ) -> torch.Tensor:
+    """The serving path's block: x (B, S, D) -> y, no metrics."""
+    return _moe(p, x, cfg)[0]
+
+
+def moe_metrics(logits: torch.Tensor, probs: torch.Tensor,
+                top_e: torch.Tensor, cfg) -> Dict[str, torch.Tensor]:
+    """The switch-style load-balance loss plus the router z-loss
+    (``moe_aux``) and the share of dropped pairs (``moe_dropped``)."""
+    E = cfg.n_experts
+    n = top_e.numel()
+    hits = torch.zeros(E, dtype=torch.float32, device=top_e.device
+                       ).scatter_add_(0, top_e.reshape(n), torch.ones(
+                           n, dtype=torch.float32, device=top_e.device))
+    aux = E * torch.sum(hits / n * probs.mean(0)) * cfg.moe_aux_coef
+    zloss = torch.mean(torch.logsumexp(logits, -1) ** 2) * cfg.moe_z_coef
+    dropped = torch.full((), (n - _n_kept(n, cfg)) / n, dtype=torch.float32,
+                         device=top_e.device)
+    return {"moe_aux": aux + zloss, "moe_dropped": dropped}
+
+
+def moe_block(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x (B, S, D) -> (y same shape and dtype, metrics {moe_aux,
+    moe_dropped}).  Serving calls ``moe_ffn``, which skips the metrics;
+    training reads them."""
+    y, logits, probs, top_e = _moe(p, x, cfg)
+    return y, moe_metrics(logits, probs, top_e, cfg)

@@ -1,4 +1,5 @@
-"""Parameters of the dense and SSM models: initialisation and import from JAX.
+"""Parameters of the dense, MoE and SSM models: initialisation and import
+from JAX.
 
 The tree has the JAX package's global layout (``repro.models.ref``'s
 ``gather_params`` output), one plain dict of tensors:
@@ -8,7 +9,9 @@ The tree has the JAX package's global layout (``repro.models.ref``'s
         G layer groups — norm1/norm2 {scale (G, D)},
         mixer {wq (G, D, Hq*hd), wk/wv (G, D, kvh*hd), wo (G, Hq*hd, D),
                bq/bk/bv when qkv_bias, q_norm/k_norm (G, hd) when qk_norm},
-        ffn {w_gate/w_up (G, D, F), w_down (G, F, D)}
+        ffn {w_gate/w_up (G, D, F), w_down (G, F, D)}, or for an MoE layer
+        {router (G, D, E) fp32, w1 (G, E, D, 2F) with gate | up along the
+        last axis, w2 (G, E, F, D)}, F = d_ff_expert
     A mamba layer's mixer is instead {wz/wx (G, D, di), wb/wc (G, D, g*N),
         wdt (G, D, H), conv_w (G, k, di + 2*g*N), conv_b (G, di + 2*g*N),
         A/dt_bias/D (G, H) fp32, ssm_norm (G, di) fp32, wo (G, di, D)}, the
@@ -41,84 +44,134 @@ def _normal(shape, fan_in: Optional[int], dtype, generator, device):
                         dtype=torch.float32) * scale).to(dtype)
 
 
+def _normal_slices(shape, fan_in: int, dtype, generator, device):
+    """``_normal`` drawn one (group, expert) slice at a time into a leaf of
+    ``dtype``: the fp32 temporary is one slice, not the whole leaf (a full
+    width qwen3-moe ``w1`` of 8 layers would need 51.5 GB of it)."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for g in range(shape[0]):
+        for e in range(shape[1]):
+            out[g, e] = _normal(shape[2:], fan_in, dtype, generator, device)
+    return out
+
+
+# leaves initialised to ones or zeros, by name; every other leaf is drawn
+_ONES = ("scale", "q_norm", "k_norm", "D", "ssm_norm")
+_ZEROS = ("bias", "bq", "bk", "bv", "conv_b", "dt_bias", "b_up", "b_down")
+
+
+def layer_leaves(cfg: ModelConfig, mixer: str, ffn: str
+                 ) -> Dict[Tuple[str, str], Tuple[Tuple[int, ...], Any]]:
+    """(part, name) -> (shape, dtype) of one layer position's leaves, each
+    stacked over the G layer groups, at the native r=1 geometry, in the
+    order :func:`init_params` draws them.  ``part`` is the key of the
+    layer's sub-dict: norm1, mixer, norm2 or ffn."""
+    if mixer not in ("attn", "mamba") or ffn not in ("mlp", "moe", "none"):
+        raise NotImplementedError(
+            f"{cfg.name}: ({mixer}, {ffn}) layers come with a later slice")
+    dt, f32 = cfg.param_dtype, torch.float32
+    G, D, F = cfg.n_groups(), cfg.d_model, cfg.d_ff
+
+    def norm():
+        n = {"scale": ((G, D), f32)}
+        if cfg.norm == "layernorm":
+            n["bias"] = ((G, D), f32)
+        return n
+
+    if mixer == "attn":
+        hd, Hq, kvh = cfg.hd(), cfg.heads_padded(1), cfg.kv_stored(1)[0]
+        m = {"wq": ((G, D, Hq * hd), dt), "wk": ((G, D, kvh * hd), dt),
+             "wv": ((G, D, kvh * hd), dt), "wo": ((G, Hq * hd, D), dt)}
+        if cfg.qkv_bias:
+            m.update(bq=((G, Hq * hd), dt), bk=((G, kvh * hd), dt),
+                     bv=((G, kvh * hd), dt))
+        if cfg.qk_norm:
+            m.update(q_norm=((G, hd), f32), k_norm=((G, hd), f32))
+    else:
+        di, H = cfg.d_inner, cfg.ssm_heads
+        gn, K = cfg.ssm_groups * cfg.ssm_state, cfg.conv_kernel
+        m = {"A": ((G, H), f32), "wz": ((G, D, di), dt),
+             "wx": ((G, D, di), dt), "wb": ((G, D, gn), dt),
+             "wc": ((G, D, gn), dt), "wdt": ((G, D, H), dt),
+             "conv_w": ((G, K, di + 2 * gn), dt),
+             "conv_b": ((G, di + 2 * gn), dt), "dt_bias": ((G, H), f32),
+             "D": ((G, H), f32), "ssm_norm": ((G, di), f32),
+             "wo": ((G, di, D), dt)}
+    parts = {"norm1": norm(), "mixer": m}
+    if ffn == "mlp":
+        f = {"w_up": ((G, D, F), dt), "w_down": ((G, F, D), dt)}
+        if cfg.act == "swiglu":
+            f["w_gate"] = ((G, D, F), dt)
+        if cfg.mlp_bias:
+            f.update(b_up=((G, F), dt), b_down=((G, D), dt))
+        parts.update(norm2=norm(), ffn=f)
+    elif ffn == "moe":
+        E, Fe = cfg.n_experts, cfg.d_ff_expert
+        parts.update(norm2=norm(), ffn={
+            "router": ((G, D, E), f32), "w1": ((G, E, D, 2 * Fe), dt),
+            "w2": ((G, E, Fe, D), dt)})
+    return {(part, name): leaf for part, leaves in parts.items()
+            for name, leaf in leaves.items()}
+
+
+def _nbytes(shape, dtype) -> int:
+    return math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+
+
+def config_param_bytes(cfg: ModelConfig) -> int:
+    """Device bytes of the weights :func:`init_params` would allocate for
+    ``cfg``, reckoned from the config alone (nothing is allocated)."""
+    total = 2 * _nbytes((cfg.vocab_size, cfg.d_model), cfg.param_dtype)
+    total += _nbytes((cfg.d_model,), torch.float32) * (
+        2 if cfg.norm == "layernorm" else 1)
+    for mixer, ffn in cfg.pattern():
+        total += sum(_nbytes(shape, dt) for shape, dt in
+                     layer_leaves(cfg, mixer, ffn).values())
+    return total
+
+
+def _init_leaf(name, shape, dtype, d_model, generator, device):
+    if name in _ONES:
+        return torch.ones(shape, dtype=dtype, device=device)
+    if name in _ZEROS:
+        return torch.zeros(shape, dtype=dtype, device=device)
+    if name == "A":                 # the SSD decay, -exp(U(log .5, log 8))
+        u = torch.rand(shape, generator=generator, device=device,
+                       dtype=torch.float32)
+        lo, hi = math.log(0.5), math.log(8.0)
+        return -torch.exp(lo + (hi - lo) * u)
+    if name in ("w1", "w2"):
+        return _normal_slices(shape, d_model, dtype, generator, device)
+    # fan-in: the contracted dim, but D for the router (transformer.py:93)
+    fan_in = d_model if name == "router" else shape[-2]
+    return _normal(shape, fan_in, dtype, generator, device)
+
+
 def init_params(cfg: ModelConfig, *, generator: torch.Generator,
                 device=None) -> Dict[str, Any]:
     """Random weights at the native r=1 geometry, drawn from ``generator``
     (which must live on ``device``).  Initialisers follow the JAX package:
-    normal(0, fan_in^-1/2) projections, normal(0, 0.02) embeddings, unit
-    norm scales, zero biases; the SSD decay ``A = -exp(U(log .5, log 8))``
-    as in Mamba2."""
+    normal(0, fan_in^-1/2) projections (fan-in D for the MoE router and
+    both expert leaves, ``transformer.py:86-96``), normal(0, 0.02)
+    embeddings, unit norm scales, zero biases; the SSD decay
+    ``A = -exp(U(log .5, log 8))`` as in Mamba2.  Expert leaves are drawn
+    one (group, expert) slice at a time."""
     dev = resolve_device(device)
-    if cfg.family not in ("dense", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is served by a later slice")
-    dt = cfg.param_dtype
-    G, D, F = cfg.n_groups(), cfg.d_model, cfg.d_ff
-    Vp = cfg.vocab_size            # a 1x1 grid pads nothing
-
-    def w(K, N):
-        return _normal((G, K, N), K, dt, generator, dev)
-
-    def ones(*shape):
-        return torch.ones(shape, dtype=torch.float32, device=dev)
-
-    def zeros(*shape):
-        return torch.zeros(shape, dtype=dt, device=dev)
-
-    def norm():
-        n = {"scale": ones(G, D)}
-        if cfg.norm == "layernorm":
-            n["bias"] = torch.zeros((G, D), dtype=torch.float32, device=dev)
-        return n
-
-    def attn():
-        hd, Hq, kvh = cfg.hd(), cfg.heads_padded(1), cfg.kv_stored(1)[0]
-        m = {"wq": w(D, Hq * hd), "wk": w(D, kvh * hd), "wv": w(D, kvh * hd),
-             "wo": w(Hq * hd, D)}
-        if cfg.qkv_bias:
-            m.update(bq=zeros(G, Hq * hd), bk=zeros(G, kvh * hd),
-                     bv=zeros(G, kvh * hd))
-        if cfg.qk_norm:
-            m.update(q_norm=ones(G, hd), k_norm=ones(G, hd))
-        return m
-
-    def mamba():
-        di, H = cfg.d_inner, cfg.ssm_heads
-        gn, K = cfg.ssm_groups * cfg.ssm_state, cfg.conv_kernel
-        u = torch.rand((G, H), generator=generator, device=dev,
-                       dtype=torch.float32)
-        lo, hi = math.log(0.5), math.log(8.0)
-        return {"wz": w(D, di), "wx": w(D, di), "wb": w(D, gn),
-                "wc": w(D, gn), "wdt": w(D, H),
-                "conv_w": _normal((G, K, di + 2 * gn), K, dt, generator,
-                                  dev),
-                "conv_b": zeros(G, di + 2 * gn),
-                "A": -torch.exp(lo + (hi - lo) * u),
-                "dt_bias": torch.zeros((G, H), dtype=torch.float32,
-                                       device=dev),
-                "D": ones(G, H), "ssm_norm": ones(G, di), "wo": w(di, D)}
-
+    dt, D = cfg.param_dtype, cfg.d_model
     layers = []
     for mixer, ffn in cfg.pattern():
-        if mixer not in ("attn", "mamba") or ffn not in ("mlp", "none"):
-            raise NotImplementedError(
-                f"{cfg.name}: ({mixer}, {ffn}) layers come with a later slice")
-        layer = {"norm1": norm(),
-                 "mixer": attn() if mixer == "attn" else mamba()}
-        if ffn == "mlp":
-            f = {"w_up": w(D, F), "w_down": w(F, D)}
-            if cfg.act == "swiglu":
-                f["w_gate"] = w(D, F)
-            if cfg.mlp_bias:
-                f.update(b_up=zeros(G, F), b_down=zeros(G, D))
-            layer.update(norm2=norm(), ffn=f)
+        layer: Dict[str, Dict[str, torch.Tensor]] = {}
+        for (part, name), (shape, ldt) in layer_leaves(cfg, mixer,
+                                                       ffn).items():
+            layer.setdefault(part, {})[name] = _init_leaf(
+                name, shape, ldt, D, generator, dev)
         layers.append(layer)
-    final = {"scale": ones(D)}
+    final = {"scale": torch.ones((D,), dtype=torch.float32, device=dev)}
     if cfg.norm == "layernorm":
         final["bias"] = torch.zeros((D,), dtype=torch.float32, device=dev)
     return {
-        "embed": _normal((Vp, D), None, dt, generator, dev),
-        "lm_head": _normal((D, Vp), D, dt, generator, dev),
+        "embed": _normal((cfg.vocab_size, D), None, dt, generator, dev),
+        "lm_head": _normal((D, cfg.vocab_size), D, dt, generator, dev),
         "final_norm": final,
         "layers": layers,
     }

@@ -49,6 +49,7 @@ from repro_torch.models.attention import combine_partials
 from repro_torch.models.config import ModelConfig, attn_static
 from repro_torch.models.layers import (apply_norm, apply_rope, mlp_apply,
                                        rms_norm_local, rope_tables)
+from repro_torch.models.moe import moe_ffn
 from repro_torch.models.ssm import mamba_chunk_step, mamba_decode_step
 
 
@@ -217,9 +218,11 @@ def _decode_layer(cfg, mixer, ffn, p, x, cache, op: _Operands):
     if ffn == "mlp":
         h = apply_norm(cfg, p["norm2"], x)
         x = x + mlp_apply(cfg, p["ffn"], h)
+    elif ffn == "moe":
+        h = apply_norm(cfg, p["norm2"], x)
+        x = x + moe_ffn(p["ffn"], h, cfg)
     elif ffn != "none":
-        raise NotImplementedError(f"({mixer}, {ffn}) layers: MoE is a later "
-                                  f"slice")
+        raise NotImplementedError(f"({mixer}, {ffn}) layers")
     return x
 
 

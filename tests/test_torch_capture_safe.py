@@ -12,12 +12,18 @@ mode="drop")``) lands in one scratch page or slot row past the pool.
   no live position or lane writes, and its dropped writes in scratch;
 * a step with every lane idle (the engine's build operands) changes only
   scratch, on an arena of random values;
-* the bodies of the reduced qwen2, mamba2 and hybrid configs run under a
-  dispatch mode that raises on ``aten.nonzero`` (a data-dependent shape),
-  ``aten._local_scalar_dense`` (``.item()``, ``bool(t)``, ``int(t)``) and
-  ``aten.lift_fresh`` (a tensor made from Python data: a pageable
-  host-to-device copy on the card), after one call outside it, as the
-  engine's build warms a step up before capturing it.
+* the bodies of the reduced qwen2, mamba2, hybrid, qwen3-moe and jamba
+  configs run under a dispatch mode that raises on ``aten.nonzero`` (a
+  data-dependent shape), ``aten._local_scalar_dense`` (``.item()``,
+  ``bool(t)``, ``int(t)``) and ``aten.lift_fresh`` (a tensor made from
+  Python data: a pageable host-to-device copy on the card), after one call
+  outside it, as the engine's build warms a step up before capturing it.
+  The plain grouped GEMM reads its offsets on the host by design; it runs
+  only for CPU tensors (the card launches the kernel, which reads them on
+  the card), so the guard lets it through and holds the MoE block's own
+  ops.  The dispatch guard sees only the outer op, not a read-back inside
+  a CUDA op's implementation (``bincount``'s): the card's ``graphs`` phase
+  of chip_smoke.py is the real check.
 """
 
 import numpy as np
@@ -33,6 +39,7 @@ from repro.configs import get_config
 from repro.configs.registry import reduced
 from repro.partition import DATA
 from repro.serve.decode import PagedKV, make_prefill_chunk_body
+import repro_torch.models.moe as moe_mod
 from repro_torch.configs import get_config as t_get_config
 from repro_torch.configs import reduced as t_reduced
 from repro_torch.models.params import init_params, stored_heads
@@ -154,7 +161,8 @@ def _port_case(name):
     return cfg, params, arena
 
 
-PORT_CONFIGS = ["hybrid", "mamba2-780m", "qwen2-0.5b"]
+PORT_CONFIGS = ["hybrid", "jamba-1.5-large-398b", "mamba2-780m",
+                "qwen2-0.5b", "qwen3-moe-235b-a22b"]
 
 
 def _call(kind, cfg, params, arena, tokens, pos, n_valid, table, slots):
@@ -187,9 +195,10 @@ class _NoHostSync(TorchDispatchMode):
 
     BANNED = (torch.ops.aten.nonzero, torch.ops.aten._local_scalar_dense,
               torch.ops.aten.lift_fresh)
+    paused = 0          # inside a kernel's CPU-only plain version
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        if func.overloadpacket in self.BANNED:
+        if func.overloadpacket in self.BANNED and not self.paused:
             raise AssertionError(f"{func} in a step body")
         return func(*args, **(kwargs or {}))
 
@@ -205,7 +214,7 @@ def test_the_guard_catches_host_syncs():
 
 @pytest.mark.parametrize("kind", ["decode", "chunk"])
 @pytest.mark.parametrize("name", PORT_CONFIGS)
-def test_step_bodies_make_no_host_sync(name, kind):
+def test_step_bodies_make_no_host_sync(name, kind, monkeypatch):
     """Live, partial and idle lanes; the second call runs under the
     guard."""
     cfg, params, arena = _port_case(name)
@@ -220,6 +229,17 @@ def test_step_bodies_make_no_host_sync(name, kind):
     slots = torch.tensor([1, 0, 2, -1], dtype=torch.int32)
     args = (kind, cfg, params, arena, tokens, pos, n_valid, table, slots)
     _call(*args)
-    with _NoHostSync():
+    guard = _NoHostSync()
+    plain_gmm = moe_mod.grouped_mm
+
+    def gmm(x, w, offsets):
+        assert x.device.type == "cpu"       # the card takes the kernel
+        guard.paused += 1
+        try:
+            return plain_gmm(x, w, offsets)
+        finally:
+            guard.paused -= 1
+    monkeypatch.setattr(moe_mod, "grouped_mm", gmm)
+    with guard:
         logits = _call(*args)
     assert logits.shape[:2] == (B, 1) and logits.dtype == torch.float32

@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain versions, on the card:
 paged attention, the two SSD-scan passes and their fused launch, the
-cannon_mm matmul (forward, backward, and one emulated Cannon call) and
-flash attention.
+cannon_mm matmul (forward, backward, and one emulated Cannon call), flash
+attention and the grouped GEMM of the MoE experts.
 
 Needs a CUDA card and nvcc; skips without a card.  The file imports no
 JAX, so on a machine without it run it past the suite's conftest:
@@ -806,10 +806,14 @@ def _replay_against_eager(name, dtype, L, all_logits=False):
                 (leaf, _max_diff(a[:, :-1], e0[leaf][:, :-1]))
 
 
+STEP_MODELS = ["qwen2-0.5b", "mamba2-780m", "qwen3-moe-235b-a22b",
+               "jamba-1.5-large-398b"]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("L", [0, 16, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("name", ["qwen2-0.5b", "mamba2-780m"])
+@pytest.mark.parametrize("name", STEP_MODELS)
 def test_replayed_step_matches_eager_body(name, dtype, L):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
@@ -818,7 +822,7 @@ def test_replayed_step_matches_eager_body(name, dtype, L):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("name", ["qwen2-0.5b", "mamba2-780m"])
+@pytest.mark.parametrize("name", STEP_MODELS)
 def test_replayed_verify_step_matches_eager_body(name, dtype):
     """The speculative ``verify_bs{N}_len5`` step (k = 4: every position's
     logits) replayed against its eager body, all rows compared."""
@@ -828,7 +832,7 @@ def test_replayed_verify_step_matches_eager_body(name, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["qwen2-0.5b", "mamba2-780m"])
+@pytest.mark.parametrize("name", STEP_MODELS)
 def test_step_bodies_make_no_sync_on_the_card(name):
     """After one call outside it, a decode and a chunk step run under
     ``torch.cuda.set_sync_debug_mode("error")``."""
@@ -866,3 +870,139 @@ def test_bf16_logits_keep_fp32_sums():
     want = torch.matmul(x.float(), w.float())
     assert got.dtype == torch.float32 and got.shape == (8, 1, 151936)
     assert _rel(want, got) < 1e-5
+
+
+# ---------------------------------------------------------------------------
+# The grouped GEMM (MoE experts): bf16 on the tensor cores (mma variant),
+# fp32 on the CUDA cores (simt).  The kernel and its plain version both sum
+# in fp32 and round once; where the two sums straddle a rounding boundary
+# bf16 outputs differ by one ulp (at most 2^-7 of the value), fp32 ones by
+# the summation order (rel < 1e-5).
+# ---------------------------------------------------------------------------
+
+GMM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [
+    # M, K, N, E, group sizes, rows before offsets[0]
+    (64, 4096, 3072, 128, "top8", 0),       # qwen3-moe w1, batch-8 decode
+    (320, 1536, 4096, 128, "top8", 0),      # qwen3-moe w2, verify k = 4
+    (1024, 256, 384, 16, "top8", 0),        # several M tiles an expert
+    (77, 64, 64, 16, [0, 9, 0, 0, 30, 0, 0, 1, 0, 0, 0, 17, 0, 0, 20, 0], 0),
+    (300, 64, 136, 16, [0] * 5 + [300] + [0] * 10, 0),
+    (100, 40, 72, 6, [13, 0, 25, 2, 0, 30], 0),   # rows past offsets[E]
+    (90, 32, 64, 4, [20, 0, 31, 9], 11),          # and before offsets[0]
+    (33, 32, 64, 8, [0] * 8, 5),                  # no expert has a row
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_mm_kernel_matches_plain_version(case, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.grouped_mm import grouped_mm, grouped_mm_ref
+    from repro_torch.kernels.grouped_mm.kernel import grouped_mm_cuda
+    M, K, N, E, sizes, head = case
+    rng = np.random.default_rng(M)
+    if sizes == "top8":
+        picks = np.argsort(rng.random((M // 8, E)), axis=1)[:, :8]
+        sizes = np.bincount(picks.ravel(), minlength=E)
+    offsets = torch.from_numpy((head + np.concatenate(
+        [[0], np.cumsum(sizes)])).astype(np.int32)).cuda()
+    x = torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32)).to(
+        "cuda", dtype)
+    w = (torch.from_numpy(rng.normal(size=(E, K, N)).astype(np.float32))
+         * K ** -0.5).to("cuda", dtype)
+    variant = "mma" if dtype == torch.bfloat16 else "simt"
+    n0, v0 = grouped_mm_cuda.launches, grouped_mm_cuda.by_variant[variant]
+    got = grouped_mm(x, w, offsets)
+    assert grouped_mm_cuda.launches == n0 + 1
+    assert grouped_mm_cuda.by_variant[variant] == v0 + 1
+    want = grouped_mm_ref(x, w, offsets)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (M, N)
+    assert _rel(want, got) <= GMM_TOL[dtype]
+    lo, hi = int(offsets[0]), int(offsets[-1])
+    assert not got[:lo].any() and not got[hi:].any()
+
+
+@pytest.mark.gpu
+def test_grouped_mm_fp32_takes_any_k_and_n():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.grouped_mm import grouped_mm_ref
+    from repro_torch.kernels.grouped_mm.kernel import grouped_mm_cuda
+    gen = torch.Generator("cuda").manual_seed(0)
+    x = torch.randn(53, 37, generator=gen, device="cuda")
+    w = torch.randn(4, 37, 70, generator=gen, device="cuda")
+    off = torch.tensor([0, 7, 7, 31, 50], dtype=torch.int32, device="cuda")
+    assert _rel(grouped_mm_ref(x, w, off), grouped_mm_cuda(x, w, off)) \
+        <= GMM_TOL[torch.float32]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_mm_replays_with_new_offsets(dtype):
+    """Captured once in a CUDA graph, the launch reads the offsets on the
+    card: a replay after new routing is copied in gives the new product,
+    and the same inputs give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.grouped_mm import grouped_mm_ref
+    from repro_torch.kernels.grouped_mm.kernel import grouped_mm_cuda
+    gen = torch.Generator("cuda").manual_seed(1)
+    M, K, N, E = 96, 128, 256, 16
+    x = torch.randn(M, K, generator=gen, device="cuda").to(dtype)
+    w = torch.randn(E, K, N, generator=gen, device="cuda").to(dtype)
+    off = torch.zeros(E + 1, dtype=torch.int32, device="cuda")
+    rng = np.random.default_rng(2)
+
+    def route(n_rows):
+        sizes = np.bincount(rng.integers(0, E, n_rows), minlength=E)
+        off.copy_(torch.from_numpy(np.concatenate([[0], np.cumsum(sizes)])
+                                   .astype(np.int32)))
+    route(M)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        grouped_mm_cuda(x, w, off)          # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = grouped_mm_cuda(x, w, off)
+    for n_rows in (M, 40, 0, M):
+        route(n_rows)
+        graph.replay()
+        first = out.clone()
+        graph.replay()
+        want = grouped_mm_ref(x, w, off)
+        torch.cuda.synchronize()
+        assert torch.equal(first, out)
+        assert _rel(want, out) <= GMM_TOL[dtype] if n_rows else \
+            not out.any()
+
+
+@pytest.mark.gpu
+def test_grouped_mm_wrapper_refuses_bad_operands():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.grouped_mm.kernel import grouped_mm_cuda
+    bf = torch.bfloat16
+    x = torch.zeros(8, 16, device="cuda", dtype=bf)
+    w = torch.zeros(2, 16, 8, device="cuda", dtype=bf)
+    off = torch.tensor([0, 4, 8], dtype=torch.int32, device="cuda")
+    grouped_mm_cuda(x, w, off)
+    with pytest.raises(TypeError):                  # offsets not int32
+        grouped_mm_cuda(x, w, off.long())
+    with pytest.raises(TypeError):                  # mixed dtypes
+        grouped_mm_cuda(x.float(), w, off)
+    with pytest.raises(ValueError):                 # E + 1 offsets
+        grouped_mm_cuda(x, w, off[:2])
+    with pytest.raises(ValueError):                 # K mismatch
+        grouped_mm_cuda(x[:, :8].contiguous(), w, off)
+    with pytest.raises(ValueError):                 # bf16 N not a multiple of 8
+        grouped_mm_cuda(x, torch.zeros(2, 16, 12, device="cuda", dtype=bf),
+                        off)
+    with pytest.raises(ValueError):                 # not contiguous
+        grouped_mm_cuda(x.t().contiguous().t(), w, off)
+    with pytest.raises(ValueError):                 # an operand on the CPU
+        grouped_mm_cuda(x, w.cpu(), off)

@@ -97,7 +97,20 @@ def test_cpu_only_when_asked():
 
 
 def test_later_slices_raise_not_implemented():
-    for name in ("jamba-1.5-large-398b", "qwen3-moe-235b-a22b",
-                 "whisper-base"):
+    for name in ("whisper-base", "pixtral-12b", "stablelm-12b", "qwen2-7b"):
         with pytest.raises(NotImplementedError, match="slice"):
             get_config(name)
+
+
+@pytest.mark.parametrize("name", ["jamba-1.5-large-398b", "kimi-k2-1t-a32b",
+                                  "qwen3-moe-235b-a22b"])
+def test_moe_archs_resolve_and_serve_reduced_on_the_cpu(name):
+    cfg = get_config(name)
+    assert cfg.n_experts and cfg.top_k and "moe" in [
+        f for _, f in cfg.pattern()]
+    eng = ServingEngine(reduced(cfg), engine_cfg=EngineConfig(
+        s_max=32, buckets=(1, 2), block_pos_stride=4, prefill_chunks=(8,),
+        device="cpu"))
+    outs = generate(eng, [[1, 2, 3], list(range(4, 15))],
+                    SamplingParams(max_tokens=3))
+    assert [len(c.tokens) for c in outs] == [3, 3]
