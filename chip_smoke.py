@@ -47,7 +47,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    on the card and on the CPU and without it on the card, with identical
    tokens, and the reduced qwen2 and qwen3-moe self-draft through
    DraftModelDrafter on their own weights, every draft token accepted; the
-   MoE configs' experts take the grouped GEMM's fp32 (simt) variant;
+   MoE configs' experts take the grouped GEMM's fp32 (simt) variant, w1
+   fused with its epilogue;
 6. the engine at full width — qwen2-0.5b (24 layers, d_model 896, vocab
    151936, bf16), then mamba2-780m (48 layers, d_model 1536, 48 SSD heads,
    vocab 50280, bf16), each with random weights from seed 0: 8 requests
@@ -93,9 +94,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    layers (41.7 GB of weights: all 94 are 464 GB), random weights from
    seed 0, through the same engine setting, workload and phases as 6-8:
    engine (gates: paged attention on every attention layer of every
-   launch, the grouped GEMM on 2 x MoE layers of every launch, the plain
-   versions never), graphs, profile (batch-8 decode, and one batch-8
-   len256 prefill step with the grouped GEMM's share);
+   launch, the grouped GEMM on 2 x MoE layers of every launch: w1 with
+   its fused silu x up epilogue, then w2, each launch on the variant
+   kernel.py::plan names for its step's rows, every len256 step on
+   wgmma_tma; the plain versions never), graphs, profile (batch-8 decode,
+   and one batch-8 len256 prefill step with the grouped GEMM's share);
 11. the kernels line, the card line, and the result line.
 
 Between 4 and 5 run the phases of the paper core and the last two
@@ -124,15 +127,19 @@ kernels:
   offset block), then the op at qwen2-0.5b's and qwen3-0.6b's prefill
   geometries (S 4096, B 1 and 4, causal, bf16), counted, and timed
   against the plain version, scaled_dot_product_attention and the bound;
-* gmm_vs_plain and gmm_timing — the grouped GEMM against its plain
-  version at qwen3-moe's two expert products (K 4096 -> N 3072 and
-  K 1536 -> N 4096, 128 experts, rows routed top-8) at M = T*k of batch-8
-  decode (64), verify at k = 4 (320) and the len16/64/256 chunks (1024,
-  4096, 16384), bf16 and (decode, verify) fp32, and at edge cases (empty
-  experts, every row in one expert, ragged M, K and N, rows past
-  offsets[E] and before offsets[0]); then timed at decode, verify and
-  len256 against the plain version, one torch._grouped_mm call where the
-  card's PyTorch has it, and the bound.
+* gmm_vs_plain and gmm_timing — the grouped GEMM and its first product
+  fused with the silu x up epilogue (``grouped_mm_swiglu``) against their
+  plain versions, every variant (bf16 mma and wgmma_tma, forced whatever
+  plan would pick; fp32 simt), at qwen3-moe's two expert products
+  (K 4096 -> N 3072 and K 1536 -> N 4096, 128 experts, rows routed top-8)
+  at M = T*k of batch-8 decode (64), verify at k = 4 (320) and the
+  len16/64/256 chunks (1024, 4096, 16384), bf16 and (decode, verify)
+  fp32, and at edge cases (empty experts, every row in one expert, one
+  expert of 600 rows, ragged M, K and N, rows past offsets[E] and before
+  offsets[0]); then each variant timed at every stage against the plain
+  version, one torch._grouped_mm call where the card's PyTorch has it,
+  and the bound, and the fused w1 against the unfused kernel and the
+  torch lines it replaces.
 
 It imports nothing of JAX and nothing of the ``repro`` package.  Without a
 card, or outside a checkout that holds ``src/repro_torch``, it exits
@@ -171,6 +178,9 @@ FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:75"
 GMM_SOURCE = "src/repro_torch/kernels/grouped_mm/csrc/grouped_mm.cu"
 GMM_REPLACES = "src/repro/models/moe.py:116,120"
+GMM_SWIGLU_REPLACES = "src/repro/models/moe.py:116-119"
+# each grouped-GEMM entry's headline shape in the kernels line
+GMM_HEADLINE = {"grouped_mm": "w2 len256", "grouped_mm_swiglu": "w1 len256"}
 HBM_BYTES_S = 3.35e12                       # H100 SXM, data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PROMPT_LENS = [5, 17, 40, 64, 100, 200, 300, 33]
@@ -1234,28 +1244,63 @@ def gmm_weights(E, K, N, dtype, seed):
                        dtype=dtype) * K ** -0.5
 
 
-def gmm_errors(x, w, offsets):
-    """(rel, abs) error of the kernel against the plain version on the
-    card; the rows of no expert must be exactly zero."""
-    from repro_torch.kernels.grouped_mm import grouped_mm_ref
-    from repro_torch.kernels.grouped_mm.kernel import grouped_mm_cuda
+def gmm_fns(swiglu):
+    """(wrapper, plain version) of the grouped GEMM, or of its fused first
+    product with the silu x up epilogue."""
+    from repro_torch.kernels.grouped_mm import (grouped_mm_ref,
+                                                grouped_mm_swiglu_ref)
+    from repro_torch.kernels.grouped_mm.kernel import (
+        grouped_mm_cuda, grouped_mm_swiglu_cuda)
+    return ((grouped_mm_swiglu_cuda, grouped_mm_swiglu_ref) if swiglu
+            else (grouped_mm_cuda, grouped_mm_ref))
+
+
+def gmm_variants(dtype, swiglu, N):
+    """The variants to hold against the plain version: every bf16 variant
+    (the epilogue needs N a multiple of 16), simt for fp32."""
+    if dtype == torch.float32:
+        return ("simt",)
+    return ("mma", "wgmma_tma") if not swiglu or N % 16 == 0 else ()
+
+
+def gmm_errors(x, w, offsets, swiglu=False, variant=None):
+    """(rel, abs) error of the kernel (the named variant, or the planned
+    one) against the plain version on the card; the rows of no expert
+    must be exactly zero."""
+    kern, ref = gmm_fns(swiglu)
     off = torch.from_numpy(offsets).cuda()
-    want = grouped_mm_ref(x, w, off)
-    got = grouped_mm_cuda(x, w, off)
+    want = ref(x, w, off)
+    got = kern(x, w, off, variant=variant)
     torch.cuda.synchronize()
-    check(bool(torch.isfinite(got).all()), "grouped_mm: non-finite output")
+    label = f"{kern.__name__} ({variant})"
+    check(bool(torch.isfinite(got).all()), f"{label}: non-finite output")
     lo, hi = int(offsets[0]), int(offsets[-1])
     check(not got[:lo].any() and not got[hi:].any(),
-          "grouped_mm: a row of no expert is not zero")
+          f"{label}: a row of no expert is not zero")
     return rel_err(want, got), float((want.double() - got.double())
                                      .abs().max())
 
 
 def phase_gmm_vs_plain():
+    """Every variant of the grouped GEMM and of its fused first product
+    (``grouped_mm_swiglu``) against their plain versions: bf16 ``mma`` and
+    ``wgmma_tma`` (forced, whatever plan would pick) at qwen3-moe's two
+    products and every GMM_M stage, fp32 ``simt`` at decode and verify,
+    and the edge cases.  Returns {(function, variant): (rel, abs)}, worst
+    of each."""
     rng = np.random.default_rng(8)
     E, k = QWEN3_MOE_EXPERTS["E"], QWEN3_MOE_EXPERTS["k"]
-    worst = [0.0, 0.0]
+    worst = {}
     cases = []
+
+    def run(label, x, w, offsets, dtype):
+        M, K = x.shape
+        E_, _, N = w.shape
+        for swiglu in (False, True):
+            for v in gmm_variants(dtype, swiglu, N):
+                cases.append((label, M, K, N, E_, dtype, swiglu, v,
+                              *gmm_errors(x, w, offsets, swiglu, v)))
+
     for dtype in (torch.bfloat16, torch.float32):
         for prod, (K, N) in GMM_PRODUCTS.items():
             w = gmm_weights(E, K, N, dtype, seed=len(cases))
@@ -1265,19 +1310,20 @@ def phase_gmm_vs_plain():
                 offsets = routed_offsets(rng, M // k, E, k)
                 x = torch.from_numpy(rng.standard_normal(
                     (M, K), "float32")).to("cuda", dtype)
-                cases.append((f"{prod} {stage}", M, K, N, E, dtype,
-                              *gmm_errors(x, w, offsets)))
+                run(f"{prod} {stage}", x, w, offsets, dtype)
             del w
     # edge cases: (label, M, K, N, E, group sizes, rows before offsets[0])
     edges = [("empty experts", 77, 64, 64, 16,
               [0, 9, 0, 0, 30, 0, 0, 1, 0, 0, 0, 17, 0, 0, 20, 0], 0),
-             ("one expert, several M tiles", 300, 64, 136, 16,
+             ("one expert, several M tiles", 300, 64, 144, 16,
               [0] * 5 + [300] + [0] * 10, 0),
-             ("ragged K and N, rows past offsets[E]", 100, 40, 72, 6,
+             ("ragged K and N, rows past offsets[E]", 100, 40, 80, 6,
               [13, 0, 25, 2, 0, 30], 0),
              ("rows before offsets[0] and past offsets[E]", 90, 32, 64, 4,
               [20, 0, 31, 9], 11),
-             ("no expert has a row", 33, 32, 64, 8, [0] * 8, 5)]
+             ("no expert has a row", 33, 32, 64, 8, [0] * 8, 5),
+             ("one expert of 600 rows, ragged N tiles", 720, 96, 208, 5,
+              [40, 600, 0, 7, 13], 45)]
     for label, M, K, N, E_, sizes, head in edges:
         offsets = (head + np.concatenate([[0], np.cumsum(sizes)])
                    ).astype(np.int32)
@@ -1285,33 +1331,35 @@ def phase_gmm_vs_plain():
             w = gmm_weights(E_, K, N, dtype, seed=M)
             x = torch.from_numpy(rng.standard_normal(
                 (M, K), "float32")).to("cuda", dtype)
-            cases.append((label, M, K, N, E_, dtype,
-                          *gmm_errors(x, w, offsets)))
+            run(label, x, w, offsets, dtype)
     # fp32 at a K and an N that no tile divides (the simt variant only)
     offsets = np.array([0, 7, 7, 31, 50], np.int32)
     w = gmm_weights(4, 37, 70, torch.float32, seed=3)
     x = torch.from_numpy(rng.standard_normal((53, 37), "float32")).cuda()
-    cases.append(("fp32 K 37, N 70", 53, 37, 70, 4, torch.float32,
-                  *gmm_errors(x, w, offsets)))
-    for label, M, K, N, E_, dtype, err, abs_err in cases:
-        emit("gmm_vs_plain", case=label, M=M, K=K, N=N, E=E_,
-             dtype=dname(dtype), max_rel_err=err, max_abs_err=abs_err,
+    run("fp32 K 37, N 70", x, w, offsets, torch.float32)
+    for label, M, K, N, E_, dtype, swiglu, v, err, abs_err in cases:
+        fn = "grouped_mm_swiglu" if swiglu else "grouped_mm"
+        emit("gmm_vs_plain", case=label, fn=fn, variant=v, M=M, K=K, N=N,
+             E=E_, dtype=dname(dtype), max_rel_err=err, max_abs_err=abs_err,
              tol=GMM_TOL[dtype])
         check(err <= GMM_TOL[dtype],
-              f"grouped_mm disagrees: {label} {dname(dtype)} rel {err}")
-        worst[0], worst[1] = max(worst[0], err), max(worst[1], abs_err)
+              f"{fn} ({v}) disagrees: {label} {dname(dtype)} rel {err}")
+        w0 = worst.get((fn, v), (0.0, 0.0))
+        worst[(fn, v)] = (max(w0[0], err), max(w0[1], abs_err))
     torch.cuda.empty_cache()
     return worst
 
 
-def gmm_bound(offsets, K, N, dtype):
+def gmm_bound(offsets, K, N, dtype, swiglu=False):
     """Least time of one call on these offsets: the active experts'
-    weights, the routed rows of x and the output each moved once at
-    3.35 TB/s, against 2 * rows * K * N operations at the type's peak."""
+    weights, the routed rows of x and the output (N columns, N / 2 with
+    the epilogue) each moved once at 3.35 TB/s, against 2 * rows * K * N
+    operations at the type's peak."""
     esz = torch.tensor([], dtype=dtype).element_size()
     rows = int(offsets[-1] - offsets[0])
     active = int((np.diff(offsets) > 0).sum())
-    tb = (active * K * N + rows * (K + N)) * esz / HBM_BYTES_S * 1e3
+    out = N // 2 if swiglu else N
+    tb = (active * K * N + rows * (K + out)) * esz / HBM_BYTES_S * 1e3
     to = 2 * rows * K * N / PEAK_FLOPS[dname(dtype)] * 1e3
     return max(tb, to), "bytes" if tb >= to else "operations", active
 
@@ -1339,62 +1387,115 @@ def library_gmm(x, w, offsets):
     return None, why
 
 
+def swiglu_glue(h):
+    """The torch lines the fused epilogue replaces (models/moe.py before
+    it): silu of the gate half in fp32, rounded, times the up half."""
+    F = h.shape[1] // 2
+    return torch.nn.functional.silu(h[:, :F].float()).to(h.dtype) * h[:, F:]
+
+
+def busy_ms(fn, iters):
+    """Device time per call of every CUDA kernel ``fn`` starts, from
+    torch.profiler (their summed own times over ``iters`` calls)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(i)
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    if not kern:
+        return "not measured"
+    return sum(e.self_device_time_total for e in kern) / 1e3 / iters
+
+
+def gmm_timing_row(shape, x, w, offsets, swiglu):
+    """Every variant of one call timed (events ``ms``, the kernel's own
+    ``device_ms``), the planned one's numbers at the top; the plain
+    version, the library call and the bound.  With the epilogue also the
+    unfused path it replaces: the planned grouped_mm and the torch glue,
+    and the library call and the glue."""
+    from repro_torch.kernels.grouped_mm.kernel import VARIANTS, plan
+    kern, ref = gmm_fns(swiglu)
+    dtype = x.dtype
+    (M, K), (E, _, N) = x.shape, w.shape
+    off = torch.from_numpy(offsets).cuda()
+    want = ref(x, w, off)
+    variant = plan(x, w, swiglu)
+    per = {}
+    for v in gmm_variants(dtype, swiglu, N):
+        def call(i, v=v):
+            return kern(x, w, off, variant=v)
+        got = call(0)
+        per[v] = dict(ms=cuda_ms(call, 10),
+                      device_ms=device_ms(call, 5, (VARIANTS[v],)),
+                      max_rel_err=rel_err(want, got),
+                      max_abs_err=float((want.double() - got.double())
+                                        .abs().max()))
+        del got
+    t = dict(shape=shape, fn=kern.__name__[:-len("_cuda")], M=M, K=K, N=N,
+             E=E, dtype=dname(dtype), variant=variant, **{
+                 k: per[variant][k] for k in ("ms", "device_ms")},
+             max_rel_err=max(p["max_rel_err"] for p in per.values()),
+             max_abs_err=max(p["max_abs_err"] for p in per.values()),
+             by_variant=per, plain_ms=cuda_ms(lambda i: ref(x, w, off), 3))
+    lib, t["library"] = library_gmm(x, w, off) \
+        if dtype == torch.bfloat16 else (None, "bf16 only")
+    if swiglu:
+        # one PyTorch call cannot compute the fused function: the library
+        # product and the glue stand beside it as "library_plus_glue"
+        gk, _ = gmm_fns(False)
+
+        def unfused(i):
+            return swiglu_glue(gk(x, w, off))
+        t.update(library_ms=None, unfused_ms=cuda_ms(unfused, 10),
+                 unfused_busy_ms=busy_ms(unfused, 5),
+                 library_plus_glue_ms=cuda_ms(
+                     lambda i: swiglu_glue(lib()), 10) if lib else None)
+    else:
+        t["library_ms"] = cuda_ms(lambda i: lib(), 10) if lib else None
+    if lib:
+        lo, hi = int(offsets[0]), int(offsets[-1])
+        got = kern(x, w, off)
+        ref_lib = swiglu_glue(lib()) if swiglu else lib()
+        t["library_vs_kernel_rel_err"] = rel_err(got[lo:hi], ref_lib[lo:hi])
+        del got, ref_lib
+    t["bound_ms"], t["bound_by"], t["active_experts"] = \
+        gmm_bound(offsets, K, N, dtype, swiglu)
+    emit("gmm_timing", **t)
+    check(t["max_rel_err"] <= GMM_TOL[dtype], f"grouped_mm timing case {t}")
+    return t
+
+
 def phase_gmm_timing():
     """Kernel, plain and library times of the grouped GEMM at qwen3-moe's
     two expert products, rows routed top-8 of 128 as the engine routes
-    random weights: batch-8 decode (M 64, about 52 experts active), verify
-    at k = 4 (M 320) and the batch-8 len256 chunk (M 16384, every expert
-    active), bf16; decode also in fp32 (the simt variant).  ``ms`` is CUDA
-    events around back-to-back wrapper calls, ``device_ms`` the kernel's
-    own time from torch.profiler."""
-    from repro_torch.kernels.grouped_mm import grouped_mm_ref
-    from repro_torch.kernels.grouped_mm.kernel import (VARIANTS,
-                                                       grouped_mm_cuda, plan)
+    random weights, at every GMM_M stage in bf16 (batch-8 decode, M 64,
+    about 52 experts active; verify at k = 4, M 320; the len16, len64 and
+    len256 chunks, every expert active), each bf16 variant at each, and w1
+    also fused with the silu x up epilogue; decode also in fp32 (simt).
+    ``ms`` is CUDA events around back-to-back wrapper calls, ``device_ms``
+    the kernel's own time from torch.profiler."""
     rng = np.random.default_rng(9)
     E, k = QWEN3_MOE_EXPERTS["E"], QWEN3_MOE_EXPERTS["k"]
     rows = []
-    for dtype, stages in ((torch.bfloat16, ("decode", "verify", "len256")),
+    for dtype, stages in ((torch.bfloat16, tuple(GMM_M)),
                           (torch.float32, ("decode",))):
         for prod, (K, N) in GMM_PRODUCTS.items():
             w = gmm_weights(E, K, N, dtype, seed=11)
             for stage in stages:
                 M = GMM_M[stage]
                 offsets = routed_offsets(rng, M // k, E, k)
-                off = torch.from_numpy(offsets).cuda()
                 x = torch.from_numpy(rng.standard_normal(
                     (M, K), "float32")).to("cuda", dtype)
-                variant = plan(x, w)
-
-                def kern(i, x=x, w=w, off=off):
-                    return grouped_mm_cuda(x, w, off)
-
-                def plain(i, x=x, w=w, off=off):
-                    return grouped_mm_ref(x, w, off)
-                want, got = plain(0), kern(0)
-                lib, lib_what = library_gmm(x, w, off) \
-                    if dtype == torch.bfloat16 else (None, "bf16 only")
-                t = dict(shape=f"{prod} {stage}", M=M, K=K, N=N, E=E,
-                         dtype=dname(dtype), variant=variant,
-                         ms=cuda_ms(kern, 10),
-                         device_ms=device_ms(kern, 5,
-                                             (VARIANTS[variant],)),
-                         plain_ms=cuda_ms(plain, 3),
-                         library_ms=cuda_ms(lambda i: lib(), 10)
-                         if lib else None, library=lib_what,
-                         max_rel_err=rel_err(want, got),
-                         max_abs_err=float((want.double() - got.double())
-                                           .abs().max()))
-                if lib:
-                    lo, hi = int(offsets[0]), int(offsets[-1])
-                    t["library_vs_kernel_rel_err"] = rel_err(
-                        got[lo:hi], lib()[lo:hi])
-                t["bound_ms"], t["bound_by"], t["active_experts"] = \
-                    gmm_bound(offsets, K, N, dtype)
-                emit("gmm_timing", **t)
-                check(t["max_rel_err"] <= GMM_TOL[dtype],
-                      f"grouped_mm timing case {t}")
-                rows.append(t)
-                del x, want, got, lib
+                for swiglu in (False, True) if prod == "w1" else (False,):
+                    rows.append(gmm_timing_row(f"{prod} {stage}", x, w,
+                                               offsets, swiglu))
+                del x
             del w
             torch.cuda.empty_cache()
     return rows
@@ -1591,14 +1692,17 @@ def reference_speculation(cfg, runs, prompts, plain_tokens, self_draft):
 def phase_reference():
     """The five fp32 reference configs.  Their scans take the two SSD
     passes on the CUDA cores (fp32 x: kernel.py::plan's simt variant), and
-    their experts the grouped GEMM's simt variant: the counts are set to 0
-    just before and read just after, and each must have run, every launch
-    on simt, the fused scan never.  Each check also serves the config on
-    the CPU through the plain versions; their counts are reported, not
+    their experts the grouped GEMM's simt variant, the first product fused
+    with its epilogue (``grouped_mm_swiglu``): the counts are set to 0 just
+    before and read just after, and each must have run, every launch on
+    simt, the fused scan never.  Each check also serves the config on the
+    CPU through the plain versions; their counts are reported, not
     checked."""
     from repro_torch.configs import get_config, reduced
-    from repro_torch.kernels.grouped_mm import grouped_mm_ref
-    from repro_torch.kernels.grouped_mm.kernel import grouped_mm_cuda
+    from repro_torch.kernels.grouped_mm import (grouped_mm_ref,
+                                                grouped_mm_swiglu_ref)
+    from repro_torch.kernels.grouped_mm.kernel import (
+        grouped_mm_cuda, grouped_mm_swiglu_cuda)
     from repro_torch.kernels.ssd_scan.ref import (ssd_apply_ref,
                                                   ssd_chunk_ref,
                                                   ssd_scan_fused_ref)
@@ -1610,9 +1714,12 @@ def phase_reference():
     for kern, _ in ssd.values():
         kern.launches = 0
     two_pass = [ssd[k][0] for k in ("ssd_chunk", "ssd_apply")]
-    for kern in two_pass + [grouped_mm_cuda]:
+    gmms = {"grouped_mm": grouped_mm_cuda,
+            "grouped_mm_swiglu": grouped_mm_swiglu_cuda}
+    for kern in two_pass + list(gmms.values()):
         kern.by_variant = {v: 0 for v in kern.by_variant}
-    grouped_mm_cuda.launches = 0
+    for kern in gmms.values():
+        kern.launches = 0
     for cfg in (reduced(get_config("qwen2-0.5b")), mamba, hybrid_config(),
                 reduced(get_config("qwen3-moe-235b-a22b")),
                 reduced(get_config("jamba-1.5-large-398b"))):
@@ -1626,17 +1733,19 @@ def phase_reference():
           f"{launches}")
     check(all(v["simt"] == launches[k] for k, v in by_variant.items()),
           f"the fp32 reference scans left the simt variant: {by_variant}")
-    gmm = dict(grouped_mm_cuda.by_variant)
-    check(grouped_mm_cuda.launches > 0
-          and gmm["simt"] == grouped_mm_cuda.launches,
-          f"the fp32 reference experts did not take the simt grouped GEMM: "
-          f"{grouped_mm_cuda.launches} launches, {gmm}")
-    launches["grouped_mm"] = grouped_mm_cuda.launches
-    by_variant["grouped_mm"] = gmm
+    for name, kern in gmms.items():
+        gmm = dict(kern.by_variant)
+        check(kern.launches > 0 and gmm["simt"] == kern.launches,
+              f"the fp32 reference experts did not take the simt {name}: "
+              f"{kern.launches} launches, {gmm}")
+        launches[name] = kern.launches
+        by_variant[name] = gmm
+    check(launches["grouped_mm"] == launches["grouped_mm_swiglu"],
+          f"the MoE layers' two products ran unequally: {launches}")
     emit("reference_kernel_launches", **launches, by_variant=by_variant,
          plain_on_cpu={f.__name__: f.launches for f in (
              ssd_chunk_ref, ssd_apply_ref, ssd_scan_fused_ref,
-             grouped_mm_ref)})
+             grouped_mm_ref, grouped_mm_swiglu_ref)})
     return launches
 
 
@@ -1655,8 +1764,10 @@ def spec_prompts(vocab, lens=PROMPT_LENS):
 def kernel_counters():
     """name -> (the wrapper whose count is the kernel's launches, the plain
     version that must not run on the main path)."""
-    from repro_torch.kernels.grouped_mm import grouped_mm_ref
-    from repro_torch.kernels.grouped_mm.kernel import grouped_mm_cuda
+    from repro_torch.kernels.grouped_mm import (grouped_mm_ref,
+                                                grouped_mm_swiglu_ref)
+    from repro_torch.kernels.grouped_mm.kernel import (
+        grouped_mm_cuda, grouped_mm_swiglu_cuda)
     from repro_torch.kernels.paged_attention import paged_attention_ref
     from repro_torch.kernels.paged_attention.kernel import \
         paged_attention_cuda
@@ -1670,7 +1781,9 @@ def kernel_counters():
             "ssd_chunk": (ssd_chunk_cuda, ssd_chunk_ref),
             "ssd_apply": (ssd_apply_cuda, ssd_apply_ref),
             "ssd_scan_fused": (ssd_scan_fused_cuda, ssd_scan_fused_ref),
-            "grouped_mm": (grouped_mm_cuda, grouped_mm_ref)}
+            "grouped_mm": (grouped_mm_cuda, grouped_mm_ref),
+            "grouped_mm_swiglu": (grouped_mm_swiglu_cuda,
+                                  grouped_mm_swiglu_ref)}
 
 
 def run_pass(eng, label, serve_fn, queue_kind):
@@ -1760,7 +1873,11 @@ def phase_engine(arch):
     mamba layer (bf16, state 128, the engine's one chunk) launches the fused
     scan on every chunk launch and the two passes never, and decode runs
     the one-token recurrence; an MoE layer launches the grouped GEMM twice
-    on every engine launch (w1, then w2)."""
+    on every engine launch: w1 fused with the silu x up epilogue
+    (``grouped_mm_swiglu``), then w2 (``grouped_mm``), each on the variant
+    that kernel.py::plan names for the step's rows (``moe_routes``).
+    Returns (launches, engine, prompts, arrivals, sampling, outputs, the
+    grouped GEMM's launches by variant and by step)."""
     from repro_torch.configs import get_config
     from repro_torch.models.params import (config_param_bytes, init_params,
                                            param_bytes)
@@ -1810,19 +1927,28 @@ def phase_engine(arch):
     counters = kernel_counters()
     for kern, plain in counters.values():      # every count to 0 ...
         kern.launches = plain.launches = 0
+        if hasattr(kern, "by_variant"):
+            kern.by_variant = dict.fromkeys(kern.by_variant, 0)
+    steps0 = {n: ev.launches for n, ev in eng.kernel_events().items()}
     passes, totals, names, outputs = serve_passes(eng, cfg, prompts,
                                                   arrivals, sampling)
     launches = {k: kern.launches for k, (kern, _) in counters.items()}
     plain = {k: p.launches for k, (_, p) in counters.items()}  # ... read
+    steps = {n: ev.launches - steps0.get(n, 0)
+             for n, ev in eng.kernel_events().items()}
+    routes = moe_routes(cfg, steps, counters)
+    for name, r in routes.items():
+        r["plain_launches"] = plain[name]
     graphs = check_graphs(eng)
     mixers = [m for m, _ in cfg.pattern()]
     # bf16 at N 128 and the engine's one chunk: every mamba layer of every
     # chunk launch is one fused scan, and the two passes never run
     scans = mixers.count("mamba") * totals["prefill_chunk_launches"]
     ffns = [f for _, f in cfg.pattern()]
+    moe = ffns.count("moe") * totals["launches"]
     per_group = {"paged_attention": mixers.count("attn") * totals["launches"],
                  "ssd_chunk": 0, "ssd_apply": 0, "ssd_scan_fused": scans,
-                 "grouped_mm": 2 * ffns.count("moe") * totals["launches"]}
+                 "grouped_mm": moe, "grouped_mm_swiglu": moe}
     for k, n in per_group.items():
         expect = cfg.n_groups() * n
         check(launches[k] == expect,
@@ -1839,8 +1965,49 @@ def phase_engine(arch):
          peak_dense_slots_used=max(p["peak_dense_slots_used"]
                                    for p in passes.values()),
          max_memory_allocated=torch.cuda.max_memory_allocated(),
-         graphs=graphs, warm=passes["warm"])
-    return launches, eng, prompts, arrivals, sampling, outputs
+         graphs=graphs, warm=passes["warm"], grouped_mm_routes=routes)
+    return launches, eng, prompts, arrivals, sampling, outputs, routes
+
+
+def step_tokens(name):
+    """Token rows of one launch of a step: ``serve_step_bs{N}`` N,
+    ``prefill_bs{N}_len{L}`` and ``verify_bs{N}_len{L}`` N * L."""
+    parts = name.split("_")
+    bs = next(int(p[2:]) for p in parts if p.startswith("bs"))
+    return bs * next((int(p[3:]) for p in parts if p.startswith("len")), 1)
+
+
+def moe_routes(cfg, steps, counters):
+    """The grouped GEMM's launches by variant against what kernel.py::plan
+    names for each step's M = tokens * top_k rows, every MoE layer of every
+    launch: they must agree, variant by variant, for the fused first
+    product and for w2.  Returns {wrapper: {"by_variant", "by_step"}} ({}
+    for a model without MoE layers)."""
+    from repro_torch.kernels.grouped_mm.kernel import route
+    n_moe = cfg.n_groups() * [f for _, f in cfg.pattern()].count("moe")
+    if not n_moe:
+        return {}
+    D, E, F = cfg.d_model, cfg.n_experts, cfg.d_ff_expert
+    out = {}
+    for name, K, N, swiglu in (("grouped_mm_swiglu", D, 2 * F, True),
+                               ("grouped_mm", F, D, False)):
+        by_step, want = {}, {}
+        for step, n in sorted(steps.items()):
+            if not n:
+                continue
+            v = route(cfg.compute_dtype, step_tokens(step) * cfg.top_k, K, N,
+                      E, swiglu)
+            by_step[step] = dict(variant=v, launches=n * n_moe)
+            want[v] = want.get(v, 0) + n * n_moe
+        got = {v: c for v, c in counters[name][0].by_variant.items() if c}
+        check(got == want, f"{cfg.name}: {name} launches by variant {got} "
+              f"!= {want}, what plan names for the steps that ran")
+        slow = [st for st, r in by_step.items() if st.endswith("_len256")
+                and r["variant"] != "wgmma_tma"]
+        check(cfg.compute_dtype != torch.bfloat16 or not slow,
+              f"{cfg.name}: {name} left wgmma_tma on len256 steps {slow}")
+        out[name] = dict(by_variant=got, by_step=by_step)
+    return out
 
 
 def check_graphs(eng):
@@ -2144,8 +2311,9 @@ def speculation_run(cfg, params, ec, drafter, prompts, sampling, base):
                  "ssd_chunk": 0 if fused else scans,
                  "ssd_apply": 0 if fused else scans,
                  "ssd_scan_fused": scans if fused else 0,
-                 "grouped_mm": 2 * [f for _, f in cfg.pattern()].count("moe")
+                 "grouped_mm": [f for _, f in cfg.pattern()].count("moe")
                  * n_launches}
+    per_group["grouped_mm_swiglu"] = per_group["grouped_mm"]
     for k, n in per_group.items():
         check(launches[k] == cfg.n_groups() * n,
               f"{arch}: {k} launches {launches[k]} != {cfg.n_groups() * n}")
@@ -2484,7 +2652,7 @@ def main() -> int:
     ref_launches = phase_reference()
     launches, by_path = {}, {}
     for arch in ("qwen2-0.5b", "mamba2-780m"):
-        counts, eng, prompts, arrivals, sampling, outputs = \
+        counts, eng, prompts, arrivals, sampling, outputs, _ = \
             phase_engine(arch)
         phase_graphs(eng, prompts, arrivals, sampling, outputs)
         phase_profile(eng, arrivals, sampling)
@@ -2512,9 +2680,12 @@ def main() -> int:
     # the MoE model last, on an emptied cache: 41.7 GB of weights
     torch.cuda.empty_cache()
     arch = "qwen3-moe-235b-a22b"
-    counts, eng, prompts, arrivals, sampling, outputs = phase_engine(arch)
+    counts, eng, prompts, arrivals, sampling, outputs, moe_routes_ = \
+        phase_engine(arch)
     phase_graphs(eng, prompts, arrivals, sampling, outputs)
-    moe_shares = {"grouped_mm": ("gmm_",), "paged_attention": ("paged_",)}
+    moe_shares = {"grouped_mm": ("gmm_",),
+                  "grouped_mm wgmma_tma": ("gmm_wgmma_tma",),
+                  "paged_attention": ("paged_",)}
     phase_profile(eng, arrivals, sampling, shares=moe_shares)
     phase_prefill_profile(eng, moe_shares)
     for k, n in counts.items():
@@ -2617,27 +2788,45 @@ def main() -> int:
             "ms", "device_ms", "plain_ms", "library_ms", "bound_ms")}
             for t in flash_timing},
     })
-    top = gmm_timing[0]               # w1 at batch-8 decode, bf16
-    kernels.append({
-        "name": "grouped_mm", "variant": top["variant"], "route": "cuda",
-        "source": GMM_SOURCE, "replaces": GMM_REPLACES,
-        "replaces_note": "lax.ragged_dot, an XLA op and not a Pallas kernel",
-        "launches": launches["grouped_mm"],
-        "launches_by_path": {**by_path["grouped_mm"],
-                             "reference (fp32, simt)":
-                                 ref_launches["grouped_mm"]},
-        "max_abs_err": gmm_worst[1], "max_rel_err": gmm_worst[0],
-        "ms": top["ms"], "plain_ms": top["plain_ms"],
-        "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
-        "library_ms": top["library_ms"], "library": top["library"],
-        "device_ms": top["device_ms"],
-        "shape": (f"{top['shape']}: M={top['M']}, K={top['K']}, "
-                  f"N={top['N']}, E={top['E']}, {top['active_experts']} "
-                  f"experts active, {top['dtype']}"),
-        "per_shape": {f"{t['shape']} {t['dtype']}": {k: t[k] for k in (
-            "variant", "ms", "device_ms", "plain_ms", "library_ms",
-            "bound_ms", "bound_by", "active_experts")} for t in gmm_timing},
-    })
+    # grouped_mm carries w2 on the main path, grouped_mm_swiglu w1 with its
+    # epilogue; each entry's headline is its len256 row, the chunk where
+    # the wgmma_tma variant was built to serve
+    for name, replaces in (("grouped_mm", GMM_REPLACES),
+                           ("grouped_mm_swiglu", GMM_SWIGLU_REPLACES)):
+        rows = [t for t in gmm_timing if t["fn"] == name]
+        top = next(t for t in rows if t["shape"] == GMM_HEADLINE[name])
+        errs = [e for (fn, _), e in gmm_worst.items() if fn == name]
+        kernels.append({
+            "name": name, "variant": top["variant"], "route": "cuda",
+            "source": GMM_SOURCE, "replaces": replaces,
+            "replaces_note": "lax.ragged_dot, an XLA op and not a Pallas "
+                             "kernel",
+            "launches": launches[name],
+            "launches_by_path": {**by_path[name],
+                                 "reference (fp32, simt)":
+                                     ref_launches[name]},
+            "by_variant": {f"{arch} engine": moe_routes_[name]["by_variant"],
+                           "reference (fp32)": {"simt": ref_launches[name]}},
+            "by_step": {f"{arch} engine": moe_routes_[name]["by_step"]},
+            "plain_launches": {f"{arch} engine":
+                               moe_routes_[name]["plain_launches"]},
+            "max_abs_err": max(e[1] for e in errs),
+            "max_rel_err": max(e[0] for e in errs),
+            "max_rel_err_by_variant": {v: e[0] for (fn, v), e
+                                       in gmm_worst.items() if fn == name},
+            "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "library_ms": top["library_ms"], "library": top["library"],
+            "device_ms": top["device_ms"],
+            "shape": (f"{top['shape']}: M={top['M']}, K={top['K']}, "
+                      f"N={top['N']}, E={top['E']}, {top['active_experts']} "
+                      f"experts active, {top['dtype']}"),
+            "per_shape": {f"{t['shape']} {t['dtype']}": {k: t.get(k) for k in (
+                "variant", "ms", "device_ms", "plain_ms", "library_ms",
+                "library_plus_glue_ms", "unfused_ms", "unfused_busy_ms",
+                "bound_ms", "bound_by", "active_experts", "by_variant")}
+                for t in rows},
+        })
     emit("table1_summary", rows=[{k: r[k] for k in (
         "size", "hybrid_ms", "opencl_ms", "hybrid_wire_bytes",
         "opencl_wire_bytes", "bytes_ratio")} for r in table1_live])

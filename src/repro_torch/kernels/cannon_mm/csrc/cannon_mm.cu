@@ -79,7 +79,7 @@
 
 #include <stdint.h>
 
-#include "hopper.cuh"
+#include "../../csrc/hopper.cuh"
 
 namespace {
 
@@ -707,40 +707,6 @@ int launch_f32_vec(const void* a, const void* b, void* c, int P, int M,
   return (int)cudaGetLastError();
 }
 
-// The driver's tensor-map encoder, fetched once through the runtime, so
-// the library needs no link against libcuda.
-PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(ptr);
-  }
-  return fn;
-}
-
-// A bf16 tensor map with the 128-byte swizzle from kernel.py::tma_args:
-// arg[0..2] dims (cols, rows, P), arg[3..4] byte strides (rows, P),
-// arg[5..7] box (cols, rows, 1).
-bool encode_map(CUtensorMap* map, const void* base,
-                const unsigned long long* arg) {
-  PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {arg[0], arg[1], arg[2]};
-  const cuuint64_t strides[2] = {arg[3], arg[4]};
-  const cuuint32_t box[3] = {(cuuint32_t)arg[5], (cuuint32_t)arg[6],
-                             (cuuint32_t)arg[7]};
-  const cuuint32_t step[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(base), dims, strides, box, step,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <typename TO>
 int launch_wgmma(const void* a, const void* b, void* c, int P, int M, int N,
                  int K, Operand oc, const unsigned long long* tma,
@@ -751,7 +717,8 @@ int launch_wgmma(const void* a, const void* b, void* c, int P, int M, int N,
       tma[14] != kWgBK || tma[15] != 1)
     return (int)cudaErrorInvalidValue;
   CUtensorMap map_a, map_b;
-  if (!encode_map(&map_a, a, tma) || !encode_map(&map_b, b, tma + 8))
+  if (!hopper::encode_map(&map_a, a, tma) ||
+      !hopper::encode_map(&map_b, b, tma + 8))
     return (int)cudaErrorInvalidValue;
   const long long tiles = (long long)((M + kWgBM - 1) / kWgBM) *
                           ((N + kWgBN - 1) / kWgBN) * P;

@@ -1,11 +1,16 @@
-// Hopper building blocks of the bf16 wgmma_tma matmul in cannon_mm.cu:
-// mbarriers, TMA tile loads, shared-memory matrix descriptors for the
-// 128-byte swizzle, and the m64n256k16 warpgroup product.  Inline PTX for
-// sm_90a only (wgmma and setmaxnreg exist for that target alone).
+// Hopper building blocks of the port's bf16 wgmma_tma kernels (the matmul
+// in cannon_mm/csrc/cannon_mm.cu, the grouped GEMM in
+// grouped_mm/csrc/grouped_mm.cu): mbarriers, TMA tile loads, shared-memory
+// matrix descriptors for the 128-byte swizzle, the m64n256k16 and
+// m64n128k16 warpgroup products, and on the host the encoder of 3-D bf16
+// tensor maps.  Inline PTX for sm_90a only (wgmma and setmaxnreg exist for
+// that target alone).
 
 #pragma once
 
 #include <cuda.h>
+#include <cudaTypedefs.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace hopper {
@@ -156,6 +161,41 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128],
       : "l"(desc_a), "l"(desc_b), "n"(TA), "n"(TB), "r"(1));
 }
 
+// D (64 x 128) += A (64 x 16) * B (16 x 128), as wgmma_m64n256k16 with
+// half the columns: register i holds row 16 w + l / 4 + 8 ((i / 2) % 2),
+// column 8 (i / 4) + 2 (l % 4) + i % 2, so columns 0-63 sit in registers
+// 0-31 and columns 64-127 in 32-63.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
+                                                 uint64_t desc_a,
+                                                 uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %68, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %66, %67;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "n"(TA), "n"(TB), "r"(1));
+}
+
 // register budgets of warp-specialised warpgroups (all four warps of a
 // warpgroup execute it together)
 template <int R>
@@ -166,6 +206,41 @@ __device__ __forceinline__ void regs_dec() {
 template <int R>
 __device__ __forceinline__ void regs_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(R));
+}
+
+// ---- host: tensor maps -------------------------------------------------
+// The driver's tensor-map encoder, fetched once through the runtime, so a
+// library needs no link against libcuda.
+inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(ptr);
+  }
+  return fn;
+}
+
+// A bf16 tensor map with the 128-byte swizzle from the 8 arguments of
+// cannon_mm/kernel.py::tma_args: arg[0..2] dims (cols, rows, P), arg[3..4]
+// byte strides (rows, P), arg[5..7] box (cols, rows, 1).
+inline bool encode_map(CUtensorMap* map, const void* base,
+                       const unsigned long long* arg) {
+  PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {arg[0], arg[1], arg[2]};
+  const cuuint64_t strides[2] = {arg[3], arg[4]};
+  const cuuint32_t box[3] = {(cuuint32_t)arg[5], (cuuint32_t)arg[6],
+                             (cuuint32_t)arg[7]};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(base), dims, strides, box, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace hopper

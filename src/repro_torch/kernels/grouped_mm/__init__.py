@@ -1,2 +1,3 @@
-from repro_torch.kernels.grouped_mm.ops import grouped_mm
-from repro_torch.kernels.grouped_mm.ref import grouped_mm_ref
+from repro_torch.kernels.grouped_mm.ops import grouped_mm, grouped_mm_swiglu
+from repro_torch.kernels.grouped_mm.ref import (grouped_mm_ref,
+                                                grouped_mm_swiglu_ref)

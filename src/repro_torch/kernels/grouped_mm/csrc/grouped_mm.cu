@@ -1,58 +1,99 @@
 // Grouped GEMM over rows sorted by expert (Hopper, sm_90a).
 //
 // Replaces `lax.ragged_dot` with `group_sizes`, the two expert products of
-// the MoE block (src/repro/models/moe.py:116 and :120).  That is an XLA op,
-// not a Pallas kernel; it gets a kernel written by hand all the same,
-// because its plain version cannot sit on the card's main path: slicing
-// per expert needs the row counts on the host (a sync that a CUDA graph
-// capture refuses), and one fixed-shape product against every expert
-// computes and buffers E / k times the work.
+// the MoE block (src/repro/models/moe.py:116 and :120), and with the
+// `swiglu` flag the first product together with the silu x up that follows
+// it (:116-119).  `ragged_dot` is an XLA op, not a Pallas kernel; it gets a
+// kernel written by hand all the same, because its plain version cannot sit
+// on the card's main path: slicing per expert needs the row counts on the
+// host (a sync that a CUDA graph capture refuses), and one fixed-shape
+// product against every expert computes and buffers E / k times the work.
 //
-// It computes out (M, N) = for each expert e, rows offsets[e] ..
+// It computes h (M, N) = for each expert e, rows offsets[e] ..
 // offsets[e + 1] of x (M, K) times w[e] (K, N), with an fp32 accumulator
-// rounded once to x's dtype (where ragged_dot rounds).  Rows outside
-// [offsets[0], offsets[E]) belong to no expert and are written as zeros
-// (the MoE block parks dropped pairs there).  The offsets are read on the
-// card, so the grid is fixed by the shapes alone and the launch can be
-// captured.
+// rounded once to x's dtype (where ragged_dot rounds).  With `swiglu` the
+// output is (M, F), F = N / 2: silu(h[:, :F]) * h[:, F:], rounded where the
+// JAX block rounds: h to bf16, silu in fp32 as x / (1 + expf(-x)) (PyTorch's
+// CUDA formula; built without --use_fast_math) rounded to bf16, then the
+// product of the two bf16 values rounded to bf16 (fp32: no roundings).
+// Rows outside [offsets[0], offsets[E]) belong to no expert and are written
+// as zeros (the MoE block parks dropped pairs there).  The offsets are read
+// on the card, so the grid is fixed by the shapes alone and the launch can
+// be captured.  No atomics, no split over K: a replay gives the same bits.
 //
 // What bounds it on an H100.  2 M K N operations on (active experts x K x N
 // + M x K) input and M x N output elements.  At decode (M = 64 rows over
 // about 52 of qwen3-moe's 128 experts) the weights of the active experts,
 // 1.95 GB a layer, are the whole cost: bound by bytes at 3.35 TB/s.  At a
 // batch-8 len256 prefill (M = 16384, every expert active, about 128 rows
-// each) the two bounds meet: 4.83 GB a layer against 618 GFLOP.
+// each) the weights are still most of the bytes (w1: 3.2 GB, 0.96 ms,
+// against 0.42 ms of tensor-core work), so the design goal there is to read
+// each weight strip once a call.
 //
-// Design.  One block per (N tile of 128 columns, expert), plus one block
-// per N tile for the rows of no expert.  A block reads its expert's row
-// range from `offsets`, returns at once when it is empty, and otherwise
-// walks its rows in M tiles of 64; each weight tile of the expert is read
-// once per M tile (once in all at decode, where an expert has 1-2 rows).
-//   * bf16 ("mma"): 4 warps as 2 x 2, each a 32 x 64 piece of the tile;
-//     mma.sync m16n8k16 with fp32 accumulators (../../csrc/mma_tile.cuh).
-//     K tiles of 32 staged by 16-byte cp.async in a 3-stage ring (x rows
-//     zero-filled past the expert's last row and past K); rows padded by
-//     16 bytes so ldmatrix reads A and (transposed) B without bank
-//     conflicts.  A warp whose 32 rows are all past the expert's last row
-//     skips its products.  Needs K and N multiples of 8 and 16-byte
-//     aligned operands (the wrapper checks).
-//   * fp32 ("simt", the fp32 reference configs): CUDA-core FMAs, 64 x 64
-//     tiles of 256 threads, 4 x 4 outputs a thread, K tiles of 16 staged
-//     through registers into shared memory; any K and N.
-// Simple and right first: wgmma fed by TMA, the silu x up epilogue fused
-// into the first product and a block that serves several experts at
-// decode are later work.
+// Three variants; kernel.py::plan picks one from dtype and shape.
+//   * wgmma_tma (bf16, many rows an expert: the prefill chunks).  One
+//     block of three warpgroups per (N tile of 128 columns of w, expert),
+//     launched with the N tiles of one expert next to each other so that
+//     their shared x rows come from L2; one fits an SM, and the hardware
+//     starts the next where one ends, which balances experts of unequal
+//     rows better than a persistent block walking a fixed share of them
+//     (the engine's routing of random weights puts several hundred rows on
+//     some experts and none on others).  A block holds all its expert's
+//     rows, up to 256, as four m64 row tiles, and streams the weight strip
+//     w[e][:, n0:n0+128] once: each K stage of the strip is multiplied
+//     against every live row tile before the next stage comes in.  An
+//     expert with more rows loops over groups of 256 and reads its strip
+//     once per group.  One producer thread issues TMA loads (3-D tensor
+//     maps: x as (K, M, 1), w as (N, K, E), 128-byte swizzle) of 64 x 64
+//     boxes, one per live row tile and two for the strip, into a ring of 4
+//     stages with a full and an empty mbarrier each, and runs on into the
+//     next row group while the last one is stored.  Two consumer
+//     warpgroups (setmaxnreg 232; the producer 40) each own row tiles
+//     {wg, wg + 2} and run wgmma m64n128k16 (A K-major, B N-major through
+//     the transpose bit) on the stage that has arrived, one stage of
+//     products in flight.  A row tile past the
+//     expert's last row is neither loaded nor multiplied; rows of a live
+//     tile past it belong to the next expert and are multiplied but never
+//     stored.  With `swiglu` the strip's second box is columns F + n0 (the
+//     up half) instead of n0 + 64, so one product yields a gate tile in
+//     accumulator registers 0-31 and its up tile in 32-63 of the same
+//     thread, and the epilogue writes only silu(gate) * up.  Building
+//     blocks: ../../csrc/hopper.cuh.
+//   * mma (bf16, few rows an expert: decode and verify, where the weights
+//     of the active experts are read once anyway).  One block per (N tile
+//     of 128 columns, expert); 4 warps as 2 x 2, each a 32 x 64 piece of a
+//     64-row tile; mma.sync m16n8k16 with fp32 accumulators
+//     (../../csrc/mma_tile.cuh); K tiles of 32 staged by 16-byte cp.async
+//     in a 3-stage ring (x rows zero-filled past the expert's last row and
+//     past K); rows padded by 16 bytes so ldmatrix reads A and (transposed)
+//     B without bank conflicts.  A warp whose 32 rows are all past the
+//     expert's last row skips its products.  With `swiglu` the tile's 128
+//     columns are 64 gate and 64 up columns, and each warp takes 32 of each.
+//   * simt (fp32, the fp32 reference configs): CUDA-core FMAs, 64 x 64
+//     tiles of 256 threads, 4 x 4 outputs a thread (with `swiglu` 2 gate and
+//     2 up columns), K tiles of 16 staged through registers into shared
+//     memory; any K and N.
+// bf16 needs K and N multiples of 8 (with `swiglu` N a multiple of 16) and
+// 16-byte aligned operands (the wrapper checks).
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
-//             -shared -Xcompiler -fPIC  (bound through ctypes).
+//             -shared -Xcompiler -fPIC  (bound through ctypes; the driver's
+//             cuTensorMapEncodeTiled is fetched at run time).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "../../csrc/hopper.cuh"
 #include "../../csrc/mma_tile.cuh"
 
 namespace {
+
+using bf16 = __nv_bfloat16;
+
+// variant codes, as kernel.py::VARIANTS numbers them
+enum Variant { kSimt = 0, kMma = 1, kWgmmaTma = 2 };
 
 // The row range of expert e, clamped into [0, M].
 __device__ __forceinline__ void expert_rows(const int* offsets, int e, int M,
@@ -61,24 +102,39 @@ __device__ __forceinline__ void expert_rows(const int* offsets, int e, int M,
   hi = min(max(offsets[e + 1], lo), M);
 }
 
-// The last blockIdx.y: zero rows [0, offsets[0]) and [offsets[E], M) of
-// this block's N tile.
+// Zero rows [0, offsets[0]) and [offsets[E], M) of output columns
+// c0 .. c0 + width - 1 (of `cols`), with threads tid of n.
 template <typename T>
-__device__ void zero_tail(T* out, const int* offsets, int M, int N, int E,
-                          int n0, int bn) {
+__device__ void zero_tail(T* out, const int* offsets, int M, int cols, int E,
+                          int c0, int width, int tid, int n) {
   const int lo = min(max(offsets[0], 0), M);
   const int hi = min(max(offsets[E], lo), M);
-  const int cols = min(bn, N - n0);
+  const int w = min(width, cols - c0);
   const int rows = lo + (M - hi);
-  for (int i = threadIdx.x; i < rows * cols; i += blockDim.x) {
-    const int r = i / cols, c = i % cols;
+  for (int i = tid; i < rows * w; i += n) {
+    const int r = i / w, c = i % w;
     const int row = r < lo ? r : hi + (r - lo);
-    out[(long long)row * N + n0 + c] = T(0.f);
+    out[(long long)row * cols + c0 + c] = T(0.f);
   }
 }
 
+// silu(g) * u, rounded where the JAX block rounds (see the top): bf16
+__device__ __forceinline__ float silu_mul(bf16 g, bf16 u) {
+  const float gf = __bfloat162float(g);
+  const bf16 s = __float2bfloat16_rn(gf / (1.f + expf(-gf)));
+  return __bfloat162float(s) * __bfloat162float(u);
+}
+
+// a pair of bf16 outputs from two (gate, up) pairs of fp32 sums
+__device__ __forceinline__ __nv_bfloat162 swiglu_pair(float g0, float g1,
+                                                      float u0, float u1) {
+  return __floats2bfloat162_rn(
+      silu_mul(__float2bfloat16_rn(g0), __float2bfloat16_rn(u0)),
+      silu_mul(__float2bfloat16_rn(g1), __float2bfloat16_rn(u1)));
+}
+
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores.
+// bf16, few rows an expert: mma.sync.
 // ---------------------------------------------------------------------------
 
 constexpr int BM = 64, BN = 128, BK = 32, STAGES = 3, THREADS = 128;
@@ -86,15 +142,28 @@ constexpr int A_PITCH = BK + 8;    // bf16 per staged x row (80 bytes)
 constexpr int B_PITCH = BN + 8;    // bf16 per staged w row (272 bytes)
 
 struct Stage {
-  __nv_bfloat16 a[BM * A_PITCH];
-  __nv_bfloat16 b[BK * B_PITCH];
+  bf16 a[BM * A_PITCH];
+  bf16 b[BK * B_PITCH];
 };
 
-__device__ __forceinline__ void load_stage(Stage& st,
-                                           const __nv_bfloat16* x,
-                                           const __nv_bfloat16* we, int m0,
-                                           int hi, int k0, int n0, int K,
-                                           int N) {
+// w's column for staged column nc of a tile at n0 (the tile's output
+// columns), and whether it lies in w: with SWIGLU columns 0-63 are gate
+// columns n0 .., 64-127 up columns F + n0 ..
+template <bool SWIGLU>
+__device__ __forceinline__ bool w_col(int n0, int nc, int N, int& col) {
+  if (!SWIGLU) {
+    col = n0 + nc;
+    return col < N;
+  }
+  const int F = N / 2, c = n0 + (nc & 63);
+  col = nc < 64 ? c : F + c;
+  return c < F;
+}
+
+template <bool SWIGLU>
+__device__ __forceinline__ void load_stage(Stage& st, const bf16* x,
+                                           const bf16* we, int m0, int hi,
+                                           int k0, int n0, int K, int N) {
   const int t = threadIdx.x;
   // x: 64 rows x 4 chunks of 8
 #pragma unroll
@@ -102,7 +171,7 @@ __device__ __forceinline__ void load_stage(Stage& st,
     const int c = t + i * THREADS;
     const int r = c >> 2, kc = (c & 3) * 8;
     const bool ok = m0 + r < hi && k0 + kc < K;
-    const __nv_bfloat16* src = ok ? x + (long long)(m0 + r) * K + k0 + kc : x;
+    const bf16* src = ok ? x + (long long)(m0 + r) * K + k0 + kc : x;
     tile::cp_async16(st.a + r * A_PITCH + kc, src, ok ? 16 : 0);
   }
   // w[e]: 32 rows x 16 chunks of 8
@@ -110,23 +179,25 @@ __device__ __forceinline__ void load_stage(Stage& st,
   for (int i = 0; i < BK * BN / 8 / THREADS; ++i) {
     const int c = t + i * THREADS;
     const int r = c >> 4, nc = (c & 15) * 8;
-    const bool ok = k0 + r < K && n0 + nc < N;
-    const __nv_bfloat16* src =
-        ok ? we + (long long)(k0 + r) * N + n0 + nc : we;
+    int col;
+    const bool ok = w_col<SWIGLU>(n0, nc, N, col) && k0 + r < K;
+    const bf16* src = ok ? we + (long long)(k0 + r) * N + col : we;
     tile::cp_async16(st.b + r * B_PITCH + nc, src, ok ? 16 : 0);
   }
 }
 
+// out (M, cols): cols = N, or F with SWIGLU, whose tiles are 64 wide
+template <bool SWIGLU>
 __global__ void __launch_bounds__(THREADS)
-    gmm_mma_kernel(const __nv_bfloat16* __restrict__ x,
-                   const __nv_bfloat16* __restrict__ w,
-                   const int* __restrict__ offsets,
-                   __nv_bfloat16* __restrict__ out, int M, int K, int N,
-                   int E) {
-  const int n0 = blockIdx.x * BN;
+    gmm_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                   const int* __restrict__ offsets, bf16* __restrict__ out,
+                   int M, int K, int N, int E) {
+  constexpr int TN = SWIGLU ? BN / 2 : BN;   // output columns a tile
+  const int cols = SWIGLU ? N / 2 : N;
+  const int n0 = blockIdx.x * TN;
   const int e = blockIdx.y;
   if (e == E) {
-    zero_tail(out, offsets, M, N, E, n0, BN);
+    zero_tail(out, offsets, M, cols, E, n0, TN, threadIdx.x, blockDim.x);
     return;
   }
   int lo, hi;
@@ -134,7 +205,7 @@ __global__ void __launch_bounds__(THREADS)
   if (lo >= hi) return;
 
   __shared__ __align__(16) Stage stages[STAGES];
-  const __nv_bfloat16* we = w + (long long)e * K * N;
+  const bf16* we = w + (long long)e * K * N;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wm = warp >> 1, wn = warp & 1;
   const int gid = lane >> 2, tig = lane & 3;
@@ -144,6 +215,12 @@ __global__ void __launch_bounds__(THREADS)
   const int a_row = lane & 15, a_col = (lane >> 4) << 3;
   const int b_key = (lane & 7) + (((lane >> 3) & 1) << 3);
   const int b_col = (lane >> 4) << 3;
+  // the staged columns of the warp's four 16-column pairs: 64 in a row,
+  // or with SWIGLU 32 gate then the 32 up columns that pair with them
+  auto pair_col = [&](int np) {
+    return SWIGLU ? (np >> 1) * 64 + wn * 32 + (np & 1) * 16
+                  : wn * 64 + np * 16;
+  };
 
   for (int m0 = lo; m0 < hi; m0 += BM) {
     const bool live = m0 + wm * 32 < hi;
@@ -157,7 +234,8 @@ __global__ void __launch_bounds__(THREADS)
 
 #pragma unroll
     for (int s = 0; s < STAGES - 1; ++s) {
-      if (s < nk) load_stage(stages[s], x, we, m0, hi, s * BK, n0, K, N);
+      if (s < nk)
+        load_stage<SWIGLU>(stages[s], x, we, m0, hi, s * BK, n0, K, N);
       tile::cp_async_commit();
     }
     for (int kt = 0; kt < nk; ++kt) {
@@ -165,7 +243,8 @@ __global__ void __launch_bounds__(THREADS)
       __syncthreads();
       const int pre = kt + STAGES - 1;
       if (pre < nk)
-        load_stage(stages[pre % STAGES], x, we, m0, hi, pre * BK, n0, K, N);
+        load_stage<SWIGLU>(stages[pre % STAGES], x, we, m0, hi, pre * BK,
+                           n0, K, N);
       tile::cp_async_commit();
       if (!live) continue;
       const Stage& st = stages[kt % STAGES];
@@ -181,8 +260,7 @@ __global__ void __launch_bounds__(THREADS)
         for (int np = 0; np < 4; ++np) {
           uint32_t b[4];
           tile::ldmatrix_x4_trans(
-              b, st.b + (kk * 16 + b_key) * B_PITCH + wn * 64 + np * 16 +
-                     b_col);
+              b, st.b + (kk * 16 + b_key) * B_PITCH + pair_col(np) + b_col);
 #pragma unroll
           for (int mi = 0; mi < 2; ++mi) {
             tile::mma_bf16(acc[mi][2 * np], a[mi], b[0], b[1]);
@@ -200,13 +278,178 @@ __global__ void __launch_bounds__(THREADS)
       for (int half = 0; half < 2; ++half) {
         const int row = m0 + wm * 32 + mi * 16 + gid + 8 * half;
         if (row >= hi) continue;
+        bf16* orow = out + (long long)row * cols;
 #pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          const int col = n0 + wn * 64 + nt * 8 + 2 * tig;
-          if (col >= N) continue;
-          *reinterpret_cast<__nv_bfloat162*>(out + (long long)row * N + col) =
-              __floats2bfloat162_rn(acc[mi][nt][2 * half],
-                                    acc[mi][nt][2 * half + 1]);
+        for (int nt = 0; nt < (SWIGLU ? 4 : 8); ++nt) {
+          const float* g = acc[mi][nt] + 2 * half;
+          if constexpr (SWIGLU) {
+            const int col = n0 + wn * 32 + nt * 8 + 2 * tig;
+            const float* u = acc[mi][nt + 4] + 2 * half;
+            if (col < cols)
+              *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+                  swiglu_pair(g[0], g[1], u[0], u[1]);
+          } else {
+            const int col = n0 + wn * 64 + nt * 8 + 2 * tig;
+            if (col < cols)
+              *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+                  __floats2bfloat162_rn(g[0], g[1]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16, many rows an expert: wgmma fed by TMA.
+// ---------------------------------------------------------------------------
+
+constexpr int WG_BM = 64;                  // rows of one wgmma row tile
+constexpr int WG_TILES = 4;                // row tiles a group: 256 rows
+constexpr int WG_ROWS = WG_BM * WG_TILES;
+constexpr int WG_BN = 128;                 // w columns a block
+constexpr int WG_BK = 64;
+constexpr int WG_STAGES = 4;
+constexpr int WG_THREADS = 384;   // warpgroups 0, 1: consumers; 2: producer
+constexpr int WG_BOX = 64 * 64 * 2;        // one 64 x 64 TMA box, 8 KB
+constexpr int WG_A_BYTES = WG_TILES * WG_BOX;
+constexpr int WG_STAGE_BYTES = WG_A_BYTES + 2 * WG_BOX;   // 48 KB
+constexpr int WG_SMEM = WG_STAGES * WG_STAGE_BYTES + 1024;  // + alignment
+static_assert(WG_SMEM + 2 * WG_STAGES * 8 <= 232448,
+              "wgmma_tma: shared memory over Hopper's 227 KB");
+
+// One block per (N tile, expert): blockIdx.x the tile of TN output columns
+// (w columns n0 .. n0 + 127, or with SWIGLU gate columns n0 .. n0 + 63 and
+// up columns F + n0 ..), blockIdx.y the expert, E: the rows of no expert.
+template <bool SWIGLU>
+__global__ void __launch_bounds__(WG_THREADS, 1) gmm_wgmma_tma_kernel(
+    const __grid_constant__ CUtensorMap map_x,
+    const __grid_constant__ CUtensorMap map_w,
+    const int* __restrict__ offsets, bf16* __restrict__ out, int M, int K,
+    int N, int E) {
+  using namespace hopper;
+  constexpr int TN = SWIGLU ? WG_BN / 2 : WG_BN;
+  const int cols = SWIGLU ? N / 2 : N;
+  const int n0 = blockIdx.x * TN;
+  const int b1 = SWIGLU ? cols + n0 : n0 + 64;   // the strip's second box
+  const int e = blockIdx.y;
+  if (e == E) {
+    zero_tail(out, offsets, M, cols, E, n0, TN, threadIdx.x, blockDim.x);
+    return;
+  }
+  int lo, hi;
+  expert_rows(offsets, e, M, lo, hi);
+  if (lo >= hi) return;
+
+  extern __shared__ uint8_t dyn_smem[];
+  __shared__ __align__(8) uint64_t full[WG_STAGES], empty[WG_STAGES];
+  // each stage: four x boxes of 64 rows x 64 k (K-major, 128-byte rows),
+  // then the strip as two 64 (k) x 64 (n) boxes (N-major); every box
+  // starts 1024-byte aligned
+  const uint32_t ring = (smem_addr(dyn_smem) + 1023u) & ~1023u;
+  const int n_k = (K + WG_BK - 1) / WG_BK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WG_STAGES; ++s) {
+      mbar_init(smem_addr(&full[s]), 1);    // the producer's expect_tx
+      mbar_init(smem_addr(&empty[s]), 8);   // one arrival per consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    // ---- producer warpgroup: one thread keeps the ring full ----
+    regs_dec<40>();
+    if (threadIdx.x == 256) {
+      int it = 0;   // stages filled so far, over all row groups
+      for (int g0 = lo; g0 < hi; g0 += WG_ROWS) {
+        const int live = min(WG_TILES, (hi - g0 + WG_BM - 1) / WG_BM);
+        for (int t = 0; t < n_k; ++t, ++it) {
+          const int s = it % WG_STAGES;
+          if (it >= WG_STAGES)    // wait until the consumers released it
+            mbar_wait(smem_addr(&empty[s]), ((it / WG_STAGES) - 1) & 1);
+          const uint32_t bar = smem_addr(&full[s]);
+          const uint32_t st = ring + s * WG_STAGE_BYTES;
+          mbar_expect_tx(bar, (live + 2) * WG_BOX);
+          for (int j = 0; j < live; ++j)
+            tma_load_3d(st + j * WG_BOX, &map_x, bar, t * WG_BK,
+                        g0 + j * WG_BM, 0);
+          tma_load_3d(st + WG_A_BYTES, &map_w, bar, n0, t * WG_BK, e);
+          tma_load_3d(st + WG_A_BYTES + WG_BOX, &map_w, bar, b1, t * WG_BK,
+                      e);
+        }
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: row tiles wg and wg + 2 of each group ----
+    regs_inc<232>();
+    const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
+    const int w = (threadIdx.x % 128) / 32;
+    auto release = [&](int stage) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(smem_addr(&empty[stage]));
+    };
+    float acc[2][64];
+    int it = 0;     // stages consumed so far, over all row groups
+    for (int g0 = lo; g0 < hi; g0 += WG_ROWS) {
+      const int n_live = min(WG_TILES, (hi - g0 + WG_BM - 1) / WG_BM);
+      const bool live[2] = {wg < n_live, wg + 2 < n_live};
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) acc[j][i] = 0.f;
+        fence_regs(acc[j]);
+      }
+      for (int t = 0; t < n_k; ++t, ++it) {
+        const int s = it % WG_STAGES;
+        mbar_wait(smem_addr(&full[s]), (it / WG_STAGES) & 1);
+        const uint32_t st = ring + s * WG_STAGE_BYTES;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < WG_BK / 16; ++kk) {
+          const uint64_t db = sw128_desc(st + WG_A_BYTES + kk * 16 * 128,
+                                         WG_BOX, 1024);
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            if (live[j])
+              wgmma_m64n128k16<0, 1>(
+                  acc[j],
+                  sw128_desc(st + (wg + 2 * j) * WG_BOX + kk * 32, 16, 1024),
+                  db);
+        }
+        wgmma_commit();
+        // the products of the previous stage are done: hand it back
+        wgmma_wait<1>();
+        if (t > 0) release((it - 1) % WG_STAGES);
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int j = 0; j < 2; ++j) fence_regs(acc[j]);
+      release((it - 1) % WG_STAGES);
+
+      // epilogue: straight from the registers, two adjacent columns a
+      // store; rows past hi (the next expert's) are never stored
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        if (!live[j]) continue;
+        const int r0 = g0 + (wg + 2 * j) * WG_BM + w * 16 + lane / 4;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = r0 + 8 * h;
+          if (row >= hi) continue;
+          bf16* orow = out + (long long)row * cols;
+#pragma unroll
+          for (int q = 0; q < TN / 8; ++q) {
+            const int col = n0 + 8 * q + (lane % 4) * 2;
+            if (col >= cols) continue;
+            const float* g = acc[j] + 4 * q + 2 * h;
+            __nv_bfloat162* dst =
+                reinterpret_cast<__nv_bfloat162*>(orow + col);
+            if constexpr (SWIGLU)
+              *dst = swiglu_pair(g[0], g[1], g[32], g[33]);
+            else
+              *dst = __floats2bfloat162_rn(g[0], g[1]);
+          }
         }
       }
     }
@@ -219,14 +462,17 @@ __global__ void __launch_bounds__(THREADS)
 
 constexpr int FM = 64, FN = 64, FK = 16, FTHREADS = 256;
 
+template <bool SWIGLU>
 __global__ void __launch_bounds__(FTHREADS)
     gmm_simt_kernel(const float* __restrict__ x, const float* __restrict__ w,
                     const int* __restrict__ offsets, float* __restrict__ out,
                     int M, int K, int N, int E) {
-  const int n0 = blockIdx.x * FN;
+  constexpr int TN = SWIGLU ? FN / 2 : FN;   // output columns a tile
+  const int cols = SWIGLU ? N / 2 : N;
+  const int n0 = blockIdx.x * TN;
   const int e = blockIdx.y;
   if (e == E) {
-    zero_tail(out, offsets, M, N, E, n0, FN);
+    zero_tail(out, offsets, M, cols, E, n0, TN, threadIdx.x, blockDim.x);
     return;
   }
   int lo, hi;
@@ -234,11 +480,10 @@ __global__ void __launch_bounds__(FTHREADS)
   if (lo >= hi) return;
 
   __shared__ __align__(16) float as[FK][FM];   // x tile, transposed
-  __shared__ __align__(16) float bs[FK][FN];
+  __shared__ __align__(16) float bs[FK][FN];   // with SWIGLU: gate | up
   const float* we = w + (long long)e * K * N;
   const int t = threadIdx.x;
   const int ty = t >> 4, tx = t & 15;
-
   for (int m0 = lo; m0 < hi; m0 += FM) {
     float acc[4][4] = {};
     for (int k0 = 0; k0 < K; k0 += FK) {
@@ -255,17 +500,31 @@ __global__ void __launch_bounds__(FTHREADS)
       for (int i = 0; i < FK * FN / FTHREADS; ++i) {
         const int c = t + i * FTHREADS;
         const int r = c / FN, n = c % FN;
-        bs[r][n] = (k0 + r < K && n0 + n < N)
-                       ? we[(long long)(k0 + r) * N + n0 + n]
-                       : 0.f;
+        int col = n0 + n;
+        bool ok = col < N;
+        if constexpr (SWIGLU) {
+          const int g = n0 + (n & 31);
+          col = n < 32 ? g : cols + g;
+          ok = g < cols;
+        }
+        bs[r][n] = (k0 + r < K && ok) ? we[(long long)(k0 + r) * N + col]
+                                      : 0.f;
       }
       __syncthreads();
 #pragma unroll
       for (int k = 0; k < FK; ++k) {
         const float4 a = *reinterpret_cast<const float4*>(&as[k][ty * 4]);
-        const float4 b = *reinterpret_cast<const float4*>(&bs[k][tx * 4]);
         const float av[4] = {a.x, a.y, a.z, a.w};
-        const float bv[4] = {b.x, b.y, b.z, b.w};
+        float bv[4];
+        if constexpr (SWIGLU) {
+          const float2 g = *reinterpret_cast<const float2*>(&bs[k][tx * 2]);
+          const float2 u =
+              *reinterpret_cast<const float2*>(&bs[k][32 + tx * 2]);
+          bv[0] = g.x, bv[1] = g.y, bv[2] = u.x, bv[3] = u.y;
+        } else {
+          const float4 b = *reinterpret_cast<const float4*>(&bs[k][tx * 4]);
+          bv[0] = b.x, bv[1] = b.y, bv[2] = b.z, bv[3] = b.w;
+        }
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -277,39 +536,112 @@ __global__ void __launch_bounds__(FTHREADS)
     for (int i = 0; i < 4; ++i) {
       const int row = m0 + ty * 4 + i;
       if (row >= hi) continue;
+      float* orow = out + (long long)row * cols;
+      if constexpr (SWIGLU) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = n0 + tx * 4 + j;
-        if (col < N) out[(long long)row * N + col] = acc[i][j];
+        for (int j = 0; j < 2; ++j) {
+          const int col = n0 + tx * 2 + j;
+          const float g = acc[i][j];
+          if (col < cols) orow[col] = g / (1.f + expf(-g)) * acc[i][j + 2];
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int col = n0 + tx * 4 + j;
+          if (col < cols) orow[col] = acc[i][j];
+        }
       }
     }
   }
 }
 
+// ---------------------------------------------------------------------------
+// Launchers.
+// ---------------------------------------------------------------------------
+
+template <bool SWIGLU>
+int launch_wgmma(const void* x, const void* w, const void* offsets, void* out,
+                 int M, int K, int N, int E, const unsigned long long* tma,
+                 cudaStream_t s) {
+  // the boxes the kernel's ring is laid out for: 64 x 64 for x and w
+  if (tma == nullptr || tma[5] != WG_BK || tma[6] != WG_BM || tma[7] != 1 ||
+      tma[13] != 64 || tma[14] != WG_BK || tma[15] != 1)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap map_x, map_w;
+  if (!hopper::encode_map(&map_x, x, tma) ||
+      !hopper::encode_map(&map_w, w, tma + 8))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = gmm_wgmma_tma_kernel<SWIGLU>;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  // once per device: the attribute call is not one a graph capture records
+  static bool smem_set[64] = {};
+  if (err == cudaSuccess && dev < 64 && !smem_set[dev]) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
+    smem_set[dev] = err == cudaSuccess;
+  }
+  if (err != cudaSuccess) return (int)err;
+  const int tn = SWIGLU ? WG_BN / 2 : WG_BN;
+  // blocks in launch order: the N tiles of one expert next to each other,
+  // so their shared x rows come from L2; one block an SM (its shared
+  // memory allows no second), and the next one starts where one ends
+  dim3 grid(((SWIGLU ? N / 2 : N) + tn - 1) / tn, E + 1);
+  kernel<<<grid, WG_THREADS, WG_SMEM, s>>>(
+      map_x, map_w, static_cast<const int*>(offsets), static_cast<bf16*>(out),
+      M, K, N, E);
+  return (int)cudaGetLastError();
+}
+
+template <bool SWIGLU>
+int launch(int variant, const void* x, const void* w, const int* off,
+           void* out, int M, int K, int N, int E,
+           const unsigned long long* tma, cudaStream_t s) {
+  const int cols = SWIGLU ? N / 2 : N;
+  switch (variant) {
+    case kSimt: {
+      const int tn = SWIGLU ? FN / 2 : FN;
+      dim3 grid((cols + tn - 1) / tn, E + 1);
+      gmm_simt_kernel<SWIGLU><<<grid, FTHREADS, 0, s>>>(
+          static_cast<const float*>(x), static_cast<const float*>(w), off,
+          static_cast<float*>(out), M, K, N, E);
+      return (int)cudaGetLastError();
+    }
+    case kMma: {
+      const int tn = SWIGLU ? BN / 2 : BN;
+      dim3 grid((cols + tn - 1) / tn, E + 1);
+      gmm_mma_kernel<SWIGLU><<<grid, THREADS, 0, s>>>(
+          static_cast<const bf16*>(x), static_cast<const bf16*>(w), off,
+          static_cast<bf16*>(out), M, K, N, E);
+      return (int)cudaGetLastError();
+    }
+    case kWgmmaTma:
+      return launch_wgmma<SWIGLU>(x, w, off, out, M, K, N, E, tma, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// x (M, K), w (E, K, N), offsets (E + 1,) int32 on the card, out (M, N);
-// dtype 1: bf16 (K, N multiples of 8, 16-byte aligned), 0: fp32.  Returns
-// the launch's cudaGetLastError().
+// x (M, K), w (E, K, N), offsets (E + 1,) int32 on the card, out (M, N), or
+// (M, N / 2) with swiglu.  variant: the Variant codes above (kernel.py::plan
+// chooses it; simt takes fp32, the others bf16 with K and N multiples of 8,
+// N of 16 with swiglu, 16-byte aligned); tma: wgmma_tma's 16 tensor-map
+// arguments (kernel.py::tma_args for x, then for w), else null.  Returns
+// the launch's cudaGetLastError(), or cudaErrorInvalidValue, without
+// launching, for sizes the variant does not take.
 extern "C" int grouped_mm_launch(const void* x, const void* w,
                                  const void* offsets, void* out, int M, int K,
-                                 int N, int E, int dtype, void* stream) {
+                                 int N, int E, int variant, int swiglu,
+                                 const unsigned long long* tma,
+                                 void* stream) {
   if (M < 1 || K < 1 || N < 1 || E < 1 || E > 65534)
     return (int)cudaErrorInvalidValue;
+  if (variant != kSimt && (K % 8 || N % (swiglu ? 16 : 8)))
+    return (int)cudaErrorInvalidValue;
+  if (swiglu && N % 2) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* off = static_cast<const int*>(offsets);
-  if (dtype == 1) {
-    if (K % 8 || N % 8) return (int)cudaErrorInvalidValue;
-    dim3 grid((N + BN - 1) / BN, E + 1);
-    gmm_mma_kernel<<<grid, THREADS, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<const __nv_bfloat16*>(w), off,
-        static_cast<__nv_bfloat16*>(out), M, K, N, E);
-  } else {
-    dim3 grid((N + FN - 1) / FN, E + 1);
-    gmm_simt_kernel<<<grid, FTHREADS, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w), off,
-        static_cast<float*>(out), M, K, N, E);
-  }
-  return (int)cudaGetLastError();
+  return swiglu ? launch<true>(variant, x, w, off, out, M, K, N, E, tma, s)
+                : launch<false>(variant, x, w, off, out, M, K, N, E, tma, s);
 }

@@ -5,24 +5,33 @@ The source is compiled at first use with ``nvcc`` for ``sm_90a``
 ``ctypes``.  Nothing is built or loaded when this module is imported.
 
 :func:`grouped_mm_cuda` is the wrapper of the kernel that replaces
-``lax.ragged_dot`` in the MoE block (``src/repro/models/moe.py:116,120``).
-:func:`plan` picks its variant from the dtype alone (it runs on the CPU
-with no card):
+``lax.ragged_dot`` in the MoE block (``src/repro/models/moe.py:116,120``);
+:func:`grouped_mm_swiglu_cuda` launches the same kernel with the silu x up
+epilogue fused into it (``moe.py:116-119``).  :func:`plan` picks the
+variant from dtype and shapes alone (it runs on the CPU with no card, and
+never reads the offsets):
 
-  * ``mma`` — bf16: ``mma.sync`` tensor-core tiles fed by ``cp.async``;
-    K and N multiples of 8, operands 16-byte aligned;
+  * ``wgmma_tma`` — bf16 with at least :data:`WGMMA_MIN_ROWS` rows an
+    expert on average (the prefill chunks): TMA into a ring of shared
+    memory stages, ``wgmma`` on the tensor cores, each weight strip read
+    once for up to 256 rows of its expert;
+  * ``mma`` — bf16 with fewer rows an expert (decode, verify):
+    ``mma.sync`` tiles fed by ``cp.async``;
   * ``simt`` — fp32: CUDA-core FMAs, any K and N.
 
-The wrapper checks devices, dtypes, shapes and contiguity, allocates the
-output with ``torch.empty``, launches on the current stream, raises if the
-launch was refused, and adds one to ``launches`` and to
-``by_variant[variant]``.  It never reads ``offsets`` on the host: the
-kernel reads them on the card, so a call can be captured in a CUDA graph.
+bf16 needs K and N multiples of 8 (N of 16 with the epilogue) and 16-byte
+aligned operands.  Each wrapper checks devices, dtypes, shapes and
+contiguity, allocates the output with ``torch.empty``, launches on the
+current stream, raises if the launch was refused, and adds one to its
+``launches`` and to ``by_variant[variant]``.  It never reads ``offsets`` on
+the host: the kernel reads them on the card, so a call can be captured in a
+CUDA graph.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
 from typing import Optional
 
@@ -30,11 +39,20 @@ import torch
 
 from repro_torch.kernels import counted
 from repro_torch.kernels.build import compile_library
+from repro_torch.kernels.cannon_mm.kernel import tma_args
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "grouped_mm.cu"
-# the CUDA kernel of each variant (its name in profiler traces)
-VARIANTS = {"simt": "gmm_simt_kernel", "mma": "gmm_mma_kernel"}
+# the CUDA kernel of each variant (its name in profiler traces) and its code
+# in grouped_mm.cu
+VARIANTS = {"simt": "gmm_simt_kernel", "mma": "gmm_mma_kernel",
+            "wgmma_tma": "gmm_wgmma_tma_kernel"}
+_CODE = {"simt": 0, "mma": 1, "wgmma_tma": 2}
 MAX_EXPERTS = 65534          # the grid's y dimension holds E + 1 blocks
+# bf16 takes wgmma_tma from this many rows an expert on average (M / E);
+# chosen from chip_smoke.py's gmm_timing (PERF.md, row 6)
+WGMMA_MIN_ROWS = 16
+# wgmma_tma's TMA boxes, (columns, rows, batch): 64 x 64 of x and of w
+WGMMA_BOX = (64, 64, 1)
 
 _lib: Optional[ctypes.CDLL] = None
 # what the last build did: library path, seconds, ptxas report
@@ -48,41 +66,66 @@ def build() -> ctypes.CDLL:
         return _lib
     lib, info = compile_library(_SRC, "grouped_mm")
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.grouped_mm_launch.argtypes = [vp] * 4 + [i] * 5 + [vp]
+    lib.grouped_mm_launch.argtypes = [vp] * 4 + [i] * 6 + [vp, vp]
     lib.grouped_mm_launch.restype = i
     build_info.update(info)
     _lib = lib
     return lib
 
 
-def plan(x: torch.Tensor, w: torch.Tensor) -> str:
-    """The variant that takes ``grouped_mm(x, w, offsets)``; raises on
-    what neither takes."""
-    if x.dtype != w.dtype or x.dtype not in (torch.float32, torch.bfloat16):
+def route(dtype: torch.dtype, M: int, K: int, N: int, E: int,
+          swiglu: bool = False) -> str:
+    """The variant for an (M, K) x (E, K, N) call in ``dtype``; raises on
+    what no variant takes."""
+    if dtype == torch.float32:
+        if swiglu and N % 2:
+            raise ValueError(f"grouped_mm_swiglu needs an even N, got {N}")
+        return "simt"
+    if dtype != torch.bfloat16:
+        raise TypeError(f"grouped_mm takes float32 or bfloat16, got {dtype}")
+    if K % 8 or N % (16 if swiglu else 8):
+        raise ValueError(f"bf16 grouped_mm needs K and N multiples of 8"
+                         f"{' (N of 16 with the epilogue)' if swiglu else ''}"
+                         f", got K={K}, N={N}")
+    return "wgmma_tma" if M >= WGMMA_MIN_ROWS * E else "mma"
+
+
+def plan(x: torch.Tensor, w: torch.Tensor, swiglu: bool = False) -> str:
+    """The variant that takes ``grouped_mm(x, w, offsets)`` (or, with
+    ``swiglu``, ``grouped_mm_swiglu``), from dtypes and shapes; raises on
+    what none takes."""
+    if x.dtype != w.dtype:
         raise TypeError(f"x and w must share float32 or bfloat16, got "
                         f"{x.dtype}/{w.dtype}")
-    if x.dtype == torch.float32:
-        return "simt"
-    K, N = w.shape[1:]
-    if K % 8 or N % 8:
-        raise ValueError(f"bf16 grouped_mm needs K and N multiples of 8, got "
-                         f"K={K}, N={N}")
-    return "mma"
+    return route(x.dtype, x.shape[0], *w.shape[1:], w.shape[0], swiglu)
 
 
-def grouped_mm_cuda(x: torch.Tensor, w: torch.Tensor,
-                    offsets: torch.Tensor) -> torch.Tensor:
-    """Grouped product on the card: x (M, K), w (E, K, N), offsets (E + 1,)
-    int32, contiguous, on one device.  Returns (M, N) in x's dtype; see
-    :func:`repro_torch.kernels.grouped_mm.grouped_mm`."""
+@functools.lru_cache(maxsize=64)
+def wgmma_tma_args(M: int, K: int, N: int, E: int):
+    """wgmma_tma's 16 tensor-map arguments: x as (K, M, 1), then w as
+    (N, K, E), both contiguous bf16 in 64 x 64 boxes (``tma_args``)."""
+    ax = tma_args((1, M, K), (M * K, K, 1), 2, WGMMA_BOX)
+    aw = tma_args((E, K, N), (K * N, N, 1), 2, WGMMA_BOX)
+    if ax is None or aw is None:
+        raise ValueError(f"grouped_mm: TMA cannot read x ({M}, {K}) or w "
+                         f"({E}, {K}, {N})")
+    return ax + aw
+
+
+@functools.lru_cache(maxsize=64)
+def _tma_array(args):
+    return (ctypes.c_ulonglong * len(args))(*args)
+
+
+def _launch(fn, x, w, offsets, swiglu, variant):
     tensors = (x, w, offsets)
+    name = fn.__name__
     if not all(t.is_cuda and t.device == x.device for t in tensors):
-        raise ValueError("grouped_mm_cuda: every operand must be on one CUDA "
-                         "device")
+        raise ValueError(f"{name}: every operand must be on one CUDA device")
     if offsets.dtype != torch.int32:
         raise TypeError(f"offsets must be int32, got {offsets.dtype}")
     if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("grouped_mm_cuda: operands must be contiguous")
+        raise ValueError(f"{name}: operands must be contiguous")
     if x.ndim != 2 or w.ndim != 3 or offsets.ndim != 1:
         raise ValueError(f"bad ranks: x {tuple(x.shape)}, w {tuple(w.shape)}, "
                          f"offsets {tuple(offsets.shape)}")
@@ -92,24 +135,58 @@ def grouped_mm_cuda(x: torch.Tensor, w: torch.Tensor,
             or E > MAX_EXPERTS:
         raise ValueError(f"bad shapes: x {tuple(x.shape)}, w "
                          f"{tuple(w.shape)}, offsets {tuple(offsets.shape)}")
-    variant = plan(x, w)
-    if variant == "mma" and (x.data_ptr() % 16 or w.data_ptr() % 16):
-        raise ValueError("grouped_mm_cuda: bf16 operands must be 16-byte "
-                         "aligned")
+    planned = plan(x, w, swiglu)
+    variant = variant or planned
+    if variant not in VARIANTS or (variant == "simt") != (planned == "simt"):
+        raise ValueError(f"{name}: variant {variant!r} does not take "
+                         f"{x.dtype}")
+    if variant != "simt" and (x.data_ptr() % 16 or w.data_ptr() % 16):
+        raise ValueError(f"{name}: bf16 operands must be 16-byte aligned")
+    tma = _tma_array(wgmma_tma_args(M, K, N, E)) \
+        if variant == "wgmma_tma" else None
     lib = build()
-    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    out = torch.empty((M, N // 2 if swiglu else N), dtype=x.dtype,
+                      device=x.device)
     with torch.cuda.device(x.device):
         err = lib.grouped_mm_launch(
             x.data_ptr(), w.data_ptr(), offsets.data_ptr(), out.data_ptr(),
-            M, K, N, E, int(variant == "mma"),
+            M, K, N, E, _CODE[variant], int(swiglu), tma,
             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"grouped_mm kernel launch failed: CUDA error "
-                           f"{err}")
-    grouped_mm_cuda.launches += 1
-    grouped_mm_cuda.by_variant[variant] += 1
+        raise RuntimeError(f"{name} kernel launch failed ({variant}): CUDA "
+                           f"error {err}")
+    fn.launches += 1
+    fn.by_variant[variant] += 1
     return out
 
 
+def grouped_mm_cuda(x: torch.Tensor, w: torch.Tensor,
+                    offsets: torch.Tensor, *,
+                    variant: Optional[str] = None) -> torch.Tensor:
+    """Grouped product on the card: x (M, K), w (E, K, N), offsets (E + 1,)
+    int32, contiguous, on one device.  Returns (M, N) in x's dtype; see
+    :func:`repro_torch.kernels.grouped_mm.grouped_mm`.  ``variant``
+    overrides :func:`plan` among the variants of x's dtype (tests and
+    timings)."""
+    return _launch(grouped_mm_cuda, x, w, offsets, False, variant)
+
+
+def grouped_mm_swiglu_cuda(x: torch.Tensor, w: torch.Tensor,
+                           offsets: torch.Tensor, *,
+                           variant: Optional[str] = None) -> torch.Tensor:
+    """The grouped product with the silu x up epilogue on the card: w
+    (E, K, 2F) gate | up; returns (M, F); see
+    :func:`repro_torch.kernels.grouped_mm.grouped_mm_swiglu`."""
+    return _launch(grouped_mm_swiglu_cuda, x, w, offsets, True, variant)
+
+
+def reset_counts() -> None:
+    """Set both wrappers' ``launches`` and ``by_variant`` counts to 0."""
+    for fn in (grouped_mm_cuda, grouped_mm_swiglu_cuda):
+        fn.launches = 0
+        fn.by_variant = dict.fromkeys(VARIANTS, 0)
+
+
 counted(grouped_mm_cuda)
-grouped_mm_cuda.by_variant = {v: 0 for v in VARIANTS}
+counted(grouped_mm_swiglu_cuda)
+reset_counts()

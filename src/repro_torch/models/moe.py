@@ -15,9 +15,10 @@ combine, each rounded where the JAX block rounds:
     none at ``capacity_factor >= 1``;
   * the pairs sorted by expert (stable), dropped pairs last under the
     sentinel id E; offsets from a fixed-size count and a cumsum;
-  * ``grouped_mm`` with ``w1`` (gate | up along the last axis), ``silu`` of
-    the gate in fp32 rounded to x's dtype, times the up half in x's dtype;
-    ``grouped_mm`` with ``w2``; unsorted;
+  * ``grouped_mm_swiglu`` with ``w1`` (gate | up along the last axis): the
+    product, ``silu`` of the gate in fp32 rounded to x's dtype, times the up
+    half in x's dtype, one launch on the card that never writes the
+    (M, 2F) product; ``grouped_mm`` with ``w2``; unsorted;
   * the fp32 combine, one fixed-shape sum over k (the JAX block's
     ``.at[ft].add`` adds each token's k contributions), then cast to x's
     dtype;
@@ -40,7 +41,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.kernels.grouped_mm import grouped_mm
+from repro_torch.kernels.grouped_mm import grouped_mm, grouped_mm_swiglu
 
 
 def _int8_wire(t: torch.Tensor) -> torch.Tensor:
@@ -84,9 +85,7 @@ def _moe(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg):
         xs = _int8_wire(xs)
 
     # ---- grouped expert FFN ------------------------------------------------
-    F = p["w2"].shape[1]
-    h = grouped_mm(xs, p["w1"], offsets)                   # (n, 2F)
-    h = torch.nn.functional.silu(h[:, :F].float()).to(h.dtype) * h[:, F:]
+    h = grouped_mm_swiglu(xs, p["w1"], offsets)            # (n, F)
     ye = grouped_mm(h, p["w2"], offsets)                   # (n, D)
     if cfg.moe_wire_dtype == "int8":
         ye = _int8_wire(ye)

@@ -873,11 +873,14 @@ def test_bf16_logits_keep_fp32_sums():
 
 
 # ---------------------------------------------------------------------------
-# The grouped GEMM (MoE experts): bf16 on the tensor cores (mma variant),
-# fp32 on the CUDA cores (simt).  The kernel and its plain version both sum
-# in fp32 and round once; where the two sums straddle a rounding boundary
-# bf16 outputs differ by one ulp (at most 2^-7 of the value), fp32 ones by
-# the summation order (rel < 1e-5).
+# The grouped GEMM (MoE experts): bf16 on the tensor cores (mma variant at
+# few rows an expert, wgmma_tma at many), fp32 on the CUDA cores (simt),
+# each also with the silu x up epilogue.  The kernel and its plain version
+# both sum in fp32 and round once; where the two sums straddle a rounding
+# boundary bf16 outputs differ by one ulp (at most 2^-7 of the value), fp32
+# ones by the summation order (rel < 1e-5).  The epilogue rounds the sums,
+# the silu and the product where the plain version does, so a one-ulp
+# difference of a sum moves its output by about one ulp: the same bound.
 # ---------------------------------------------------------------------------
 
 GMM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7}
@@ -900,7 +903,7 @@ def test_grouped_mm_kernel_matches_plain_version(case, dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from repro_torch.kernels.grouped_mm import grouped_mm, grouped_mm_ref
-    from repro_torch.kernels.grouped_mm.kernel import grouped_mm_cuda
+    from repro_torch.kernels.grouped_mm.kernel import grouped_mm_cuda, plan
     M, K, N, E, sizes, head = case
     rng = np.random.default_rng(M)
     if sizes == "top8":
@@ -912,7 +915,7 @@ def test_grouped_mm_kernel_matches_plain_version(case, dtype):
         "cuda", dtype)
     w = (torch.from_numpy(rng.normal(size=(E, K, N)).astype(np.float32))
          * K ** -0.5).to("cuda", dtype)
-    variant = "mma" if dtype == torch.bfloat16 else "simt"
+    variant = plan(x, w)
     n0, v0 = grouped_mm_cuda.launches, grouped_mm_cuda.by_variant[variant]
     got = grouped_mm(x, w, offsets)
     assert grouped_mm_cuda.launches == n0 + 1
@@ -921,6 +924,92 @@ def test_grouped_mm_kernel_matches_plain_version(case, dtype):
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == (M, N)
     assert _rel(want, got) <= GMM_TOL[dtype]
+    lo, hi = int(offsets[0]), int(offsets[-1])
+    assert not got[:lo].any() and not got[hi:].any()
+
+
+def _gmm_case(case, dtype, seed):
+    """x, w, offsets on the card for (M, K, N, E, group sizes or "top8",
+    rows before offsets[0])."""
+    M, K, N, E, sizes, head = case
+    rng = np.random.default_rng(seed)
+    if sizes == "top8":
+        picks = np.argsort(rng.random((M // 8, E)), axis=1)[:, :8]
+        sizes = np.bincount(picks.ravel(), minlength=E)
+    offsets = torch.from_numpy((head + np.concatenate(
+        [[0], np.cumsum(sizes)])).astype(np.int32)).cuda()
+    x = torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32)).to(
+        "cuda", dtype)
+    w = (torch.from_numpy(rng.normal(size=(E, K, N)).astype(np.float32))
+         * K ** -0.5).to("cuda", dtype)
+    return x, w, offsets
+
+
+GMM_VARIANT_CASES = [
+    # M, K, N, E, group sizes, rows before offsets[0]; N a multiple of 16
+    (8192, 512, 1024, 64, "top8", 0),       # 128 rows an expert (len256)
+    (2048, 512, 768, 64, "top8", 0),        # 32 rows an expert (len64)
+    (1024, 256, 384, 16, "top8", 0),        # several row tiles an expert
+    (77, 64, 64, 16, [0, 9, 0, 0, 30, 0, 0, 1, 0, 0, 0, 17, 0, 0, 20, 0], 0),
+    (300, 64, 144, 16, [0] * 5 + [300] + [0] * 10, 0),
+    (100, 40, 80, 6, [13, 0, 25, 2, 0, 30], 0),   # K and N ragged, past [E]
+    (90, 32, 64, 4, [20, 0, 31, 9], 11),          # and before offsets[0]
+    (33, 32, 64, 8, [0] * 8, 5),                  # no expert has a row
+    # one expert holds 600 rows (three row groups, its strip read three
+    # times), ragged N tiles (208: 128 + 80, or 64 + 40 output columns)
+    (720, 96, 208, 5, [40, 600, 0, 7, 13], 45),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("swiglu", [False, True])
+@pytest.mark.parametrize("variant", ["mma", "wgmma_tma"])
+@pytest.mark.parametrize("case", GMM_VARIANT_CASES)
+def test_grouped_mm_bf16_variants_match_plain_version(case, variant, swiglu):
+    """Each bf16 variant, forced whatever plan would pick, with and without
+    the silu x up epilogue, against the plain version of its function."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.grouped_mm import (grouped_mm_ref,
+                                                grouped_mm_swiglu_ref)
+    from repro_torch.kernels.grouped_mm.kernel import (
+        grouped_mm_cuda, grouped_mm_swiglu_cuda)
+    x, w, offsets = _gmm_case(case, torch.bfloat16, seed=case[0])
+    kern = grouped_mm_swiglu_cuda if swiglu else grouped_mm_cuda
+    ref = grouped_mm_swiglu_ref if swiglu else grouped_mm_ref
+    n0, v0 = kern.launches, kern.by_variant[variant]
+    got = kern(x, w, offsets, variant=variant)
+    assert kern.launches == n0 + 1 and kern.by_variant[variant] == v0 + 1
+    want = ref(x, w, offsets)
+    torch.cuda.synchronize()
+    M, N = case[0], case[2]
+    assert got.shape == (M, N // 2 if swiglu else N)
+    assert torch.isfinite(got).all()
+    assert _rel(want, got) <= GMM_TOL[torch.bfloat16]
+    lo, hi = int(offsets[0]), int(offsets[-1])
+    assert not got[:lo].any() and not got[hi:].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [
+    (64, 4096, 3072, 128, "top8", 0),
+    (100, 40, 80, 6, [13, 0, 25, 2, 0, 30], 0),
+    (90, 37, 70, 4, [20, 0, 31, 9], 11),          # any even N
+])
+def test_grouped_mm_swiglu_fp32_matches_plain_version(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.grouped_mm import (grouped_mm_swiglu,
+                                                grouped_mm_swiglu_ref)
+    from repro_torch.kernels.grouped_mm.kernel import grouped_mm_swiglu_cuda
+    x, w, offsets = _gmm_case(case, torch.float32, seed=7)
+    n0 = grouped_mm_swiglu_cuda.by_variant["simt"]
+    got = grouped_mm_swiglu(x, w, offsets)
+    assert grouped_mm_swiglu_cuda.by_variant["simt"] == n0 + 1
+    want = grouped_mm_swiglu_ref(x, w, offsets)
+    torch.cuda.synchronize()
+    assert got.shape == (case[0], case[2] // 2)
+    assert _rel(want, got) <= GMM_TOL[torch.float32]
     lo, hi = int(offsets[0]), int(offsets[-1])
     assert not got[:lo].any() and not got[hi:].any()
 
@@ -982,10 +1071,63 @@ def test_grouped_mm_replays_with_new_offsets(dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("swiglu", [False, True])
+def test_grouped_mm_wgmma_tma_replays_with_new_offsets(swiglu):
+    """The wgmma_tma variant (and its epilogue) captured once: replays
+    after new routing give the new product, twice the same bits, and the
+    rows of no expert zero; one routing puts 600 rows in one expert."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.grouped_mm import (grouped_mm_ref,
+                                                grouped_mm_swiglu_ref)
+    from repro_torch.kernels.grouped_mm.kernel import (
+        grouped_mm_cuda, grouped_mm_swiglu_cuda, plan)
+    kern = grouped_mm_swiglu_cuda if swiglu else grouped_mm_cuda
+    ref = grouped_mm_swiglu_ref if swiglu else grouped_mm_ref
+    gen = torch.Generator("cuda").manual_seed(3)
+    M, K, N, E = 1024, 256, 384, 16
+    x = torch.randn(M, K, generator=gen, device="cuda").bfloat16()
+    w = (torch.randn(E, K, N, generator=gen, device="cuda")
+         * K ** -0.5).bfloat16()
+    assert plan(x, w, swiglu) == "wgmma_tma"
+    off = torch.zeros(E + 1, dtype=torch.int32, device="cuda")
+    rng = np.random.default_rng(4)
+
+    def route(sizes, head=0):
+        off.copy_(torch.from_numpy((head + np.concatenate(
+            [[0], np.cumsum(sizes)])).astype(np.int32)))
+    route(np.bincount(rng.integers(0, E, M), minlength=E))
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        kern(x, w, off)                     # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = kern(x, w, off)
+    for sizes, head in (
+            (np.bincount(rng.integers(0, E, M), minlength=E), 0),
+            (np.bincount(rng.integers(0, E, 300), minlength=E), 50),
+            ([0] * 3 + [600] + [0] * 12, 100), ([0] * E, 7)):
+        route(sizes, head)
+        graph.replay()
+        first = out.clone()
+        graph.replay()
+        want = ref(x, w, off)
+        torch.cuda.synchronize()
+        assert torch.equal(first, out)
+        assert _rel(want, out) <= GMM_TOL[torch.bfloat16] if sum(sizes) \
+            else not out.any()
+        lo, hi = int(off[0]), int(off[-1])
+        assert not out[:lo].any() and not out[hi:].any()
+
+
+@pytest.mark.gpu
 def test_grouped_mm_wrapper_refuses_bad_operands():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    from repro_torch.kernels.grouped_mm.kernel import grouped_mm_cuda
+    from repro_torch.kernels.grouped_mm.kernel import (
+        grouped_mm_cuda, grouped_mm_swiglu_cuda)
     bf = torch.bfloat16
     x = torch.zeros(8, 16, device="cuda", dtype=bf)
     w = torch.zeros(2, 16, 8, device="cuda", dtype=bf)
@@ -1006,3 +1148,13 @@ def test_grouped_mm_wrapper_refuses_bad_operands():
         grouped_mm_cuda(x.t().contiguous().t(), w, off)
     with pytest.raises(ValueError):                 # an operand on the CPU
         grouped_mm_cuda(x, w.cpu(), off)
+    with pytest.raises(ValueError):                 # a variant of fp32
+        grouped_mm_cuda(x, w, off, variant="simt")
+    with pytest.raises(ValueError):                 # swiglu: N % 16
+        grouped_mm_swiglu_cuda(x, w, off)
+    with pytest.raises(ValueError):                 # swiglu: odd fp32 N
+        grouped_mm_swiglu_cuda(x.float(), torch.zeros(
+            2, 16, 7, device="cuda"), off)
+    assert grouped_mm_swiglu_cuda(
+        x, torch.zeros(2, 16, 16, device="cuda", dtype=bf), off).shape \
+        == (8, 8)

@@ -18,7 +18,16 @@
   registry's, field by field.
 * The plain grouped GEMM against a numpy per-expert loop: empty experts,
   every row in one expert, M not a multiple of any tile, rows past
-  ``offsets[E]``; and the CUDA wrapper's variant plan.
+  ``offsets[E]``; and the CUDA wrapper's variant plan, by dtype and by
+  rows an expert.
+* The plain fused first product ``grouped_mm_swiglu`` against JAX's
+  ``silu(lax.ragged_dot(x, w1, group_sizes)[:, :F].astype(f32))
+  .astype(dtype) * [:, F:]`` (``moe.py:116-119``): fp32 rel < 1e-5; bf16
+  within one bf16 ulp of each value (both round the fp32 sums, the silu and
+  the product to bf16; the sums run in another order, which may move a sum
+  by one ulp, and so its output by about one).
+* The tensor-map arguments of the grouped operands: x as (K, M, 1), w as
+  (N, K, E), 64 x 64 boxes.
 """
 
 import dataclasses
@@ -35,8 +44,12 @@ from repro.configs.registry import reduced
 from repro.models.ref import _moe_ref
 from repro_torch.configs import get_config as t_get_config
 from repro_torch.configs import reduced as t_reduced
-from repro_torch.kernels.grouped_mm import grouped_mm, grouped_mm_ref
-from repro_torch.kernels.grouped_mm.kernel import plan
+from repro_torch.kernels.grouped_mm import (grouped_mm, grouped_mm_ref,
+                                            grouped_mm_swiglu,
+                                            grouped_mm_swiglu_ref)
+from repro_torch.kernels.grouped_mm.kernel import (WGMMA_BOX,
+                                                   WGMMA_MIN_ROWS, plan,
+                                                   route, wgmma_tma_args)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.moe import _int8_wire, moe_block, moe_ffn
 
@@ -259,3 +272,91 @@ def test_grouped_mm_plan():
         plan(x32.to(bf), w32.to(bf))
     with pytest.raises(TypeError):
         plan(x32, w32.to(bf))
+    # bf16 by shape alone: wgmma_tma from WGMMA_MIN_ROWS rows an expert on
+    # average, mma below; the epilogue changes only what N must divide
+    E = 128
+    x = torch.zeros(WGMMA_MIN_ROWS * E, 16, dtype=bf)
+    w = torch.zeros(E, 16, 32, dtype=bf)
+    assert plan(x, w) == plan(x, w, swiglu=True) == "wgmma_tma"
+    assert plan(x[:-1], w) == plan(x[:-1], w, swiglu=True) == "mma"
+    assert plan(x.float(), w.float(), swiglu=True) == "simt"
+    with pytest.raises(ValueError, match="multiples of 8"):
+        plan(x, w[:, :, :24], swiglu=True)        # N of 16 with swiglu
+    with pytest.raises(ValueError):
+        plan(x.float(), w.float()[:, :, :7], swiglu=True)   # fp32: odd N
+    with pytest.raises(TypeError):
+        route(torch.float16, 64, 16, 16, 4)
+
+
+# M = T * k rows of qwen3-moe (E 128, top-8) at batch 8, and the variant
+# the prefill chunks take
+@pytest.mark.parametrize("stage, M, variant", [
+    ("decode", 64, "mma"), ("verify", 320, "mma"), ("len16", 1024, "mma"),
+    ("len64", 4096, "wgmma_tma"), ("len256", 16384, "wgmma_tma"),
+    ("len256 at batch 1", 2048, "wgmma_tma"),
+])
+@pytest.mark.parametrize("prod, K, N", [("w1", 4096, 3072),
+                                        ("w2", 1536, 4096)])
+def test_grouped_mm_plan_at_qwen3_moe_shapes(stage, M, variant, prod, K, N):
+    assert route(torch.bfloat16, M, K, N, 128) == variant
+    if prod == "w1":
+        assert route(torch.bfloat16, M, K, N, 128, swiglu=True) == variant
+    assert route(torch.float32, M, K, N, 128) == "simt"
+
+
+def test_grouped_mm_tma_args():
+    """x (M, K) as a (K, M, 1) map and w (E, K, N) as (N, K, E), bf16 byte
+    strides of rows and batches, 64 x 64 boxes; TMA cannot read rows that
+    are not multiples of 16 bytes."""
+    M, K, N, E = 16384, 4096, 3072, 128
+    args = wgmma_tma_args(M, K, N, E)
+    assert WGMMA_BOX == (64, 64, 1)
+    assert args[:8] == (K, M, 1, 2 * K, 2 * K * M, 64, 64, 1)
+    assert args[8:] == (N, K, E, 2 * N, 2 * K * N, 64, 64, 1)
+    assert wgmma_tma_args(1, 8, 16, 1)[:5] == (8, 1, 1, 16, 16)
+    with pytest.raises(ValueError, match="TMA"):
+        wgmma_tma_args(64, 12, 16, 2)
+
+
+SWIGLU_CASES = {
+    # name: (M, K, 2F, E, group sizes, rows past offsets[E])
+    "ragged": (37, 24, 48, 6, [5, 0, 17, 0, 9, 6], 0),
+    "one_expert": (29, 16, 16, 4, [0, 0, 29, 0], 0),
+    "sentinel_tail": (50, 32, 40, 5, [3, 11, 0, 20, 4], 12),
+    "top8": (96, 64, 64, 16, None, 0),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(SWIGLU_CASES))
+def test_grouped_mm_swiglu_plain_matches_jax(case, dtype):
+    M, K, N, E, sizes, tail = SWIGLU_CASES[case]
+    rng = np.random.default_rng(5)
+    if sizes is None:                      # top-8 routing, no tail
+        picks = np.argsort(rng.random((M // 8, E)), axis=1)[:, :8]
+        sizes = np.bincount(picks.ravel(), minlength=E).tolist()
+    assert sum(sizes) + tail == M
+    offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32)
+    x = rng.normal(size=(M, K)).astype(np.float32)
+    w = (rng.normal(size=(E, K, N)) * K ** -0.5).astype(np.float32)
+    F = N // 2
+    jx, jw = jnp.asarray(x, JDT[dtype]), jnp.asarray(w, JDT[dtype])
+    h = jax.lax.ragged_dot(jx, jw, jnp.asarray(sizes, jnp.int32))
+    want = jax.nn.silu(h[:, :F].astype(jnp.float32)).astype(h.dtype) \
+        * h[:, F:]
+    want = np.asarray(want.astype(jnp.float32), np.float64)
+    before = grouped_mm_swiglu_ref.launches
+    got = grouped_mm_swiglu(torch.from_numpy(x).to(TDT[dtype]),
+                            torch.from_numpy(w).to(TDT[dtype]),
+                            torch.from_numpy(offsets))
+    assert grouped_mm_swiglu_ref.launches == before + 1
+    assert got.dtype == TDT[dtype] and got.shape == (M, F)
+    got = got.double().numpy()
+    if dtype == "float32":
+        assert _rel(want, got) < 1e-5
+    else:
+        # one bf16 ulp of each value: 2^(e - 7) for |v| in [2^e, 2^(e+1))
+        ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(want), 1e-30)))
+                      - 7)
+        assert (np.abs(want - got) <= ulp).all()
+    assert not got[offsets[-1]:].any()
