@@ -84,7 +84,34 @@ Phases, in order; any failure raises and the script exits non-zero:
    is a near-tie (``phase_speculation``); then the same workload on the
    eager queue (identical tokens and ``EngineStats``) and three replayed
    batch-8 verify steps under torch.profiler;
-10. the engine at full width on an MoE model, last and after the cache is
+10. service — the asyncio ``GenerateService`` over qwen2-0.5b at full
+   width on the same weights: a reference engine's ``generate()`` over 32
+   mixed-length requests (its committed rows recorded) and its warm
+   request rate R; a cold service on a fresh engine (every step graph
+   captured on the service's engine thread), 32 clients at Poisson
+   arrivals of 0.5 R, fifo, whose streams must give the reference tokens
+   (or leave them only at a near-tie of the reference row, the rule of
+   phase 9) and end ``"length"`` with 32; then, warm, 32 requests at
+   0.5 R and 64 at 2 R, fifo and ``deadline`` at a TTFT SLO of 4x the
+   warm 0.5 R pass's mean TTFT, each pass leaving no page or slot held
+   and every shed stream empty.  Printed per pass: completed, shed,
+   rejected, TTFT p50/p99, ITL mean, tokens/s and the engine's launches;
+11. resilience — on qwen2-0.5b and mamba2-780m: an armed guard with no
+   fault gives the unguarded engine's tokens and ``EngineStats`` exactly,
+   and both serve warm in turns for the step wall with and without the
+   guard; tests/test_chaos.py's seeded soak (launch, device, nan, pool,
+   stall) keeps every request that is not quarantined on the unguarded
+   tokens (the near-tie rule), drains the pools and accounts for every
+   replay; ``drain_to`` mid-generation restored on a fresh engine
+   continues to the unguarded tokens (the near-tie rule); in fp32 (the
+   same weights widened) the same drain and a drain with a verify round
+   in flight (``ReplayDrafter``), restored on fresh engines, give the
+   uninterrupted tokens exactly.
+   Every phase 10 and 11 engine's steps are replays of graphs whose
+   kernels are counted: paged attention on every attention layer of every
+   launch, the fused scan (bf16) or the two simt passes (fp32) on every
+   mamba layer of every chunk and verify launch, the plain versions never;
+12. the engine at full width on an MoE model, last and after the cache is
    emptied — qwen3-moe-235b-a22b at the repo config's full width (d_model
    4096, 64 q heads over 4 kv heads, hd 64, qk_norm, 128 experts top-8 of
    d_ff_expert 1536, vocab 151936, bf16; the config sets no head_dim, so
@@ -99,7 +126,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernel.py::plan names for its step's rows, every len256 step on
    wgmma_tma; the plain versions never), graphs, profile (batch-8 decode,
    and one batch-8 len256 prefill step with the grouped GEMM's share);
-11. the kernels line, the card line, and the result line.
+13. the kernels line, the card line, and the result line.
 
 Between 4 and 5 run the phases of the paper core and the last two
 kernels:
@@ -149,6 +176,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -1516,11 +1544,12 @@ def checking_engine():
             if self.spec is not None:
                 check_verify_rows(self.spec)
 
-        def _commit(self, sd, rows, fed):
-            live = [s for s, r in enumerate(sd.slots) if r is not None]
+        def _commit(self, sd, rows, fed, skip=frozenset()):
+            live = [s for s, r in enumerate(sd.slots)
+                    if r is not None and s not in skip]
             check(not self.checking or bool(np.isfinite(rows[live]).all()),
                   "non-finite logits row")
-            super()._commit(sd, rows, fed)
+            super()._commit(sd, rows, fed, skip=skip)
     return Checked
 
 
@@ -1529,12 +1558,12 @@ def check_verify_rows(spec):
     hold a non-finite logit."""
     commit = spec.commit
 
-    def checked(rnd, rows):
+    def checked(rnd, rows, skip=frozenset()):
         for s, r in enumerate(rnd.sd.slots):
-            check(r is None or not spec.eng.checking or bool(
+            check(r is None or s in skip or not spec.eng.checking or bool(
                 np.isfinite(rows[s, :rnd.fed[s]]).all()),
                 "non-finite verify logits row")
-        commit(rnd, rows)
+        commit(rnd, rows, skip=skip)
     spec.commit = checked
 
 
@@ -1786,6 +1815,24 @@ def kernel_counters():
                                   grouped_mm_swiglu_ref)}
 
 
+def smoke_ec(**kw):
+    """The smoke's engine setting, with ``kw`` added."""
+    from repro_torch.serve.engine import EngineConfig
+    return EngineConfig(s_max=512, buckets=(1, 2, 4, 8), block_pos_stride=16,
+                        prefill_chunks=(16, 64, 256), device="cuda", **kw)
+
+
+def zero_counts():
+    """Every kernel's and plain version's count to 0 (the variants' too);
+    returns ``kernel_counters()``."""
+    counters = kernel_counters()
+    for kern, plain in counters.values():
+        kern.launches = plain.launches = 0
+        if hasattr(kern, "by_variant"):
+            kern.by_variant = dict.fromkeys(kern.by_variant, 0)
+    return counters
+
+
 def run_pass(eng, label, serve_fn, queue_kind):
     """One pass of ``serve_fn()`` on fresh ``EngineStats`` and event
     stamps; checks every request ended ``"length"`` with its tokens and
@@ -1881,7 +1928,7 @@ def phase_engine(arch):
     from repro_torch.configs import get_config
     from repro_torch.models.params import (config_param_bytes, init_params,
                                            param_bytes)
-    from repro_torch.serve.engine import EngineConfig, SamplingParams
+    from repro_torch.serve.engine import SamplingParams
     cfg = get_config(arch)
     if arch in ENGINE_LAYERS:
         cfg = dataclasses.replace(cfg, n_layers=ENGINE_LAYERS[arch])
@@ -1909,9 +1956,7 @@ def phase_engine(arch):
     check(param_bytes(params) == config_param_bytes(cfg),
           f"{arch}: the reckoned weight bytes {config_param_bytes(cfg)} "
           f"are not the allocated {param_bytes(params)}")
-    ec = EngineConfig(s_max=512, buckets=(1, 2, 4, 8), block_pos_stride=16,
-                      prefill_chunks=(16, 64, 256), device="cuda")
-    eng = checking_engine()(cfg, params=params, engine_cfg=ec)
+    eng = checking_engine()(cfg, params=params, engine_cfg=smoke_ec())
     emit("engine_setup", config=cfg.name, n_layers=cfg.n_layers,
          init_s=init_s, param_bytes=param_bytes(params),
          arena_bytes=eng.store.arena_bytes(), n_kv_blocks=eng.pool.n_blocks,
@@ -1924,11 +1969,7 @@ def phase_engine(arch):
                 for n in PROMPT_LENS]
     sampling = SamplingParams(max_tokens=MAX_TOKENS)
 
-    counters = kernel_counters()
-    for kern, plain in counters.values():      # every count to 0 ...
-        kern.launches = plain.launches = 0
-        if hasattr(kern, "by_variant"):
-            kern.by_variant = dict.fromkeys(kern.by_variant, 0)
+    counters = zero_counts()                   # every count to 0 ...
     steps0 = {n: ev.launches for n, ev in eng.kernel_events().items()}
     passes, totals, names, outputs = serve_passes(eng, cfg, prompts,
                                                   arrivals, sampling)
@@ -2095,10 +2136,10 @@ def record_rows(eng):
         return rec, lambda: delattr(eng, "_sample")
     commit = eng.spec.commit
 
-    def committed(rnd, rows):
+    def committed(rnd, rows, skip=frozenset()):
         n0 = {s: (r, len(r.output_tokens))
               for s, r in enumerate(rnd.sd.slots) if r is not None}
-        commit(rnd, rows)
+        commit(rnd, rows, skip=skip)
         for s, (r, n) in n0.items():
             for j in range(len(r.output_tokens) - n):
                 rec[(tuple(r.prompt), n + j)] = rows[s, j].copy()
@@ -2217,12 +2258,11 @@ def phase_speculation(arch, params, dtype=torch.bfloat16,
     ``speculation_run``; one of the runs must have verified drafts.
     Returns the kernels' launches over the runs' passes."""
     from repro_torch.configs import get_config
-    from repro_torch.serve.engine import EngineConfig, SamplingParams
+    from repro_torch.serve.engine import SamplingParams
     from repro_torch.serve.spec import SpeculationConfig
     cfg = dataclasses.replace(get_config(arch), param_dtype=dtype,
                               compute_dtype=dtype)
-    ec = EngineConfig(s_max=512, buckets=(1, 2, 4, 8), block_pos_stride=16,
-                      prefill_chunks=(16, 64, 256), device="cuda")
+    ec = smoke_ec()
     prompts = spec_prompts(cfg.vocab_size)
     sampling = SamplingParams(max_tokens=MAX_TOKENS)
     plain = checking_engine()(cfg, params=params, engine_cfg=ec)
@@ -2623,6 +2663,433 @@ def phase_prefill_profile(eng, shares=None, prompt_len=300, batch=8):
     return row
 
 
+# ---------------------------------------------------------------------------
+# The service front-end and the resilience layer at full width.
+# ---------------------------------------------------------------------------
+
+# tests/test_chaos.py's soak: the launch, device, nan, pool and stall sites
+SOAK_RATES = {"launch": 0.10, "device": 0.08, "nan_logits": 0.04,
+              "pool": 0.08, "stall": 0.03}
+
+
+def replays(engines):
+    """(step launches, of which chunk and verify launches) that the
+    engines' queues made since they were built, each a graph replay."""
+    total = chunks = 0
+    for eng in engines:
+        for name, ev in eng.kernel_events().items():
+            total += ev.launches
+            chunks += 0 if name.startswith("serve_step") else ev.launches
+    return total, chunks
+
+
+def gate_path_launches(label, counters, groups):
+    """The kernels' counts over a driven path against its engines' step
+    replays (``groups``: (config, engines) pairs): an attention layer
+    launches paged attention on every replay, a mamba layer the fused scan
+    (bf16) or the two simt passes (fp32) on every chunk and verify replay,
+    and no plain version runs.  Returns the launches by kernel."""
+    want = dict.fromkeys(counters, 0)
+    for cfg, engines in groups:
+        total, chunks = replays(engines)
+        mixers = [m for m, _ in cfg.pattern()]
+        want["paged_attention"] += cfg.n_groups() * mixers.count("attn") \
+            * total
+        scans = cfg.n_groups() * mixers.count("mamba") * chunks
+        for k in (("ssd_scan_fused",) if cfg.compute_dtype == torch.bfloat16
+                  else ("ssd_chunk", "ssd_apply")):
+            want[k] += scans
+    got = {k: kern.launches for k, (kern, _) in counters.items()}
+    plain = {k: p.launches for k, (_, p) in counters.items()}
+    check(got == want, f"{label}: kernel launches {got} != {want}")
+    check(not any(plain.values()), f"{label}: plain versions ran {plain}")
+    return got
+
+
+def hold_tokens(label, prompts, want, got, want_rows=None, got_rows=None):
+    """Hold each request's tokens ``got`` (None: quarantined, not held)
+    against the reference ``want``.  Without rows they must be identical;
+    with the committed rows of both runs, a request may leave the
+    reference only where the reference row's top-2 margin is under
+    phase_speculation's bound (SPEC_MARGIN of the row std, or twice the
+    largest row difference at agreeing positions where that is larger):
+    the two runs batch the request differently, and bf16 rounds the
+    batch's products differently.  Returns the comparison."""
+    keep = [i for i, g in enumerate(got) if g is not None]
+    if want_rows is None:
+        bad = [i for i in keep if got[i] != want[i]]
+        check(not bad, f"{label}: requests {bad} left the reference tokens")
+        return dict(requests=len(keep), identical=len(keep))
+    firsts, margins, diffs = greedy_against_plain(
+        [prompts[i] for i in keep], [want[i] for i in keep],
+        [got[i] for i in keep], want_rows, got_rows)
+    d_max = max(diffs) if diffs else 0.0
+    bound = SPEC_MARGIN if 2 * d_max <= SPEC_MARGIN else 2 * d_max
+    for m in margins:
+        check(m < bound, f"{label}: tokens leave the reference where its "
+              f"top-2 margin is {m:.4f} of the row std (bound {bound:.4f})"
+              f": {firsts}")
+    return dict(requests=len(keep),
+                identical=sum(f is None for f in firsts),
+                first_divergence=firsts, divergence_margins=margins,
+                row_diff_max=d_max, margin_bound=bound)
+
+
+def serve_once(eng, prompts, sampling, record=False):
+    """``generate()`` on fresh ``EngineStats``: (completions, the stats,
+    the host wall in s, the committed rows when ``record``)."""
+    from repro_torch.serve.engine import EngineStats, generate
+    eng.stats = EngineStats()
+    rec, unwrap = record_rows(eng) if record else ({}, lambda: None)
+    t0 = time.perf_counter()
+    outs = generate(eng, prompts, sampling)
+    wall = time.perf_counter() - t0
+    unwrap()
+    return outs, dataclasses.asdict(eng.stats), wall, rec
+
+
+def drained(eng):
+    return eng.pool.n_free == eng.pool.n_blocks and (
+        eng.store.slot_pool is None or eng.store.slot_pool.n_used == 0)
+
+
+def mixed_prompts(seed, vocab, copies=1):
+    """The smoke's mixed lengths (``copies`` times), tokens from
+    ``default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, n).tolist()
+            for n in PROMPT_LENS * copies]
+
+
+def service_pass(eng, prompts, rate, admission, seed, ttft_slo=None):
+    """One open-loop pass of the service over ``eng``: a client per prompt,
+    arriving at Poisson gaps of mean 1 / ``rate`` from ``default_rng(seed)``,
+    each streaming ``MAX_TOKENS`` greedy tokens.  Returns ((tokens,
+    completion) per client, the metrics snapshot, the pass's wall in s)."""
+    import asyncio
+
+    from repro_torch.serve.engine import EngineStats
+    from repro_torch.serve.service import GenerateService, ServiceConfig
+    gaps = np.random.default_rng(seed).exponential(1.0 / rate,
+                                                   size=len(prompts))
+    eng.stats = EngineStats()
+
+    async def client(svc, prompt):
+        stream = await svc.submit(prompt, max_tokens=MAX_TOKENS,
+                                  ttft_deadline_s=ttft_slo)
+        return await stream.drain()
+
+    async def drive():
+        async with GenerateService(
+                eng, ServiceConfig(admission=admission)) as svc:
+            t0 = time.perf_counter()
+            tasks = []
+            for prompt, gap in zip(prompts, gaps):
+                await asyncio.sleep(gap)    # open loop: Poisson arrivals
+                tasks.append(asyncio.create_task(client(svc, prompt)))
+            out = await asyncio.gather(*tasks)
+            return out, svc.metrics.snapshot(), time.perf_counter() - t0
+
+    return asyncio.run(drive())
+
+
+def service_row(eng, label, out, snap, wall, rate):
+    """Gate one service pass (shed streams end "shed" with no token, the
+    rest "length" with their tokens; no page or slot left held) and emit
+    its numbers."""
+    for toks, comp in out:
+        if comp.finish_reason == "shed":
+            check(toks == [], f"service {label}: a shed stream has tokens")
+        else:
+            check(comp.finish_reason == "length" and len(toks) == MAX_TOKENS,
+                  f"service {label}: {comp.request_id} ended "
+                  f"{comp.finish_reason} after {len(toks)} tokens")
+    check(drained(eng), f"service {label}: pages or slots left held")
+    row = dict(pass_=label, rate_req_s=rate, requests=len(out),
+               completed=snap["completed"], shed=snap["shed"],
+               rejected=snap["rejected"],
+               ttft_p50_ms=1e3 * (snap["ttft_s"]["p50"] or 0.0),
+               ttft_p99_ms=1e3 * (snap["ttft_s"]["p99"] or 0.0),
+               ttft_mean_ms=1e3 * (snap["ttft_s"]["mean"] or 0.0),
+               itl_mean_ms=1e3 * (snap["itl_s"]["mean"] or 0.0),
+               tokens=snap["tokens"], wall_s=wall,
+               tokens_per_s=snap["tokens"] / wall,
+               launches=eng.stats.launches)
+    emit("service_pass", config=eng.cfg.name, **row)
+    return row
+
+
+def phase_service(params):
+    """The asyncio service over qwen2-0.5b at full width (bf16, the
+    smoke's engine setting), the kernels' counts set to 0 just before and
+    read just after.  A reference engine serves the mixed lengths four
+    times over (32 requests) through ``generate()``: once to build its
+    graphs, once recording every committed row (the reference tokens),
+    once timed, which gives the warm request rate R.  Then a cold service
+    on a fresh engine, every graph captured on the service's engine thread:
+    32 clients at Poisson arrivals of 0.5 R, fifo; each stream's tokens
+    must be the reference's (``hold_tokens``) and end "length" with 32.
+    Then, warm, 32 fresh requests at 0.5 R, and 64 at 2 R with fifo and
+    with ``deadline`` admission at a TTFT SLO of 4 x the warm 0.5 R pass's
+    mean TTFT.  Returns the kernels' launches."""
+    import threading
+
+    from repro_torch.configs import get_config
+    from repro_torch.serve.engine import SamplingParams
+    cfg = get_config("qwen2-0.5b")
+    sampling = SamplingParams(max_tokens=MAX_TOKENS)
+    reserved = torch.cuda.memory_reserved()
+    counters = zero_counts()
+    ref = checking_engine()(cfg, params=params, engine_cfg=smoke_ec())
+    serve_once(ref, mixed_prompts(11, cfg.vocab_size, 4), sampling)
+    prompts = mixed_prompts(12, cfg.vocab_size, 4)
+    want, _, _, want_rows = serve_once(ref, prompts, sampling, record=True)
+    ref.checking = False
+    timed, _, wall, _ = serve_once(ref, mixed_prompts(13, cfg.vocab_size, 4),
+                                   sampling)
+    rate = len(timed) / wall
+    emit("service_rate", config=cfg.name, requests=len(timed), wall_s=wall,
+         rate_req_s=rate, launches=ref.stats.launches)
+
+    eng = checking_engine()(cfg, params=params, engine_cfg=smoke_ec())
+    threads = []
+    build = eng.queue.build
+
+    def build_on(*args, **kw):
+        threads.append(threading.current_thread().name)
+        return build(*args, **kw)
+    eng.queue.build = build_on
+    rec, unwrap = record_rows(eng)
+    out, snap, wall = service_pass(eng, prompts, 0.5 * rate, "fifo", 0)
+    unwrap()
+    cold = service_row(eng, "cold fifo 0.5R", out, snap, wall, 0.5 * rate)
+    check(cold["shed"] == 0 and cold["completed"] == len(prompts),
+          f"cold service: {cold}")
+    held = hold_tokens("cold service", prompts, [c.tokens for c in want],
+                       [t for t, _ in out], want_rows, rec)
+    graphs = check_graphs(eng)
+    check(threads and set(threads) == {"engine-loop"},
+          f"cold service: graphs built on threads {sorted(set(threads))}")
+    del eng.queue.build
+
+    eng.checking = False
+    # the cold pass's TTFT is set by its graph captures, which queue the
+    # first arrivals behind each other: the SLO is taken from the same
+    # pass warm
+    quiet = service_row(eng, "warm fifo 0.5R", *service_pass(
+        eng, mixed_prompts(16, cfg.vocab_size, 4), 0.5 * rate, "fifo", 16),
+        0.5 * rate)
+    slo = 4 * quiet["ttft_mean_ms"] / 1e3
+    warm = [quiet] + [service_row(eng, label, *service_pass(
+        eng, mixed_prompts(seed, cfg.vocab_size, 8), 2 * rate, admission,
+        seed, ttft_slo), 2 * rate)
+        for label, admission, seed, ttft_slo in (
+            ("warm fifo 2R", "fifo", 14, None),
+            ("warm deadline 2R", "deadline", 15, slo))]
+    launches = gate_path_launches("qwen2-0.5b service", counters,
+                                  [(cfg, [ref, eng])])
+    emit("service", config=cfg.name, reserved_at_start=reserved,
+         rate_req_s=rate, ttft_slo_s=slo,
+         cold_vs_generate=held, graphs=graphs, graph_threads=len(threads),
+         passes=[cold] + warm, kernel_launches=launches)
+    del ref, eng
+    gc.collect()                # the checking wrappers make cycles
+    torch.cuda.empty_cache()
+    return launches
+
+
+def step_until(eng, reqs, n_tokens):
+    """Step ``eng`` until every request of ``reqs`` holds ``n_tokens``
+    tokens; none may finish on the way."""
+    while min(len(r.output_tokens) for r in reqs) < n_tokens:
+        check(eng.step(), "the engine went idle before the cut")
+    check(not any(r.is_finished for r in reqs), "a request finished early")
+
+
+def drain_restore(src, dst, prompts, sampling, path, n_tokens=8):
+    """Submit ``prompts`` to ``src``, cut at ``n_tokens`` tokens each,
+    ``drain_to`` and ``restore_from`` on ``dst``, drained.  Returns the
+    restored outputs in prompt order."""
+    reqs = [src.submit(p, sampling) for p in prompts]
+    step_until(src, reqs, n_tokens)
+    check(src.drain_to(path) == len(prompts), "not every request drained")
+    check(drained(src), "drain_to left pages or slots held")
+    restored = dst.restore_from(path)
+    dst.drain()
+    by_prompt = {tuple(r.prompt): r for r in restored}
+    for r in restored:
+        check(r.finish_reason == "length", f"restored {r.request_id}: "
+              f"{r.finish_reason}")
+    return [by_prompt[tuple(p)].output_tokens for p in prompts]
+
+
+def phase_resilience(arch, params):
+    """The resilience layer at full width (bf16, the smoke's engine
+    setting, the mixed lengths, 32 greedy tokens), the kernels' counts set
+    to 0 just before and read just after.  An unguarded engine serves the
+    reference (rows recorded).  An armed guard with no fault
+    (``ResilienceConfig()``) must give its tokens and ``EngineStats``
+    exactly; then both serve warm in turns (unguarded, guarded, guarded,
+    unguarded), unchecked, for the step wall with and without the guard's
+    pre-step dense snapshot.  Under tests/test_chaos.py's seeded soak
+    (launch, device, nan, pool and stall sites) the guarded engine must
+    give every request that is not quarantined the reference tokens
+    (``hold_tokens``), drain its pools and count every replay (launches +
+    device faults).  Then the guarded engine is drained mid-generation
+    (``drain_to``) and restored on a fresh one, which must continue to
+    the reference (the near-tie rule: the restored run ingests the
+    generated tokens on the chunk path), and ``drain_fp32`` holds both
+    drains to the exact tokens.  Returns the kernels' launches."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.serve.engine import SamplingParams
+    from repro_torch.serve.resilience import FaultInjector, ResilienceConfig
+    cfg = get_config(arch)
+    sampling = SamplingParams(max_tokens=MAX_TOKENS)
+    prompts = mixed_prompts(0, cfg.vocab_size)
+    Engine = checking_engine()
+    reserved = torch.cuda.memory_reserved()
+    counters = zero_counts()
+    plain = Engine(cfg, params=params, engine_cfg=smoke_ec())
+    want, want_stats, _, want_rows = serve_once(plain, prompts, sampling,
+                                                record=True)
+    want_tokens = [c.tokens for c in want]
+    quiet = Engine(cfg, params=params, engine_cfg=smoke_ec(
+        resilience=ResilienceConfig()))
+    got, got_stats, _, _ = serve_once(quiet, prompts, sampling)
+    hold_tokens(f"{arch} quiet guard", prompts, want_tokens,
+                [c.tokens for c in got])
+    check(got_stats == want_stats, f"{arch} quiet guard: EngineStats "
+          f"{got_stats} != unguarded {want_stats}")
+    walls = {"unguarded": [], "guarded": []}
+    warm_tokens = []
+    for eng, key in ((plain, "unguarded"), (quiet, "guarded"),
+                     (quiet, "guarded"), (plain, "unguarded")):
+        eng.checking = False
+        outs, st, wall, _ = serve_once(eng, prompts, sampling)
+        eng.checking = True
+        warm_tokens.append([c.tokens for c in outs])
+        walls[key].append(1e3 * wall / (st["decode_launches"]
+                                        + st["prefill_launches"]))
+    check(all(t == warm_tokens[0] for t in warm_tokens),
+          f"{arch}: guarded and unguarded warm passes gave other tokens")
+
+    inj = FaultInjector(1234, SOAK_RATES, stall_s=0.001, max_faults=60)
+    chaos = Engine(cfg, params=params, engine_cfg=smoke_ec(
+        fault_injector=inj, resilience=ResilienceConfig(
+            max_request_failures=2)))
+    got, st, wall, chaos_rows = serve_once(chaos, prompts, sampling,
+                                           record=True)
+    for c in got:
+        check(c.finish_reason in ("length", "error"),
+              f"{arch} chaos: {c.request_id} ended {c.finish_reason}")
+    held = hold_tokens(f"{arch} chaos", prompts, want_tokens,
+                       [None if c.finish_reason == "error" else c.tokens
+                        for c in got], want_rows, chaos_rows)
+    check(drained(chaos), f"{arch} chaos: pages or slots left held")
+    fired = inj.counts()
+    check(inj.n_fired > 0, f"{arch} chaos: no fault fired")
+    engine_launches = st["decode_launches"] + st["prefill_launches"] \
+        + st["spec_launches"]
+    check(engine_launches + fired["device"] == replays([chaos])[0],
+          f"{arch} chaos: {engine_launches} launches + {fired['device']} "
+          f"device faults != {replays([chaos])[0]} replays")
+
+    fresh = Engine(cfg, params=params, engine_cfg=smoke_ec())
+    recorded = [record_rows(e) for e in (quiet, fresh)]
+    with tempfile.TemporaryDirectory() as d:
+        restored = drain_restore(quiet, fresh, prompts, sampling,
+                                 f"{d}/drain.ckpt")
+    rows = {}
+    for rec, unwrap in recorded:
+        rows.update(rec)
+        unwrap()
+    drain = hold_tokens(f"{arch} drain/restore", prompts, want_tokens,
+                        restored, want_rows, rows)
+    cfg32, engines, fp32 = drain_fp32(arch, params, prompts, sampling)
+    groups = [(cfg, [plain, quiet, chaos, fresh]), (cfg32, engines)]
+    launches = gate_path_launches(f"{arch} resilience", counters, groups)
+    emit("resilience", config=cfg.name, reserved_at_start=reserved,
+         faults=fired,
+         fault_counters={k: v for k, v in st.items()
+                         if k.startswith("fault_")},
+         chaos=dict(held, quarantined=[c.request_id for c in got
+                                       if c.finish_reason == "error"],
+                    launches=engine_launches, wall_s=wall),
+         guard_step_wall_ms=walls,
+         guard_step_wall_median_ms={k: float(np.median(v))
+                                    for k, v in walls.items()},
+         drain_restore=drain, fp32=fp32, kernel_launches=launches)
+    del plain, quiet, chaos, fresh, engines, groups
+    gc.collect()                # the checking wrappers make cycles
+    torch.cuda.empty_cache()
+    return launches
+
+
+def drain_fp32(arch, params, prompts, sampling):
+    """The model in fp32 (the same weights widened), where the chunk and
+    the decode paths give the same tokens: a drain mid-generation restored
+    on a fresh engine, and a drain while a verify round is in flight (the
+    script's ``ReplayDrafter``, which drafts on any weights: the n-gram
+    drafter drafts nothing on random mamba2 weights), restored on a fresh
+    speculative engine.  Each must give the uninterrupted run's tokens
+    exactly (tests/test_speculative.py:394).  Returns (the config, its
+    engines, the results)."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.serve.resilience.checkpoint import load_checkpoint
+    from repro_torch.serve.spec import SpeculationConfig
+    cfg = dataclasses.replace(get_config(arch), param_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+    p32 = to_dtype(params, torch.float32)
+    Engine = checking_engine()
+    plain = Engine(cfg, params=p32, engine_cfg=smoke_ec())
+    want = [c.tokens for c in serve_once(plain, prompts, sampling)[0]]
+    fresh = Engine(cfg, params=p32, engine_cfg=smoke_ec())
+    spec_ec = smoke_ec(speculation=SpeculationConfig("ngram", k=SPEC_K))
+    table = {"cold": dict(zip(map(tuple, prompts), want))}
+    src, dst = (Engine(cfg, params=p32, engine_cfg=spec_ec)
+                for _ in range(2))
+    for e in (src, dst):
+        set_drafter(e, ReplayDrafter(table, cfg.vocab_size))
+    with tempfile.TemporaryDirectory() as d:
+        got = drain_restore(plain, fresh, prompts, sampling, f"{d}/a.ckpt")
+        hold_tokens(f"{arch} fp32 drain/restore", prompts, want, got)
+        reqs = [src.submit(p, sampling) for p in prompts]
+        step_until(src, reqs, 4)
+        # past a rollback's re-feed: every slot samples its next step
+        while not all(r.samples_this_step for r in reqs):
+            check(src.step(), "the engine went idle before the cut")
+        rnd = src.spec.prepare(src.scheduler.schedule())
+        check(rnd is not None, "the replay drafter drafted nothing")
+        src.spec.launch(rnd)
+        src.queue.finish()
+        committed = {tuple(r.prompt): list(r.output_tokens) for r in reqs}
+        restores = src.store.n_restores
+        path = f"{d}/b.ckpt"
+        check(src.drain_to(path) == len(prompts), "not every request drained")
+        check(src.spec._round is None and drained(src) and (
+            not src.store.has_dense or src.store.n_restores > restores),
+            "drain_to left the verify round in flight")
+        saved = {tuple(rec["prompt"]): rec["output_tokens"]
+                 for rec in load_checkpoint(path)["requests"]}
+        check(saved == committed, "the checkpoint holds uncommitted tokens")
+        restored = dst.restore_from(path)
+        dst.drain()
+    by_prompt = {tuple(r.prompt): r.output_tokens for r in restored}
+    hold_tokens(f"{arch} fp32 drain mid-speculation", prompts, want,
+                [by_prompt[tuple(p)] for p in prompts])
+    result = dict(drain_restore_identical=len(prompts),
+                  mid_speculation_identical=len(prompts),
+                  restores_at_drain=src.store.n_restores - restores,
+                  spec_launches=src.stats.spec_launches
+                  + dst.stats.spec_launches)
+    return cfg, [plain, fresh, src, dst], result
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2650,7 +3117,7 @@ def main() -> int:
     gmm_worst = phase_gmm_vs_plain()
     gmm_timing = phase_gmm_timing()
     ref_launches = phase_reference()
-    launches, by_path = {}, {}
+    launches, by_path, weights = {}, {}, {}
     for arch in ("qwen2-0.5b", "mamba2-780m"):
         counts, eng, prompts, arrivals, sampling, outputs, _ = \
             phase_engine(arch)
@@ -2671,12 +3138,23 @@ def main() -> int:
                                      drafters=("replay",))
             for k, n in fp32.items():
                 spec_counts[k] = spec_counts.get(k, 0) + n
+        weights[arch] = params
         del params
         for path, got in (("engine", counts), ("speculation", spec_counts)):
             for k, n in got.items():
                 if n:
                     launches[k] = launches.get(k, 0) + n
                     by_path.setdefault(k, {})[f"{arch} {path}"] = n
+    # the service and the resilience layer on the same weights
+    paths = {"qwen2-0.5b service": phase_service(weights["qwen2-0.5b"])}
+    for arch in ("qwen2-0.5b", "mamba2-780m"):
+        paths[f"{arch} resilience"] = phase_resilience(arch, weights[arch])
+    for path, got in paths.items():
+        for k, n in got.items():
+            if n:
+                launches[k] = launches.get(k, 0) + n
+                by_path.setdefault(k, {})[path] = n
+    del weights
     # the MoE model last, on an emptied cache: 41.7 GB of weights
     torch.cuda.empty_cache()
     arch = "qwen3-moe-235b-a22b"
@@ -2739,13 +3217,15 @@ def main() -> int:
     kernels.append(ssd_entry("ssd_scan_fused", "mma",
                              ssd_rows("ssd_scan_fused", "mma"),
                              launches["ssd_scan_fused"],
-                             "engine and speculation (mamba2-780m)"))
+                             "engine, speculation and resilience "
+                             "(mamba2-780m)"))
     kernels[-1]["launches_by_path"] = by_path["ssd_scan_fused"]
     for name in ("ssd_chunk", "ssd_apply"):
         entry = ssd_entry(name, "simt", ssd_rows(name, "simt"),
                           ref_launches[name] + launches.get(name, 0),
-                          "reference (fp32 reduced mamba2 and hybrid) and "
-                          "speculation (mamba2-780m in fp32)")
+                          "reference (fp32 reduced mamba2 and hybrid), "
+                          "speculation and resilience (mamba2-780m in "
+                          "fp32)")
         entry["launches_by_path"] = {"reference": ref_launches[name],
                                      **by_path.get(name, {})}
         mma = ssd_entry(name, "mma", ssd_rows(name, "mma"), 0, "none")

@@ -5,6 +5,8 @@ engine, on the card.
       --engine --requests 8 --tokens 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \\
       --engine
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
+      --service --admission deadline
 
 serves the full-width model on ``cuda`` with random weights from seed 0
 (attention layers page their K/V, mamba layers keep dense state slots, MoE
@@ -14,9 +16,17 @@ cpu`` runs the plain PyTorch versions of every kernel on the CPU.
 ``--speculation ngram`` (or ``draft_model``, which self-drafts with the
 reduced target config and so needs ``--smoke``) verifies up to
 ``--spec-k`` draft tokens per slot in one ``verify_bs{N}_len{k+1}``
-launch.  Only the ``--engine`` path is ported so
-far; the fixed-batch, ``--service`` and ``--supervised`` paths come with
-later slices.
+launch.
+
+With ``--service`` the same workload arrives instead through the asyncio
+``GenerateService`` front-end: concurrent streaming clients at Poisson
+arrivals of ``--rate`` requests/s over one engine thread, admitted by
+``--admission fifo|deadline|fair_share`` (``--ttft-slo`` gives every
+request a TTFT deadline, which ``deadline`` sheds on), and the run ends by
+printing the ``ServiceMetrics`` snapshot (p50/p99 TTFT, inter-token and
+queue-wait latencies, shed and reject counters).  The ``--supervised``
+replica path comes with the supervisor slice, and the fixed-batch decode
+modes (the JAX launcher's default) with the launchers slice.
 
 Before it allocates, the launcher reckons the weights' bytes from the
 config and raises, naming the device's memory, when they do not fit: the
@@ -92,11 +102,16 @@ def check_fit(cfg, device) -> int:
     return need
 
 
-def _main_engine(cfg, args):
+def _build(cfg, args):
+    """The engine, once the weights are known to fit."""
     need = check_fit(cfg, args.device)
     print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"{need / 1e9:.2f} GB of weights")
-    eng = build_engine(cfg, seed=0, engine_cfg=_engine_cfg(args))
+    return build_engine(cfg, seed=0, engine_cfg=_engine_cfg(args))
+
+
+def _main_engine(cfg, args):
+    eng = _build(cfg, args)
     prompts = _workload(cfg, args)
     outs = generate(eng, prompts, SamplingParams(max_tokens=args.tokens))
     for c in outs[:4]:
@@ -136,6 +151,48 @@ def _main_engine(cfg, args):
               f"{st.prefix_evictions} evictions")
 
 
+def _main_service(cfg, args):
+    import asyncio
+    import json
+
+    from repro_torch.serve.service import (AdmissionRejected,
+                                           GenerateService, ServiceConfig)
+    eng = _build(cfg, args)
+    prompts = _workload(cfg, args)
+    gaps = np.random.default_rng(1).exponential(1.0 / args.rate,
+                                                size=args.requests)
+
+    async def client(svc, prompt):
+        try:
+            stream = await svc.submit(prompt, max_tokens=args.tokens,
+                                      ttft_deadline_s=args.ttft_slo)
+        except AdmissionRejected as e:
+            print(f"  rejected: {e.reason}")
+            return None
+        toks, comp = await stream.drain()
+        return comp
+
+    async def drive():
+        svc_cfg = ServiceConfig(admission=args.admission)
+        async with GenerateService(eng, svc_cfg) as svc:
+            tasks = []
+            for prompt, gap in zip(prompts, gaps):
+                await asyncio.sleep(gap)    # open loop: Poisson arrivals
+                tasks.append(asyncio.create_task(client(svc, prompt)))
+            comps = await asyncio.gather(*tasks)
+            return comps, svc.metrics.snapshot()
+
+    comps, snap = asyncio.run(drive())
+    for c in [c for c in comps if c is not None][:4]:
+        print(f"  {c.request_id}: prompt[{len(c.prompt)}] -> "
+              f"{c.tokens[:12]} ({c.finish_reason})")
+    print(f"service ({args.admission} admission, rate {args.rate:g}/s, "
+          f"{eng.device}): {snap['completed']} completed, {snap['shed']} "
+          f"shed, {snap['rejected']} rejected, {snap['tokens']} tokens in "
+          f"{eng.stats.launches} launches")
+    print(json.dumps(snap, indent=2))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", "--config", dest="arch", required=True,
@@ -143,12 +200,27 @@ def main(argv=None):
                     choices=list(ARCH_NAMES))
     ap.add_argument("--engine", action="store_true",
                     help="serve a mixed-length workload through the "
-                         "continuous-batching engine (the one ported path)")
+                         "continuous-batching engine")
+    ap.add_argument("--service", action="store_true",
+                    help="serve it through the asyncio GenerateService "
+                         "front-end (concurrent streaming clients, "
+                         "SLO-aware admission) and print its metrics "
+                         "snapshot")
+    ap.add_argument("--admission", default="fifo",
+                    choices=["fifo", "deadline", "fair_share"],
+                    help="admission policy for --service")
+    ap.add_argument("--rate", type=float, default=8.0,
+                    help="Poisson arrival rate (req/s) for --service")
+    ap.add_argument("--ttft-slo", type=float, default=None, dest="ttft_slo",
+                    help="per-request TTFT deadline in seconds for "
+                         "--service (sheds infeasible requests under "
+                         "--admission deadline)")
     ap.add_argument("--batch", type=int, default=8,
                     help="largest batch bucket")
     ap.add_argument("--tokens", type=int, default=32)
     ap.add_argument("--s-max", type=int, default=64)
-    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--requests", type=int, default=8,
+                    help="workload size for --engine / --service")
     ap.add_argument("--prefill-chunks", default="16,64,256",
                     help="chunked-prefill length ladder (comma-separated; "
                          "empty string disables chunking)")
@@ -166,8 +238,9 @@ def main(argv=None):
     ap.add_argument("--device", default=None, choices=["cuda", "cpu"],
                     help="default: cuda (raises without a GPU)")
     args = ap.parse_args(argv)
-    if not args.engine:
-        ap.error("only the --engine path is ported so far")
+    if not (args.engine or args.service):
+        ap.error("choose --engine or --service (the fixed-batch decode "
+                 "modes and --supervised are not ported yet)")
     if args.speculation == "draft_model" and not args.smoke:
         ap.error("--speculation draft_model self-drafts with the reduced "
                  "config, whose vocab only the reduced target shares: add "
@@ -175,7 +248,10 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = reduced(cfg)
-    _main_engine(cfg, args)
+    if args.service:
+        _main_service(cfg, args)
+    else:
+        _main_engine(cfg, args)
 
 
 if __name__ == "__main__":

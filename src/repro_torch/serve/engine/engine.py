@@ -29,9 +29,21 @@ launch is instead one ``verify_bs{N}_len{k+1}`` launch whenever some slot
 yields a draft (:mod:`repro_torch.serve.spec`): the chunk body with every
 position's logits, kept apart from a ladder chunk of the same length.
 
+With ``EngineConfig.fault_injector`` or ``.resilience`` set, each launch
+and its commit run under a :class:`~repro_torch.serve.resilience.StepGuard`
+(bounded retry, dense rollback from snapshots kept on the card, quarantine
+of poisoned requests); without either the step path is the plain one, with
+no extra synchronize, snapshot or kernel.  ``drain_to`` / ``checkpoint_to``
+/ ``restore_from`` write and read the JAX engine's checkpoint format.
+
+Thread-safety boundary: ``check_request`` is a pure read of immutable
+configuration, callable from any thread; everything else — submit_request,
+step, cancel, drain_to, restore_from — mutates scheduler, pool and arena
+state and runs on the one thread that drives the engine
+(:mod:`repro_torch.serve.service` runs all of them on its engine thread).
+
 This is ``repro.serve.engine.engine`` at q = r = 1 with the host logic
-unchanged.  Fault injection and ``StepGuard``, drain/restore and
-checkpoints come with later slices.
+unchanged.
 """
 
 from __future__ import annotations
@@ -59,6 +71,8 @@ from repro_torch.serve.engine.state_store import StateStore
 from repro_torch.serve.state import layer_state_specs
 
 if TYPE_CHECKING:
+    from repro_torch.serve.resilience.faults import FaultInjector
+    from repro_torch.serve.resilience.guard import ResilienceConfig
     from repro_torch.serve.spec.config import SpeculationConfig
 
 
@@ -81,6 +95,13 @@ class EngineConfig:
     # pure-decode steps become verify_bs{N}_len{k+1} launches whenever some
     # slot yields a draft; greedy output is unchanged token for token.
     speculation: Optional["SpeculationConfig"] = None
+    # chaos / resilience (repro_torch.serve.resilience): a seeded
+    # FaultInjector makes the drive loop inject deterministic faults at
+    # named sites; a ResilienceConfig bounds step retries and sets the
+    # quarantine threshold.  Setting either arms the StepGuard (an injector
+    # with no explicit resilience config gets the defaults).
+    fault_injector: Optional["FaultInjector"] = None
+    resilience: Optional["ResilienceConfig"] = None
 
     def __post_init__(self):
         pc = tuple(int(c) for c in self.prefill_chunks)
@@ -114,13 +135,13 @@ class EngineStats:
     spec_accepted_tokens: int = 0         # of which the target accepted
     spec_rejected_tokens: int = 0         # of which were rolled back
     spec_rollbacks: int = 0               # partial-acceptance rewinds
-    # resilience counters (0 until the resilience slice)
-    fault_launch_failures: int = 0
-    fault_retries: int = 0
-    fault_nonfinite: int = 0
-    fault_quarantined: int = 0
-    fault_pool_steals: int = 0
-    fault_stalls: int = 0
+    # resilience counters (0 everywhere without a StepGuard)
+    fault_launch_failures: int = 0        # failed launch attempts (incl. final)
+    fault_retries: int = 0                # of which were retried
+    fault_nonfinite: int = 0              # poisoned (non-finite) sample rows
+    fault_quarantined: int = 0            # requests finished as "error"
+    fault_pool_steals: int = 0            # injected pool-exhaustion episodes
+    fault_stalls: int = 0                 # injected step stalls
     # radix prefix cache (0 everywhere with prefix_cache=False)
     prefix_hits: int = 0                  # pages adopted at admission
     prefix_tokens_reused: int = 0         # prompt positions never prefilled
@@ -272,6 +293,12 @@ class ServingEngine:
             # deferred import: spec builds on the engine package
             from repro_torch.serve.spec.decoder import SpecDecoder
             self.spec = SpecDecoder(self, ec.speculation)
+        self.guard = None
+        if ec.fault_injector is not None or ec.resilience is not None:
+            # deferred import for the same reason as speculation
+            from repro_torch.serve.resilience.guard import (ResilienceConfig,
+                                                            StepGuard)
+            self.guard = StepGuard(self, ec.resilience or ResilienceConfig())
 
     def reserve_split_counters(self, lengths) -> None:
         """On the card, size the paged kernel's split counters for this
@@ -407,19 +434,35 @@ class ServingEngine:
         A step is ONE enqueue either way: a ``serve_step_bs{N}`` advancing
         every slot by one position, or — whenever some slot still has a
         prompt backlog — a ``prefill_bs{N}_len{L}`` advancing slot s by
-        ``min(remaining[s], L)`` positions."""
+        ``min(remaining[s], L)`` positions.
+
+        With a :class:`~repro_torch.serve.resilience.guard.StepGuard`
+        armed, the launch and commit run under its retry/rollback/
+        quarantine discipline; the unguarded path below is the plain
+        one."""
         try:
+            if self.guard is not None:
+                self.guard.pre_schedule()
             sd = self.scheduler.schedule()
             if sd is None:
+                if self.guard is not None:
+                    self.guard.release_stolen()  # idle: no pages held hostage
                 return False
             self._note_migration(sd)
             chunk = self._chunk_len(sd.max_remaining)
             # speculative decoding replaces the pure-decode launch when any
             # slot yields a usable draft; with no drafts this round the
-            # plain serve_step launch below runs unchanged
-            if chunk is None and self.spec is not None \
-                    and self.spec.step(sd):
-                return True
+            # plain serve_step launch below runs unchanged.  With a guard
+            # armed the verify launch runs under the same discipline as
+            # every other step.
+            if chunk is None and self.spec is not None:
+                if self.guard is not None:
+                    if self.guard.spec_step(sd) is not None:
+                        return True
+                elif self.spec.step(sd):
+                    return True
+            if self.guard is not None:
+                return self.guard.step(sd, chunk)
             rows, fed = self._launch(sd, chunk)
             self._commit(sd, rows, fed)
             self.queue.finish()     # clFinish: stamps KernelEvent.last_done_t
@@ -427,14 +470,18 @@ class ServingEngine:
         finally:
             # every prefix-cache mutation (admission adoption, eviction
             # under allocation pressure) happens inside a step — fold the
-            # pool's counter deltas on every exit path
+            # pool's counter deltas on every exit path (guard pool steals
+            # included)
             self._fold_prefix_stats()
 
     def _launch(self, sd: ScheduledStep, chunk: Optional[int]):
         """Build operands and enqueue ONE step for ``sd``; returns
         ``(rows, fed)`` — the next-token logits rows on the host and the
-        positions each slot consumed.  Mutates NO host request state."""
+        positions each slot consumed.  Mutates NO host request state, so a
+        guarded retry can simply call it again (the injector's ``launch``
+        site fires before the enqueue, ``device`` after)."""
         B = sd.bucket
+        inj = self.engine_cfg.fault_injector
         fed = [0] * B
         step = self._kernel(B, chunk)
         step.idle()
@@ -458,7 +505,12 @@ class ServingEngine:
                 table[s, :len(r.blocks.ids)] = r.blocks.ids
             if slots is not None:
                 slots[s] = r.dense_slot
+        if inj is not None:
+            inj.fire("launch")
         rows = step.run(self.queue, self.params, self.store.arena)
+        if inj is not None:
+            inj.fire("device")      # the enqueue "happened"; stats below
+            #                         only count steps that got this far
         if chunk is not None:
             self.stats.prefill_chunk_launches += 1
         self._count_launch()
@@ -478,10 +530,14 @@ class ServingEngine:
             st.peak_dense_slots_used = max(st.peak_dense_slots_used,
                                            self.store.slot_pool.n_used)
 
-    def _commit(self, sd: ScheduledStep, rows: np.ndarray, fed) -> None:
-        """Advance the request state machine with a launch's results."""
+    def _commit(self, sd: ScheduledStep, rows: np.ndarray, fed,
+                skip=frozenset()) -> None:
+        """Advance the request state machine with a launch's results.
+        Slots in ``skip`` (guard-poisoned rows) advance NOTHING — their
+        pre-step snapshot was restored, so next step re-feeds the same
+        positions."""
         for s, r in enumerate(sd.slots):
-            if r is None:
+            if r is None or s in skip:
                 continue
             n = fed[s]
             # the launch fed seq_tokens[num_cached : num_cached + n]; its
@@ -494,6 +550,8 @@ class ServingEngine:
             self.stats.prompt_tokens_ingested += max(
                 0, min(prev_cached + n, len(r.prompt)) - prev_cached)
             r.num_cached += n
+            r.fault_failures = 0    # a committed step clears the quarantine
+            #                         count — "repeatedly" means consecutively
             self._publish_filled_pages(r, prev_cached, r.num_cached)
             self._maybe_publish_dense(r)
             if not will_sample:
@@ -585,7 +643,53 @@ class ServingEngine:
             steps += 1
             if limit is not None and steps > limit:
                 raise RuntimeError(f"drain exceeded max_steps={limit}")
+        if self.guard is not None:
+            self.guard.release_stolen()
         self.queue.finish()
+
+    # -- graceful drain / restore ------------------------------------------
+
+    def drain_to(self, path: str) -> int:
+        """Graceful shutdown half: checkpoint every live request's resume
+        record to ``path`` (atomic JSON), then finish them all as
+        ``"drained"`` — pages and dense slots return to their pools, and a
+        fresh engine (of either package) can ``restore_from`` the file to
+        continue each generation token for token.  Returns the number
+        checkpointed.
+
+        A speculative round still in flight (its verify launch faulted or
+        was interrupted before commit) is rolled back FIRST, so the
+        checkpoint can only ever capture committed state — never a
+        pre-verify draft tail."""
+        from repro_torch.serve.resilience.checkpoint import \
+            checkpoint_requests
+        if self.spec is not None:
+            self.spec.rollback_in_flight()
+        n = checkpoint_requests(self, path)
+        for r in self.scheduler.drain_all("drained"):
+            self._rngs.pop(r.request_id, None)
+            if self.spec is not None:
+                self.spec.release(r.request_id)
+        return n
+
+    def checkpoint_to(self, path: str, *, fsync: bool = True) -> int:
+        """Periodic (non-draining) checkpoint: durably write every live
+        request's resume record WITHOUT finishing anything, taken between
+        steps while generation keeps running.  Any in-flight speculative
+        round is rolled back first (a no-op between committed rounds),
+        the rule of :meth:`drain_to`.  Returns the number checkpointed."""
+        from repro_torch.serve.resilience.checkpoint import \
+            checkpoint_requests
+        if self.spec is not None:
+            self.spec.rollback_in_flight()
+        return checkpoint_requests(self, path, fsync=fsync)
+
+    def restore_from(self, path: str) -> list:
+        """Resubmit a drain checkpoint's requests into this engine (rng
+        states included); each resumes mid-generation via prompt + output
+        replay.  Returns the restored requests in re-admission order."""
+        from repro_torch.serve.resilience.checkpoint import restore_requests
+        return restore_requests(self, path)
 
     def stream(self, prompt: Sequence[int],
                sampling: Optional[SamplingParams] = None) -> Iterator[int]:

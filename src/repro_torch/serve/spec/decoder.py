@@ -35,10 +35,6 @@ Per-request adaptivity: an acceptance-rate EMA scales the draft length
 (``k_eff = round(ema * k)``); a request whose EMA rounds to zero rides
 plain decode and probes with a 1-token draft every ``probe_every``
 rounds so it can re-enter speculation when its output turns predictable.
-
-Left for the resilience slice: the fault injector's ``launch``/``device``
-sites, the guard's phased ``spec_step`` and its poisoned-row ``skip`` at
-commit, and ``drain_to``'s call of :meth:`SpecDecoder.rollback_in_flight`.
 """
 
 from __future__ import annotations
@@ -59,8 +55,9 @@ class _SpecRound:
     """One speculative round's in-flight state, from the moment drafts are
     proposed (pages ensured, dense slots snapshotted) until every slot is
     committed or rolled back.  The decoder keeps the CURRENT round on
-    itself so :meth:`SpecDecoder.rollback_in_flight` can always rewind the
-    uncommitted draft tail."""
+    itself so :meth:`SpecDecoder.rollback_in_flight` — called by the step
+    guard on an aborted verify launch and by ``drain_to`` before a
+    checkpoint — can always rewind the uncommitted draft tail."""
 
     __slots__ = ("sd", "proposals", "snaps", "fed",
                  "tokens", "pos", "n_valid", "table", "slots", "pending")
@@ -210,8 +207,12 @@ class SpecDecoder:
         """Phase 2: ONE ``verify_bs{N}_len{k+1}`` enqueue of the engine's
         step (a replayed graph on the card) on this round's operands;
         returns the logits rows ``(B, k+1, vocab)`` on the host.  Mutates
-        no host request state."""
+        no host request state, so a guarded retry can call it again after
+        restoring dense snapshots (the injector's ``launch`` site fires
+        before the enqueue, ``device`` after — the contract of
+        ``ServingEngine._launch``)."""
         eng = self.eng
+        inj = eng.engine_cfg.fault_injector
         step = eng._kernel(rnd.sd.bucket, self.cfg.k + 1, verify=True)
         v = step.views
         v["tokens"][:] = rnd.tokens
@@ -221,7 +222,12 @@ class SpecDecoder:
             v["table"][:] = rnd.table
         if "slots" in v:
             v["slots"][:] = rnd.slots
+        if inj is not None:
+            inj.fire("launch")
         rows = step.run(eng.queue, eng.params, eng.store.arena)
+        if inj is not None:
+            inj.fire("device")      # the enqueue "happened"; stats below
+            #                         only count rounds that got this far
         eng.stats.spec_launches += 1
         eng._count_launch()
         return rows
@@ -234,7 +240,8 @@ class SpecDecoder:
         / ``output_tokens``) never advances before commit, so after this
         the engine is exactly at its last committed position.  Returns the
         number of slots rolled back; safe to call at any time (no-op
-        between rounds)."""
+        between rounds).  After it the engine is at the state a drain
+        checkpoint must capture."""
         rnd, self._round = self._round, None
         if rnd is None:
             return 0
@@ -258,7 +265,9 @@ class SpecDecoder:
     def step(self, sd) -> bool:
         """Try one speculative step for the scheduled batch ``sd``.
         Returns False (caller falls back to the plain decode launch) when
-        no slot yields a usable draft this round."""
+        no slot yields a usable draft this round.  The guarded engine
+        drives the phases one by one (``StepGuard.spec_step``); this is
+        the plain unguarded composition."""
         rnd = self.prepare(sd)
         if rnd is None:
             return False
@@ -269,10 +278,14 @@ class SpecDecoder:
         self.commit(rnd, rows)
         return True
 
-    def commit(self, rnd: _SpecRound, rows: np.ndarray) -> None:
+    def commit(self, rnd: _SpecRound, rows: np.ndarray,
+               skip=frozenset()) -> None:
         """Phase 3: accept/reject every slot's draft against the verify
-        logits and advance the request state machine.  The caller must
-        have drained the queue (``finish()``) first."""
+        logits and advance the request state machine.  Slots in ``skip``
+        (guard-poisoned rows) commit NOTHING: their pre-launch dense
+        snapshot is restored and their draft-tail pages freed, so the next
+        step re-feeds the same positions.  The caller must have drained
+        the queue (``finish()``) first."""
         eng = self.eng
         ec = eng.engine_cfg
         st = eng.stats
@@ -284,6 +297,15 @@ class SpecDecoder:
             if r is None:
                 continue
             rnd.pending.discard(s)
+            if s in skip:
+                if s in snaps and r.dense_slot is not None:
+                    eng.store.restore_slot(r.dense_slot, snaps[s])
+                if s in proposals and has_pages:
+                    if r.blocks.rewind(len(r.seq_tokens) + 1):
+                        st.spec_rollbacks += 1
+                if s in proposals:
+                    self.drafter.rollback(r)
+                continue
             prev_nc = r.num_cached
             toks = proposals.get(s, [])
             nv = fed[s]
@@ -295,6 +317,7 @@ class SpecDecoder:
                 # mid-prefill ride-along (chunking disabled): plain 1-token
                 # ingestion, no sampling
                 r.num_cached += 1
+                r.fault_failures = 0
                 eng._publish_filled_pages(r, prev_nc, r.num_cached)
                 eng._maybe_publish_dense(r)
                 continue
@@ -312,6 +335,8 @@ class SpecDecoder:
             st.spec_accepted_tokens += a
             st.spec_rejected_tokens += len(toks) - a
             self._update_ema(r, a, len(toks))
+            r.fault_failures = 0    # a committed round clears the
+            #                         quarantine count, like _commit
             finish = None
             j = 0
             for tok in emitted:

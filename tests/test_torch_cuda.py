@@ -1158,3 +1158,103 @@ def test_grouped_mm_wrapper_refuses_bad_operands():
     assert grouped_mm_swiglu_cuda(
         x, torch.zeros(2, 16, 16, device="cuda", dtype=bf), off).shape \
         == (8, 8)
+
+
+# ---------------------------------------------------------------------------
+# The resilience layer and the service on the card (reduced configs, fp32,
+# where replays give the same tokens whatever the batch): a guarded engine
+# under tests/test_chaos.py's seeded soak, an armed guard with no fault, and
+# a short service pass whose engine thread captures every step graph.
+# ---------------------------------------------------------------------------
+
+def _card_engine(name, **kw):
+    import dataclasses
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.serve.engine import EngineConfig, build_engine
+    cfg = dataclasses.replace(reduced(get_config(name)),
+                              param_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+    return build_engine(cfg, seed=0, engine_cfg=EngineConfig(
+        s_max=64, buckets=(1, 2, 4), block_pos_stride=8,
+        prefill_chunks=(16,), device="cuda", **kw))
+
+
+def _card_prompts(vocab, n, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, size=int(rng.integers(2, 30))).tolist()
+            for _ in range(n)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["qwen2-0.5b", "mamba2-780m"])
+def test_guarded_engine_on_the_card(name):
+    """The soak's faults (launch, device, nan, pool, stall) on the card:
+    survivors keep the unguarded tokens, pools drain, every replay is a
+    launch or a device fault; a guard with no injector changes nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import dataclasses
+    from repro_torch.serve.engine import SamplingParams, generate
+    from repro_torch.serve.resilience import FaultInjector, ResilienceConfig
+    plain = _card_engine(name)
+    prompts = _card_prompts(plain.cfg.vocab_size, 8, 7)
+    sp = SamplingParams(max_tokens=12)
+    want = generate(plain, prompts, sp)
+    quiet = _card_engine(name, resilience=ResilienceConfig())
+    quiet.params = plain.params
+    assert [c.tokens for c in generate(quiet, prompts, sp)] == \
+        [c.tokens for c in want]
+    assert dataclasses.asdict(quiet.stats) == dataclasses.asdict(plain.stats)
+    inj = FaultInjector(1234, {"launch": 0.10, "device": 0.08,
+                               "nan_logits": 0.04, "pool": 0.08,
+                               "stall": 0.03}, stall_s=0.001, max_faults=60)
+    eng = _card_engine(name, fault_injector=inj,
+                       resilience=ResilienceConfig(max_request_failures=2))
+    eng.params = plain.params
+    got = generate(eng, prompts, sp)
+    assert inj.n_fired > 0
+    for g, w in zip(got, want):
+        if g.finish_reason != "error":
+            assert g.tokens == w.tokens
+    assert eng.pool.n_free == eng.pool.n_blocks
+    assert eng.store.slot_pool is None or eng.store.slot_pool.n_used == 0
+    replayed = sum(ev.launches for ev in eng.kernel_events().values())
+    assert replayed == eng.stats.launches + inj.counts()["device"]
+
+
+@pytest.mark.gpu
+def test_service_on_the_card_captures_on_its_engine_thread():
+    """Six concurrent streams through the service on a fresh engine: the
+    engine thread captures every step graph, and the streams give the
+    tokens of ``generate()`` on an engine of the same config."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import asyncio
+    import threading
+    from repro_torch.core.hybrid import StepGraph
+    from repro_torch.serve.engine import SamplingParams, generate
+    from repro_torch.serve.service import GenerateService
+    ref = _card_engine("qwen2-0.5b")
+    prompts = _card_prompts(ref.cfg.vocab_size, 6, 3)
+    want = generate(ref, prompts, SamplingParams(max_tokens=8))
+    eng = _card_engine("qwen2-0.5b")
+    eng.params = ref.params
+    threads, build = [], eng.queue.build
+
+    def build_on(*args):
+        threads.append(threading.current_thread().name)
+        return build(*args)
+    eng.queue.build = build_on
+
+    async def main():
+        async with GenerateService(eng) as svc:
+            streams = [await svc.submit(p, max_tokens=8) for p in prompts]
+            return await asyncio.gather(*[s.drain() for s in streams])
+
+    got = asyncio.run(main())
+    assert [t for t, _ in got] == [c.tokens for c in want]
+    assert threads and set(threads) == {"engine-loop"}
+    assert all(isinstance(e, StepGraph)
+               for e in eng.queue._compiled.values())
+    assert eng.pool.n_free == eng.pool.n_blocks
+

@@ -33,7 +33,9 @@ def _modules():
 def test_importing_every_module_loads_no_jax_and_no_repro():
     mods = [name for _, name in _modules()]
     assert {"repro_torch.serve.spec.decoder",
-            "repro_torch.serve.spec.drafter"} <= set(mods)
+            "repro_torch.serve.spec.drafter",
+            "repro_torch.serve.service.service",
+            "repro_torch.serve.resilience.guard"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
