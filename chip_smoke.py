@@ -21,10 +21,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    its m stays -1e30 and its l counts its keys) and qwen3-moe's geometry
    (64 q heads over 4 kv heads, group 16, hd 64 as the repo's config
    gives it; B 8, L in {1, 5, 16, 256}; and at hd 128, the published
-   Qwen3-235B-A22B head size, L in {1, 16, 256}); then timings at the main
-   path's shapes (events and the kernel's device time, with the split
-   count) against the plain version, one scaled_dot_product_attention
-   call on the gathered K/V, and the least time the card could take;
+   Qwen3-235B-A22B head size, L in {1, 16, 256}), and the full head
+   geometries of stablelm-12b (32 q over 8 kv heads, hd 160) and qwen2-7b
+   (28 over 4, hd 128: group 7), B in {1, 8}, L in {1, 5, 16, 64, 256};
+   then timings at the main path's shapes (events and the kernel's device
+   time, with the split count) against the plain version, one
+   scaled_dot_product_attention call on the gathered K/V, and the least
+   time the card could take, at qwen2-0.5b's geometry and at the two
+   dense configs' (each over its own number of layer arenas);
 4. SSD-scan kernels against their plain versions on the card — random
    inputs at the mamba2-780m geometry (48 heads x 64, state 128, 1 group)
    and the reduced one (8 x 16, state 16, 1 or 4 groups), B in {1, 8},
@@ -111,7 +115,35 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernels are counted: paged attention on every attention layer of every
    launch, the fused scan (bf16) or the two simt passes (fp32) on every
    mamba layer of every chunk and verify launch, the plain versions never;
-12. the engine at full width on an MoE model, last and after the cache is
+12. dense_wide: qwen2-7b (28 layers, d_model 3584, 28 q over 4 kv heads,
+   hd 128, QKV bias, vocab 152064; 15.2 GB) and then stablelm-12b (40
+   layers, d_model 5120, 32 over 8 heads, hd 160, layernorm, vocab 100352;
+   24.3 GB) at full width in bf16, random weights from seed 0, each on an
+   emptied cache, through phase 6's engine setting, workload and gates
+   (paged attention on every attention layer of every launch, the plain
+   version never, one graph per step that ran), then eight replayed
+   batch-8 decode steps of each under torch.profiler with paged
+   attention's share;
+13. supervisor: the crash-safe ReplicaSupervisor on qwen2-0.5b and
+   mamba2-780m at full width, its workers spawned processes on this card
+   that load the kernels phase 2 built, the parent holding no engine
+   while they run: an fp32 pass and a bf16 pass, each with two
+   ``kill_replica`` calls at fixed token counts and, between them, one
+   corrupted checkpoint followed by an injected ``process_kill`` (the
+   restore falls back to the previous good checkpoint).  Gates: every
+   stream ends "length" with 32 tokens, none duplicated or dropped, the
+   last worker holds no page, slot or request, three failovers, no
+   watchdog trip, each worker's own kernel counts (``("stats",)``) as in
+   phase 6 with the plain versions at 0 and nothing built; in fp32 the
+   streams equal an in-process uninterrupted run's tokens exactly and no
+   replayed token diverges.  Reported: each failover's time from the kill
+   to the worker's exit, to the next worker's ready and to the first
+   resumed token, with its spawn, build and capture parts and the card's
+   free memory at ready; the replay divergences (replayed tokens below a
+   stream's high-water mark that differ from the delivered ones, which
+   the dedup drops) and, in bf16, each stream's first divergence from
+   the uninterrupted run with the reference's top-2 margin there;
+14. the engine at full width on an MoE model, last and after the cache is
    emptied — qwen3-moe-235b-a22b at the repo config's full width (d_model
    4096, 64 q heads over 4 kv heads, hd 64, qk_norm, 128 experts top-8 of
    d_ff_expert 1536, vocab 151936, bf16; the config sets no head_dim, so
@@ -126,7 +158,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernel.py::plan names for its step's rows, every len256 step on
    wgmma_tma; the plain versions never), graphs, profile (batch-8 decode,
    and one batch-8 len256 prefill step with the grouped GEMM's share);
-13. the kernels line, the card line, and the result line.
+15. the kernels line, the card line, and the result line.
 
 Between 4 and 5 run the phases of the paper core and the last two
 kernels:
@@ -181,6 +213,7 @@ import json
 import subprocess
 import sys
 import time
+import traceback
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -214,6 +247,8 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PROMPT_LENS = [5, 17, 40, 64, 100, 200, 300, 33]
 MAX_TOKENS = 32
 SPEC_K = 4                  # draft tokens a verify step checks: L = k + 1
+# (q heads, kv heads, head size) of the dense configs served at full width
+DENSE_GEOMS = {"stablelm-12b": (32, 8, 160), "qwen2-7b": (28, 4, 128)}
 
 
 def check(cond, msg):
@@ -221,7 +256,11 @@ def check(cond, msg):
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
+LAST_PHASE = ["none"]          # the last phase emitted, named on failure
+
+
 def emit(phase, **kw):
+    LAST_PHASE[0] = phase
     print(json.dumps({"phase": phase, **kw}), flush=True)
 
 
@@ -421,6 +460,14 @@ def phase_kernel_vs_plain():
     cases += [dict(B=8, L=L, hd=128, Hq=64, kvh=4, stride=16, s_max=512,
                    dtype=dt) for L in (1, 16, 256)
               for dt in (torch.bfloat16, torch.float32)]
+    # the dense configs' full geometries: stablelm-12b (32 q over 8 kv
+    # heads, hd 160) and qwen2-7b (28 over 4, hd 128: group 7, 7 warps a
+    # 16-position tile)
+    cases += [dict(B=B, L=L, hd=hd, Hq=Hq, kvh=kvh, stride=16, s_max=512,
+                   dtype=dt)
+              for (Hq, kvh, hd) in DENSE_GEOMS.values() for B in (1, 8)
+              for L in (1, 5, 16, 64, 256)
+              for dt in (torch.bfloat16, torch.float32)]
     for spec in cases:
         c = make_case(rng, **spec)
         want = merge_rows(run_rows(paged_attention_ref, c))
@@ -451,14 +498,14 @@ def phase_kernel_vs_plain():
     return worst
 
 
-def phase_timing(n_layers):
+def phase_timing(n_layers, Hq=14, kvh=2, hd=64, geometry="qwen2-0.5b"):
     """Kernel, plain and library times at the main path's shapes: batch 8
     of the smoke workload, bf16, cycling over ``n_layers`` arenas as the
-    engine's layers do.  Decode and verify (L = 5) rows sit 16 tokens into
-    generation; chunk rows are each prompt's first chunk.  ``ms`` is CUDA
-    events around back-to-back wrapper calls (the wrapper's host time when
-    that is the longer); ``device_ms`` is the kernel's own time on the
-    card."""
+    engine's layers do, at one model's head geometry.  Decode and verify
+    (L = 5) rows sit 16 tokens into generation; chunk rows are each
+    prompt's first chunk.  ``ms`` is CUDA events around back-to-back
+    wrapper calls (the wrapper's host time when that is the longer);
+    ``device_ms`` is the kernel's own time on the card."""
     from repro_torch.kernels.paged_attention import (merge_rows,
                                                      paged_attention_ref)
     from repro_torch.kernels.paged_attention.kernel import \
@@ -472,7 +519,7 @@ def phase_timing(n_layers):
         else:
             ctx = [p + 1 for p in PROMPT_LENS]
             start = [0] * len(PROMPT_LENS)
-        c = make_case(rng, B=8, L=L, hd=64, Hq=14, kvh=2, stride=16,
+        c = make_case(rng, B=8, L=L, hd=hd, Hq=Hq, kvh=kvh, stride=16,
                       s_max=512, dtype=torch.bfloat16, ctx=ctx, start=start,
                       holes=False, layers=n_layers)
 
@@ -485,7 +532,8 @@ def phase_timing(n_layers):
         libs = [library_call(c, li) for li in range(n_layers)]
         want = merge_rows(run_rows(paged_attention_ref, c))
         got = merge_rows(run_rows(paged_attention_cuda, c))
-        t = dict(L=L, B=8, n_split=n_split(c),
+        t = dict(geometry=geometry, Hq=Hq, kvh=kvh, hd=hd, L=L, B=8,
+                 n_split=n_split(c),
                  ms=cuda_ms(kern, 4 * n_layers),
                  device_ms=device_ms(kern, n_layers, ("paged_",)),
                  plain_ms=cuda_ms(plain, n_layers),
@@ -1942,7 +1990,15 @@ def phase_engine(arch):
         "qwen3-moe-235b-a22b": (
         (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd(),
          cfg.qk_norm, cfg.n_experts, cfg.top_k, cfg.d_ff_expert,
-         cfg.vocab_size), (8, 4096, 64, 4, 64, True, 128, 8, 1536, 151936))}
+         cfg.vocab_size), (8, 4096, 64, 4, 64, True, 128, 8, 1536, 151936)),
+        "qwen2-7b": (
+        (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd(),
+         cfg.d_ff, cfg.vocab_size, cfg.qkv_bias),
+        (28, 3584, 28, 4, 128, 18944, 152064, True)),
+        "stablelm-12b": (
+        (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd(),
+         cfg.d_ff, cfg.vocab_size, cfg.norm),
+        (40, 5120, 32, 8, 160, 13824, 100352, "layernorm"))}
     got, want = widths[arch]
     check(got == want, f"{arch} is not at its config's full width: {got}")
     check(cfg.compute_dtype == torch.bfloat16,
@@ -3089,6 +3145,319 @@ def drain_fp32(arch, params, prompts, sampling):
     return cfg, [plain, fresh, src, dst], result
 
 
+# ---------------------------------------------------------------------------
+# The dense configs at full width, and the replica supervisor.
+# ---------------------------------------------------------------------------
+
+def phase_dense_wide():
+    """qwen2-7b, then stablelm-12b (hd 160), at full width in bf16 with
+    random weights from seed 0, through phase 6's engine setting and
+    workload (cold, warm, one arrival per step) and its gates: every
+    request ends "length" with 32 tokens, no logits row is non-finite,
+    paged attention runs on every attention layer of every launch and its
+    plain version never, one graph per step that ran.  Then eight replayed
+    batch-8 decode steps of each under torch.profiler.  Returns the
+    kernels' launches by arch."""
+    out = {}
+    for arch in DENSE_GEOMS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        counts, eng, prompts, arrivals, sampling, outputs, _ = \
+            phase_engine(arch)
+        phase_profile(eng, arrivals, sampling,
+                      shares={"paged_attention": ("paged_",)})
+        out[arch] = counts
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+class ArmedInjector:
+    """A fault injector for the supervisor phase, defined here so that a
+    spawned worker can unpickle it (the worker imports this script as its
+    main module).  Its process_kill and checkpoint_corrupt sites fire once
+    each, when the parent arms them by creating ``arm_path``: the next
+    checkpoint the worker writes is corrupted (truncated), and the worker
+    dies hard at its next step, so the restore must fall back to the
+    previous good checkpoint.  Every other site is a FaultInjector that
+    never fires."""
+
+    def __init__(self, arm_path):
+        from repro_torch.serve.resilience import FaultInjector
+        self.inner = FaultInjector(0, {})
+        self.arm_path = arm_path
+        self.corrupted = False
+
+    def __getattr__(self, name):
+        inner = self.__dict__.get("inner")
+        if inner is None:
+            raise AttributeError(name)
+        return getattr(inner, name)
+
+    def corrupt_checkpoint(self):
+        import os
+        if self.corrupted or not os.path.exists(self.arm_path):
+            return False
+        self.corrupted = True
+        self.inner._record("checkpoint_corrupt")
+        return True
+
+    def kill_process(self):
+        import os
+        if not (self.corrupted and os.path.exists(self.arm_path)):
+            return False
+        os.remove(self.arm_path)
+        self.inner._record("process_kill")
+        return True
+
+
+def counting_supervisor():
+    """ReplicaSupervisor that counts **replay divergences**: tokens a new
+    incarnation replays below a stream's high-water mark (which the dedup
+    drops) that differ from the tokens already delivered there."""
+    from repro_torch.serve.supervisor import ReplicaSupervisor
+
+    class Counting(ReplicaSupervisor):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.replayed = 0
+            self.divergences = []          # (request_id, index)
+
+        def _handle_event(self, ev):
+            if ev[0] == "tok":
+                _, rid, start, toks = ev
+                st = self._streams.get(rid)
+                if st is not None:
+                    for i, t in enumerate(toks):
+                        if start + i < st.hwm:
+                            self.replayed += 1
+                            if st.delivered[start + i] != int(t):
+                                self.divergences.append((rid, start + i))
+            super()._handle_event(ev)
+    return Counting
+
+
+SUP_KILLS = (48, 176)         # kill_replica at these delivered-token counts
+SUP_ARM = 112                 # arm the corrupt + process_kill pair here
+SUP_TIMEOUT_S = 600.0         # one supervised pass, worker starts included
+
+
+def child_launch_gate(label, cfg, st):
+    """One incarnation's own counts (a ``("stats",)`` snapshot): paged
+    attention on every attention layer of every launch, the fused scan
+    (bf16) or the two simt passes (fp32) on every mamba layer of every
+    chunk launch, no plain version, no kernel built in the child.
+    Returns the launches by kernel."""
+    steps = st["step_launches"]
+    total = sum(steps.values())
+    chunks = sum(n for k, n in steps.items()
+                 if not k.startswith("serve_step"))
+    mixers = [m for m, _ in cfg.pattern()]
+    want = dict.fromkeys(("paged_attention", "ssd_chunk", "ssd_apply",
+                          "ssd_scan_fused"), 0)
+    want["paged_attention"] = cfg.n_groups() * mixers.count("attn") * total
+    scans = cfg.n_groups() * mixers.count("mamba") * chunks
+    for k in (("ssd_scan_fused",) if cfg.compute_dtype == torch.bfloat16
+              else ("ssd_chunk", "ssd_apply")):
+        want[k] = scans
+    kl = st["kernel_launches"]
+    got = {k: kl.get(f"{k}_cuda", 0) for k in want}
+    plain = {k: n for k, n in kl.items() if k.endswith("_ref") and n}
+    check(got == want, f"{label}: child kernel launches {got} != {want}")
+    check(not plain, f"{label}: plain versions ran in a child: {plain}")
+    check(not any(st["kernel_builds"].values()),
+          f"{label}: a child built a kernel: {st['kernel_builds']}")
+    return got
+
+
+def supervised_pass(arch, dtype, workdir):
+    """One supervised run of the mixed lengths (32 greedy tokens each) on
+    ``arch`` at full width in ``dtype``, against an in-process
+    ``spec.build()`` engine's uninterrupted run, which the parent drops
+    before any worker spawns.  The schedule: ``kill_replica`` at
+    SUP_KILLS[0] delivered tokens; at SUP_ARM the ArmedInjector is armed
+    (the next checkpoint is corrupted, the worker dies at its next step);
+    ``kill_replica`` again at SUP_KILLS[1].  Gates: every stream ends
+    "length" with 32 tokens and its completion equals what it streamed
+    (zero duplicated, zero dropped), the last worker holds no page, slot
+    or request (zero leaked), three failovers with the corrupted
+    checkpoint seen, no watchdog trip, each child's kernel counts
+    (``child_launch_gate``); in fp32 the streams equal the uninterrupted
+    tokens exactly and no replayed token diverges.  Returns the pass's
+    record and the children's launches."""
+    import asyncio
+    import os
+
+    from repro_torch.configs import get_config
+    from repro_torch.serve.engine import SamplingParams, generate
+    from repro_torch.serve.supervisor import EngineSpec, SupervisorConfig
+    cfg = dataclasses.replace(get_config(arch), param_dtype=dtype,
+                              compute_dtype=dtype)
+    label = f"{arch} supervised {dname(dtype)}"
+    prompts = mixed_prompts(0, cfg.vocab_size)
+    sampling = SamplingParams(max_tokens=MAX_TOKENS)
+    clean = EngineSpec(cfg, smoke_ec(), seed=0)
+    eng = clean.build()
+    rec, unwrap = record_rows(eng)
+    t0 = time.perf_counter()
+    want = [c.tokens for c in generate(eng, prompts, sampling)]
+    ref_s = time.perf_counter() - t0
+    unwrap()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    arm = os.path.join(workdir, f"{arch}-{dname(dtype)}.arm")
+    spec = EngineSpec(cfg, smoke_ec(fault_injector=ArmedInjector(arm)),
+                      seed=0)
+    sup_cfg = SupervisorConfig(
+        checkpoint_path=os.path.join(workdir,
+                                     f"{arch}-{dname(dtype)}.ckpt"),
+        checkpoint_every_steps=4, fsync=True, max_respawns=3,
+        # above one graph capture (0.1-0.3 s each; the first step of a
+        # fresh incarnation captures, and has the amnesty besides)
+        watchdog_timeout_s=5.0, ready_timeout_s=300.0)
+    snaps, kills = [], []
+
+    async def drive():
+        Sup = counting_supervisor()
+        async with Sup(spec, sup_cfg) as sup:
+            streams = [await sup.submit(p, max_tokens=MAX_TOKENS)
+                       for p in prompts]
+            got = {s.request_id: [] for s in streams}
+            comps = {}
+
+            async def consume(s):
+                async for tok in s:
+                    got[s.request_id].append(tok)
+                comps[s.request_id] = s.completion
+
+            def delivered():
+                return sum(len(v) for v in got.values())
+
+            async def until(n_tokens, n_spawns):
+                while delivered() < n_tokens or sup.n_spawns < n_spawns:
+                    await asyncio.sleep(0.005)
+
+            async def killer():
+                await until(SUP_KILLS[0], 1)
+                snaps.append(await sup.replica_stats())
+                kills.append(("kill_replica", time.time(), delivered()))
+                await sup.kill_replica()
+                await until(SUP_ARM, 2)
+                snaps.append(await sup.replica_stats())
+                kills.append(("injected", None, delivered()))
+                open(arm, "w").close()
+                await until(SUP_KILLS[1], 3)
+                snaps.append(await sup.replica_stats())
+                kills.append(("kill_replica", time.time(), delivered()))
+                await sup.kill_replica()
+
+            tasks = [asyncio.create_task(consume(s)) for s in streams]
+            await asyncio.wait_for(asyncio.gather(killer(), *tasks),
+                                   SUP_TIMEOUT_S)
+            snaps.append(await sup.replica_stats())
+            return ([got[s.request_id] for s in streams],
+                    [comps[s.request_id] for s in streams], sup)
+
+    t0 = time.perf_counter()
+    streamed, comps, sup = asyncio.run(drive())
+    wall = time.perf_counter() - t0
+    diverged = {}
+    for rid, i in sup.divergences:
+        diverged.setdefault(rid, set()).add(i)
+    for toks, comp in zip(streamed, comps):
+        check(comp.finish_reason == "length" and len(toks) == MAX_TOKENS,
+              f"{label}: {comp.request_id} ended {comp.finish_reason} "
+              f"after {len(toks)} tokens")
+        check(len(comp.tokens) == len(toks), f"{label}: {comp.request_id} "
+              f"streamed {len(toks)} tokens, its completion holds "
+              f"{len(comp.tokens)} (duplicated or dropped)")
+        # the completion is the last worker's history: it differs from
+        # the stream only where a replayed token diverged
+        differ = {i for i, (a, b) in enumerate(zip(comp.tokens, toks))
+                  if a != b}
+        check(differ <= diverged.get(comp.request_id, set()),
+              f"{label}: {comp.request_id} differs from its completion at "
+              f"{sorted(differ)}, where no replayed token diverged")
+    last = snaps[-1]
+    check(last["pool_free"] == last["pool_blocks"]
+          and last["dense_slots_used"] == 0 and last["live_requests"] == 0,
+          f"{label}: the last worker leaked: {last}")
+    check(sup.n_failovers == 3 and sup.n_spawns == 4,
+          f"{label}: {sup.n_failovers} failovers, {sup.n_spawns} spawns")
+    check(sup.n_ckpt_corruptions == 1,
+          f"{label}: {sup.n_ckpt_corruptions} corrupted checkpoints seen")
+    check(not any("watchdog" in f["reason"] for f in sup.failovers),
+          f"{label}: the watchdog tripped with no stall injected")
+    launches = {}
+    for i, st in enumerate(snaps):
+        for k, n in child_launch_gate(f"{label} incarnation {i + 1}", cfg,
+                                      st).items():
+            launches[k] = launches.get(k, 0) + n
+    failovers = []
+    for (kind, t_kill, at), f, st in zip(kills, sup.failovers, snaps[1:]):
+        inc = f["incarnation"]
+        t0 = t_kill if t_kill is not None else f["t_detect"]
+        failovers.append(dict(
+            kind=kind, at_tokens=at, reason=f["reason"],
+            restored_requests=f["restored"],
+            kill_to_exit_s=f["t_exit"] - t0,
+            kill_to_ready_s=inc["t_ready"] - t0,
+            kill_to_first_token_s=(f["t_first_token"] - t0
+                                   if "t_first_token" in f else None),
+            spawn_to_enter_s=inc["t_enter"] - inc["t_spawn"],
+            build_s=inc["build_s"],
+            capture_s=st["graph_build_s"],
+            mem_free_at_ready=inc["mem_free"],
+            timed_from="kill_replica call" if t_kill is not None
+            else "detection of the dead worker"))
+    firsts, margins = [], []
+    for p, a, b in zip(prompts, want, streamed):
+        i = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        firsts.append(i)
+        if i is not None:
+            row = rec[(tuple(p), i)]
+            top = np.partition(row, -2)[-2:]
+            margins.append(float((top[1] - top[0]) / row.std()))
+    identical = sum(f is None for f in firsts)
+    if dtype == torch.float32:
+        hold_tokens(label, prompts, want, streamed)
+        check(not sup.divergences, f"{label}: replayed tokens diverged at "
+              f"{sup.divergences}")
+    row = dict(config=cfg.name, dtype=dname(dtype), wall_s=wall,
+               reference_s=ref_s, failovers=failovers,
+               incarnations=len(sup.incarnations),
+               replayed_tokens=sup.replayed,
+               replay_divergences=len(sup.divergences),
+               replay_divergence_at=sup.divergences,
+               identical_requests=identical, first_divergence=firsts,
+               reference_margins_at_first_divergence=margins,
+               margins_under_near_tie=sum(m < SPEC_MARGIN for m in margins),
+               metrics=sup.metrics.snapshot()["failover"],
+               kernel_launches=launches)
+    emit("supervisor", **row)
+    return row, launches
+
+
+def phase_supervisor():
+    """The replica supervisor on qwen2-0.5b and mamba2-780m at full width,
+    the workers spawned on this card: a pass in fp32, then one in bf16
+    (``supervised_pass``).  Returns the children's launches by path."""
+    import tempfile
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        for arch in ("qwen2-0.5b", "mamba2-780m"):
+            for dtype in (torch.float32, torch.bfloat16):
+                _, launches = supervised_pass(arch, dtype, d)
+                key = f"{arch} supervisor"
+                for k, n in launches.items():
+                    out.setdefault(key, {})[k] = \
+                        out.get(key, {}).get(k, 0) + n
+    return out
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3107,6 +3476,10 @@ def main() -> int:
     phase_build()
     worst = phase_kernel_vs_plain()
     timing = phase_timing(n_layers=24)
+    from repro_torch.configs import get_config
+    dense_timing = {arch: phase_timing(
+        n_layers=get_config(arch).n_layers, Hq=Hq, kvh=kvh, hd=hd,
+        geometry=arch) for arch, (Hq, kvh, hd) in DENSE_GEOMS.items()}
     ssd_worst = phase_ssd_vs_plain()
     ssd_timing = phase_ssd_timing()
     mm_worst = phase_mm_vs_plain()
@@ -3155,7 +3528,20 @@ def main() -> int:
                 launches[k] = launches.get(k, 0) + n
                 by_path.setdefault(k, {})[path] = n
     del weights
+    # the dense configs at full width, on an emptied cache, then the
+    # replica supervisor (the parent holds no engine while workers run)
+    for arch, got in phase_dense_wide().items():
+        for k, n in got.items():
+            if n:
+                launches[k] = launches.get(k, 0) + n
+                by_path.setdefault(k, {})[f"{arch} engine"] = n
+    for path, got in phase_supervisor().items():
+        for k, n in got.items():
+            if n:
+                launches[k] = launches.get(k, 0) + n
+                by_path.setdefault(k, {})[path] = n
     # the MoE model last, on an emptied cache: 41.7 GB of weights
+    gc.collect()
     torch.cuda.empty_cache()
     arch = "qwen3-moe-235b-a22b"
     counts, eng, prompts, arrivals, sampling, outputs, moe_routes_ = \
@@ -3188,6 +3574,13 @@ def main() -> int:
         "per_L": {str(t["L"]): {k: t[k] for k in (
             "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
             "n_split")} for t in timing},
+        "per_geometry": {
+            f"{arch}: Hq={Hq}, kvh={kvh}, hd={hd}": {
+                str(t["L"]): {k: t[k] for k in (
+                    "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
+                    "bound_by", "n_split", "max_rel_err")}
+                for t in dense_timing[arch]}
+            for arch, (Hq, kvh, hd) in DENSE_GEOMS.items()},
     }]
     # the fused scan (mma) carries mamba2's main path; the two passes carry
     # the fp32 reference configs on their simt variant, whose launches,
@@ -3320,4 +3713,11 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    except BaseException:
+        traceback.print_exc()
+        print(f"chip_smoke: failed after phase {LAST_PHASE[0]!r} had "
+              f"reported", file=sys.stderr)
+        rc = 1
+    sys.exit(rc)

@@ -23,6 +23,8 @@ build).
 from __future__ import annotations
 
 import dataclasses
+import gc
+import threading
 import time
 from typing import Callable, Dict, List, Optional, Union
 
@@ -80,7 +82,15 @@ class StepGraph:
     are put back as they were, and each replay adds what the captured call
     launched.  The output is the graph's own tensor in the queue's memory
     pool: it stays valid only until the next call of any step of the
-    queue."""
+    queue.
+
+    Python's cyclic collector is off from the warm-up to the end of the
+    capture.  A collection there would finalize whatever dead objects it
+    finds on the capturing thread, such as a dropped engine's graphs,
+    pinned buffers and events, and a CUDA call such a finalizer makes
+    while a capture runs in ``"global"`` mode invalidates the capture
+    (``cudaErrorStreamCaptureInvalidated`` at its end).  PyTorch's
+    ``torch.cuda.graph`` no longer collects before it captures."""
 
     def __init__(self, fn: Callable, example_args, *, pool, stream):
         dev = stream.device
@@ -89,15 +99,21 @@ class StepGraph:
                        for i, a in enumerate(self.bound) if _on_host(a)}
         args = [self.static.get(i, a) for i, a in enumerate(self.bound)]
         before = launch_counts()
-        stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(stream):
-            for i, buf in self.static.items():
-                buf.copy_(self.bound[i])
-            fn(*args)
-        warm = launch_counts()
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, pool=pool, stream=stream):
-            self.out = fn(*args)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                for i, buf in self.static.items():
+                    buf.copy_(self.bound[i])
+                fn(*args)
+            warm = launch_counts()
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph, pool=pool, stream=stream):
+                self.out = fn(*args)
+        finally:
+            if collecting:
+                gc.enable()
         after = launch_counts()
         self.launches = count_delta(warm, after)
         add_launches(count_delta(before, after), sign=-1)
@@ -177,7 +193,13 @@ class CommandQueue:
         class note); ``build_time_s`` accumulates across rebuilds.  A
         capture that fails raises."""
         t0 = time.perf_counter()
-        exe = self._executable(fn, example_args)
+        try:
+            exe = self._executable(fn, example_args)
+        except RuntimeError as e:
+            threads = sorted(t.name for t in threading.enumerate())
+            raise RuntimeError(
+                f"CommandQueue: building step {name!r} on {self.device} "
+                f"failed; threads alive: {threads}") from e
         ev = self.events.setdefault(name, KernelEvent(name))
         ev.build_time_s += time.perf_counter() - t0
         self._compiled[name] = exe

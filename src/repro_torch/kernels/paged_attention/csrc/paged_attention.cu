@@ -53,6 +53,14 @@
 //     in two stages (the next key tile loads while this one is
 //     multiplied), bf16 stays bf16.  hd 8 pads the depth to 16 with zeros
 //     in shared memory (zeros add exactly 0).
+//   * Head sizes 8, 16, 32, 64, 128 and 160 (stablelm-12b).  Nothing
+//     assumes a power of two: hd 160 is ten 16-wide k-steps of Q K^T and
+//     twenty n8 tiles of O (80 fp32 accumulators a thread), a staged row
+//     is twenty 16-byte cp.async chunks (320 bytes), and its pitch of 168
+//     bf16 (336 bytes, 84 words: rows 20 banks apart) keeps ldmatrix free
+//     of bank conflicts; the split merge reads float4s (hd / 4 of them).
+//     Its products take 32 keys at a time instead of 64, which keeps the
+//     score tile in 16 registers beside the 120 of O and Q.
 //   * Products: the warp tile of ../../csrc/mma_tile.cuh (mma.sync
 //     m16n8k16, bf16 in, fp32 accumulators; Q K^T scaled after the product;
 //     P split into bf16 hi + lo against V; S and P in registers; row
@@ -61,7 +69,8 @@
 // fp32 (kept as it was, for the 1e-5 fp32 gate: TF32 keeps about three
 // digits).  One block per (slot b, kv head g, tile of query positions),
 // no split; thread 0 walks the table, K/V staged as fp32, scalar fp32 FMAs
-// from shared memory, softmax one thread per row.
+// from shared memory, softmax one thread per row.  It takes any head size
+// whose staging fits a block's shared memory (the smem query says).
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC  (bound through ctypes).
@@ -301,8 +310,8 @@ TcGeometry make_tc_geometry(int Hq, int L, int hd, int kvh, int stride) {
 }
 
 bool tc_supported(const TcGeometry& g, int hd) {
-  return g.warps <= kMaxWarps &&
-         (hd == 8 || hd == 16 || hd == 32 || hd == 64 || hd == 128);
+  return g.warps <= kMaxWarps && (hd == 8 || hd == 16 || hd == 32 ||
+                                  hd == 64 || hd == 128 || hd == 160);
 }
 
 size_t tc_smem_bytes(const TcGeometry& g) {
@@ -332,6 +341,9 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) paged_bf16_kernel(
     int* __restrict__ counters,             // one per tile, zero between calls
     int Hq, int L, int hd, int kvh, int n_entries, int stride, int n_loc,
     int row, int qrows, float scale, TcGeometry geo) {
+  // keys per product: hd 160's 80 accumulators and 40 Q registers leave
+  // room for 16 score registers, not 32 (at 64 keys ptxas spilled)
+  constexpr int kSub = DP > 128 ? kSubKeys / 2 : kSubKeys;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int pitch = geo.pitch, ktp = geo.ktp, ppt = geo.ppt;
   const int rows = geo.rows, tile_l = geo.tile_l;
@@ -477,12 +489,12 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) paged_bf16_kernel(
       tile::cp_async_commit();
       const int s0 = (it & 1) * ktp;
       const int nk = min(ppt, n - it * ppt) * stride;
-      for (int sub = 0; sub * kSubKeys < nk; ++sub) {
-        const int base = s0 + sub * kSubKeys;
-        float s[kSubKeys / 8][4];
-        tile::scores<DP, kSubKeys>(s, qf, k_s + base * pitch, pitch, lane);
+      for (int sub = 0; sub * kSub < nk; ++sub) {
+        const int base = s0 + sub * kSub;
+        float s[kSub / 8][4];
+        tile::scores<DP, kSub>(s, qf, k_s + base * pitch, pitch, lane);
 #pragma unroll
-        for (int j = 0; j < kSubKeys / 8; ++j) {
+        for (int j = 0; j < kSub / 8; ++j) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int lab = lab_s[base + j * 8 + 2 * tig + (e & 1)];
@@ -492,8 +504,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) paged_bf16_kernel(
             s[j][e] = x;
           }
         }
-        tile::fold<DP, kSubKeys, false>(st, s, v_s + base * pitch, pitch,
-                                        lane);
+        tile::fold<DP, kSub, false>(st, s, v_s + base * pitch, pitch, lane);
       }
     }
     // the next chunk's compaction barriers before it rewrites the list
@@ -699,6 +710,7 @@ extern "C" int paged_attention_launch(
     case 32: PAGED_TC(32);
     case 64: PAGED_TC(64);
     case 128: PAGED_TC(128);
+    case 160: PAGED_TC(160);
   }
 #undef PAGED_TC
   return (int)cudaErrorInvalidValue;
@@ -707,7 +719,7 @@ extern "C" int paged_attention_launch(
 // Dynamic shared memory one launch of this geometry asks for (bytes), so the
 // caller can refuse shapes past the card's 227 KB per block; -1 for a
 // geometry the kernel does not take (bf16: more than 128 q heads per kv
-// head, or hd outside 8, 16, 32, 64, 128).
+// head, or hd outside 8, 16, 32, 64, 128, 160).
 extern "C" long long paged_attention_smem_bytes(int Hq, int L, int hd, int kvh,
                                                 int stride, int dtype) {
   if (L < 1 || hd < 1 || kvh < 1 || Hq % kvh != 0 || stride < 1) return -1;

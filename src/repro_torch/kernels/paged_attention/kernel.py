@@ -35,7 +35,9 @@ from repro_torch.kernels import counted
 from repro_torch.kernels.build import MAX_SMEM, compile_library
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"
-HEAD_DIMS = (8, 16, 32, 64, 128)
+# head sizes the bf16 kernel is instantiated for (160: stablelm-12b); the
+# fp32 kernel takes any size its shared memory holds
+HEAD_DIMS = (8, 16, 32, 64, 128, 160)
 
 N_SM = 132                # streaming multiprocessors of an H100 SXM
 TC_ROWS = 128             # bf16 kernel: query rows per block at most

@@ -7,6 +7,8 @@ engine, on the card.
       --engine
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
       --service --admission deadline
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
+      --supervised --kills 2
 
 serves the full-width model on ``cuda`` with random weights from seed 0
 (attention layers page their K/V, mamba layers keep dense state slots, MoE
@@ -24,9 +26,17 @@ arrivals of ``--rate`` requests/s over one engine thread, admitted by
 ``--admission fifo|deadline|fair_share`` (``--ttft-slo`` gives every
 request a TTFT deadline, which ``deadline`` sheds on), and the run ends by
 printing the ``ServiceMetrics`` snapshot (p50/p99 TTFT, inter-token and
-queue-wait latencies, shed and reject counters).  The ``--supervised``
-replica path comes with the supervisor slice, and the fixed-batch decode
-modes (the JAX launcher's default) with the launchers slice.
+queue-wait latencies, shed and reject counters).
+
+With ``--supervised`` the workload goes through the crash-safe
+``ReplicaSupervisor``: the engine drive loop runs in a spawned worker
+process (on the card by default, on the CPU with ``--device cpu``) that
+takes a drain checkpoint every 4 steps, and ``--kills`` hard-kills it
+mid-generation, evenly over the workload's tokens; each time a fresh
+worker restores the last good checkpoint and the streams resume.  The run
+ends by printing the supervised metrics snapshot (restarts, checkpoints,
+recovery seconds) and each failover's times.  The fixed-batch decode
+modes (the JAX launcher's default) come with the launchers slice.
 
 Before it allocates, the launcher reckons the weights' bytes from the
 config and raises, naming the device's memory, when they do not fit: the
@@ -193,6 +203,79 @@ def _main_service(cfg, args):
     print(json.dumps(snap, indent=2))
 
 
+def _main_supervised(cfg, args):
+    import asyncio
+    import json
+    import tempfile
+
+    from repro_torch.serve.supervisor import (EngineSpec, ReplicaSupervisor,
+                                              SupervisorConfig)
+    need = check_fit(cfg, args.device)
+    print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{need / 1e9:.2f} GB of weights, served by a spawned worker")
+    spec = EngineSpec(model_cfg=cfg, engine_cfg=_engine_cfg(args), seed=0)
+    prompts = _workload(cfg, args)
+    ckpt_dir = tempfile.mkdtemp(prefix="serve-supervised-")
+    sup_cfg = SupervisorConfig(
+        checkpoint_path=os.path.join(ckpt_dir, "replica.ckpt"),
+        checkpoint_every_steps=4, max_respawns=args.kills + 2)
+    total = args.tokens * len(prompts)
+    thresholds = [total * (i + 1) // (args.kills + 1)
+                  for i in range(max(0, args.kills))]
+
+    async def drive():
+        async with ReplicaSupervisor(spec, sup_cfg) as sup:
+            streams = [await sup.submit(p, max_tokens=args.tokens)
+                       for p in prompts]
+            delivered = {s.request_id: 0 for s in streams}
+            comps = {}
+
+            async def consume(s):
+                async for _ in s:
+                    delivered[s.request_id] += 1
+                comps[s.request_id] = s.completion
+
+            tasks = [asyncio.create_task(consume(s)) for s in streams]
+
+            async def killer():
+                for i, threshold in enumerate(thresholds):
+                    while sum(delivered.values()) < threshold:
+                        await asyncio.sleep(0.01)
+                    print(f"  SIGKILL worker #{i + 1} "
+                          f"({sum(delivered.values())} tokens delivered)")
+                    await sup.kill_replica()
+                    while sup.n_spawns < i + 2:
+                        await asyncio.sleep(0.05)
+
+            await asyncio.gather(killer(), *tasks)
+            return ([comps[s.request_id] for s in streams],
+                    sup.metrics.snapshot(), sup.n_failovers, sup.failovers)
+
+    comps, snap, n_failovers, failovers = asyncio.run(drive())
+    for c in [c for c in comps if c is not None][:4]:
+        print(f"  {c.request_id}: prompt[{len(c.prompt)}] -> "
+              f"{c.tokens[:12]} ({c.finish_reason})")
+    for i, rec in enumerate(failovers):
+        inc, t0 = rec.get("incarnation", {}), rec["t_detect"]
+        line = (f"  failover #{i + 1} ({rec['reason']}): reaped after "
+                f"{rec['t_exit'] - t0:.2f}s")
+        if inc:
+            line += (f", next worker ready {inc['t_ready'] - t0:.2f}s after "
+                     f"detection (build {inc['build_s']:.2f}s)")
+        if "t_first_token" in rec:
+            line += (f", first resumed token at "
+                     f"{rec['t_first_token'] - t0:.2f}s")
+        print(line)
+    fo = snap["failover"]
+    rec = fo["recovery_s"]["mean"]
+    print(f"supervised replica: {snap['completed']} completed / "
+          f"{snap['tokens']} tokens across {n_failovers} failovers "
+          f"({fo['checkpoints']} checkpoints"
+          + (f", mean recovery {rec:.2f}s" if rec is not None else "")
+          + ") — streams resumed with zero duplicated/dropped tokens")
+    print(json.dumps(snap, indent=2))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", "--config", dest="arch", required=True,
@@ -206,6 +289,14 @@ def main(argv=None):
                          "front-end (concurrent streaming clients, "
                          "SLO-aware admission) and print its metrics "
                          "snapshot")
+    ap.add_argument("--supervised", action="store_true",
+                    help="serve through the crash-safe ReplicaSupervisor: "
+                         "the engine drive loop runs in a spawned worker "
+                         "process taking periodic drain checkpoints, and "
+                         "--kills hard-kills it mid-generation to "
+                         "demonstrate failover with no token lost")
+    ap.add_argument("--kills", type=int, default=1,
+                    help="worker kills to inject under --supervised")
     ap.add_argument("--admission", default="fifo",
                     choices=["fifo", "deadline", "fair_share"],
                     help="admission policy for --service")
@@ -238,9 +329,9 @@ def main(argv=None):
     ap.add_argument("--device", default=None, choices=["cuda", "cpu"],
                     help="default: cuda (raises without a GPU)")
     args = ap.parse_args(argv)
-    if not (args.engine or args.service):
-        ap.error("choose --engine or --service (the fixed-batch decode "
-                 "modes and --supervised are not ported yet)")
+    if not (args.engine or args.service or args.supervised):
+        ap.error("choose --engine, --service or --supervised (the "
+                 "fixed-batch decode modes are not ported yet)")
     if args.speculation == "draft_model" and not args.smoke:
         ap.error("--speculation draft_model self-drafts with the reduced "
                  "config, whose vocab only the reduced target shares: add "
@@ -248,7 +339,9 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = reduced(cfg)
-    if args.service:
+    if args.supervised:
+        _main_supervised(cfg, args)
+    elif args.service:
         _main_service(cfg, args)
     else:
         _main_engine(cfg, args)

@@ -66,6 +66,11 @@ def _case(rng, *, B, T, stride, kvh, hd, Hq, qrows, L, mode="random"):
     (3, 4, 4, 4, 8, 8, 8, 2),            # reduced hd 8, two grid rows
     (2, 4, 8, 1, 32, 8, 3, 2),           # group 8, hd 32
     (2, 8, 8, 4, 16, 4, 5, 1),           # group 1, hd 16
+    (8, 32, 16, 8, 160, 32, 1, 1),       # stablelm-12b decode, hd 160
+    (2, 32, 16, 8, 160, 32, 64, 1),      # stablelm-12b chunk, hd 160
+    (1, 32, 16, 8, 160, 32, 1, 1, "full"),  # hd 160 split decode
+    (8, 32, 16, 4, 128, 28, 1, 1),       # qwen2-7b decode, group 7
+    (2, 32, 16, 4, 128, 28, 256, 1),     # qwen2-7b chunk: 7 warps
     # the bf16 kernel's split over the table and its causal skip:
     (1, 64, 16, 2, 64, 14, 1, 1, "full"),     # 64 splits, every one busy
     (2, 32, 16, 2, 64, 14, 1, 2, "masked"),   # grid row 0 all masked
@@ -1258,3 +1263,37 @@ def test_service_on_the_card_captures_on_its_engine_thread():
                for e in eng.queue._compiled.values())
     assert eng.pool.n_free == eng.pool.n_blocks
 
+
+
+@pytest.mark.gpu
+def test_step_capture_survives_dead_engines_in_cycles():
+    """Step graphs are captured while dead engines (their graphs, pinned
+    operands and logits buffers, all once used) wait in reference cycles
+    and the collector's threshold asks for a collection at nearly every
+    allocation: every capture completes, the collector is on again after
+    each build, and the tokens are those of an engine built before."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import gc
+    from repro_torch.serve.engine import SamplingParams, generate
+    sp = SamplingParams(max_tokens=6)
+    ref = _card_engine("qwen2-0.5b")
+    prompts = _card_prompts(ref.cfg.vocab_size, 4, 5)
+    want = [c.tokens for c in generate(ref, prompts, sp)]
+    threshold = gc.get_threshold()
+    try:
+        for _ in range(3):
+            dead = _card_engine("qwen2-0.5b")
+            dead.params = ref.params
+            generate(dead, prompts, sp)
+            dead.cycle = dead                # only a collection frees it
+            del dead
+        gc.set_threshold(1, 1, 1)
+        eng = _card_engine("qwen2-0.5b")
+        eng.params = ref.params
+        got = [c.tokens for c in generate(eng, prompts, sp)]
+        assert gc.isenabled()
+    finally:
+        gc.set_threshold(*threshold)
+        gc.collect()
+    assert got == want

@@ -17,6 +17,7 @@ import torch
 import repro_torch
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, reduced
+from repro_torch.models.params import config_param_bytes
 from repro_torch.serve.engine import (EngineConfig, SamplingParams,
                                       ServingEngine, generate)
 
@@ -99,9 +100,27 @@ def test_cpu_only_when_asked():
 
 
 def test_later_slices_raise_not_implemented():
-    for name in ("whisper-base", "pixtral-12b", "stablelm-12b", "qwen2-7b"):
+    for name in ("whisper-base", "pixtral-12b"):
         with pytest.raises(NotImplementedError, match="slice"):
             get_config(name)
+
+
+@pytest.mark.parametrize("name,widths,gb", [
+    ("qwen2-7b", (28, 3584, 28, 4, 128, 18944, 152064), 15.2),
+    ("stablelm-12b", (40, 5120, 32, 8, 160, 13824, 100352), 24.3)])
+def test_dense_configs_resolve_at_full_width(name, widths, gb):
+    """The two dense configs that left LATER: their published widths, bf16
+    weights that fit one 80 GB card, and their reduced siblings serve."""
+    cfg = get_config(name)
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.hd(), cfg.d_ff, cfg.vocab_size) == widths
+    assert cfg.family == "dense" and cfg.param_dtype == torch.bfloat16
+    assert round(config_param_bytes(cfg) / 1e9, 1) == gb
+    eng = ServingEngine(reduced(cfg), engine_cfg=EngineConfig(
+        s_max=32, buckets=(1, 2), block_pos_stride=4, device="cpu"))
+    outs = generate(eng, [[1, 2, 3], list(range(4, 15))],
+                    SamplingParams(max_tokens=3))
+    assert [len(c.tokens) for c in outs] == [3, 3]
 
 
 @pytest.mark.parametrize("name", ["jamba-1.5-large-398b", "kimi-k2-1t-a32b",
