@@ -198,7 +198,34 @@ kernels:
   offsets[0]); then each variant timed at every stage against the plain
   version, one torch._grouped_mm call where the card's PyTorch has it,
   and the bound, and the fused w1 against the unfused kernel and the
-  torch lines it replaces.
+  torch lines it replaces;
+* gmm_grad_vs_plain and gmm_grad_timing — the grouped GEMM's backward
+  (dgrad dy w[e]^T and wgrad x[rows]^T dy[rows], bf16 mma and fp32 simt,
+  and the swiglu op's backward through its autograd function) against
+  their plain versions at qwen3-moe's two products, at batch-8 decode rows
+  (64) and a training step's (65536 = batch 8 x len 1024 x top-8),
+  uniform and on skewed routing with 16 empty experts and rows past
+  offsets[E], bf16 and fp32; then each timed against the plain version,
+  one torch._grouped_mm call (else the per-expert torch.matmul loop) and
+  the bound;
+* train — qwen2-0.5b and mamba2-780m at full width and depth, and
+  qwen3-moe-235b-a22b at full width with 2 of its 94 layers and 8-bit
+  moments, through the functions launch/train.py calls: 6 AdamW steps on
+  one batch of 8 x 1024 tokens at the config's vocab, peak lr 1e-4.
+  Gates: finite losses and norms, the last loss below the first, every
+  parameter on the card, and for qwen3-moe the grouped GEMM's forward
+  (twice: the recomputed layer), the swiglu backward's recomputed
+  product, dgrad and wgrad launched as its layers and steps imply, the
+  plain versions never.  Then two probes at lr 3e-4, reported: qwen3-moe
+  with 8-bit moments (2 layers) and with fp32 moments (1 layer, what
+  fits), which show the reference's 8-bit moments (TRAIN_LR's comment).
+  Printed: step wall ms, tokens/s, peak memory, the losses, beside the
+  card's name and power limit;
+* train_resume — ``python -m repro_torch.launch.train --arch qwen2-0.5b
+  --full --layers 4 --steps 6 --ckpt-every 3`` (deterministic algorithms
+  on) run straight, then stopped by a fault drill at step 4 past its retry
+  budget and started again from the step-2 checkpoint: the resumed steps
+  give the straight run's losses bit for bit.
 
 It imports nothing of JAX and nothing of the ``repro`` package.  Without a
 card, or outside a checkout that holds ``src/repro_torch``, it exits
@@ -210,6 +237,8 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -1575,6 +1604,443 @@ def phase_gmm_timing():
             del w
             torch.cuda.empty_cache()
     return rows
+
+
+# ---------------------------------------------------------------------------
+# The grouped GEMM's backward and training.
+# ---------------------------------------------------------------------------
+
+# the backward replaces the transpose JAX's autodiff makes of the two
+# ragged_dot calls (no Pallas kernel)
+GMM_GRAD_REPLACES = "src/repro/models/moe.py:116,120"
+# rows of the backward products: batch-8 decode (64) and a training step
+# of batch 8 x len 1024 at top-8 (65536), uniform and skewed
+GMM_GRAD_M = {"decode": 64, "train": 65536}
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 1024, 8, 6
+# the peak learning rate (warmup 10 steps, as the launcher): a pretraining
+# rate for models of these sizes.  At 3e-4 the 8-bit moments of the
+# reference's AdamW (block-quantized linearly, as the port reproduces
+# them) threw qwen3-moe's loss back above its start by the sixth step:
+# an expert that loses its tokens gets a zero gradient, its second moment
+# quantized to zero, and an update of m / eps.  The probe runs show it.
+TRAIN_LR = 1e-4
+# (arch, layers or None for the full depth, moment bits, peak lr, gated):
+# gated runs must lower the loss; the probes, at 3x the rate, report the
+# reference's 8-bit moments beside fp32 ones (1 layer: what fits)
+TRAIN_RUNS = (("qwen2-0.5b", None, 32, TRAIN_LR, True),
+              ("mamba2-780m", None, 32, TRAIN_LR, True),
+              ("qwen3-moe-235b-a22b", 2, 8, TRAIN_LR, True),
+              ("qwen3-moe-235b-a22b", 2, 8, 3 * TRAIN_LR, False),
+              ("qwen3-moe-235b-a22b", 1, 32, 3 * TRAIN_LR, False))
+
+
+def skewed_offsets(rng, T, E, k, n_empty=16, tail=0):
+    """Offsets of T tokens routed top-k over experts of Zipf-like
+    popularity (weight 1 / rank^1.2), ``n_empty`` experts never chosen,
+    and ``tail`` rows past offsets[E]."""
+    w = 1.0 / np.arange(1, E + 1) ** 1.2
+    w[rng.choice(E, n_empty, replace=False)] = 0.0
+    picks = np.stack([rng.choice(E, k, replace=False, p=w / w.sum())
+                      for _ in range(T)])
+    counts = np.bincount(picks.ravel(), minlength=E)
+    off = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    return off, off[-1] + tail
+
+
+def grad_fns():
+    """name -> (kernel wrapper, plain version) of the backward products."""
+    from repro_torch.kernels.grouped_mm import (grouped_mm_dgrad_ref,
+                                                grouped_mm_wgrad_ref)
+    from repro_torch.kernels.grouped_mm.kernel import (
+        grouped_mm_dgrad_cuda, grouped_mm_wgrad_cuda)
+    return {"grouped_mm_dgrad": (grouped_mm_dgrad_cuda,
+                                 grouped_mm_dgrad_ref),
+            "grouped_mm_wgrad": (grouped_mm_wgrad_cuda,
+                                 grouped_mm_wgrad_ref)}
+
+
+def grad_cases(rng):
+    """(label, x, w, dy, offsets) at qwen3-moe's two products: decode and
+    training rows routed uniformly top-8 in bf16, training rows on skewed
+    routing with 16 empty experts and 64 rows past offsets[E] in bf16, and
+    decode in fp32."""
+    E, k = QWEN3_MOE_EXPERTS["E"], QWEN3_MOE_EXPERTS["k"]
+    for dtype, stages in ((torch.bfloat16, ("decode", "train", "skewed")),
+                          (torch.float32, ("decode", "skewed"))):
+        for prod, (K, N) in GMM_PRODUCTS.items():
+            w = gmm_weights(E, K, N, dtype, seed=21)
+            for stage in stages:
+                if stage == "skewed":
+                    T = (GMM_GRAD_M["train"] if dtype == torch.bfloat16
+                         else 4096) // k
+                    offsets, M = skewed_offsets(rng, T, E, k, tail=64)
+                    M = int(M)
+                else:
+                    M = GMM_GRAD_M[stage]
+                    offsets = routed_offsets(rng, M // k, E, k)
+                # drawn on the card: 65536-row operands from a host
+                # generator would take seconds each
+                gen = torch.Generator("cuda").manual_seed(M + K)
+                x = torch.randn((M, K), generator=gen, device="cuda"
+                                ).to(dtype)
+                dy = torch.randn((M, N), generator=gen, device="cuda"
+                                 ).to(dtype)
+                yield f"{prod} {stage}", x, w, dy, offsets
+                del x, dy
+            del w
+            torch.cuda.empty_cache()
+
+
+def swiglu_backward(x, w, off, dy, plain):
+    """The backward of ``grouped_mm_swiglu`` (dx, dw) for cotangent dy (M,
+    N / 2): through the op's autograd function on the card, or its plain
+    version (the product recomputed by the plain grouped GEMM, the same
+    glue, the plain dgrad and wgrad)."""
+    from repro_torch.kernels.grouped_mm import (grouped_mm_dgrad_ref,
+                                                grouped_mm_ref,
+                                                grouped_mm_swiglu,
+                                                grouped_mm_wgrad_ref,
+                                                swiglu_grad)
+    if plain:
+        dh = swiglu_grad(grouped_mm_ref(x, w, off), dy)
+        return grouped_mm_dgrad_ref(dh, w, off), \
+            grouped_mm_wgrad_ref(x, dh, off)
+    xs = x.detach().requires_grad_(True)
+    ws = w.detach().requires_grad_(True)
+    return torch.autograd.grad(grouped_mm_swiglu(xs, ws, off), (xs, ws), dy)
+
+
+def sliced_err(want, got):
+    """(rel, abs) error of ``got`` against ``want`` over their largest
+    element, in fp64 one leading slice at a time (a full-width fp32 dw
+    would need 12.8 GB a copy in fp64)."""
+    diff = scale = 0.0
+    for a, b in zip(want, got):
+        a, b = a.double(), b.double()
+        diff = max(diff, float((a - b).abs().max()))
+        scale = max(scale, float(a.abs().max()))
+    return diff / max(scale, 1e-30), diff
+
+
+def phase_gmm_grad_vs_plain():
+    """dgrad and wgrad and the swiglu backward against their plain
+    versions at qwen3-moe's shapes (``grad_cases``), each within GMM_TOL
+    of its largest element (both sum products in fp32 and round once);
+    rows of no expert and experts with no rows exactly zero.  Returns
+    {name: (rel, abs)}, worst of each."""
+    rng = np.random.default_rng(31)
+    worst = {}
+    fns = grad_fns()
+    for label, x, w, dy, offsets in grad_cases(rng):
+        off = torch.from_numpy(offsets).cuda()
+        dtype = x.dtype
+        hy = dy[:, :w.shape[2] // 2].contiguous()
+        lo, hi = int(offsets[0]), int(offsets[-1])
+        empty = torch.from_numpy(np.diff(offsets) == 0).cuda()
+        runs = {
+            "grouped_mm_dgrad": lambda kern: (
+                fns["grouped_mm_dgrad"][0 if kern else 1](dy, w, off),),
+            "grouped_mm_wgrad": lambda kern: (
+                fns["grouped_mm_wgrad"][0 if kern else 1](x, dy, off),),
+            "grouped_mm_swiglu backward": lambda kern: swiglu_backward(
+                x, w, off, hy, plain=not kern)}
+        for name, run in runs.items():
+            got = run(True)
+            want = run(False)
+            torch.cuda.synchronize()
+            for i, (a, b) in enumerate(zip(want, got)):
+                check(bool(torch.isfinite(b).all()),
+                      f"{name} {label}: non-finite")
+                if b.shape[0] == x.shape[0]:      # dx: rows of no expert
+                    check(not b[:lo].any() and not b[hi:].any(),
+                          f"{name} {label}: a row of no expert not zero")
+                else:                             # dw: experts with no rows
+                    check(not b[empty].any(),
+                          f"{name} {label}: an empty expert's dw not zero")
+                err, abs_err = sliced_err(a, b)
+                emit("gmm_grad_vs_plain", case=label, fn=name,
+                     output=("dx", "dw")[i] if len(got) > 1 else None,
+                     M=x.shape[0], K=w.shape[1], N=w.shape[2],
+                     rows=hi - lo, empty_experts=int(empty.sum()),
+                     dtype=dname(dtype), max_rel_err=err,
+                     max_abs_err=abs_err, tol=GMM_TOL[dtype])
+                check(err <= GMM_TOL[dtype],
+                      f"{name} disagrees: {label} {dname(dtype)} rel {err}")
+                w0 = worst.get(name, (0.0, 0.0))
+                worst[name] = (max(w0[0], err), max(w0[1], abs_err))
+            del got, want
+            torch.cuda.empty_cache()
+    return worst
+
+
+def grad_bound(kind, offsets, K, N, dtype):
+    """Least time of one backward product on these offsets: dgrad reads
+    the active experts' weights, dy's routed rows and writes dx; wgrad
+    reads x's and dy's routed rows and writes every expert's dw (E x K x
+    N, zeros included); 2 * rows * K * N operations each."""
+    esz = torch.tensor([], dtype=dtype).element_size()
+    rows = int(offsets[-1] - offsets[0])
+    E = len(offsets) - 1
+    active = int((np.diff(offsets) > 0).sum())
+    elems = (active * K * N + rows * (K + N)) if kind == "dgrad" \
+        else (rows * (K + N) + E * K * N)
+    tb = elems * esz / HBM_BYTES_S * 1e3
+    to = 2 * rows * K * N / PEAK_FLOPS[dname(dtype)] * 1e3
+    return max(tb, to), "bytes" if tb >= to else "operations"
+
+
+def library_grad(kind, x, w, dy, offsets):
+    """One PyTorch call computing the same product, timed as the
+    yardstick and never used by the port: ``torch._grouped_mm`` (dgrad:
+    dy by w transposed; wgrad: x^T by dy with the groups along the
+    contracted rows, which it takes only when every group's rows are a
+    multiple of 8), else the per-expert ``torch.matmul`` loop.  Returns
+    (callable, what it is)."""
+    fn = getattr(torch, "_grouped_mm", None)
+    ends = offsets[1:].contiguous()
+    tries = []
+    if fn is not None and x.dtype == torch.bfloat16:
+        if kind == "dgrad":
+            tries = [("torch._grouped_mm, w^T as a view",
+                      lambda: fn(dy, w.transpose(-2, -1), offs=ends))]
+        elif not (np.diff(offsets.tolist()) % 8).any():
+            # its groups along the contracted rows must each be a multiple
+            # of 16 bytes (a device-side assert otherwise)
+            xt = x.t().contiguous()
+            tries = [("torch._grouped_mm, x^T contiguous",
+                      lambda: fn(xt, dy, offs=ends))]
+    for label, call in tries:
+        try:
+            call()
+            torch.cuda.synchronize()
+            return call, label
+        except Exception:               # noqa: BLE001  a yardstick only
+            pass
+    off = offsets.tolist()
+    if kind == "dgrad":
+        def loop():
+            out = torch.zeros((dy.shape[0], w.shape[1]), dtype=dy.dtype,
+                              device=dy.device)
+            for e in range(w.shape[0]):
+                if off[e + 1] > off[e]:
+                    out[off[e]:off[e + 1]] = dy[off[e]:off[e + 1]] @ w[e].T
+            return out
+    else:
+        def loop():
+            out = torch.zeros(w.shape, dtype=x.dtype, device=x.device)
+            for e in range(w.shape[0]):
+                if off[e + 1] > off[e]:
+                    out[e] = x[off[e]:off[e + 1]].T @ dy[off[e]:off[e + 1]]
+            return out
+    return loop, "per-expert torch.matmul loop"
+
+
+def phase_gmm_grad_timing():
+    """Device ms (profiler mean) and events ms of dgrad, wgrad and the
+    swiglu backward at ``grad_cases``' shapes, beside the plain version,
+    one library call (``library_grad``) and the bound."""
+    from repro_torch.kernels.grouped_mm.kernel import grad_route
+    rng = np.random.default_rng(32)
+    fns = grad_fns()
+    rows = []
+    for label, x, w, dy, offsets in grad_cases(rng):
+        off = torch.from_numpy(offsets).cuda()
+        dtype = x.dtype
+        K, N = w.shape[1], w.shape[2]
+        variant = grad_route(dtype, K, N)
+        for kind in ("dgrad", "wgrad"):
+            name = f"grouped_mm_{kind}"
+            kern, ref = fns[name]
+            args = (dy, w, off) if kind == "dgrad" else (x, dy, off)
+            lib, lib_what = library_grad(kind, x, w, dy, off)
+            t = dict(shape=label, fn=name, variant=variant, M=x.shape[0],
+                     K=K, N=N, E=w.shape[0], dtype=dname(dtype),
+                     rows=int(offsets[-1] - offsets[0]),
+                     active_experts=int((np.diff(offsets) > 0).sum()),
+                     ms=cuda_ms(lambda i: kern(*args), 5),
+                     # one kernel a call: the call's busy time is the
+                     # kernel's device time
+                     device_ms=busy_ms(lambda i: kern(*args), 3),
+                     plain_ms=cuda_ms(lambda i: ref(*args), 2),
+                     library_ms=cuda_ms(lambda i: lib(), 3),
+                     library=lib_what)
+            t["bound_ms"], t["bound_by"] = grad_bound(kind, offsets, K, N,
+                                                      dtype)
+            emit("gmm_grad_timing", **t)
+            rows.append(t)
+        hy = dy[:, :N // 2].contiguous()
+        t = dict(shape=label, fn="grouped_mm_swiglu backward", M=x.shape[0],
+                 K=K, N=N, dtype=dname(dtype),
+                 ms=cuda_ms(lambda i: swiglu_backward(x, w, off, hy, False),
+                            3),
+                 busy_ms=busy_ms(lambda i: swiglu_backward(x, w, off, hy,
+                                                           False), 2),
+                 plain_ms=cuda_ms(lambda i: swiglu_backward(x, w, off, hy,
+                                                            True), 2))
+        emit("gmm_grad_timing", **t)
+        rows.append(t)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def train_counters():
+    """name -> (kernel wrapper, plain version) of every grouped-GEMM
+    kernel the MoE training step launches."""
+    c = {k: v for k, v in kernel_counters().items()
+         if k.startswith("grouped_mm")}
+    c.update(grad_fns())
+    return c
+
+
+def phase_train(smi):
+    """Each TRAIN_RUNS model at full width through the functions
+    launch/train.py calls (``train_config``, ``check_fit``, ``setup``,
+    ``data_config``, ``device_batch``): TRAIN_STEPS AdamW steps on one
+    batch of TRAIN_BATCH x TRAIN_SEQ tokens at the config's vocab, the
+    layer groups recomputed in the backward.  Gates, every run: every
+    parameter on the card; for the MoE model the grouped GEMM's kernels
+    launched as the layers and steps imply (forward, its recompute and the
+    swiglu backward's recomputed product; dgrad and wgrad for both
+    products), the plain versions never.  Gated runs also: every loss and
+    grad norm finite, the last loss (after 5 updates) below the first.
+    Returns ({kernel: launches}, {kernel: {run: launches}}, rows)."""
+    from repro_torch.kernels.grouped_mm.kernel import reset_counts
+    from repro_torch.launch import train as launch
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.tree import leaves
+    counts, by_run, rows = {}, {}, []
+    for arch, layers, bits, lr, gated in TRAIN_RUNS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = launch.train_config(arch, full=True, layers=layers)
+        need = launch.check_fit(cfg, "cuda", bits)
+        opt_cfg = AdamWConfig(lr=lr, warmup_steps=10, decay_steps=100,
+                              state_bits=bits)
+        run = f"{arch} train{'' if gated else ' probe'} ({cfg.n_layers} " \
+              f"layers, {bits}-bit moments, lr {lr:g})"
+        t0 = time.perf_counter()
+        params, opt, step_fn = launch.setup(cfg, device="cuda",
+                                            opt_cfg=opt_cfg)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        check(all(t.is_cuda for t in leaves(params)),
+              f"{arch}: a parameter is not on the card")
+        dc = launch.data_config(cfg, TRAIN_SEQ, TRAIN_BATCH, full=True)
+        batch = launch.device_batch(dc, 0, "cuda")
+        torch.cuda.reset_peak_memory_stats()
+        counters = train_counters()
+        zero_counts()
+        reset_counts()
+        for kern, plain in counters.values():
+            plain.launches = 0
+        losses, norms, walls = [], [], []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            params, opt, m = step_fn(params, opt, batch)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        got = {k: kern.launches for k, (kern, _) in counters.items()}
+        plain = {k: p.launches for k, (_, p) in counters.items()}
+        by_variant = {k: dict(kern.by_variant)
+                      for k, (kern, _) in counters.items()}
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        steady = sorted(walls[1:])[len(walls[1:]) // 2]
+        row = dict(run=run, gated=gated, arch=arch, layers=cfg.n_layers,
+                   d_model=cfg.d_model, vocab=cfg.vocab_size,
+                   state_bits=bits, lr=lr,
+                   tokens_per_step=tokens, state_gb=round(need["total"] / 1e9,
+                                                          3),
+                   init_s=round(init_s, 3), step_wall_ms=walls,
+                   steady_step_ms=steady, tokens_per_s=tokens / steady * 1e3,
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   losses=losses, grad_norms=norms, launches=got,
+                   by_variant=by_variant, plain_launches=plain,
+                   nvidia_smi=smi)
+        emit("train", **row)
+        rows.append(row)
+        if gated:
+            check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+                  f"{run}: a non-finite loss or grad norm {losses} {norms}")
+            check(losses[-1] < losses[0],
+                  f"{run}: the loss after {TRAIN_STEPS - 1} updates on one "
+                  f"batch is not below the first: {losses}")
+        check(not any(plain.values()), f"{run}: a plain version ran {plain}")
+        n_moe = sum(f == "moe" for _, f in cfg.pattern()) * cfg.n_groups()
+        if n_moe:
+            per = n_moe * TRAIN_STEPS
+            want = {"grouped_mm_swiglu": 2 * per, "grouped_mm": 3 * per,
+                    "grouped_mm_dgrad": 2 * per, "grouped_mm_wgrad": 2 * per}
+            check(got == want, f"{run}: grouped GEMM launches {got}, the "
+                               f"layers and steps imply {want}")
+        for k, n in got.items():
+            counts[k] = counts.get(k, 0) + n
+            if n:
+                by_run.setdefault(k, {})[run] = n
+        del params, opt, step_fn, batch, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, by_run, rows
+
+
+def train_run(args, ckpt_dir, label):
+    """launch/train.py as a subprocess: (return code, {step: loss},
+    summary or None, wall seconds)."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", *args,
+           "--ckpt-dir", str(ckpt_dir)]
+    env = dict(os.environ, PYTHONPATH=str(SRC),
+               CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                         cwd=str(ROOT), timeout=600)
+    wall = time.perf_counter() - t0
+    losses, summary = {}, None
+    for line in res.stdout.splitlines():
+        if line.startswith("{"):
+            d = json.loads(line)
+            if "step" in d:
+                losses[d["step"]] = d["loss"]
+            if "done" in d:
+                summary = d
+    emit("train_resume_run", run=label, rc=res.returncode, losses=losses,
+         seconds=round(wall, 2), stderr_tail=res.stderr[-600:]
+         if res.returncode else "")
+    return res.returncode, losses, summary, wall
+
+
+def phase_train_resume():
+    """``python -m repro_torch.launch.train --arch qwen2-0.5b --full
+    --layers 4 --steps 6 --ckpt-every 3`` (deterministic algorithms on),
+    run straight; then run with its step 4 (0-based) failing past the
+    retry budget, which stops it after steps 0-3 with the checkpoint of
+    step 2; then started again, resuming from that checkpoint.  The
+    resumed steps 3-5 must give the straight run's losses bit for bit."""
+    base = ["--arch", "qwen2-0.5b", "--full", "--layers", "4", "--steps",
+            "6", "--ckpt-every", "3", "--log-every", "1", "--deterministic"]
+    root = ROOT / "build" / "smoke_train_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    rc, straight, _, _ = train_run(base, root / "straight", "straight")
+    check(rc == 0 and sorted(straight) == list(range(6)),
+          f"train_resume: the straight run failed ({rc}): {straight}")
+    rc, failed, _, _ = train_run(base + ["--fail-at-step", "4"],
+                                 root / "resumed", "failed at step 4")
+    check(rc != 0 and sorted(failed) == [0, 1, 2, 3],
+          f"train_resume: the drill did not stop after step 3 ({rc}): "
+          f"{failed}")
+    rc, resumed, summary, _ = train_run(base, root / "resumed", "resumed")
+    check(rc == 0 and summary and summary["start_step"] == 3
+          and sorted(resumed) == [3, 4, 5],
+          f"train_resume: the resumed run ({rc}) did not run steps 3-5 "
+          f"from the step-2 checkpoint: {summary}")
+    same = {s: resumed[s] == straight[s] for s in (3, 4, 5)}
+    emit("train_resume", straight=straight, failed=failed, resumed=resumed,
+         identical=same)
+    check(all(same.values()), f"train_resume: resumed losses {resumed} "
+                              f"differ from the straight run's {straight}")
+    check(all(failed[s] == straight[s] for s in failed),
+          "train_resume: the drill's steps 0-3 differ from the straight run")
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def checking_engine():
@@ -3489,6 +3955,10 @@ def main() -> int:
     flash_launches, flash_timing = phase_flash_timing()
     gmm_worst = phase_gmm_vs_plain()
     gmm_timing = phase_gmm_timing()
+    grad_worst = phase_gmm_grad_vs_plain()
+    grad_timing = phase_gmm_grad_timing()
+    train_counts, train_by_run, train_rows = phase_train(smi)
+    phase_train_resume()
     ref_launches = phase_reference()
     launches, by_path, weights = {}, {}, {}
     for arch in ("qwen2-0.5b", "mamba2-780m"):
@@ -3558,6 +4028,10 @@ def main() -> int:
             by_path.setdefault(k, {})[f"{arch} engine"] = n
     del eng
     torch.cuda.empty_cache()
+    for k, n in train_counts.items():
+        if n:
+            launches[k] = launches.get(k, 0) + n
+            by_path.setdefault(k, {}).update(train_by_run[k])
 
     decode = timing[0]
     kernels = [{
@@ -3700,6 +4174,43 @@ def main() -> int:
                 "bound_ms", "bound_by", "active_experts", "by_variant")}
                 for t in rows},
         })
+    # the backward products: launched on the MoE training path only; the
+    # headline is the training step's w1 product (bf16, uniform routing)
+    for kind in ("dgrad", "wgrad"):
+        name = f"grouped_mm_{kind}"
+        rows = [t for t in grad_timing if t["fn"] == name]
+        top = next(t for t in rows if t["shape"] == "w1 train")
+        kernels.append({
+            "name": name, "variant": top["variant"], "route": "cuda",
+            "source": GMM_SOURCE, "replaces": GMM_GRAD_REPLACES,
+            "replaces_note": "the transpose JAX's autodiff makes of "
+                             "lax.ragged_dot, an XLA op and not a Pallas "
+                             "kernel",
+            "launches": launches[name],
+            "launches_by_path": by_path[name],
+            "by_variant": {r["run"]: r["by_variant"][name]
+                           for r in train_rows if r["launches"][name]},
+            "plain_launches": {r["run"]: r["plain_launches"][name]
+                               for r in train_rows},
+            "max_abs_err": grad_worst[name][1],
+            "max_rel_err": grad_worst[name][0],
+            "swiglu_backward_max_rel_err":
+                grad_worst["grouped_mm_swiglu backward"][0],
+            "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "library_ms": top["library_ms"], "library": top["library"],
+            "device_ms": top["device_ms"],
+            "shape": (f"{top['shape']}: M={top['M']}, K={top['K']}, "
+                      f"N={top['N']}, E={top['E']}, {top['active_experts']} "
+                      f"experts active, {top['dtype']}"),
+            "per_shape": {f"{t['shape']} {t['dtype']}": {k: t[k] for k in (
+                "variant", "ms", "device_ms", "plain_ms", "library_ms",
+                "library", "bound_ms", "bound_by", "rows", "active_experts")}
+                for t in rows},
+        })
+    emit("train_summary", rows=[{k: r[k] for k in (
+        "run", "steady_step_ms", "tokens_per_s", "peak_gb", "losses",
+        "nvidia_smi")} for r in train_rows])
     emit("table1_summary", rows=[{k: r[k] for k in (
         "size", "hybrid_ms", "opencl_ms", "hybrid_wire_bytes",
         "opencl_wire_bytes", "bytes_ratio")} for r in table1_live])

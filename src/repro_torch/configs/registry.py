@@ -34,5 +34,6 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
                   capacity_factor=2.0)
     if cfg.d_inner:
         kw.update(d_inner=128, ssm_heads=8, ssm_headdim=16,
-                  ssm_state=16, ssm_groups=min(cfg.ssm_groups, 4))
+                  ssm_state=16, ssm_groups=min(cfg.ssm_groups, 4),
+                  ssd_chunk=32)
     return dataclasses.replace(cfg, **kw)

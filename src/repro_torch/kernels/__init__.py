@@ -8,11 +8,18 @@ registered here with :func:`counted`.  A step captured as a CUDA graph
 runs no Python when it is replayed, so the command queue reads the counts
 around the capture (:func:`launch_counts`) and adds what the captured call
 launched to every count at each replay (:func:`add_launches`): the counts
-keep meaning "times the kernel ran"."""
+keep meaning "times the kernel ran".
+
+A kernel with no backward refuses inputs that autograd would need a
+gradient for (:func:`forbid_grad`): on the card it would return a tensor
+with no history, and every gradient upstream of it would be silently
+missing."""
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
+
+import torch
 
 # (launches, by_variant) of each counted wrapper
 Counts = Dict[Callable, Tuple[int, Dict[str, int]]]
@@ -53,3 +60,18 @@ def add_launches(delta: Counts, sign: int = 1) -> None:
         fn.launches += sign * n
         for k, v in var.items():
             fn.by_variant[k] += sign * v
+
+
+def forbid_grad(name: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise ``RuntimeError`` naming ``name`` when grad mode is on and one
+    of ``tensors`` requires grad: the op's CUDA kernel is forward only.
+    Callers that need a gradient go through an op with a backward (the
+    grouped GEMM's autograd functions), or run the op under
+    ``torch.no_grad()``."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward, and an input requires "
+            f"grad; its output would carry no history and the gradients "
+            f"upstream would be silently missing (call it under "
+            f"torch.no_grad(), or use an op with a backward)")

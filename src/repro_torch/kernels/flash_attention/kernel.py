@@ -19,7 +19,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import counted
+from repro_torch.kernels import counted, forbid_grad
 from repro_torch.kernels.build import compile_library
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
@@ -52,6 +52,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     contiguous, one dtype (float32 or bfloat16; bf16 16-byte aligned), D in
     ``HEAD_DIMS``, Hkv dividing Hq, ``q_offset`` >= 0.  Returns
     (B, Hq, Sq, D) in q's dtype."""
+    forbid_grad("flash_attention_cuda", q, k, v)
     tensors = (q, k, v)
     if not all(t.is_cuda and t.device == q.device for t in tensors):
         raise ValueError("flash_attention_cuda: every operand must be on one "

@@ -621,6 +621,401 @@ int launch(int variant, const void* x, const void* w, const int* off,
   return (int)cudaErrorInvalidValue;
 }
 
+
+// ---------------------------------------------------------------------------
+// Backward: dgrad and wgrad (training, bf16 on mma.sync and fp32 simt).
+// ---------------------------------------------------------------------------
+//
+// The MoE block's training step differentiates both expert products, as
+// JAX's autodiff of ragged_dot does (src/repro/models/moe.py:116,120; the
+// JAX package has no kernel for them, XLA transposes the op):
+//   * dgrad: dx (M, K) = for each expert e, rows offsets[e] .. offsets[e+1]
+//     of dy (M, N) times w[e]^T, w[e] (K, N) read in place, transposed by
+//     the loads; rows of no expert are zero, as in the forward.
+//   * wgrad: dw (E, K, N) = for each expert e, x[rows]^T (K, rows) times
+//     dy[rows] (rows, N): a reduction over the expert's rows.  An expert
+//     with no rows gets exact zeros.
+// Both keep an fp32 accumulator rounded once to the operands' dtype.  One
+// block owns each output tile and walks its reduction in one fixed order:
+// no atomics and no split over blocks, so a replayed or resumed step gives
+// the same bits.
+//
+// What bounds them on an H100: each is 2 M K N operations (the forward's),
+// on the tensor cores at 989 TFLOP/s in bf16; the bytes are the forward's
+// too (the weights once, x or dy once per output tile column), so at a
+// training batch (M = 65536 rows over 128 experts at qwen3-moe's width)
+// the operations bound them.  This first design is simple: 4 warps of
+// mma.sync m16n8k16 on cp.async-staged tiles, a 3-stage ring, as the
+// forward's `mma` variant; a wgmma/TMA design is later work.
+//   * dgrad: one block per (128 output columns = rows of w[e], expert),
+//     64-row tiles of the expert's rows, depth tiles of 32 along N.  dy is
+//     the A operand as the forward's x; w[e]'s rows are staged as they lie
+//     ([k][n], n the depth) and fed as B by a plain ldmatrix, the way the
+//     attention tile reads K (../../csrc/mma_tile.cuh `scores`).
+//   * wgrad: one block per (128 columns of N, 64 rows of K, expert); the
+//     depth is the expert's rows, 32 at a time.  x's rows are staged as
+//     they lie ([m][k]) and fed as A through ldmatrix.trans; dy's rows are
+//     the B operand exactly as w is in the forward.
+
+constexpr int DG_BN = 128;                 // dgrad: output columns a block
+constexpr int DG_PITCH = BK + 8;           // bf16 per staged row of depth 32
+struct DgradStage {
+  bf16 a[BM * DG_PITCH];                   // dy: 64 rows x 32 depth
+  bf16 b[DG_BN * DG_PITCH];                // w[e]: 128 rows (k) x 32 depth
+};
+
+__device__ __forceinline__ void dgrad_load(DgradStage& st, const bf16* dy,
+                                           const bf16* we, int m0, int hi,
+                                           int n0, int c0, int K, int N) {
+  const int t = threadIdx.x;
+#pragma unroll
+  for (int i = 0; i < BM * BK / 8 / THREADS; ++i) {
+    const int c = t + i * THREADS;
+    const int r = c >> 2, nc = (c & 3) * 8;
+    const bool ok = m0 + r < hi && n0 + nc < N;
+    const bf16* src = ok ? dy + (long long)(m0 + r) * N + n0 + nc : dy;
+    tile::cp_async16(st.a + r * DG_PITCH + nc, src, ok ? 16 : 0);
+  }
+#pragma unroll
+  for (int i = 0; i < DG_BN * BK / 8 / THREADS; ++i) {
+    const int c = t + i * THREADS;
+    const int r = c >> 2, nc = (c & 3) * 8;
+    const bool ok = c0 + r < K && n0 + nc < N;
+    const bf16* src = ok ? we + (long long)(c0 + r) * N + n0 + nc : we;
+    tile::cp_async16(st.b + r * DG_PITCH + nc, src, ok ? 16 : 0);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS)
+    gmm_dgrad_mma_kernel(const bf16* __restrict__ dy,
+                         const bf16* __restrict__ w,
+                         const int* __restrict__ offsets,
+                         bf16* __restrict__ dx, int M, int K, int N, int E) {
+  const int c0 = blockIdx.x * DG_BN;
+  const int e = blockIdx.y;
+  if (e == E) {
+    zero_tail(dx, offsets, M, K, E, c0, DG_BN, threadIdx.x, blockDim.x);
+    return;
+  }
+  int lo, hi;
+  expert_rows(offsets, e, M, lo, hi);
+  if (lo >= hi) return;
+
+  __shared__ __align__(16) DgradStage stages[STAGES];
+  const bf16* we = w + (long long)e * K * N;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp >> 1, wn = warp & 1;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int nk = (N + BK - 1) / BK;
+  const int a_row = lane & 15, a_col = (lane >> 4) << 3;
+  // B as mma_tile.cuh's scores reads K: rows 0-7 | depth 0-7, rows 0-7 |
+  // depth 8-15, rows 8-15 | depth 0-7, rows 8-15 | depth 8-15
+  const int b_row = (lane & 7) + ((lane >> 4) << 3);
+  const int b_col = ((lane >> 3) & 1) << 3;
+
+  for (int m0 = lo; m0 < hi; m0 += BM) {
+    const bool live = m0 + wm * 32 < hi;
+    float acc[2][8][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+        acc[mi][nt][0] = acc[mi][nt][1] = acc[mi][nt][2] = acc[mi][nt][3] =
+            0.f;
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) {
+      if (s < nk) dgrad_load(stages[s], dy, we, m0, hi, s * BK, c0, K, N);
+      tile::cp_async_commit();
+    }
+    for (int kt = 0; kt < nk; ++kt) {
+      tile::cp_async_wait<STAGES - 2>();
+      __syncthreads();
+      const int pre = kt + STAGES - 1;
+      if (pre < nk)
+        dgrad_load(stages[pre % STAGES], dy, we, m0, hi, pre * BK, c0, K, N);
+      tile::cp_async_commit();
+      if (!live) continue;
+      const DgradStage& st = stages[kt % STAGES];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        uint32_t a[2][4];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+          tile::ldmatrix_x4(
+              a[mi], st.a + (wm * 32 + mi * 16 + a_row) * DG_PITCH +
+                         kk * 16 + a_col);
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          uint32_t b[4];
+          tile::ldmatrix_x4(b, st.b + (wn * 64 + np * 16 + b_row) * DG_PITCH +
+                                   kk * 16 + b_col);
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) {
+            tile::mma_bf16(acc[mi][2 * np], a[mi], b[0], b[1]);
+            tile::mma_bf16(acc[mi][2 * np + 1], a[mi], b[2], b[3]);
+          }
+        }
+      }
+    }
+    tile::cp_async_wait<0>();
+    __syncthreads();
+    if (!live) continue;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = m0 + wm * 32 + mi * 16 + gid + 8 * half;
+        if (row >= hi) continue;
+        bf16* orow = dx + (long long)row * K;
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          const int col = c0 + wn * 64 + nt * 8 + 2 * tig;
+          const float* g = acc[mi][nt] + 2 * half;
+          if (col < K)
+            *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+                __floats2bfloat162_rn(g[0], g[1]);
+        }
+      }
+    }
+  }
+}
+
+constexpr int WGR_BM = 64;                 // wgrad: rows of K a block
+constexpr int WGR_PITCH = WGR_BM + 8;      // bf16 per staged x row
+struct WgradStage {
+  bf16 a[BK * WGR_PITCH];                  // x: 32 rows (m) x 64 (k)
+  bf16 b[BK * B_PITCH];                    // dy: 32 rows (m) x 128 (n)
+};
+
+__device__ __forceinline__ void wgrad_load(WgradStage& st, const bf16* x,
+                                           const bf16* dy, int m0, int hi,
+                                           int k0, int n0, int K, int N) {
+  const int t = threadIdx.x;
+#pragma unroll
+  for (int i = 0; i < BK * WGR_BM / 8 / THREADS; ++i) {
+    const int c = t + i * THREADS;
+    const int r = c >> 3, kc = (c & 7) * 8;
+    const bool ok = m0 + r < hi && k0 + kc < K;
+    const bf16* src = ok ? x + (long long)(m0 + r) * K + k0 + kc : x;
+    tile::cp_async16(st.a + r * WGR_PITCH + kc, src, ok ? 16 : 0);
+  }
+#pragma unroll
+  for (int i = 0; i < BK * BN / 8 / THREADS; ++i) {
+    const int c = t + i * THREADS;
+    const int r = c >> 4, nc = (c & 15) * 8;
+    const bool ok = m0 + r < hi && n0 + nc < N;
+    const bf16* src = ok ? dy + (long long)(m0 + r) * N + n0 + nc : dy;
+    tile::cp_async16(st.b + r * B_PITCH + nc, src, ok ? 16 : 0);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS)
+    gmm_wgrad_mma_kernel(const bf16* __restrict__ x,
+                         const bf16* __restrict__ dy,
+                         const int* __restrict__ offsets,
+                         bf16* __restrict__ dw, int M, int K, int N, int E) {
+  const int n0 = blockIdx.x * BN, k0 = blockIdx.y * WGR_BM;
+  const int e = blockIdx.z;
+  int lo, hi;
+  expert_rows(offsets, e, M, lo, hi);
+
+  __shared__ __align__(16) WgradStage stages[STAGES];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp >> 1, wn = warp & 1;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int nk = hi > lo ? (hi - lo + BK - 1) / BK : 0;
+  // A = x^T through ldmatrix.trans: matrices (depth 0-7 | out 0-7), (depth
+  // 0-7 | out 8-15), (depth 8-15 | out 0-7), (depth 8-15 | out 8-15) are
+  // the fragment's a0..a3 once transposed
+  const int mi8 = lane >> 3;
+  const int a_red = (lane & 7) + ((mi8 >> 1) << 3), a_out = (mi8 & 1) << 3;
+  // B = dy as the forward reads w
+  const int b_key = (lane & 7) + (((lane >> 3) & 1) << 3);
+  const int b_col = (lane >> 4) << 3;
+
+  float acc[2][8][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+      acc[mi][nt][0] = acc[mi][nt][1] = acc[mi][nt][2] = acc[mi][nt][3] =
+          0.f;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) wgrad_load(stages[s], x, dy, lo + s * BK, hi, k0, n0, K, N);
+    tile::cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    tile::cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    const int pre = kt + STAGES - 1;
+    if (pre < nk)
+      wgrad_load(stages[pre % STAGES], x, dy, lo + pre * BK, hi, k0, n0, K,
+                 N);
+    tile::cp_async_commit();
+    const WgradStage& st = stages[kt % STAGES];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t a[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+        tile::ldmatrix_x4_trans(
+            a[mi], st.a + (kk * 16 + a_red) * WGR_PITCH + wm * 32 + mi * 16 +
+                       a_out);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t b[4];
+        tile::ldmatrix_x4_trans(
+            b, st.b + (kk * 16 + b_key) * B_PITCH + wn * 64 + np * 16 + b_col);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          tile::mma_bf16(acc[mi][2 * np], a[mi], b[0], b[1]);
+          tile::mma_bf16(acc[mi][2 * np + 1], a[mi], b[2], b[3]);
+        }
+      }
+    }
+  }
+  tile::cp_async_wait<0>();
+  bf16* dwe = dw + (long long)e * K * N;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = k0 + wm * 32 + mi * 16 + gid + 8 * half;
+      if (row >= K) continue;
+      bf16* orow = dwe + (long long)row * N;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int col = n0 + wn * 64 + nt * 8 + 2 * tig;
+        const float* g = acc[mi][nt] + 2 * half;
+        if (col < N)
+          *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+              __floats2bfloat162_rn(g[0], g[1]);
+      }
+    }
+  }
+}
+
+// fp32 on the CUDA cores: 64 x 64 output tiles, 4 x 4 a thread, depth 16
+// staged through registers; any K and N.
+__global__ void __launch_bounds__(FTHREADS)
+    gmm_dgrad_simt_kernel(const float* __restrict__ dy,
+                          const float* __restrict__ w,
+                          const int* __restrict__ offsets,
+                          float* __restrict__ dx, int M, int K, int N,
+                          int E) {
+  const int c0 = blockIdx.x * FN;
+  const int e = blockIdx.y;
+  if (e == E) {
+    zero_tail(dx, offsets, M, K, E, c0, FN, threadIdx.x, blockDim.x);
+    return;
+  }
+  int lo, hi;
+  expert_rows(offsets, e, M, lo, hi);
+  if (lo >= hi) return;
+  __shared__ __align__(16) float as[FK][FM];   // dy tile, transposed
+  __shared__ __align__(16) float bs[FK][FN];   // w[e] tile, transposed
+  const float* we = w + (long long)e * K * N;
+  const int t = threadIdx.x, ty = t >> 4, tx = t & 15;
+  for (int m0 = lo; m0 < hi; m0 += FM) {
+    float acc[4][4] = {};
+    for (int n0 = 0; n0 < N; n0 += FK) {
+#pragma unroll
+      for (int i = 0; i < FM * FK / FTHREADS; ++i) {
+        const int c = t + i * FTHREADS;
+        const int r = c / FK, k = c % FK;
+        as[k][r] = (m0 + r < hi && n0 + k < N)
+                       ? dy[(long long)(m0 + r) * N + n0 + k]
+                       : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < FK * FN / FTHREADS; ++i) {
+        const int c = t + i * FTHREADS;
+        const int r = c / FK, k = c % FK;     // r: output column (w's row)
+        bs[k][r] = (c0 + r < K && n0 + k < N)
+                       ? we[(long long)(c0 + r) * N + n0 + k]
+                       : 0.f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int k = 0; k < FK; ++k) {
+        const float4 a = *reinterpret_cast<const float4*>(&as[k][ty * 4]);
+        const float4 b = *reinterpret_cast<const float4*>(&bs[k][tx * 4]);
+        const float av[4] = {a.x, a.y, a.z, a.w};
+        const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = m0 + ty * 4 + i;
+      if (row >= hi) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = c0 + tx * 4 + j;
+        if (col < K) dx[(long long)row * K + col] = acc[i][j];
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(FTHREADS)
+    gmm_wgrad_simt_kernel(const float* __restrict__ x,
+                          const float* __restrict__ dy,
+                          const int* __restrict__ offsets,
+                          float* __restrict__ dw, int M, int K, int N,
+                          int E) {
+  const int n0 = blockIdx.x * FN, k0 = blockIdx.y * FM;
+  const int e = blockIdx.z;
+  int lo, hi;
+  expert_rows(offsets, e, M, lo, hi);
+  __shared__ __align__(16) float as[FK][FM];   // x rows: [m][k]
+  __shared__ __align__(16) float bs[FK][FN];   // dy rows: [m][n]
+  const int t = threadIdx.x, ty = t >> 4, tx = t & 15;
+  float acc[4][4] = {};
+  for (int m0 = lo; m0 < hi; m0 += FK) {
+#pragma unroll
+    for (int i = 0; i < FK * FM / FTHREADS; ++i) {
+      const int c = t + i * FTHREADS;
+      const int r = c / FM, k = c % FM;
+      as[r][k] = (m0 + r < hi && k0 + k < K)
+                     ? x[(long long)(m0 + r) * K + k0 + k]
+                     : 0.f;
+      bs[r][k] = (m0 + r < hi && n0 + k < N)
+                     ? dy[(long long)(m0 + r) * N + n0 + k]
+                     : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < FK; ++r) {
+      const float4 a = *reinterpret_cast<const float4*>(&as[r][ty * 4]);
+      const float4 b = *reinterpret_cast<const float4*>(&bs[r][tx * 4]);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+      const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+  float* dwe = dw + (long long)e * K * N;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = k0 + ty * 4 + i;
+    if (row >= K) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = n0 + tx * 4 + j;
+      if (col < N) dwe[(long long)row * N + col] = acc[i][j];
+    }
+  }
+}
+
 }  // namespace
 
 // x (M, K), w (E, K, N), offsets (E + 1,) int32 on the card, out (M, N), or
@@ -644,4 +1039,48 @@ extern "C" int grouped_mm_launch(const void* x, const void* w,
   const int* off = static_cast<const int*>(offsets);
   return swiglu ? launch<true>(variant, x, w, off, out, M, K, N, E, tma, s)
                 : launch<false>(variant, x, w, off, out, M, K, N, E, tma, s);
+}
+
+// The backward products.  kind 0, dgrad: a = dy (M, N), b = w (E, K, N),
+// out = dx (M, K).  kind 1, wgrad: a = x (M, K), b = dy (M, N), out = dw
+// (E, K, N).  variant: kSimt (fp32) or kMma (bf16, K and N multiples of 8,
+// 16-byte aligned operands).  Returns the launch's cudaGetLastError(), or
+// cudaErrorInvalidValue, without launching, for what the variant does not
+// take.
+extern "C" int grouped_mm_grad_launch(int kind, const void* a, const void* b,
+                                      const void* offsets, void* out, int M,
+                                      int K, int N, int E, int variant,
+                                      void* stream) {
+  if (M < 1 || K < 1 || N < 1 || E < 1 || E > 65534 || (kind != 0 && kind != 1))
+    return (int)cudaErrorInvalidValue;
+  if (variant == kMma && (K % 8 || N % 8)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* off = static_cast<const int*>(offsets);
+  if (variant == kSimt) {
+    if (kind == 0) {
+      dim3 grid((K + FN - 1) / FN, E + 1);
+      gmm_dgrad_simt_kernel<<<grid, FTHREADS, 0, s>>>(
+          static_cast<const float*>(a), static_cast<const float*>(b), off,
+          static_cast<float*>(out), M, K, N, E);
+    } else {
+      dim3 grid((N + FN - 1) / FN, (K + FM - 1) / FM, E);
+      gmm_wgrad_simt_kernel<<<grid, FTHREADS, 0, s>>>(
+          static_cast<const float*>(a), static_cast<const float*>(b), off,
+          static_cast<float*>(out), M, K, N, E);
+    }
+    return (int)cudaGetLastError();
+  }
+  if (variant != kMma) return (int)cudaErrorInvalidValue;
+  if (kind == 0) {
+    dim3 grid((K + DG_BN - 1) / DG_BN, E + 1);
+    gmm_dgrad_mma_kernel<<<grid, THREADS, 0, s>>>(
+        static_cast<const bf16*>(a), static_cast<const bf16*>(b), off,
+        static_cast<bf16*>(out), M, K, N, E);
+  } else {
+    dim3 grid((N + BN - 1) / BN, (K + WGR_BM - 1) / WGR_BM, E);
+    gmm_wgrad_mma_kernel<<<grid, THREADS, 0, s>>>(
+        static_cast<const bf16*>(a), static_cast<const bf16*>(b), off,
+        static_cast<bf16*>(out), M, K, N, E);
+  }
+  return (int)cudaGetLastError();
 }

@@ -7,7 +7,14 @@ The source is compiled at first use with ``nvcc`` for ``sm_90a``
 :func:`grouped_mm_cuda` is the wrapper of the kernel that replaces
 ``lax.ragged_dot`` in the MoE block (``src/repro/models/moe.py:116,120``);
 :func:`grouped_mm_swiglu_cuda` launches the same kernel with the silu x up
-epilogue fused into it (``moe.py:116-119``).  :func:`plan` picks the
+epilogue fused into it (``moe.py:116-119``).  Both are forward only and
+refuse inputs that require grad under grad mode
+(:func:`repro_torch.kernels.forbid_grad`); training reaches them through
+the autograd functions of :mod:`.ops`, whose backward launches
+:func:`grouped_mm_dgrad_cuda` (dx = dy w[e]^T per expert) and
+:func:`grouped_mm_wgrad_cuda` (dw[e] = x[rows]^T dy[rows]), each in a
+``mma`` variant (bf16, ``mma.sync``) and a ``simt`` one (fp32), picked by
+:func:`grad_route` from the dtype.  :func:`plan` picks the
 variant from dtype and shapes alone (it runs on the CPU with no card, and
 never reads the offsets):
 
@@ -37,7 +44,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import counted
+from repro_torch.kernels import counted, forbid_grad
 from repro_torch.kernels.build import compile_library
 from repro_torch.kernels.cannon_mm.kernel import tma_args
 
@@ -68,6 +75,8 @@ def build() -> ctypes.CDLL:
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.grouped_mm_launch.argtypes = [vp] * 4 + [i] * 6 + [vp, vp]
     lib.grouped_mm_launch.restype = i
+    lib.grouped_mm_grad_launch.argtypes = [i] + [vp] * 4 + [i] * 5 + [vp]
+    lib.grouped_mm_grad_launch.restype = i
     build_info.update(info)
     _lib = lib
     return lib
@@ -120,6 +129,7 @@ def _tma_array(args):
 def _launch(fn, x, w, offsets, swiglu, variant):
     tensors = (x, w, offsets)
     name = fn.__name__
+    forbid_grad(name, x, w)
     if not all(t.is_cuda and t.device == x.device for t in tensors):
         raise ValueError(f"{name}: every operand must be on one CUDA device")
     if offsets.dtype != torch.int32:
@@ -180,13 +190,113 @@ def grouped_mm_swiglu_cuda(x: torch.Tensor, w: torch.Tensor,
     return _launch(grouped_mm_swiglu_cuda, x, w, offsets, True, variant)
 
 
+# ---------------------------------------------------------------------------
+# The backward products.
+# ---------------------------------------------------------------------------
+
+# the CUDA kernel of each backward variant, per product (profiler names)
+GRAD_VARIANTS = {"dgrad": {"simt": "gmm_dgrad_simt_kernel",
+                           "mma": "gmm_dgrad_mma_kernel"},
+                 "wgrad": {"simt": "gmm_wgrad_simt_kernel",
+                           "mma": "gmm_wgrad_mma_kernel"}}
+_KIND = {"dgrad": 0, "wgrad": 1}
+
+
+def grad_route(dtype: torch.dtype, K: int, N: int) -> str:
+    """The backward variant for a product whose weights are (E, K, N):
+    ``simt`` for fp32, ``mma`` for bf16 (K and N multiples of 8); raises on
+    what neither takes."""
+    if dtype == torch.float32:
+        return "simt"
+    if dtype != torch.bfloat16:
+        raise TypeError(f"grouped_mm backward takes float32 or bfloat16, "
+                        f"got {dtype}")
+    if K % 8 or N % 8:
+        raise ValueError(f"bf16 grouped_mm backward needs K and N multiples "
+                         f"of 8, got K={K}, N={N}")
+    return "mma"
+
+
+def _grad_launch(fn, kind, a, b, offsets, out_shape, M, K, N, E, variant):
+    name = fn.__name__
+    tensors = (a, b, offsets)
+    if not all(t.is_cuda and t.device == a.device for t in tensors):
+        raise ValueError(f"{name}: every operand must be on one CUDA device")
+    if offsets.dtype != torch.int32 or offsets.ndim != 1 \
+            or offsets.numel() != E + 1:
+        raise ValueError(f"{name}: offsets must be int32 (E + 1,), got "
+                         f"{offsets.dtype} {tuple(offsets.shape)}")
+    if a.dtype != b.dtype:
+        raise TypeError(f"{name}: operands must share float32 or bfloat16, "
+                        f"got {a.dtype}/{b.dtype}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: operands must be contiguous")
+    if min(M, K, N, E) < 1 or E > MAX_EXPERTS:
+        raise ValueError(f"{name}: bad sizes M={M}, K={K}, N={N}, E={E}")
+    planned = grad_route(a.dtype, K, N)
+    variant = variant or planned
+    if variant != planned:
+        raise ValueError(f"{name}: variant {variant!r} does not take "
+                         f"{a.dtype}")
+    if variant == "mma" and (a.data_ptr() % 16 or b.data_ptr() % 16):
+        raise ValueError(f"{name}: bf16 operands must be 16-byte aligned")
+    lib = build()
+    out = torch.empty(out_shape, dtype=a.dtype, device=a.device)
+    with torch.cuda.device(a.device):
+        err = lib.grouped_mm_grad_launch(
+            _KIND[kind], a.data_ptr(), b.data_ptr(), offsets.data_ptr(),
+            out.data_ptr(), M, K, N, E, _CODE[variant],
+            torch.cuda.current_stream(a.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed ({variant}): CUDA "
+                           f"error {err}")
+    fn.launches += 1
+    fn.by_variant[variant] += 1
+    return out
+
+
+def grouped_mm_dgrad_cuda(dy: torch.Tensor, w: torch.Tensor,
+                          offsets: torch.Tensor, *,
+                          variant: Optional[str] = None) -> torch.Tensor:
+    """dgrad on the card: dy (M, N), w (E, K, N), offsets (E + 1,) int32,
+    contiguous, one device.  Returns dx (M, K) in dy's dtype: rows
+    ``offsets[e]:offsets[e + 1]`` of dy times ``w[e]^T``, rows of no expert
+    zero.  ``variant`` must be the one :func:`grad_route` names."""
+    if dy.ndim != 2 or w.ndim != 3 or dy.shape[1] != w.shape[2]:
+        raise ValueError(f"grouped_mm_dgrad_cuda: bad shapes: dy "
+                         f"{tuple(dy.shape)}, w {tuple(w.shape)}")
+    (M, N), (E, K, _) = dy.shape, w.shape
+    return _grad_launch(grouped_mm_dgrad_cuda, "dgrad", dy, w, offsets,
+                        (M, K), M, K, N, E, variant)
+
+
+def grouped_mm_wgrad_cuda(x: torch.Tensor, dy: torch.Tensor,
+                          offsets: torch.Tensor, *,
+                          variant: Optional[str] = None) -> torch.Tensor:
+    """wgrad on the card: x (M, K), dy (M, N), offsets (E + 1,) int32,
+    contiguous, one device.  Returns dw (E, K, N) in x's dtype: for each
+    expert ``x[rows]^T dy[rows]`` over its rows in one fixed order, exact
+    zeros for an expert with no rows."""
+    if x.ndim != 2 or dy.ndim != 2 or x.shape[0] != dy.shape[0]:
+        raise ValueError(f"grouped_mm_wgrad_cuda: bad shapes: x "
+                         f"{tuple(x.shape)}, dy {tuple(dy.shape)}")
+    (M, K), N, E = x.shape, dy.shape[1], offsets.numel() - 1
+    return _grad_launch(grouped_mm_wgrad_cuda, "wgrad", x, dy, offsets,
+                        (E, K, N), M, K, N, E, variant)
+
+
 def reset_counts() -> None:
-    """Set both wrappers' ``launches`` and ``by_variant`` counts to 0."""
+    """Set every wrapper's ``launches`` and ``by_variant`` counts to 0."""
     for fn in (grouped_mm_cuda, grouped_mm_swiglu_cuda):
         fn.launches = 0
         fn.by_variant = dict.fromkeys(VARIANTS, 0)
+    for fn, kind in ((grouped_mm_dgrad_cuda, "dgrad"),
+                     (grouped_mm_wgrad_cuda, "wgrad")):
+        fn.launches = 0
+        fn.by_variant = dict.fromkeys(GRAD_VARIANTS[kind], 0)
 
 
-counted(grouped_mm_cuda)
-counted(grouped_mm_swiglu_cuda)
+for _fn in (grouped_mm_cuda, grouped_mm_swiglu_cuda, grouped_mm_dgrad_cuda,
+            grouped_mm_wgrad_cuda):
+    counted(_fn)
 reset_counts()

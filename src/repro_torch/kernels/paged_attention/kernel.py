@@ -31,7 +31,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import counted
+from repro_torch.kernels import counted, forbid_grad
 from repro_torch.kernels.build import MAX_SMEM, compile_library
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"
@@ -158,6 +158,7 @@ def paged_attention_cuda(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
     dtype as q (float32 or bfloat16; bf16 arenas 16-byte aligned); table
     (B, T) int32 physical page ids (-1 = unallocated); q_pos (B, L) int32
     global query positions."""
+    forbid_grad("paged_attention_cuda", q, kc, vc)
     tensors = (q, kc, vc, table, q_pos)
     if not all(t.is_cuda and t.device == q.device for t in tensors):
         raise ValueError("paged_attention_cuda: every operand must be on one "

@@ -29,7 +29,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import counted
+from repro_torch.kernels import counted, forbid_grad
 from repro_torch.kernels.build import compile_library
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
@@ -202,6 +202,7 @@ def ssd_chunk_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     positions.  Returns
     ``(y_intra (B, nc, L, H, P) in x's dtype, states (B, nc, H, N, P) fp32,
     cumexp (B, nc, L, H) fp32)``."""
+    forbid_grad("ssd_chunk_cuda", x, dt, A, Bm, Cm)
     B, S, H, P, G, N, L = _check_scan("ssd_chunk_cuda", x, dt, A, Bm, Cm,
                                       chunk)
     pl, rows = _layout(x, Bm, Cm, L)
@@ -238,6 +239,7 @@ def ssd_apply_cuda(y_intra: torch.Tensor, Cm: torch.Tensor,
     same dtype; cumexp (B, nc, L, H) and states_in (B, nc, H, N, P) float32.
     Cm needs dense last two dims and evenly spaced positions; the others
     are contiguous.  Returns y (B, nc, L, H, P) in y_intra's dtype."""
+    forbid_grad("ssd_apply_cuda", y_intra, Cm, cumexp, states_in)
     _check_device("ssd_apply_cuda", (y_intra, Cm, cumexp, states_in),
                   (y_intra, cumexp, states_in))
     if y_intra.dtype not in DTYPES or Cm.dtype != y_intra.dtype:
@@ -296,6 +298,7 @@ def ssd_scan_fused_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     ``(C . init) * cumexp`` is added in fp32 and rounded again, and ``final
     = exp(cum_last) * init + state``, as the two passes and the state
     passing compute them."""
+    forbid_grad("ssd_scan_fused_cuda", x, dt, A, Bm, Cm, init)
     B, S, H, P, G, N, L = _check_scan("ssd_scan_fused_cuda", x, dt, A, Bm,
                                       Cm, chunk)
     _check_device("ssd_scan_fused_cuda", (x, init), (init,))

@@ -1,4 +1,13 @@
-"""Flash-decoding partials and their log-sum-exp merge.
+"""Attention on one device: the training layer, and the flash-decoding
+partials with their log-sum-exp merge.
+
+``chunked_attention`` and ``attention_block`` are the counterparts of
+``repro.models.attention``'s at q = r = 1: the K/V ``fcollect`` over grid
+rows is the identity, every head is local, and the fused QKV projection is
+three ``torch.matmul`` calls.  The attention is differentiable torch, as
+the JAX training path's is jnp (it reaches no Pallas kernel): a running
+``(m, l, acc)`` over ``block_kv`` key blocks, each block recomputed in the
+backward (``torch.utils.checkpoint``), so the S x S scores never live.
 
 ``attention_partial`` scores q against one run of keys with per-position
 labels and returns the unnormalised softmax partials ``(m, l, acc)``;
@@ -16,8 +25,96 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.models.layers import apply_rope, rms_norm_local, rope_tables
 
 NEG_INF = -1e30
+
+
+def _kv_block(q32, kc, vc, q_pos, kv_pos, causal, m_prev, l_prev, acc):
+    """Fold one key block into the running (m, l, acc)."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q32, kc)
+    if causal:
+        mask = q_pos[:, None] >= kv_pos[None, :]
+        s = torch.where(mask[None, None], s, torch.full_like(s, NEG_INF))
+    m_new = torch.maximum(m_prev, torch.amax(s, dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    alpha = torch.exp(m_prev - m_new)
+    l_new = l_prev * alpha + torch.sum(p, dim=-1)
+    acc = acc * alpha[..., None] + torch.einsum("bhqk,bhkd->bhqd", p, vc)
+    return m_new, l_new, acc
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      q_offset: int = 0, causal: bool = True,
+                      block_kv: int = 512) -> torch.Tensor:
+    """q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D) -> (B, Hq, Sq, D) in q's dtype.
+
+    Causal over global positions: query row i sits at ``q_offset + i``,
+    key j at j.  GQA repeats each kv head over its ``Hq / Hkv`` query
+    heads.  The key blocks are the largest divisor of Skv not above
+    ``block_kv``; each is folded into fp32 ``(m, l, acc)`` (q scaled by
+    D^-1/2) and recomputed
+    in the backward when grad is on.  ``l`` is clamped at 1e-30 before the
+    division, and masked scores are ``NEG_INF``."""
+    B, Hq, Sq, D = q.shape
+    Skv = k.shape[2]
+    group = Hq // k.shape[1]
+    bk = min(block_kv, Skv)
+    while Skv % bk:          # largest divisor of Skv not exceeding block_kv
+        bk -= 1
+    q32 = q.float() * D ** -0.5
+    q_pos = q_offset + torch.arange(Sq, device=q.device)
+    kr = torch.repeat_interleave(k, group, dim=1).float()
+    vr = torch.repeat_interleave(v, group, dim=1).float()
+    m = torch.full((B, Hq, Sq), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, Hq, Sq, D), dtype=torch.float32, device=q.device)
+    remat = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                         or v.requires_grad)
+    for i in range(Skv // bk):
+        sl = slice(i * bk, (i + 1) * bk)
+        kv_pos = torch.arange(i * bk, (i + 1) * bk, device=q.device)
+        args = (q32, kr[:, :, sl], vr[:, :, sl], q_pos, kv_pos, causal,
+                m, l, acc)
+        m, l, acc = (checkpoint(_kv_block, *args, use_reentrant=False)
+                     if remat else _kv_block(*args))
+    return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+
+
+def attention_block(p: dict, x: torch.Tensor, cfg, pos_offset: int = 0
+                    ) -> torch.Tensor:
+    """x (B, S, D) -> (B, S, D): the full-sequence layer (training).
+
+    ``cfg`` is an ``AttnStatic`` (head size, theta, qk_norm, qkv_bias,
+    causal, block_kv); the head counts are read off the weights, so the
+    stored geometry of weights carried over from a JAX grid (padded q
+    heads, replicated kv heads) runs as it was stored.  The projections
+    round to x's dtype before their biases are added, as the JAX block's
+    fused GEMM does."""
+    B, S, _ = x.shape
+    hd = cfg.head_dim
+    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(q.dtype)
+        k = k + p["bk"].to(k.dtype)
+        v = v + p["bv"].to(v.dtype)
+    q = q.reshape(B, S, -1, hd)
+    k = k.reshape(B, S, -1, hd)
+    v = v.reshape(B, S, -1, hd)
+    if cfg.qk_norm:
+        q = rms_norm_local(q, p["q_norm"])
+        k = rms_norm_local(k, p["k_norm"])
+    pos = pos_offset + torch.arange(S, device=x.device)
+    cos, sin = rope_tables(pos, hd, cfg.rope_theta)
+    q = apply_rope(q, cos[None], sin[None])
+    k = apply_rope(k, cos[None], sin[None])
+    out = chunked_attention(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), q_offset=pos_offset,
+                            causal=cfg.causal, block_kv=cfg.attn_block_kv)
+    return out.transpose(1, 2).reshape(B, S, -1) @ p["wo"]
 
 
 class AttnPartial(NamedTuple):

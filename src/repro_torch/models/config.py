@@ -2,9 +2,12 @@
 
 The dense-attention, MoE and SSM (Mamba2 / SSD) subset of
 ``repro.models.config``: the fields and the grid-derived helpers the serving
-path reads.  Encoder-decoder and vision fields arrive with the slices that
-serve those families.  There is no ``ssd_backend`` field: the device of
-the tensors picks the SSD scan's route, as it does for paged attention.
+and training paths read.  Encoder-decoder and vision fields arrive with the
+slices that serve those families.  There is no ``ssd_backend`` field: the
+device of the tensors picks the serving SSD scan's route, as it does for
+paged attention, and training runs the differentiable chunked scan of
+``models/ssm.py`` at ``ssd_chunk``, as the JAX training path runs its jnp
+backend.
 """
 
 from __future__ import annotations
@@ -57,6 +60,7 @@ class ModelConfig:
     ssm_state: int = 128
     ssm_groups: int = 1
     conv_kernel: int = 4
+    ssd_chunk: int = 128           # the full-sequence (training) scan's chunk
     # layer pattern; empty -> homogeneous ("attn", ffn_kind) x n_layers
     layer_pattern: LayerPattern = ()
     # numerics

@@ -1,12 +1,21 @@
-"""Mamba2 (SSD) serving steps on one device (a 1x1 SHMEM grid).
+"""Mamba2 (SSD) on one device (a 1x1 SHMEM grid): the serving steps and
+the full-sequence training block.
 
-The counterparts of ``repro.models.ssm``'s ``mamba_chunk_step`` and
-``mamba_decode_step`` at q = r = 1: the conv halo exchange and the
-cross-row state relay are the identity, every head and channel is local,
-``_slice_groups`` takes every group, and the fused in-projection is five
-``torch.matmul`` calls on the global ``[z | x | B | C | dt]`` weights.  The
-conv runs over the global channel order ``[x | B | C]``.  The full-sequence
-``mamba_block`` (training) comes with the training slice.
+The counterparts of ``repro.models.ssm``'s ``mamba_block``,
+``mamba_chunk_step`` and ``mamba_decode_step`` at q = r = 1: the conv halo
+exchange and the cross-row state relay are the identity (the state
+entering row 0 is zero, so the relay's correction term is zero), every
+head and channel is local, ``_slice_groups`` takes every group, and the
+fused in-projection is five ``torch.matmul`` calls on the global
+``[z | x | B | C | dt]`` weights.  The conv runs over the global channel
+order ``[x | B | C]``.
+
+The serving steps call the SSD scan op, the hand-written kernels on the
+card.  Training calls :func:`ssd_scan_differentiable`, the port of the JAX
+package's jnp backend (``repro.kernels.ssd_scan.ops``: ``_chunk_math_jnp``,
+``_state_passing``, ``_apply_math_jnp``), which is what the JAX training
+path runs (``ModelConfig.ssd_backend`` defaults to ``"jnp"``; the JAX
+package never differentiates its Pallas scan).
 """
 
 from __future__ import annotations
@@ -49,6 +58,87 @@ def _gated_out(p: Dict, y: torch.Tensor, xh: torch.Tensor, z: torch.Tensor,
     y = y.float() + p["D"].float()[:, None] * xh.float()
     y = y.reshape(z.shape) * F.silu(z.float())
     return rms_norm(y.to(dtype), p["ssm_norm"]) @ p["wo"]
+
+
+def ssd_scan_differentiable(x: torch.Tensor, dt: torch.Tensor,
+                            A: torch.Tensor, Bm: torch.Tensor,
+                            Cm: torch.Tensor, *, chunk: int
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chunked SSD scan in differentiable torch, from a zero state.
+
+    x (B, S, H, P), dt (B, S, H) fp32 (post-softplus), A (H,), Bm/Cm
+    (B, S, G, N).  Returns (y (B, S, H, P) in x's dtype, final state
+    (B, H, N, P) fp32).  Per chunk of L = min(chunk, S) positions: the
+    intra-chunk output ``(C B^T o decay) (dt x)`` rounded to x's dtype, the
+    chunk's state contribution and the cumulative decay, all in fp32; the
+    log-decays of masked (t < s) pairs are clamped to -60 before ``exp``,
+    else they overflow and ``0 * inf`` poisons the gradient with NaN.  The
+    states pass between chunks by the affine recurrence ``s' = d s + u``,
+    here a sequential loop over chunks where JAX runs an associative scan:
+    the same sums in another fp32 order.  Then ``y = y_intra + (C .
+    state_in) cumexp``."""
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    L = min(chunk, S)
+    if S % L:
+        raise ValueError(f"sequence {S} is not a multiple of chunk {L}")
+    nc, rep = S // L, H // G
+    x32 = x.float().reshape(Bsz, nc, L, H, P)
+    dt32 = dt.float().reshape(Bsz, nc, L, H)
+    B32 = Bm.float().reshape(Bsz, nc, L, G, N)
+    C32 = Cm.float().reshape(Bsz, nc, L, G, N)
+    cum = torch.cumsum(dt32 * A.float(), dim=2)             # (B, nc, L, H)
+    cumexp = torch.exp(cum)
+    scores = torch.einsum("bctgn,bcsgn->bcgts", C32, B32)
+    scores = scores.repeat_interleave(rep, dim=2)           # (B,nc,H,L,L)
+    causal = torch.tril(torch.ones((L, L), dtype=torch.bool,
+                                   device=x.device))
+    cum_t = cum.transpose(2, 3)                              # (B, nc, H, L)
+    ldecay = cum_t[..., :, None] - cum_t[..., None, :]
+    decay = torch.exp(torch.where(causal, ldecay, -60.0))
+    decay = torch.where(causal, decay, 0.0)
+    w = scores * decay * dt32.transpose(2, 3)[..., None, :]
+    y_intra = torch.einsum("bchts,bcshp->bcthp", w, x32).to(x.dtype)
+    sdecay = torch.exp(cum[:, :, -1:, :] - cum) * dt32       # (B, nc, L, H)
+    b_h = B32.repeat_interleave(rep, dim=3)                  # (B,nc,L,H,N)
+    states = torch.einsum("bclh,bclhn,bclhp->bchnp", sdecay, b_h, x32)
+    chunk_decay = cumexp[:, :, -1, :][..., None, None]       # (B,nc,H,1,1)
+    s_in = torch.zeros((Bsz, H, N, P), dtype=torch.float32, device=x.device)
+    states_in = []
+    for c in range(nc):
+        states_in.append(s_in)
+        s_in = chunk_decay[:, c] * s_in + states[:, c]
+    states_in = torch.stack(states_in, dim=1)                # (B,nc,H,N,P)
+    c_h = C32.repeat_interleave(rep, dim=3)
+    y_inter = torch.einsum("bclhn,bchnp->bclhp", c_h, states_in) \
+        * cumexp[..., None]
+    y = (y_intra.float() + y_inter).to(x.dtype)
+    return y.reshape(Bsz, S, H, P), s_in
+
+
+def mamba_block(p: Dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    """The full-sequence block (training): x (B, S, D) -> y (B, S, D).
+    Five in-projections, the causal conv
+    (zero halo: the sequence starts here) with silu, softplus dt, the
+    chunked scan at ``cfg.ssd_chunk``, the D skip, the gate and the grouped
+    norm, the out projection."""
+    Bsz, S = x.shape[:2]
+    H, P = cfg.ssm_heads, cfg.ssm_headdim
+    G, N = cfg.ssm_groups, cfg.ssm_state
+    di, gn, kconv = H * P, G * N, cfg.conv_kernel
+
+    z, xc, Bc, Cc, dt = _in_proj(p, x)
+    xBC = torch.cat([xc, Bc, Cc], dim=-1)                  # (B, S, conv_ch)
+    halo = torch.zeros_like(xBC[:, :kconv - 1])
+    xBC = _conv1d_causal(xBC, p["conv_w"], p["conv_b"], halo)
+    xBC = F.silu(xBC.float()).to(x.dtype)
+    xh = xBC[..., :di].reshape(Bsz, S, H, P)
+    Bg = xBC[..., di:di + gn].reshape(Bsz, S, G, N)
+    Cg = xBC[..., di + gn:].reshape(Bsz, S, G, N)
+    dt = _softplus(dt.float() + p["dt_bias"])             # (B, S, H)
+    y, _ = ssd_scan_differentiable(xh, dt, p["A"].float(), Bg, Cg,
+                                   chunk=cfg.ssd_chunk)
+    return _gated_out(p, y, xh, z, x.dtype)
 
 
 def mamba_chunk_step(p: Dict, x: torch.Tensor, state: Tuple, cfg,

@@ -1,0 +1,170 @@
+"""Decoder-LM forward and loss on one device (``repro.models.transformer``
+at q = r = 1).
+
+The training path of the dense, MoE, SSM and hybrid families: the token
+embedding, the layer stack over the pattern groups (each group
+recomputed in the backward when ``remat``, as the JAX stack's
+``jax.checkpoint`` does), the final norm, and the chunked cross-entropy.
+Every grid collective of the JAX code is the identity on one device: the
+embedding's row reduce-scatter, the loss's column max and sums, the row
+and data sums of the loss.
+
+Parameters are the port's global tree (:mod:`repro_torch.models.params`).
+A leaf stacked over the G layer groups is read one group at a time
+(``leaf[g]``), so the train step may pass, in place of a stacked tensor,
+a list of its G per-group views (:mod:`repro_torch.train.step`).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.models.attention import attention_block
+from repro_torch.models.config import ModelConfig, attn_static
+from repro_torch.models.layers import apply_norm, mlp_apply
+from repro_torch.models.moe import moe_block
+from repro_torch.models.ssm import mamba_block
+
+# families whose inputs the port cannot take yet, and the slice that brings
+# them (as repro_torch.configs.LATER names them)
+LATER_FAMILIES = {"encdec": "the encoder-decoder slice",
+                  "vlm": "the vision-language slice"}
+
+
+def _grad_on(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor,
+                 compute_dtype) -> torch.Tensor:
+    """tokens (B, S) -> x (B, S, D) in ``compute_dtype``: ids outside
+    ``[0, V)`` (the -1 the JAX pipeline puts at patch positions) embed as
+    zeros."""
+    V = embed.shape[0]
+    hit = (tokens >= 0) & (tokens < V)
+    part = F.embedding(torch.clamp(tokens, 0, V - 1).long(), embed)
+    return torch.where(hit[..., None], part,
+                       torch.zeros((), dtype=part.dtype, device=part.device)
+                       ).to(compute_dtype)
+
+
+def _chunk_ce(xs: torch.Tensor, ls: torch.Tensor, lm_head: torch.Tensor
+              ) -> torch.Tensor:
+    """Summed token losses of one chunk: fp32 logits (the bf16 product
+    accumulated in fp32, as the JAX ``dense(..., out_dtype=float32)``),
+    the log-sum-exp shifted by its max (no gradient through the shift, as
+    ``pmax_cols_sg``), ``lse - logit[label]``, labels outside the padded
+    vocab masked."""
+    vpad = lm_head.shape[1]
+    logits = torch.matmul(xs.float(), lm_head.float())       # (B, cs, V)
+    m = torch.amax(logits, dim=-1).detach()
+    lse = torch.log(torch.sum(torch.exp(logits - m[..., None]), dim=-1)) + m
+    tgt = torch.gather(logits, -1, torch.clamp(ls, 0, vpad - 1).long()
+                       [..., None])[..., 0]
+    valid = (ls >= 0) & (ls < vpad)
+    tok = torch.where(valid, lse - tgt, torch.zeros_like(lse))
+    return torch.sum(tok)
+
+
+def lm_loss(lm_head: torch.Tensor, x: torch.Tensor, labels: torch.Tensor,
+            chunk: int = 1024) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked cross-entropy: x (B, S, D), labels (B, S) already shifted
+    (-100 masks).  Returns (sum of token losses fp32, number of valid
+    labels int32); the caller averages.  The positions go in
+    ``S // min(chunk, S)`` chunks of ``S // nchunk`` (positions past
+    ``nchunk * cs`` are not counted, as in the JAX loss), each chunk's
+    logits recomputed in the backward so they never all live."""
+    S = x.shape[1]
+    nchunk = max(1, S // min(chunk, S))
+    cs = S // nchunk
+    vpad = lm_head.shape[1]
+    remat = _grad_on(x, lm_head)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    n = torch.zeros((), dtype=torch.int32, device=x.device)
+    for i in range(nchunk):
+        xs = x[:, i * cs:(i + 1) * cs]
+        ls = labels[:, i * cs:(i + 1) * cs]
+        total = total + (checkpoint(_chunk_ce, xs, ls, lm_head,
+                                    use_reentrant=False)
+                         if remat else _chunk_ce(xs, ls, lm_head))
+        n = n + torch.sum((ls >= 0) & (ls < vpad)).to(torch.int32)
+    return total, n
+
+
+def layer_params(entry: Dict[str, Any], g: int) -> Dict[str, Any]:
+    """One pattern position's parameters for layer group g."""
+    return {part: {name: leaf[g] for name, leaf in leaves.items()}
+            for part, leaves in entry.items()}
+
+
+def apply_layer(cfg: ModelConfig, mixer: str, ffn: str, p: Dict,
+                x: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One (mixer, ffn) layer; returns (x, metrics)."""
+    metrics: Dict[str, torch.Tensor] = {}
+    h = apply_norm(cfg, p["norm1"], x)
+    if mixer == "attn":
+        h = attention_block(p["mixer"], h, attn_static(cfg))
+    elif mixer == "mamba":
+        h = mamba_block(p["mixer"], h, cfg)
+    else:
+        raise ValueError(mixer)
+    x = x + h
+    if ffn == "mlp":
+        x = x + mlp_apply(cfg, p["ffn"], apply_norm(cfg, p["norm2"], x))
+    elif ffn == "moe":
+        y, metrics = moe_block(p["ffn"], apply_norm(cfg, p["norm2"], x), cfg)
+        x = x + y
+    elif ffn != "none":
+        raise ValueError(ffn)
+    return x, metrics
+
+
+def stack_forward(cfg: ModelConfig, layers_p: list, x: torch.Tensor,
+                  remat: bool = False
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run the layer groups in order; returns (x, summed ``moe_aux``).
+    With ``remat`` each group is recomputed in the backward."""
+    pattern = cfg.pattern()
+
+    def group(g, x):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for pos, (mixer, ffn) in enumerate(pattern):
+            x, metrics = apply_layer(cfg, mixer, ffn,
+                                     layer_params(layers_p[pos], g), x)
+            if "moe_aux" in metrics:
+                aux = aux + metrics["moe_aux"]
+        return x, aux
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for g in range(cfg.n_groups()):
+        x, a = (checkpoint(group, g, x, use_reentrant=False)
+                if remat and torch.is_grad_enabled() else group(g, x))
+        aux = aux + a
+    return x, aux
+
+
+def forward(cfg: ModelConfig, params: Dict, batch: Dict,
+            remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """batch: tokens (B, S).  Returns (x after the final norm (B, S, D),
+    summed MoE aux loss)."""
+    if cfg.family in LATER_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.family} training is not ported yet: it comes "
+            f"with {LATER_FAMILIES[cfg.family]}")
+    x = embed_tokens(params["embed"], batch["tokens"], cfg.compute_dtype)
+    x, aux = stack_forward(cfg, params["layers"], x, remat)
+    return apply_norm(cfg, params["final_norm"], x), aux
+
+
+def loss_fn(cfg: ModelConfig, params: Dict, batch: Dict,
+            remat: bool = False) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Labels (B, S) already shifted, -100 masked.  Returns (mean token
+    loss + aux, {ce_loss, aux, n_tokens})."""
+    x, aux = forward(cfg, params, batch, remat)
+    s, n = lm_loss(params["lm_head"], x, batch["labels"])
+    loss = s / torch.clamp(n, min=1).float()
+    return loss + aux, {"ce_loss": loss, "aux": aux, "n_tokens": n}

@@ -1,7 +1,10 @@
-"""Runtime helpers shared by the serving stack (``repro.runtime`` on one
-device).  Only the retry policy is ported so far; the training
-controller (``fault_tolerance``) comes with the training slice."""
+"""Runtime helpers (``repro.runtime`` on one device): the bounded retry
+policy shared by the serving engine's step guard and the training
+controller, and the controller itself."""
 
+from repro_torch.runtime.fault_tolerance import (FaultConfig, TrainController,
+                                                 TransientWorkerFailure)
 from repro_torch.runtime.retry import RetryPolicy, retry_with_backoff
 
-__all__ = ["RetryPolicy", "retry_with_backoff"]
+__all__ = ["FaultConfig", "TrainController", "TransientWorkerFailure",
+           "RetryPolicy", "retry_with_backoff"]

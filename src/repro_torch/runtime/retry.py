@@ -2,8 +2,8 @@
 
 The serving engine's step-retry path (``repro_torch.serve.resilience``)
 runs under this one discipline — bounded attempts, linear or exponential
-backoff, transient-only — and the training controller of a later slice
-will share it, instead of growing two subtly different loops.
+backoff, transient-only — and the training controller shares it,
+instead of growing two subtly different loops.
 
 A *transient* failure is one where re-running the same deterministic work
 is expected to succeed (worker preemption, link flap, an injected chaos

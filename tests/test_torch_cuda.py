@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain versions, on the card:
 paged attention, the two SSD-scan passes and their fused launch, the
 cannon_mm matmul (forward, backward, and one emulated Cannon call), flash
-attention and the grouped GEMM of the MoE experts.
+attention and the grouped GEMM of the MoE experts with its backward
+(dgrad, wgrad, the autograd functions); and the forward-only ops'
+refusal of inputs that require grad.
 
 Needs a CUDA card and nvcc; skips without a card.  The file imports no
 JAX, so on a machine without it run it past the suite's conftest:
@@ -1171,6 +1173,128 @@ def test_grouped_mm_wrapper_refuses_bad_operands():
 # under tests/test_chaos.py's seeded soak, an armed guard with no fault, and
 # a short service pass whose engine thread captures every step graph.
 # ---------------------------------------------------------------------------
+
+GMM_GRAD_CASES = GMM_VARIANT_CASES + [
+    (64, 4096, 3072, 128, "top8", 0),       # qwen3-moe w1, batch-8 decode
+    (53, 37, 70, 4, [7, 0, 24, 19], 0),     # fp32 only: K, N no tile divides
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", GMM_GRAD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_mm_backward_kernels_match_plain_versions(case, dtype):
+    """dgrad (dy w[e]^T) and wgrad (x[rows]^T dy[rows]) on the card against
+    their plain versions: rows of no expert and experts with no rows exact
+    zeros, each launch counted on its variant, a second call the same
+    bits (no atomics, no split over blocks)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.grouped_mm import (grouped_mm_dgrad_ref,
+                                                grouped_mm_wgrad_ref)
+    from repro_torch.kernels.grouped_mm.kernel import (
+        grad_route, grouped_mm_dgrad_cuda, grouped_mm_wgrad_cuda)
+    if dtype == torch.bfloat16 and (case[1] % 8 or case[2] % 8):
+        pytest.skip("bf16 takes K and N multiples of 8")
+    x, w, offsets = _gmm_case(case, dtype, seed=case[0] + 1)
+    M, N = x.shape[0], w.shape[2]
+    gen = torch.Generator("cuda").manual_seed(7)
+    dy = torch.randn((M, N), generator=gen, device="cuda").to(dtype)
+    variant = grad_route(dtype, w.shape[1], N)
+    counts = (grouped_mm_dgrad_cuda.launches,
+              grouped_mm_wgrad_cuda.by_variant[variant])
+    dx = grouped_mm_dgrad_cuda(dy, w, offsets)
+    dw = grouped_mm_wgrad_cuda(x, dy, offsets)
+    assert grouped_mm_dgrad_cuda.launches == counts[0] + 1
+    assert grouped_mm_wgrad_cuda.by_variant[variant] == counts[1] + 1
+    torch.cuda.synchronize()
+    assert _rel(grouped_mm_dgrad_ref(dy, w, offsets), dx) <= GMM_TOL[dtype]
+    assert _rel(grouped_mm_wgrad_ref(x, dy, offsets), dw) <= GMM_TOL[dtype]
+    lo, hi = int(offsets[0]), int(offsets[-1])
+    assert not dx[:lo].any() and not dx[hi:].any()
+    for e in range(w.shape[0]):
+        if offsets[e] == offsets[e + 1]:
+            assert not dw[e].any()
+    assert torch.equal(dx, grouped_mm_dgrad_cuda(dy, w, offsets))
+    assert torch.equal(dw, grouped_mm_wgrad_cuda(x, dy, offsets))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("swiglu", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_mm_autograd_on_the_card_matches_the_cpu(swiglu, dtype):
+    """The training route: the ops' backward on the card (the swiglu one
+    recomputing the product with the forward kernel) against the same
+    autograd functions on the CPU (the plain versions)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.grouped_mm import grouped_mm, grouped_mm_swiglu
+    from repro_torch.kernels.grouped_mm.kernel import (
+        grouped_mm_cuda, grouped_mm_dgrad_cuda, grouped_mm_wgrad_cuda)
+    fn = grouped_mm_swiglu if swiglu else grouped_mm
+    x, w, offsets = _gmm_case((1024, 256, 384, 16, "top8", 0), dtype, 3)
+    dy = torch.randn((1024, 192 if swiglu else 384), device="cuda").to(dtype)
+    outs = []
+    for dev in ("cuda", "cpu"):
+        xs = x.detach().to(dev).requires_grad_(True)
+        ws = w.detach().to(dev).requires_grad_(True)
+        n = (grouped_mm_cuda.launches, grouped_mm_dgrad_cuda.launches,
+             grouped_mm_wgrad_cuda.launches)
+        y = fn(xs, ws, offsets.to(dev))
+        y.backward(dy.to(dev))
+        if dev == "cuda":
+            assert grouped_mm_dgrad_cuda.launches == n[1] + 1
+            assert grouped_mm_wgrad_cuda.launches == n[2] + 1
+            # the plain product's forward, or the swiglu backward's
+            # recomputed product
+            assert grouped_mm_cuda.launches == n[0] + 1
+        outs.append([t.detach().float().cpu() for t in (y, xs.grad,
+                                                         ws.grad)])
+    for a, b in zip(*outs):
+        assert _rel(b, a) <= GMM_TOL[dtype]
+
+
+@pytest.mark.gpu
+def test_forward_only_ops_raise_under_autograd_on_the_card():
+    """On a CUDA tensor that requires grad, with grad mode on, every
+    forward-only kernel op raises naming itself instead of returning an
+    output with no history; under no_grad the same calls run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.grouped_mm.kernel import (grouped_mm_cuda,
+                                                       grouped_mm_swiglu_cuda)
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    rng = np.random.default_rng(0)
+    table, arenas, q, q_pos = _case(rng, B=2, T=4, stride=4, kvh=2, hd=64,
+                                    Hq=4, qrows=1, L=1)
+    kc, vc = (torch.from_numpy(a).cuda() for a in arenas[0])
+    qd = torch.from_numpy(q).cuda().requires_grad_(True)
+    tab, pos = torch.from_numpy(table).cuda(), torch.from_numpy(q_pos).cuda()
+    x = torch.randn(1, 16, 2, 64, device="cuda", requires_grad=True)
+    dt = torch.rand(1, 16, 2, device="cuda")
+    A = -torch.rand(2, device="cuda")
+    bc = torch.randn(1, 16, 1, 16, device="cuda")
+    qa = torch.randn(1, 2, 16, 64, device="cuda", requires_grad=True)
+    xg = torch.randn(8, 16, device="cuda", requires_grad=True)
+    wg = torch.randn(2, 16, 32, device="cuda")
+    off = torch.tensor([0, 3, 8], dtype=torch.int32, device="cuda")
+    calls = {
+        "paged_attention_cuda": lambda: paged_attention(
+            qd, kc, vc, tab, pos, stride=4),
+        "flash_attention_cuda": lambda: flash_attention(qa, qa, qa),
+        "ssd_chunk_cuda": lambda: ssd_scan(x, dt, A, bc, bc, chunk=8),
+        "grouped_mm_cuda": lambda: grouped_mm_cuda(xg, wg, off),
+        "grouped_mm_swiglu_cuda": lambda: grouped_mm_swiglu_cuda(xg, wg,
+                                                                 off),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match=name):
+            call()
+        with torch.no_grad():
+            call()
+    torch.cuda.synchronize()
+
 
 def _card_engine(name, **kw):
     import dataclasses

@@ -36,7 +36,13 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
     assert {"repro_torch.serve.spec.decoder",
             "repro_torch.serve.spec.drafter",
             "repro_torch.serve.service.service",
-            "repro_torch.serve.resilience.guard"} <= set(mods)
+            "repro_torch.serve.resilience.guard",
+            "repro_torch.models.transformer",
+            "repro_torch.optim.adamw", "repro_torch.optim.compress",
+            "repro_torch.train.step", "repro_torch.data.pipeline",
+            "repro_torch.ckpt.checkpoint",
+            "repro_torch.runtime.fault_tolerance",
+            "repro_torch.launch.train", "repro_torch.tree"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
