@@ -200,14 +200,17 @@ kernels:
   and the bound, and the fused w1 against the unfused kernel and the
   torch lines it replaces;
 * gmm_grad_vs_plain and gmm_grad_timing — the grouped GEMM's backward
-  (dgrad dy w[e]^T and wgrad x[rows]^T dy[rows], bf16 mma and fp32 simt,
-  and the swiglu op's backward through its autograd function) against
-  their plain versions at qwen3-moe's two products, at batch-8 decode rows
-  (64) and a training step's (65536 = batch 8 x len 1024 x top-8),
-  uniform and on skewed routing with 16 empty experts and rows past
-  offsets[E], bf16 and fp32; then each timed against the plain version,
-  one torch._grouped_mm call (else the per-expert torch.matmul loop) and
-  the bound;
+  (dgrad dy w[e]^T and wgrad x[rows]^T dy[rows]; bf16 wgmma_tma and fp32
+  simt; and the swiglu op's backward through its autograd function)
+  against their
+  plain versions at qwen3-moe's two products, at batch-8 decode rows (64)
+  and a training step's (65536 = batch 8 x len 1024 x top-8), uniform and
+  on skewed routing with 16 empty experts and rows past offsets[E], bf16
+  and fp32, and at the forward's edge cases; rows of no expert and
+  experts with no rows exact zeros, two calls the same bits; then each
+  timed (events ms, and the kernel's device ms by name from
+  torch.profiler) against the plain version, one torch._grouped_mm call
+  (else the per-expert torch.matmul loop) and the bound;
 * train — qwen2-0.5b and mamba2-780m at full width and depth, and
   qwen3-moe-235b-a22b at full width with 2 of its 94 layers and 8-bit
   moments, through the functions launch/train.py calls: 6 AdamW steps on
@@ -215,8 +218,12 @@ kernels:
   Gates: finite losses and norms, the last loss below the first, every
   parameter on the card, and for qwen3-moe the grouped GEMM's forward
   (twice: the recomputed layer), the swiglu backward's recomputed
-  product, dgrad and wgrad launched as its layers and steps imply, the
-  plain versions never.  Then two probes at lr 3e-4, reported: qwen3-moe
+  product, dgrad and wgrad launched as its layers and steps imply (dgrad
+  and wgrad on their wgmma_tma variant only), the plain versions never.
+  train_profile: steps 2 and 3 of the gated qwen3-moe run under
+  torch.profiler: device busy, idle share, the top kernels, and the
+  grouped GEMM's forward, dgrad and wgrad shares of busy, where the trace
+  kept every record.  Then two probes at lr 3e-4, reported: qwen3-moe
   with 8-bit moments (2 layers) and with fp32 moments (1 layer, what
   fits), which show the reference's 8-bit moments (TRAIN_LR's comment).
   Printed: step wall ms, tokens/s, peak memory, the losses, beside the
@@ -790,25 +797,80 @@ def ssd_bound(B, nc, L, H, P, G, N, esz):
     return out
 
 
+# tiny kernels that open every profiled window of device_ms, busy_ms and
+# train_profile.  Late in a process the trace loses the first kernel
+# records of a window, which kineto counts as out of range, more of them
+# the older the process (PERF.md §7 (14)).  These take that loss instead
+# of the kernels measured; a window that lost more is taken again.
+PROFILE_LEAD_IN = 64
+PROFILE_TRIES = 3
+# (seconds into the script, lead-in records lost, every other record kept)
+# of each profiled window, printed as the profiler_records line
+PROFILE_WINDOWS = []
+T_START = [time.perf_counter()]
+
+
+def profiler():
+    """A torch.profiler over the CPU and the card, not yet started."""
+    from torch.profiler import ProfilerActivity, profile
+    return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+
+def lead_in():
+    for _ in range(PROFILE_LEAD_IN):
+        torch.cuda._sleep(1)
+
+
+def kernel_rows(prof):
+    """(rows, kept) of a window that ``lead_in`` opened: the profiled CUDA
+    rows other than the lead-in's, and whether every kernel launched after
+    it kept its record (a lead-in record is left, and the other kernel
+    records match the launch calls: cudaLaunchKernel, cuLaunchKernelEx
+    and the like; memcpy and memset records stand apart)."""
+    from torch.autograd import DeviceType
+    rows, spins, kernels, launches = [], 0, 0, 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            if "spin_kernel" in e.key:
+                spins += e.count
+                continue
+            rows.append(e)
+            if not e.key.startswith(("Memcpy", "Memset")):
+                kernels += e.count
+        elif "LaunchKernel" in e.key:
+            launches += e.count
+    kept = spins > 0 and kernels == launches - PROFILE_LEAD_IN
+    PROFILE_WINDOWS.append((round(time.perf_counter() - T_START[0], 1),
+                            PROFILE_LEAD_IN - spins, kept))
+    return rows, kept
+
+
+def profile_calls(fn, iters):
+    """``kernel_rows`` of a window of ``iters`` calls of ``fn`` opened by
+    ``lead_in``, taken up to PROFILE_TRIES times until no record of the
+    calls was lost."""
+    fn(0)
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_TRIES):
+        with profiler() as prof:
+            lead_in()
+            for i in range(iters):
+                fn(i)
+            torch.cuda.synchronize()
+        rows, kept = kernel_rows(prof)
+        if kept:
+            break
+    return rows, kept
+
+
 def device_ms(fn, iters, names):
     """Device time per call of the CUDA kernels whose names contain one of
     ``names``, from torch.profiler: the card's own time, without the host
     time of the wrapper that launches them.  Each matching kernel launches
     once per call, so a call's time is the sum over them of their mean
-    time per launch: a trace that drops a launch record (one in three
-    calls was missing from some traces) still gives the right mean."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn(0)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fn(i)
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.count
-            and any(n in e.key for n in names)]
+    time per recorded launch."""
+    rows = [e for e in profile_calls(fn, iters)[0]
+            if e.count and any(n in e.key for n in names)]
     if not rows:
         return "not measured"
     return sum(e.self_device_time_total / e.count for e in rows) / 1e3
@@ -1386,6 +1448,25 @@ def gmm_errors(x, w, offsets, swiglu=False, variant=None):
                                      .abs().max())
 
 
+# edge cases of the grouped GEMM and its backward: (label, M, K, N, E,
+# group sizes, rows before offsets[0])
+GMM_EDGES = [("empty experts", 77, 64, 64, 16,
+              [0, 9, 0, 0, 30, 0, 0, 1, 0, 0, 0, 17, 0, 0, 20, 0], 0),
+             ("one expert, several M tiles", 300, 64, 144, 16,
+              [0] * 5 + [300] + [0] * 10, 0),
+             ("ragged K and N, rows past offsets[E]", 100, 40, 80, 6,
+              [13, 0, 25, 2, 0, 30], 0),
+             ("rows before offsets[0] and past offsets[E]", 90, 32, 64, 4,
+              [20, 0, 31, 9], 11),
+             ("no expert has a row", 33, 32, 64, 8, [0] * 8, 5),
+             ("one expert of 600 rows, ragged N tiles", 720, 96, 208, 5,
+              [40, 600, 0, 7, 13], 45)]
+
+
+def edge_offsets(sizes, head):
+    return (head + np.concatenate([[0], np.cumsum(sizes)])).astype(np.int32)
+
+
 def phase_gmm_vs_plain():
     """Every variant of the grouped GEMM and of its fused first product
     (``grouped_mm_swiglu``) against their plain versions: bf16 ``mma`` and
@@ -1417,21 +1498,8 @@ def phase_gmm_vs_plain():
                     (M, K), "float32")).to("cuda", dtype)
                 run(f"{prod} {stage}", x, w, offsets, dtype)
             del w
-    # edge cases: (label, M, K, N, E, group sizes, rows before offsets[0])
-    edges = [("empty experts", 77, 64, 64, 16,
-              [0, 9, 0, 0, 30, 0, 0, 1, 0, 0, 0, 17, 0, 0, 20, 0], 0),
-             ("one expert, several M tiles", 300, 64, 144, 16,
-              [0] * 5 + [300] + [0] * 10, 0),
-             ("ragged K and N, rows past offsets[E]", 100, 40, 80, 6,
-              [13, 0, 25, 2, 0, 30], 0),
-             ("rows before offsets[0] and past offsets[E]", 90, 32, 64, 4,
-              [20, 0, 31, 9], 11),
-             ("no expert has a row", 33, 32, 64, 8, [0] * 8, 5),
-             ("one expert of 600 rows, ragged N tiles", 720, 96, 208, 5,
-              [40, 600, 0, 7, 13], 45)]
-    for label, M, K, N, E_, sizes, head in edges:
-        offsets = (head + np.concatenate([[0], np.cumsum(sizes)])
-                   ).astype(np.int32)
+    for label, M, K, N, E_, sizes, head in GMM_EDGES:
+        offsets = edge_offsets(sizes, head)
         for dtype in (torch.bfloat16, torch.float32):
             w = gmm_weights(E_, K, N, dtype, seed=M)
             x = torch.from_numpy(rng.standard_normal(
@@ -1501,19 +1569,10 @@ def swiglu_glue(h):
 
 def busy_ms(fn, iters):
     """Device time per call of every CUDA kernel ``fn`` starts, from
-    torch.profiler (their summed own times over ``iters`` calls)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn(0)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fn(i)
-        torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    if not kern:
+    torch.profiler (their summed own times over ``iters`` calls); "not
+    measured" where the trace lost a record (``profile_calls``)."""
+    kern, kept = profile_calls(fn, iters)
+    if not kern or not kept:
         return "not measured"
     return sum(e.self_device_time_total for e in kern) / 1e3 / iters
 
@@ -1659,11 +1718,11 @@ def grad_fns():
                                  grouped_mm_wgrad_ref)}
 
 
-def grad_cases(rng):
+def grad_cases(rng, edges=False):
     """(label, x, w, dy, offsets) at qwen3-moe's two products: decode and
     training rows routed uniformly top-8 in bf16, training rows on skewed
     routing with 16 empty experts and 64 rows past offsets[E] in bf16, and
-    decode in fp32."""
+    decode in fp32; with ``edges`` then GMM_EDGES in bf16 and fp32."""
     E, k = QWEN3_MOE_EXPERTS["E"], QWEN3_MOE_EXPERTS["k"]
     for dtype, stages in ((torch.bfloat16, ("decode", "train", "skewed")),
                           (torch.float32, ("decode", "skewed"))):
@@ -1689,6 +1748,17 @@ def grad_cases(rng):
                 del x, dy
             del w
             torch.cuda.empty_cache()
+    if not edges:
+        return
+    for label, M, K, N, E_, sizes, head in GMM_EDGES:
+        for dtype in (torch.bfloat16, torch.float32):
+            gen = torch.Generator("cuda").manual_seed(M)
+            yield (label, torch.randn((M, K), generator=gen,
+                                      device="cuda").to(dtype),
+                   gmm_weights(E_, K, N, dtype, seed=M),
+                   torch.randn((M, N), generator=gen,
+                               device="cuda").to(dtype),
+                   edge_offsets(sizes, head))
 
 
 def swiglu_backward(x, w, off, dy, plain):
@@ -1722,54 +1792,67 @@ def sliced_err(want, got):
     return diff / max(scale, 1e-30), diff
 
 
+def hold_grad(worst, name, label, x, w, offsets, want, got):
+    """One backward output against its plain version: finite; rows of no
+    expert (dx) or experts with no rows (dw) exact zeros; within GMM_TOL of
+    its largest element.  Keeps the worst (rel, abs) per name."""
+    lo, hi = int(offsets[0]), int(offsets[-1])
+    empty = torch.from_numpy(np.diff(offsets) == 0).cuda()
+    tag = f"{name} {label}"
+    check(bool(torch.isfinite(got).all()), f"{tag}: non-finite")
+    if got.shape[0] == x.shape[0]:      # dx: rows of no expert
+        check(not got[:lo].any() and not got[hi:].any(),
+              f"{tag}: a row of no expert not zero")
+        output = "dx"
+    else:                               # dw: experts with no rows
+        check(not got[empty].any(), f"{tag}: an empty expert's dw not zero")
+        output = "dw"
+    err, abs_err = sliced_err(want, got)
+    emit("gmm_grad_vs_plain", case=label, fn=name, output=output, M=x.shape[0], K=w.shape[1], N=w.shape[2],
+         E=w.shape[0], rows=hi - lo, empty_experts=int(empty.sum()),
+         dtype=dname(x.dtype), max_rel_err=err, max_abs_err=abs_err,
+         tol=GMM_TOL[x.dtype])
+    check(err <= GMM_TOL[x.dtype],
+          f"{tag} disagrees: {dname(x.dtype)} rel {err}")
+    w0 = worst.get(name, (0.0, 0.0))
+    worst[name] = (max(w0[0], err), max(w0[1], abs_err))
+
+
 def phase_gmm_grad_vs_plain():
-    """dgrad and wgrad and the swiglu backward against their plain
-    versions at qwen3-moe's shapes (``grad_cases``), each within GMM_TOL
-    of its largest element (both sum products in fp32 and round once);
-    rows of no expert and experts with no rows exactly zero.  Returns
-    {name: (rel, abs)}, worst of each."""
+    """dgrad and wgrad (bf16 wgmma_tma, fp32 simt) and the swiglu backward
+    against their plain versions at qwen3-moe's shapes and the edge cases
+    (``grad_cases``), each within GMM_TOL of its largest element (both sum
+    products in fp32 and round once); rows of no expert and experts with
+    no rows exactly zero; a second call on the same inputs the same bits.
+    Returns {name: (rel, abs)}, worst of each."""
     rng = np.random.default_rng(31)
     worst = {}
     fns = grad_fns()
-    for label, x, w, dy, offsets in grad_cases(rng):
+    for label, x, w, dy, offsets in grad_cases(rng, edges=True):
         off = torch.from_numpy(offsets).cuda()
-        dtype = x.dtype
-        hy = dy[:, :w.shape[2] // 2].contiguous()
-        lo, hi = int(offsets[0]), int(offsets[-1])
-        empty = torch.from_numpy(np.diff(offsets) == 0).cuda()
-        runs = {
-            "grouped_mm_dgrad": lambda kern: (
-                fns["grouped_mm_dgrad"][0 if kern else 1](dy, w, off),),
-            "grouped_mm_wgrad": lambda kern: (
-                fns["grouped_mm_wgrad"][0 if kern else 1](x, dy, off),),
-            "grouped_mm_swiglu backward": lambda kern: swiglu_backward(
-                x, w, off, hy, plain=not kern)}
-        for name, run in runs.items():
-            got = run(True)
-            want = run(False)
+        for kind in ("dgrad", "wgrad"):
+            name = f"grouped_mm_{kind}"
+            kern, ref = fns[name]
+            args = (dy, w, off) if kind == "dgrad" else (x, dy, off)
+            want = ref(*args)
+            got = kern(*args)
+            again = kern(*args)
             torch.cuda.synchronize()
-            for i, (a, b) in enumerate(zip(want, got)):
-                check(bool(torch.isfinite(b).all()),
-                      f"{name} {label}: non-finite")
-                if b.shape[0] == x.shape[0]:      # dx: rows of no expert
-                    check(not b[:lo].any() and not b[hi:].any(),
-                          f"{name} {label}: a row of no expert not zero")
-                else:                             # dw: experts with no rows
-                    check(not b[empty].any(),
-                          f"{name} {label}: an empty expert's dw not zero")
-                err, abs_err = sliced_err(a, b)
-                emit("gmm_grad_vs_plain", case=label, fn=name,
-                     output=("dx", "dw")[i] if len(got) > 1 else None,
-                     M=x.shape[0], K=w.shape[1], N=w.shape[2],
-                     rows=hi - lo, empty_experts=int(empty.sum()),
-                     dtype=dname(dtype), max_rel_err=err,
-                     max_abs_err=abs_err, tol=GMM_TOL[dtype])
-                check(err <= GMM_TOL[dtype],
-                      f"{name} disagrees: {label} {dname(dtype)} rel {err}")
-                w0 = worst.get(name, (0.0, 0.0))
-                worst[name] = (max(w0[0], err), max(w0[1], abs_err))
+            check(torch.equal(got, again), f"{name} {label}: two calls "
+                                           f"differ")
+            del again
+            hold_grad(worst, name, label, x, w, offsets, want, got)
             del got, want
-            torch.cuda.empty_cache()
+        if w.shape[2] % 16 == 0:
+            hy = dy[:, :w.shape[2] // 2].contiguous()
+            got = swiglu_backward(x, w, off, hy, plain=False)
+            want = swiglu_backward(x, w, off, hy, plain=True)
+            torch.cuda.synchronize()
+            for a, b in zip(want, got):
+                hold_grad(worst, "grouped_mm_swiglu backward", label, x, w,
+                          offsets, a, b)
+            del got, want
+        torch.cuda.empty_cache()
     return worst
 
 
@@ -1836,31 +1919,35 @@ def library_grad(kind, x, w, dy, offsets):
 
 
 def phase_gmm_grad_timing():
-    """Device ms (profiler mean) and events ms of dgrad, wgrad and the
-    swiglu backward at ``grad_cases``' shapes, beside the plain version,
-    one library call (``library_grad``) and the bound."""
-    from repro_torch.kernels.grouped_mm.kernel import grad_route
+    """dgrad, wgrad and the swiglu backward at ``grad_cases``' shapes:
+    events ms and the kernel's device ms (``device_ms`` by name), beside
+    the plain version, one library call (``library_grad``) and the
+    bound."""
+    from repro_torch.kernels.grouped_mm.kernel import (GRAD_VARIANTS,
+                                                       grad_route)
     rng = np.random.default_rng(32)
     fns = grad_fns()
     rows = []
     for label, x, w, dy, offsets in grad_cases(rng):
         off = torch.from_numpy(offsets).cuda()
         dtype = x.dtype
-        K, N = w.shape[1], w.shape[2]
+        (M, _), (E, K, N) = x.shape, w.shape
         variant = grad_route(dtype, K, N)
         for kind in ("dgrad", "wgrad"):
             name = f"grouped_mm_{kind}"
             kern, ref = fns[name]
             args = (dy, w, off) if kind == "dgrad" else (x, dy, off)
+
+            def call(i):
+                return kern(*args)
             lib, lib_what = library_grad(kind, x, w, dy, off)
-            t = dict(shape=label, fn=name, variant=variant, M=x.shape[0],
-                     K=K, N=N, E=w.shape[0], dtype=dname(dtype),
+            t = dict(shape=label, fn=name, variant=variant, M=M, K=K, N=N,
+                     E=E, dtype=dname(dtype),
                      rows=int(offsets[-1] - offsets[0]),
                      active_experts=int((np.diff(offsets) > 0).sum()),
-                     ms=cuda_ms(lambda i: kern(*args), 5),
-                     # one kernel a call: the call's busy time is the
-                     # kernel's device time
-                     device_ms=busy_ms(lambda i: kern(*args), 3),
+                     ms=cuda_ms(call, 5),
+                     device_ms=device_ms(call, 5,
+                                         (GRAD_VARIANTS[kind][variant],)),
                      plain_ms=cuda_ms(lambda i: ref(*args), 2),
                      library_ms=cuda_ms(lambda i: lib(), 3),
                      library=lib_what)
@@ -1869,7 +1956,7 @@ def phase_gmm_grad_timing():
             emit("gmm_grad_timing", **t)
             rows.append(t)
         hy = dy[:, :N // 2].contiguous()
-        t = dict(shape=label, fn="grouped_mm_swiglu backward", M=x.shape[0],
+        t = dict(shape=label, fn="grouped_mm_swiglu backward", M=M,
                  K=K, N=N, dtype=dname(dtype),
                  ms=cuda_ms(lambda i: swiglu_backward(x, w, off, hy, False),
                             3),
@@ -1903,12 +1990,16 @@ def phase_train(smi):
     swiglu backward's recomputed product; dgrad and wgrad for both
     products), the plain versions never.  Gated runs also: every loss and
     grad norm finite, the last loss (after 5 updates) below the first.
-    Returns ({kernel: launches}, {kernel: {run: launches}}, rows)."""
+    Steps TRAIN_PROFILED of the gated MoE run run under torch.profiler
+    (``phase_train_profile``); the steady wall is the median of the other
+    steps after the first.
+    Returns ({kernel: launches}, {kernel: {run: launches}}, rows, the
+    profile's row)."""
     from repro_torch.kernels.grouped_mm.kernel import reset_counts
     from repro_torch.launch import train as launch
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.tree import leaves
-    counts, by_run, rows = {}, {}, []
+    counts, by_run, rows, profile_row = {}, {}, [], None
     for arch, layers, bits, lr, gated in TRAIN_RUNS:
         gc.collect()
         torch.cuda.empty_cache()
@@ -1933,27 +2024,38 @@ def phase_train(smi):
         reset_counts()
         for kern, plain in counters.values():
             plain.launches = 0
+        n_moe = sum(f == "moe" for _, f in cfg.pattern()) * cfg.n_groups()
+        profiled = TRAIN_PROFILED if gated and n_moe else ()
+        prof = profiler() if profiled else None
         losses, norms, walls = [], [], []
-        for _ in range(TRAIN_STEPS):
+        for i in range(TRAIN_STEPS):
+            if profiled and i == profiled[0]:
+                prof.start()
+                lead_in()
             t0 = time.perf_counter()
             params, opt, m = step_fn(params, opt, batch)
             losses.append(float(m["loss"]))
             norms.append(float(m["grad_norm"]))
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
+            if profiled and i == profiled[-1]:
+                prof.stop()
         got = {k: kern.launches for k, (kern, _) in counters.items()}
         plain = {k: p.launches for k, (_, p) in counters.items()}
         by_variant = {k: dict(kern.by_variant)
                       for k, (kern, _) in counters.items()}
         tokens = TRAIN_BATCH * TRAIN_SEQ
-        steady = sorted(walls[1:])[len(walls[1:]) // 2]
+        # the steady wall: the median of the steps after the first that
+        # ran without the profiler
+        rest = [t for i, t in enumerate(walls) if i and i not in profiled]
+        steady = sorted(rest)[len(rest) // 2]
         row = dict(run=run, gated=gated, arch=arch, layers=cfg.n_layers,
                    d_model=cfg.d_model, vocab=cfg.vocab_size,
                    state_bits=bits, lr=lr,
                    tokens_per_step=tokens, state_gb=round(need["total"] / 1e9,
                                                           3),
                    init_s=round(init_s, 3), step_wall_ms=walls,
-                   steady_step_ms=steady, tokens_per_s=tokens / steady * 1e3,
+                   profiled_steps=list(profiled), steady_step_ms=steady, tokens_per_s=tokens / steady * 1e3,
                    peak_gb=torch.cuda.max_memory_allocated() / 1e9,
                    losses=losses, grad_norms=norms, launches=got,
                    by_variant=by_variant, plain_launches=plain,
@@ -1967,21 +2069,85 @@ def phase_train(smi):
                   f"{run}: the loss after {TRAIN_STEPS - 1} updates on one "
                   f"batch is not below the first: {losses}")
         check(not any(plain.values()), f"{run}: a plain version ran {plain}")
-        n_moe = sum(f == "moe" for _, f in cfg.pattern()) * cfg.n_groups()
         if n_moe:
             per = n_moe * TRAIN_STEPS
             want = {"grouped_mm_swiglu": 2 * per, "grouped_mm": 3 * per,
                     "grouped_mm_dgrad": 2 * per, "grouped_mm_wgrad": 2 * per}
             check(got == want, f"{run}: grouped GEMM launches {got}, the "
                                f"layers and steps imply {want}")
+            for k in ("grouped_mm_dgrad", "grouped_mm_wgrad"):
+                check(by_variant[k]["wgmma_tma"] == got[k],
+                      f"{run}: {k} launched off wgmma_tma: {by_variant[k]}")
+        if profiled:
+            profile_row = phase_train_profile(
+                run, prof, [walls[i] for i in profiled],
+                [losses[i] for i in profiled], n_moe)
         for k, n in got.items():
             counts[k] = counts.get(k, 0) + n
             if n:
                 by_run.setdefault(k, {})[run] = n
-        del params, opt, step_fn, batch, m
+        del params, opt, step_fn, batch, m, prof
     gc.collect()
     torch.cuda.empty_cache()
-    return counts, by_run, rows
+    check(profile_row is not None, "no gated MoE run was profiled")
+    return counts, by_run, rows, profile_row
+
+
+# the gated MoE run's steps (0-based) run under the profiler: the first
+# steady ones, before the loss has gone far from its start
+TRAIN_PROFILED = (1, 2)
+# the grouped GEMM's kernels in a train step's profile, by name
+TRAIN_SHARES = {"grouped_mm forward": ("::gmm_wgmma_tma_kernel",
+                                       "::gmm_mma_kernel",
+                                       "::gmm_simt_kernel"),
+                "grouped_mm dgrad": ("::gmm_dgrad_",),
+                "grouped_mm wgrad": ("::gmm_wgrad_",)}
+
+
+def phase_train_profile(run, prof, walls, losses, n_moe):
+    """Where a steady train step's time goes, from ``prof``, a profile of
+    len(walls) steps of a run, each synchronised, opened by ``lead_in``.
+    Device busy (the kernels' summed own times a step), its idle share
+    (the rest of the host wall) and the grouped GEMM's forward, dgrad and
+    wgrad shares of busy are reported only where the trace kept every
+    record: ``kernel_rows`` finds none lost, and the grouped GEMM's
+    recorded launches are those ``n_moe`` MoE layers make (forward 5,
+    dgrad 2, wgrad 2 a layer a step); otherwise "not measured".  Returns
+    the row."""
+    n = len(walls)
+    rows, kept = kernel_rows(prof)
+    kern = {e.key: (e.self_device_time_total / 1e3 / n, e.count)
+            for e in rows if e.count}
+    check(bool(kern), f"{run}: the profiled train step shows no kernel")
+    expected = {"grouped_mm forward": 5 * n_moe * n,
+                "grouped_mm dgrad": 2 * n_moe * n,
+                "grouped_mm wgrad": 2 * n_moe * n}
+    shares = {}
+    for label, names in TRAIN_SHARES.items():
+        mine = [v for k, v in kern.items() if any(x in k for x in names)]
+        recorded = sum(c for _, c in mine)
+        kept = kept and recorded == expected[label]
+        shares[label] = dict(ms=sum(t for t, _ in mine),
+                             launches_recorded=recorded,
+                             launches_expected=expected[label])
+    busy = sum(t for t, _ in kern.values())
+    wall = sum(walls) / n
+    for sh in shares.values():
+        sh["share"] = sh["ms"] / busy if kept else "not measured"
+    top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:12]
+    row = dict(run=run, steps=n, step_wall_ms=walls, losses=losses,
+               records_kept=kept,
+               device_busy_ms=busy if kept else "not measured",
+               device_idle_share=1 - busy / wall if kept
+               else "not measured",
+               kernels_per_step=sum(c for _, c in kern.values()) / n,
+               kernel_shares=shares,
+               top=[{"name": k[:90], "ms_per_step": t,
+                     "launches_per_step": c / n,
+                     "share": t / busy if kept else "not measured"}
+                    for k, (t, c) in top])
+    emit("train_profile", **row)
+    return row
 
 
 def train_run(args, ckpt_dir, label):
@@ -3936,7 +4102,7 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    t_start = time.perf_counter()
+    t_start = T_START[0] = time.perf_counter()
 
     smi = phase_env()
     phase_build()
@@ -3957,7 +4123,7 @@ def main() -> int:
     gmm_timing = phase_gmm_timing()
     grad_worst = phase_gmm_grad_vs_plain()
     grad_timing = phase_gmm_grad_timing()
-    train_counts, train_by_run, train_rows = phase_train(smi)
+    train_counts, train_by_run, train_rows, train_profile = phase_train(smi)
     phase_train_resume()
     ref_launches = phase_reference()
     launches, by_path, weights = {}, {}, {}
@@ -4196,6 +4362,8 @@ def main() -> int:
             "max_rel_err": grad_worst[name][0],
             "swiglu_backward_max_rel_err":
                 grad_worst["grouped_mm_swiglu backward"][0],
+            "train_step_share": train_profile["kernel_shares"][
+                f"grouped_mm {kind}"],
             "ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "library_ms": top["library_ms"], "library": top["library"],
@@ -4208,9 +4376,17 @@ def main() -> int:
                 "library", "bound_ms", "bound_by", "rows", "active_experts")}
                 for t in rows},
         })
+    emit("profiler_records", lead_in=PROFILE_LEAD_IN,
+         windows=len(PROFILE_WINDOWS),
+         windows_that_lost_work=sum(not k for _, _, k in PROFILE_WINDOWS),
+         lead_in_lost_max=max(n for _, n, _ in PROFILE_WINDOWS),
+         by_window=PROFILE_WINDOWS)
     emit("train_summary", rows=[{k: r[k] for k in (
         "run", "steady_step_ms", "tokens_per_s", "peak_gb", "losses",
-        "nvidia_smi")} for r in train_rows])
+        "nvidia_smi")} for r in train_rows],
+         profile={k: train_profile[k] for k in (
+             "run", "step_wall_ms", "device_busy_ms", "device_idle_share",
+             "kernel_shares")})
     emit("table1_summary", rows=[{k: r[k] for k in (
         "size", "hybrid_ms", "opencl_ms", "hybrid_wire_bytes",
         "opencl_wire_bytes", "bytes_ratio")} for r in table1_live])

@@ -1,7 +1,7 @@
 // Hopper building blocks of the port's bf16 wgmma_tma kernels (the matmul
-// in cannon_mm/csrc/cannon_mm.cu, the grouped GEMM in
-// grouped_mm/csrc/grouped_mm.cu): mbarriers, TMA tile loads, shared-memory
-// matrix descriptors for the 128-byte swizzle, the m64n256k16 and
+// in cannon_mm/csrc/cannon_mm.cu, the grouped GEMM and its backward in
+// grouped_mm/csrc/grouped_mm.cu): mbarriers, TMA tile loads and stores,
+// shared-memory matrix descriptors for the 128-byte swizzle, the m64n256k16 and
 // m64n128k16 warpgroup products, and on the host the encoder of 3-D bf16
 // tensor maps.  Inline PTX for sm_90a only (wgmma and setmaxnreg exist for
 // that target alone).
@@ -69,6 +69,37 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2)
       : "memory");
+}
+
+// ---- TMA stores: one thread writes a whole box from shared memory (laid
+// out as the tensor map says) to the tensor, clipped at its edges; the
+// box's bytes must be fenced for the async proxy first -------------------
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// the issuing thread waits until its committed stores have read their
+// shared memory (READ) or are complete
+template <bool READ>
+__device__ __forceinline__ void tma_store_wait() {
+  if (READ)
+    asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
 // ---- wgmma ------------------------------------------------------------

@@ -76,6 +76,13 @@
 // bf16 needs K and N multiples of 8 (with `swiglu` N a multiple of 16) and
 // 16-byte aligned operands (the wrapper checks).
 //
+// The backward (training) has two variants for each of its two products,
+// dgrad (dx = dy w[e]^T) and wgrad (dw[e] = x_e^T dy_e), below the
+// forward: `gmm_{dgrad,wgrad}_wgmma_tma_kernel` (bf16, any rows an expert:
+// warp-specialised TMA ring and wgmma m64n256k16; dgrad over
+// row-tile slots found on the card, wgrad persistent with the ragged last
+// stage zeroed in shared memory) and `_simt_kernel` (fp32).
+//
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC  (bound through ctypes; the driver's
 //             cuTensorMapEncodeTiled is fetched at run time).
@@ -623,15 +630,15 @@ int launch(int variant, const void* x, const void* w, const int* off,
 
 
 // ---------------------------------------------------------------------------
-// Backward: dgrad and wgrad (training, bf16 on mma.sync and fp32 simt).
+// Backward: dgrad and wgrad (training; bf16 on wgmma fed by TMA, fp32 simt).
 // ---------------------------------------------------------------------------
 //
 // The MoE block's training step differentiates both expert products, as
 // JAX's autodiff of ragged_dot does (src/repro/models/moe.py:116,120; the
 // JAX package has no kernel for them, XLA transposes the op):
 //   * dgrad: dx (M, K) = for each expert e, rows offsets[e] .. offsets[e+1]
-//     of dy (M, N) times w[e]^T, w[e] (K, N) read in place, transposed by
-//     the loads; rows of no expert are zero, as in the forward.
+//     of dy (M, N) times w[e]^T, w[e] (K, N) read in place; rows of no
+//     expert are zero, as in the forward.
 //   * wgrad: dw (E, K, N) = for each expert e, x[rows]^T (K, rows) times
 //     dy[rows] (rows, N): a reduction over the expert's rows.  An expert
 //     with no rows gets exact zeros.
@@ -644,255 +651,400 @@ int launch(int variant, const void* x, const void* w, const int* off,
 // on the tensor cores at 989 TFLOP/s in bf16; the bytes are the forward's
 // too (the weights once, x or dy once per output tile column), so at a
 // training batch (M = 65536 rows over 128 experts at qwen3-moe's width)
-// the operations bound them.  This first design is simple: 4 warps of
-// mma.sync m16n8k16 on cp.async-staged tiles, a 3-stage ring, as the
-// forward's `mma` variant; a wgmma/TMA design is later work.
-//   * dgrad: one block per (128 output columns = rows of w[e], expert),
-//     64-row tiles of the expert's rows, depth tiles of 32 along N.  dy is
-//     the A operand as the forward's x; w[e]'s rows are staged as they lie
-//     ([k][n], n the depth) and fed as B by a plain ldmatrix, the way the
-//     attention tile reads K (../../csrc/mma_tile.cuh `scores`).
-//   * wgrad: one block per (128 columns of N, 64 rows of K, expert); the
-//     depth is the expert's rows, 32 at a time.  x's rows are staged as
-//     they lie ([m][k]) and fed as A through ldmatrix.trans; dy's rows are
-//     the B operand exactly as w is in the forward.
+// the operations bound them.  Two variants each, picked by
+// kernel.py::grad_route from the dtype: `wgmma_tma` (bf16, any rows an
+// expert; below) and `simt` (fp32, after it).
 
-constexpr int DG_BN = 128;                 // dgrad: output columns a block
-constexpr int DG_PITCH = BK + 8;           // bf16 per staged row of depth 32
-struct DgradStage {
-  bf16 a[BM * DG_PITCH];                   // dy: 64 rows x 32 depth
-  bf16 b[DG_BN * DG_PITCH];                // w[e]: 128 rows (k) x 32 depth
-};
+// ---------------------------------------------------------------------------
+// Backward, bf16 (training): wgmma fed by TMA.
+// ---------------------------------------------------------------------------
+//
+// Both kernels are warp-specialised as the forward's wgmma_tma: one producer
+// thread issues TMA loads of 64 x 64 boxes (128-byte swizzle) into a ring of
+// 4 stages with a full and an empty mbarrier each; two consumer warpgroups
+// (setmaxnreg 232; the producer 40) each own 64 output rows and run wgmma
+// m64n256k16 on the stage that has arrived, one stage of products in
+// flight.  A stage is depth 64: two A boxes (one per consumer warpgroup)
+// and four B boxes (256 output columns), 48 KB.
+//   * dgrad, dx = dy w[e]^T.  A is dy (M, N), contiguous along the
+//     reduction n: K-major.  B is w[e] read in place; its output index is
+//     k and it is contiguous along n, so it is K-major too (no transpose
+//     bit): the four boxes of 64 rows of w[e] lie one after the other as
+//     256 rows of 128 bytes.  Maps: dy as (N, M, 1), w as (N, K, E), read
+//     at (n, k, e).  A block owns 128 rows of one expert x 256 columns of
+//     K.  Blocks are laid out over (K tile, row-tile slot), K tiles
+//     fastest, with ceil(M / 128) + E slots: each block finds its expert
+//     and first row from the offsets on the card (a block-wide scan of
+//     ceil(rows_e / 128) over the experts) and exits past the last tile.
+//     So a hot expert's rows spread over every SM, the grid is fixed by
+//     the shapes alone (a graph can capture the launch), the K tiles of a
+//     row tile share its dy rows through L2 and an expert's row tiles find
+//     w[e] there.  Rows of a live tile past the expert's last row are
+//     multiplied but never stored; one more slot zeroes the rows outside
+//     [offsets[0], offsets[E]).
+//   * wgrad, dw[e] = x_e^T dy_e.  A is x_e^T, contiguous along its output
+//     index k: MN-major (transpose bit on A).  B is dy_e, contiguous along
+//     its output index n: MN-major, as the forward's w.  Maps: x as (K, M,
+//     1), dy as (N, M, 1).  Output tiles of 128 rows of K x 256 columns of
+//     N, the expert slowest, so the tiles in flight share an expert's x
+//     and dy rows through L2; persistent: one block an SM takes tile after
+//     tile from a counter on the card, and its producer loads the next
+//     tile's first stages while the consumers store the last one (an
+//     expert's tiles are short: 8 stages at 512 rows).  Each tile sums its expert's
+//     rows 64 at a time in one fixed order: no split over rows, no
+//     atomics, so a replay or a resumed run gives the same bits.  TMA
+//     zero-fills only past the tensor's edge, so the last stage of an
+//     expert holds the next expert's rows: before its products the
+//     consumers zero those rows in all six boxes (in an MN-major box one
+//     128-byte line is one row, whatever the swizzle), then fence the
+//     generic writes for the async proxy and meet at a named barrier.  An
+//     expert with no rows gets exact zeros and reads nothing.
+// What bounds them: the forward's 2 M K N operations (1.67 ms at w1, 0.83
+// at w2 for qwen3-moe's training step at 989 TFLOP/s); the bytes are below
+// that (wgrad writes every expert's dw, 3.2 GB at w1: 0.96 ms).
 
-__device__ __forceinline__ void dgrad_load(DgradStage& st, const bf16* dy,
-                                           const bf16* we, int m0, int hi,
-                                           int n0, int c0, int K, int N) {
-  const int t = threadIdx.x;
+constexpr int BW_BM = 128;                  // output rows a block
+constexpr int BW_BN = 256;                  // output columns a block
+constexpr int BW_BK = 64;                   // depth a stage
+constexpr int BW_THREADS = 384;   // warpgroups 0, 1: consumers; 2: producer
+constexpr int BW_BOX = 64 * 64 * 2;         // one 64 x 64 TMA box, 8 KB
+constexpr int BW_A_BYTES = 2 * BW_BOX;
+constexpr int BW_STAGE_BYTES = BW_A_BYTES + 4 * BW_BOX;   // 48 KB
+constexpr int DG_STAGES = 4, WR_STAGES = 3;
+// dgrad: the ring; wgrad: the ring and each consumer warpgroup's 64 x 256
+// output staging (four boxes); + 1024 for alignment
+constexpr int DG_SMEM = DG_STAGES * BW_STAGE_BYTES + 1024;
+constexpr int WR_OUT_BYTES = 4 * BW_BOX;
+constexpr int WR_SMEM = WR_STAGES * BW_STAGE_BYTES + 2 * WR_OUT_BYTES + 1024;
+static_assert(DG_SMEM + 2 * DG_STAGES * 8 + 160 <= 232448 &&
+                  WR_SMEM + 2 * WR_STAGES * 8 <= 232448,
+              "backward wgmma_tma: shared memory over Hopper's 227 KB");
+
+// The expert e, first row r0 and the expert's end hi of row tile `slot`,
+// when each expert's rows are cut into tiles of BW_BM in expert order;
+// false past the last tile.  Every thread of the block calls it: a
+// block-wide scan of the tile counts, read from the offsets on the card.
+__device__ bool slot_tile(const int* offsets, int M, int E, int slot, int& e,
+                          int& r0, int& hi) {
+  __shared__ int warp_sum[32], found[3];
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  if (tid == 0) found[0] = -1;
+  int base = 0;   // tiles of the experts before this chunk
+  for (int c0 = 0; c0 < E && base <= slot; c0 += blockDim.x) {
+    int lo = 0, end = 0;
+    if (c0 + tid < E) expert_rows(offsets, c0 + tid, M, lo, end);
+    const int n = (end - lo + BW_BM - 1) / BW_BM;
+    int incl = n;
 #pragma unroll
-  for (int i = 0; i < BM * BK / 8 / THREADS; ++i) {
-    const int c = t + i * THREADS;
-    const int r = c >> 2, nc = (c & 3) * 8;
-    const bool ok = m0 + r < hi && n0 + nc < N;
-    const bf16* src = ok ? dy + (long long)(m0 + r) * N + n0 + nc : dy;
-    tile::cp_async16(st.a + r * DG_PITCH + nc, src, ok ? 16 : 0);
+    for (int d = 1; d < 32; d *= 2) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, d);
+      if (lane >= d) incl += v;
+    }
+    if (lane == 31) warp_sum[warp] = incl;
+    __syncthreads();
+    int before = base, total = 0;
+    for (int w = 0; w < (int)blockDim.x / 32; ++w) {
+      before += w < warp ? warp_sum[w] : 0;
+      total += warp_sum[w];
+    }
+    const int start = before + incl - n;
+    if (n > 0 && slot >= start && slot < start + n) {
+      found[0] = c0 + tid;
+      found[1] = lo + (slot - start) * BW_BM;
+      found[2] = end;
+    }
+    base += total;
+    __syncthreads();
   }
-#pragma unroll
-  for (int i = 0; i < DG_BN * BK / 8 / THREADS; ++i) {
-    const int c = t + i * THREADS;
-    const int r = c >> 2, nc = (c & 3) * 8;
-    const bool ok = c0 + r < K && n0 + nc < N;
-    const bf16* src = ok ? we + (long long)(c0 + r) * N + n0 + nc : we;
-    tile::cp_async16(st.b + r * DG_PITCH + nc, src, ok ? 16 : 0);
-  }
+  e = found[0], r0 = found[1], hi = found[2];
+  return e >= 0;
 }
 
-__global__ void __launch_bounds__(THREADS)
-    gmm_dgrad_mma_kernel(const bf16* __restrict__ dy,
-                         const bf16* __restrict__ w,
-                         const int* __restrict__ offsets,
-                         bf16* __restrict__ dx, int M, int K, int N, int E) {
-  const int c0 = blockIdx.x * DG_BN;
-  const int e = blockIdx.y;
-  if (e == E) {
-    zero_tail(dx, offsets, M, K, E, c0, DG_BN, threadIdx.x, blockDim.x);
+// The ring's mbarriers, set up by thread 0 before the block's barrier:
+// full[s] takes the producer's expect_tx, empty[s] one arrival from each
+// of `consumers` warps.
+template <int S>
+__device__ __forceinline__ void ring_init(uint64_t* full, uint64_t* empty,
+                                          int consumers) {
+  using namespace hopper;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(smem_addr(&full[s]), 1);
+      mbar_init(smem_addr(&empty[s]), consumers);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+}
+
+// The producer's side of stage number `it`: wait until the consumers
+// released it, announce `bytes`; returns its full barrier.
+template <int S>
+__device__ __forceinline__ uint32_t ring_fill(uint64_t* full, uint64_t* empty,
+                                             int it, uint32_t bytes) {
+  using namespace hopper;
+  const int s = it % S;
+  if (it >= S) mbar_wait(smem_addr(&empty[s]), ((it / S) - 1) & 1);
+  const uint32_t bar = smem_addr(&full[s]);
+  mbar_expect_tx(bar, bytes);
+  return bar;
+}
+
+// a consumer warp hands stage number `it` back to the producer
+template <int S>
+__device__ __forceinline__ void ring_release(uint64_t* empty, int it) {
+  __syncwarp();
+  if (threadIdx.x % 32 == 0)
+    hopper::mbar_arrive(hopper::smem_addr(&empty[it % S]));
+}
+
+// blockIdx.x = slot * K tiles + K tile; slot ceil(M / 128) + E: the rows of
+// no expert
+__global__ void __launch_bounds__(BW_THREADS, 1) gmm_dgrad_wgmma_tma_kernel(
+    const __grid_constant__ CUtensorMap map_dy,
+    const __grid_constant__ CUtensorMap map_w,
+    const int* __restrict__ offsets, bf16* __restrict__ dx, int M, int K,
+    int N, int E) {
+  using namespace hopper;
+  const int k_tiles = (K + BW_BN - 1) / BW_BN;
+  const int c0 = (blockIdx.x % k_tiles) * BW_BN;
+  const int slot = blockIdx.x / k_tiles;
+  if (slot == (M + BW_BM - 1) / BW_BM + E) {
+    zero_tail(dx, offsets, M, K, E, c0, BW_BN, threadIdx.x, blockDim.x);
     return;
   }
-  int lo, hi;
-  expert_rows(offsets, e, M, lo, hi);
-  if (lo >= hi) return;
+  int e, r0, hi;
+  if (!slot_tile(offsets, M, E, slot, e, r0, hi)) return;
+  // 64-row tiles with a row of the expert: a warpgroup with none sits out
+  // (no branch around its products, which would serialise them)
+  const int n_live = min(2, (hi - r0 + 63) / 64);
 
-  __shared__ __align__(16) DgradStage stages[STAGES];
-  const bf16* we = w + (long long)e * K * N;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int nk = (N + BK - 1) / BK;
-  const int a_row = lane & 15, a_col = (lane >> 4) << 3;
-  // B as mma_tile.cuh's scores reads K: rows 0-7 | depth 0-7, rows 0-7 |
-  // depth 8-15, rows 8-15 | depth 0-7, rows 8-15 | depth 8-15
-  const int b_row = (lane & 7) + ((lane >> 4) << 3);
-  const int b_col = ((lane >> 3) & 1) << 3;
+  extern __shared__ uint8_t dyn_smem[];
+  __shared__ __align__(8) uint64_t full[DG_STAGES], empty[DG_STAGES];
+  const uint32_t ring = (smem_addr(dyn_smem) + 1023u) & ~1023u;
+  const int n_k = (N + BW_BK - 1) / BW_BK;
+  ring_init<DG_STAGES>(full, empty, 4 * n_live);
 
-  for (int m0 = lo; m0 < hi; m0 += BM) {
-    const bool live = m0 + wm * 32 < hi;
-    float acc[2][8][4];
+  if (threadIdx.x >= 256) {
+    // ---- producer: dy's live 64-row boxes, w[e]'s four 64-row boxes ----
+    regs_dec<40>();
+    if (threadIdx.x == 256) {
+      for (int t = 0; t < n_k; ++t) {
+        const uint32_t bar =
+            ring_fill<DG_STAGES>(full, empty, t, (n_live + 4) * BW_BOX);
+        const uint32_t st = ring + (t % DG_STAGES) * BW_STAGE_BYTES;
+        for (int j = 0; j < n_live; ++j)
+          tma_load_3d(st + j * BW_BOX, &map_dy, bar, t * BW_BK, r0 + 64 * j,
+                      0);
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-        acc[mi][nt][0] = acc[mi][nt][1] = acc[mi][nt][2] = acc[mi][nt][3] =
-            0.f;
-#pragma unroll
-    for (int s = 0; s < STAGES - 1; ++s) {
-      if (s < nk) dgrad_load(stages[s], dy, we, m0, hi, s * BK, c0, K, N);
-      tile::cp_async_commit();
-    }
-    for (int kt = 0; kt < nk; ++kt) {
-      tile::cp_async_wait<STAGES - 2>();
-      __syncthreads();
-      const int pre = kt + STAGES - 1;
-      if (pre < nk)
-        dgrad_load(stages[pre % STAGES], dy, we, m0, hi, pre * BK, c0, K, N);
-      tile::cp_async_commit();
-      if (!live) continue;
-      const DgradStage& st = stages[kt % STAGES];
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        uint32_t a[2][4];
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-          tile::ldmatrix_x4(
-              a[mi], st.a + (wm * 32 + mi * 16 + a_row) * DG_PITCH +
-                         kk * 16 + a_col);
-#pragma unroll
-        for (int np = 0; np < 4; ++np) {
-          uint32_t b[4];
-          tile::ldmatrix_x4(b, st.b + (wn * 64 + np * 16 + b_row) * DG_PITCH +
-                                   kk * 16 + b_col);
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi) {
-            tile::mma_bf16(acc[mi][2 * np], a[mi], b[0], b[1]);
-            tile::mma_bf16(acc[mi][2 * np + 1], a[mi], b[2], b[3]);
-          }
-        }
+        for (int j = 0; j < 4; ++j)
+          tma_load_3d(st + BW_A_BYTES + j * BW_BOX, &map_w, bar, t * BW_BK,
+                      c0 + 64 * j, e);
       }
     }
-    tile::cp_async_wait<0>();
-    __syncthreads();
-    if (!live) continue;
+  } else if (threadIdx.x / 128 < n_live) {
+    // ---- consumers: rows r0 + 64 wg .. of the tile ----
+    regs_inc<232>();
+    const int wg = threadIdx.x / 128;
+    float acc[128];
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    fence_regs(acc);
+    for (int t = 0; t < n_k; ++t) {
+      const int s = t % DG_STAGES;
+      mbar_wait(smem_addr(&full[s]), (t / DG_STAGES) & 1);
+      const uint32_t st = ring + s * BW_STAGE_BYTES;
+      wgmma_fence();
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = m0 + wm * 32 + mi * 16 + gid + 8 * half;
-        if (row >= hi) continue;
-        bf16* orow = dx + (long long)row * K;
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          const int col = c0 + wn * 64 + nt * 8 + 2 * tig;
-          const float* g = acc[mi][nt] + 2 * half;
-          if (col < K)
-            *reinterpret_cast<__nv_bfloat162*>(orow + col) =
-                __floats2bfloat162_rn(g[0], g[1]);
-        }
-      }
+      for (int kk = 0; kk < BW_BK / 16; ++kk)
+        wgmma_m64n256k16<0, 0>(
+            acc, sw128_desc(st + wg * BW_BOX + kk * 32, 16, 1024),
+            sw128_desc(st + BW_A_BYTES + kk * 32, 16, 1024));
+      wgmma_commit();
+      // the products of the previous stage are done: hand it back
+      wgmma_wait<1>();
+      if (t > 0) ring_release<DG_STAGES>(empty, t - 1);
     }
-  }
-}
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (n_k > 0) ring_release<DG_STAGES>(empty, n_k - 1);
 
-constexpr int WGR_BM = 64;                 // wgrad: rows of K a block
-constexpr int WGR_PITCH = WGR_BM + 8;      // bf16 per staged x row
-struct WgradStage {
-  bf16 a[BK * WGR_PITCH];                  // x: 32 rows (m) x 64 (k)
-  bf16 b[BK * B_PITCH];                    // dy: 32 rows (m) x 128 (n)
-};
-
-__device__ __forceinline__ void wgrad_load(WgradStage& st, const bf16* x,
-                                           const bf16* dy, int m0, int hi,
-                                           int k0, int n0, int K, int N) {
-  const int t = threadIdx.x;
+    // epilogue: straight from the registers, two adjacent columns a store;
+    // rows past hi (the next expert's) are never stored
+    const int lane = threadIdx.x % 32, w = (threadIdx.x % 128) / 32;
 #pragma unroll
-  for (int i = 0; i < BK * WGR_BM / 8 / THREADS; ++i) {
-    const int c = t + i * THREADS;
-    const int r = c >> 3, kc = (c & 7) * 8;
-    const bool ok = m0 + r < hi && k0 + kc < K;
-    const bf16* src = ok ? x + (long long)(m0 + r) * K + k0 + kc : x;
-    tile::cp_async16(st.a + r * WGR_PITCH + kc, src, ok ? 16 : 0);
-  }
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + 64 * wg + w * 16 + lane / 4 + 8 * h;
+      if (row >= hi) continue;
+      bf16* orow = dx + (long long)row * K;
 #pragma unroll
-  for (int i = 0; i < BK * BN / 8 / THREADS; ++i) {
-    const int c = t + i * THREADS;
-    const int r = c >> 4, nc = (c & 15) * 8;
-    const bool ok = m0 + r < hi && n0 + nc < N;
-    const bf16* src = ok ? dy + (long long)(m0 + r) * N + n0 + nc : dy;
-    tile::cp_async16(st.b + r * B_PITCH + nc, src, ok ? 16 : 0);
-  }
-}
-
-__global__ void __launch_bounds__(THREADS)
-    gmm_wgrad_mma_kernel(const bf16* __restrict__ x,
-                         const bf16* __restrict__ dy,
-                         const int* __restrict__ offsets,
-                         bf16* __restrict__ dw, int M, int K, int N, int E) {
-  const int n0 = blockIdx.x * BN, k0 = blockIdx.y * WGR_BM;
-  const int e = blockIdx.z;
-  int lo, hi;
-  expert_rows(offsets, e, M, lo, hi);
-
-  __shared__ __align__(16) WgradStage stages[STAGES];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int nk = hi > lo ? (hi - lo + BK - 1) / BK : 0;
-  // A = x^T through ldmatrix.trans: matrices (depth 0-7 | out 0-7), (depth
-  // 0-7 | out 8-15), (depth 8-15 | out 0-7), (depth 8-15 | out 8-15) are
-  // the fragment's a0..a3 once transposed
-  const int mi8 = lane >> 3;
-  const int a_red = (lane & 7) + ((mi8 >> 1) << 3), a_out = (mi8 & 1) << 3;
-  // B = dy as the forward reads w
-  const int b_key = (lane & 7) + (((lane >> 3) & 1) << 3);
-  const int b_col = (lane >> 4) << 3;
-
-  float acc[2][8][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-      acc[mi][nt][0] = acc[mi][nt][1] = acc[mi][nt][2] = acc[mi][nt][3] =
-          0.f;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nk) wgrad_load(stages[s], x, dy, lo + s * BK, hi, k0, n0, K, N);
-    tile::cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    tile::cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    const int pre = kt + STAGES - 1;
-    if (pre < nk)
-      wgrad_load(stages[pre % STAGES], x, dy, lo + pre * BK, hi, k0, n0, K,
-                 N);
-    tile::cp_async_commit();
-    const WgradStage& st = stages[kt % STAGES];
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-        tile::ldmatrix_x4_trans(
-            a[mi], st.a + (kk * 16 + a_red) * WGR_PITCH + wm * 32 + mi * 16 +
-                       a_out);
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t b[4];
-        tile::ldmatrix_x4_trans(
-            b, st.b + (kk * 16 + b_key) * B_PITCH + wn * 64 + np * 16 + b_col);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          tile::mma_bf16(acc[mi][2 * np], a[mi], b[0], b[1]);
-          tile::mma_bf16(acc[mi][2 * np + 1], a[mi], b[2], b[3]);
-        }
-      }
-    }
-  }
-  tile::cp_async_wait<0>();
-  bf16* dwe = dw + (long long)e * K * N;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = k0 + wm * 32 + mi * 16 + gid + 8 * half;
-      if (row >= K) continue;
-      bf16* orow = dwe + (long long)row * N;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const int col = n0 + wn * 64 + nt * 8 + 2 * tig;
-        const float* g = acc[mi][nt] + 2 * half;
-        if (col < N)
+      for (int j = 0; j < BW_BN / 8; ++j) {
+        const int col = c0 + 8 * j + (lane % 4) * 2;
+        if (col < K)
           *reinterpret_cast<__nv_bfloat162*>(orow + col) =
-              __floats2bfloat162_rn(g[0], g[1]);
+              __floats2bfloat162_rn(acc[4 * j + 2 * h],
+                                    acc[4 * j + 2 * h + 1]);
       }
     }
+  }
+}
+
+// Persistent over tiles (expert, K tile of 128 rows, N tile of 256
+// columns), N tiles fastest, handed out in that order by a counter on the
+// card (next_tile, zeroed before the launch): the producer takes the next
+// tile when it starts one and passes it to the consumers through a
+// two-slot queue in shared memory.  So the tiles in flight are always a
+// window of consecutive tiles, as with one block a tile: the tiles of a
+// popular expert, whose rows may not fit L2, run in step and share them,
+// and no block waits on a fixed share of long tiles.  Stage and phase run
+// on across tiles.  Each consumer warpgroup writes its 64 x 256 part of a
+// tile as bf16 into its staging boxes (128-byte swizzle, as the map of dw
+// reads them) and one of its threads stores them with TMA (clipped past K
+// and N), asynchronously: the next tile's products run while the card
+// writes dw, and the staging is reused only once that store has read it.
+__global__ void __launch_bounds__(BW_THREADS, 1) gmm_wgrad_wgmma_tma_kernel(
+    const __grid_constant__ CUtensorMap map_x,
+    const __grid_constant__ CUtensorMap map_dy,
+    const __grid_constant__ CUtensorMap map_dw,
+    const int* __restrict__ offsets, int* __restrict__ next_tile, int M,
+    int K, int N, int E) {
+  using namespace hopper;
+  const int n_tiles = (N + BW_BN - 1) / BW_BN;
+  const int per_e = n_tiles * ((K + BW_BM - 1) / BW_BM);
+  const int tiles = per_e * E;
+  extern __shared__ uint8_t dyn_smem[];
+  __shared__ __align__(8) uint64_t full[WR_STAGES], empty[WR_STAGES];
+  // the tile queue: the producer's tile numbers, each read by all 8
+  // consumer warps before its slot is reused
+  __shared__ __align__(8) uint64_t q_full[2], q_empty[2];
+  __shared__ int q_tile[2];
+  const uint32_t ring = (smem_addr(dyn_smem) + 1023u) & ~1023u;
+  uint8_t* const ring_ptr = dyn_smem + (ring - smem_addr(dyn_smem));
+  const uint32_t staging = ring + WR_STAGES * BW_STAGE_BYTES;
+  if (threadIdx.x == 0)
+    for (int q = 0; q < 2; ++q) {
+      mbar_init(smem_addr(&q_full[q]), 1);
+      mbar_init(smem_addr(&q_empty[q]), 8);
+    }
+  ring_init<WR_STAGES>(full, empty, 8);   // fences the inits, syncs
+
+  if (threadIdx.x >= 256) {
+    // ---- producer: x's two 64-column boxes, dy's four, 64 rows each ----
+    regs_dec<40>();
+    if (threadIdx.x == 256) {
+      int it = 0;   // stages filled so far, over all tiles
+      for (int i = 0;; ++i) {
+        const int tile = atomicAdd(next_tile, 1), q = i & 1;
+        if (i >= 2) mbar_wait(smem_addr(&q_empty[q]), ((i >> 1) - 1) & 1);
+        q_tile[q] = tile;
+        mbar_arrive(smem_addr(&q_full[q]));   // releases the write
+        if (tile >= tiles) break;
+        const int e = tile / per_e, r = tile % per_e;
+        const int k0 = (r / n_tiles) * BW_BM, n0 = (r % n_tiles) * BW_BN;
+        int lo, hi;
+        expert_rows(offsets, e, M, lo, hi);
+        for (int m = lo; m < hi; m += BW_BK, ++it) {
+          const uint32_t bar =
+              ring_fill<WR_STAGES>(full, empty, it, 6 * BW_BOX);
+          const uint32_t st = ring + (it % WR_STAGES) * BW_STAGE_BYTES;
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            tma_load_3d(st + j * BW_BOX, &map_x, bar, k0 + 64 * j, m, 0);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            tma_load_3d(st + BW_A_BYTES + j * BW_BOX, &map_dy, bar,
+                        n0 + 64 * j, m, 0);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: rows k0 + 64 wg .. of each tile ----
+    regs_inc<232>();
+    const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
+    const int w = (threadIdx.x % 128) / 32;
+    const bool leader = threadIdx.x % 128 == 0;   // issues wg's stores
+    const uint32_t out = staging + wg * WR_OUT_BYTES;
+    uint8_t* const out_ptr = ring_ptr + (out - ring);
+    float acc[128];
+    int it = 0;     // stages consumed so far, over all tiles
+    for (int i = 0;; ++i) {
+      const int q = i & 1;
+      mbar_wait(smem_addr(&q_full[q]), (i >> 1) & 1);
+      const int tile = q_tile[q];
+      __syncwarp();
+      if (lane == 0) mbar_arrive(smem_addr(&q_empty[q]));
+      if (tile >= tiles) break;
+      const int e = tile / per_e, r = tile % per_e;
+      const int k0 = (r / n_tiles) * BW_BM, n0 = (r % n_tiles) * BW_BN;
+      int lo, hi;
+      expert_rows(offsets, e, M, lo, hi);
+#pragma unroll
+      for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+      fence_regs(acc);
+      const int it0 = it;
+      for (int m = lo; m < hi; m += BW_BK, ++it) {
+        const int s = it % WR_STAGES;
+        mbar_wait(smem_addr(&full[s]), (it / WR_STAGES) & 1);
+        const uint32_t st = ring + s * BW_STAGE_BYTES;
+        if (hi - m < BW_BK) {
+          // the next expert's rows (or TMA's zeros past M) in the last
+          // stage: zero rows hi - m .. 63 of its six boxes, 16 bytes a store
+          const int keep = hi - m, lines = (BW_BK - keep) * 8;
+          uint8_t* base = ring_ptr + s * BW_STAGE_BYTES;
+          for (int i = threadIdx.x; i < 6 * lines; i += 256) {
+            const int box = i / lines, rem = i % lines;
+            reinterpret_cast<uint4*>(base + box * BW_BOX +
+                                     (keep + rem / 8) * 128)[rem % 8] =
+                make_uint4(0u, 0u, 0u, 0u);
+          }
+          // the generic writes before the async proxy's reads, and every
+          // consumer's before any product
+          fence_async_smem();
+          asm volatile("bar.sync 1, 256;" ::: "memory");
+        }
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BW_BK / 16; ++kk)
+          wgmma_m64n256k16<1, 1>(
+              acc, sw128_desc(st + wg * BW_BOX + kk * 2048, BW_BOX, 1024),
+              sw128_desc(st + BW_A_BYTES + kk * 2048, BW_BOX, 1024));
+        wgmma_commit();
+        // the products of the previous stage are done: hand it back
+        wgmma_wait<1>();
+        if (it > it0) ring_release<WR_STAGES>(empty, it - 1);
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (it > it0) ring_release<WR_STAGES>(empty, it - 1);
+
+      // epilogue: the staging is free once the last tile's store read it
+      if (leader) tma_store_wait<true>();
+      asm volatile("bar.sync %0, 128;" ::"r"(2 + wg) : "memory");
+      // register pair (4 j + 2 h, + 1): row 16 w + lane / 4 + 8 h, columns
+      // 8 j + 2 (lane % 4) + {0, 1}, in box j / 8 at 16-byte chunk j % 8,
+      // swizzled by the row: conflict-free, one 4-byte store a pair
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = w * 16 + lane / 4 + 8 * h;
+#pragma unroll
+        for (int j = 0; j < BW_BN / 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(
+              out_ptr + (j / 8) * BW_BOX + row * 128 +
+              (((j % 8) ^ (row % 8)) * 16) + (lane % 4) * 4) =
+              __floats2bfloat162_rn(acc[4 * j + 2 * h],
+                                    acc[4 * j + 2 * h + 1]);
+      }
+      fence_async_smem();
+      asm volatile("bar.sync %0, 128;" ::"r"(2 + wg) : "memory");
+      if (leader) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          tma_store_3d(&map_dw, out + j * BW_BOX, n0 + 64 * j, k0 + 64 * wg,
+                       e);
+        tma_store_commit();
+      }
+    }
+    if (leader) tma_store_wait<false>();
   }
 }
 
@@ -1016,6 +1168,67 @@ __global__ void __launch_bounds__(FTHREADS)
   }
 }
 
+// the backward's wgmma_tma launches.  tma: the tensor-map arguments
+// (kernel.py::grad_tma_args), 64 x 64 boxes: dgrad dy and w; wgrad x, dy
+// and dw (out).  counter: wgrad's tile counter, one int on the card.
+int launch_grad_wgmma(int kind, const void* a, const void* b, const int* off,
+                      void* out, int M, int K, int N, int E,
+                      const unsigned long long* tma, void* counter,
+                      cudaStream_t s) {
+  const int n_maps = kind == 0 ? 2 : 3;
+  CUtensorMap maps[3];
+  if (tma == nullptr) return (int)cudaErrorInvalidValue;
+  const void* bases[3] = {a, b, out};
+  for (int i = 0; i < n_maps; ++i) {
+    const unsigned long long* arg = tma + 8 * i;
+    if (arg[5] != 64 || arg[6] != 64 || arg[7] != 1 ||
+        !hopper::encode_map(&maps[i], bases[i], arg))
+      return (int)cudaErrorInvalidValue;
+  }
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 64) return (int)cudaErrorInvalidValue;
+  // once per device and kernel: neither call is one a graph capture records
+  static bool smem_set[2][64] = {};
+  static int sms[64] = {};
+  if (!smem_set[kind][dev]) {
+    const cudaFuncAttribute smem = cudaFuncAttributeMaxDynamicSharedMemorySize;
+    err = kind == 0
+              ? cudaFuncSetAttribute(gmm_dgrad_wgmma_tma_kernel, smem, DG_SMEM)
+              : cudaFuncSetAttribute(gmm_wgrad_wgmma_tma_kernel, smem, WR_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    smem_set[kind][dev] = true;
+  }
+  if (sms[dev] == 0) {
+    err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
+                                 dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (kind == 0) {
+    // (K tile, slot), K tiles fastest; the last slot: the rows of no expert
+    const long long blocks = (long long)((K + BW_BN - 1) / BW_BN) *
+                             ((M + BW_BM - 1) / BW_BM + E + 1);
+    if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+    gmm_dgrad_wgmma_tma_kernel<<<(unsigned)blocks, BW_THREADS, DG_SMEM, s>>>(
+        maps[0], maps[1], off, static_cast<bf16*>(out), M, K, N, E);
+  } else {
+    const long long tiles = (long long)((N + BW_BN - 1) / BW_BN) *
+                            ((K + BW_BM - 1) / BW_BM) * E;
+    if (tiles > 0x7fffffff - sms[dev] || counter == nullptr)
+      return (int)cudaErrorInvalidValue;
+    err = cudaMemsetAsync(counter, 0, sizeof(int), s);
+    if (err != cudaSuccess) return (int)err;
+    // one block an SM (its shared memory allows no second), or fewer
+    gmm_wgrad_wgmma_tma_kernel<<<(unsigned)(tiles < sms[dev] ? tiles
+                                                              : sms[dev]),
+                                 BW_THREADS, WR_SMEM, s>>>(
+        maps[0], maps[1], maps[2], off, static_cast<int*>(counter), M, K, N,
+        E);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // x (M, K), w (E, K, N), offsets (E + 1,) int32 on the card, out (M, N), or
@@ -1043,19 +1256,26 @@ extern "C" int grouped_mm_launch(const void* x, const void* w,
 
 // The backward products.  kind 0, dgrad: a = dy (M, N), b = w (E, K, N),
 // out = dx (M, K).  kind 1, wgrad: a = x (M, K), b = dy (M, N), out = dw
-// (E, K, N).  variant: kSimt (fp32) or kMma (bf16, K and N multiples of 8,
-// 16-byte aligned operands).  Returns the launch's cudaGetLastError(), or
-// cudaErrorInvalidValue, without launching, for what the variant does not
-// take.
+// (E, K, N).  variant: kSimt (fp32) or kWgmmaTma (bf16, K and N
+// multiples of 8, 16-byte aligned operands); tma: wgmma_tma's tensor-map
+// arguments (kernel.py::grad_tma_args: 16 for dgrad, 24 for wgrad), else
+// null; scratch: one int on the card for wgrad's wgmma_tma (its tile
+// counter, zeroed here before the launch), else null.  Returns the
+// launch's cudaGetLastError(), or cudaErrorInvalidValue, without launching,
+// for what the variant does not take.
 extern "C" int grouped_mm_grad_launch(int kind, const void* a, const void* b,
                                       const void* offsets, void* out, int M,
                                       int K, int N, int E, int variant,
-                                      void* stream) {
+                                      const unsigned long long* tma,
+                                      void* scratch, void* stream) {
   if (M < 1 || K < 1 || N < 1 || E < 1 || E > 65534 || (kind != 0 && kind != 1))
     return (int)cudaErrorInvalidValue;
-  if (variant == kMma && (K % 8 || N % 8)) return (int)cudaErrorInvalidValue;
+  if (variant != kSimt && (K % 8 || N % 8)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* off = static_cast<const int*>(offsets);
+  if (variant == kWgmmaTma)
+    return launch_grad_wgmma(kind, a, b, off, out, M, K, N, E, tma, scratch,
+                             s);
   if (variant == kSimt) {
     if (kind == 0) {
       dim3 grid((K + FN - 1) / FN, E + 1);
@@ -1070,17 +1290,5 @@ extern "C" int grouped_mm_grad_launch(int kind, const void* a, const void* b,
     }
     return (int)cudaGetLastError();
   }
-  if (variant != kMma) return (int)cudaErrorInvalidValue;
-  if (kind == 0) {
-    dim3 grid((K + DG_BN - 1) / DG_BN, E + 1);
-    gmm_dgrad_mma_kernel<<<grid, THREADS, 0, s>>>(
-        static_cast<const bf16*>(a), static_cast<const bf16*>(b), off,
-        static_cast<bf16*>(out), M, K, N, E);
-  } else {
-    dim3 grid((N + BN - 1) / BN, (K + WGR_BM - 1) / WGR_BM, E);
-    gmm_wgrad_mma_kernel<<<grid, THREADS, 0, s>>>(
-        static_cast<const bf16*>(a), static_cast<const bf16*>(b), off,
-        static_cast<bf16*>(out), M, K, N, E);
-  }
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }

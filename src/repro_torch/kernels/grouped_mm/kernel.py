@@ -12,11 +12,12 @@ refuse inputs that require grad under grad mode
 (:func:`repro_torch.kernels.forbid_grad`); training reaches them through
 the autograd functions of :mod:`.ops`, whose backward launches
 :func:`grouped_mm_dgrad_cuda` (dx = dy w[e]^T per expert) and
-:func:`grouped_mm_wgrad_cuda` (dw[e] = x[rows]^T dy[rows]), each in a
-``mma`` variant (bf16, ``mma.sync``) and a ``simt`` one (fp32), picked by
-:func:`grad_route` from the dtype.  :func:`plan` picks the
-variant from dtype and shapes alone (it runs on the CPU with no card, and
-never reads the offsets):
+:func:`grouped_mm_wgrad_cuda` (dw[e] = x[rows]^T dy[rows]), each in two
+variants, picked by :func:`grad_route` from the dtype: ``wgmma_tma`` for
+bf16 at any rows an expert (``wgmma`` m64n256k16 on a TMA ring; dgrad over
+row-tile slots found on the card, wgrad persistent), ``simt`` for fp32.
+For the forward, :func:`plan` picks the variant from dtype and shapes
+alone (it runs on the CPU with no card, and never reads the offsets):
 
   * ``wgmma_tma`` — bf16 with at least :data:`WGMMA_MIN_ROWS` rows an
     expert on average (the prefill chunks): TMA into a ring of shared
@@ -75,7 +76,7 @@ def build() -> ctypes.CDLL:
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.grouped_mm_launch.argtypes = [vp] * 4 + [i] * 6 + [vp, vp]
     lib.grouped_mm_launch.restype = i
-    lib.grouped_mm_grad_launch.argtypes = [i] + [vp] * 4 + [i] * 5 + [vp]
+    lib.grouped_mm_grad_launch.argtypes = [i] + [vp] * 4 + [i] * 5 + [vp] * 3
     lib.grouped_mm_grad_launch.restype = i
     build_info.update(info)
     _lib = lib
@@ -109,12 +110,17 @@ def plan(x: torch.Tensor, w: torch.Tensor, swiglu: bool = False) -> str:
     return route(x.dtype, x.shape[0], *w.shape[1:], w.shape[0], swiglu)
 
 
+def _map(P: int, R: int, C: int):
+    """Tensor-map arguments of a contiguous bf16 (P, R, C) operand in
+    64 x 64 boxes, or None where TMA cannot read it."""
+    return tma_args((P, R, C), (R * C, C, 1), 2, WGMMA_BOX)
+
+
 @functools.lru_cache(maxsize=64)
 def wgmma_tma_args(M: int, K: int, N: int, E: int):
     """wgmma_tma's 16 tensor-map arguments: x as (K, M, 1), then w as
     (N, K, E), both contiguous bf16 in 64 x 64 boxes (``tma_args``)."""
-    ax = tma_args((1, M, K), (M * K, K, 1), 2, WGMMA_BOX)
-    aw = tma_args((E, K, N), (K * N, N, 1), 2, WGMMA_BOX)
+    ax, aw = _map(1, M, K), _map(E, K, N)
     if ax is None or aw is None:
         raise ValueError(f"grouped_mm: TMA cannot read x ({M}, {K}) or w "
                          f"({E}, {K}, {N})")
@@ -195,17 +201,16 @@ def grouped_mm_swiglu_cuda(x: torch.Tensor, w: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 # the CUDA kernel of each backward variant, per product (profiler names)
-GRAD_VARIANTS = {"dgrad": {"simt": "gmm_dgrad_simt_kernel",
-                           "mma": "gmm_dgrad_mma_kernel"},
-                 "wgrad": {"simt": "gmm_wgrad_simt_kernel",
-                           "mma": "gmm_wgrad_mma_kernel"}}
+GRAD_VARIANTS = {kind: {v: f"gmm_{kind}_{v}_kernel"
+                        for v in ("simt", "wgmma_tma")}
+                 for kind in ("dgrad", "wgrad")}
 _KIND = {"dgrad": 0, "wgrad": 1}
 
 
 def grad_route(dtype: torch.dtype, K: int, N: int) -> str:
     """The backward variant for a product whose weights are (E, K, N):
-    ``simt`` for fp32, ``mma`` for bf16 (K and N multiples of 8); raises on
-    what neither takes."""
+    ``simt`` for fp32, ``wgmma_tma`` for bf16 (K and N multiples of 8) at
+    any rows an expert; raises on what neither takes."""
     if dtype == torch.float32:
         return "simt"
     if dtype != torch.bfloat16:
@@ -214,10 +219,24 @@ def grad_route(dtype: torch.dtype, K: int, N: int) -> str:
     if K % 8 or N % 8:
         raise ValueError(f"bf16 grouped_mm backward needs K and N multiples "
                          f"of 8, got K={K}, N={N}")
-    return "mma"
+    return "wgmma_tma"
 
 
-def _grad_launch(fn, kind, a, b, offsets, out_shape, M, K, N, E, variant):
+@functools.lru_cache(maxsize=64)
+def grad_tma_args(kind: str, M: int, K: int, N: int, E: int):
+    """The backward wgmma_tma's tensor-map arguments, contiguous bf16
+    operands in 64 x 64 boxes: dgrad (16) dy as (N, M, 1), then w as (N, K,
+    E) (the forward's map); wgrad (24) x as (K, M, 1) (the forward's), dy as
+    (N, M, 1), then its output dw as (N, K, E), which it stores with TMA."""
+    maps = ((_map(1, M, N), _map(E, K, N)) if kind == "dgrad"
+            else (_map(1, M, K), _map(1, M, N), _map(E, K, N)))
+    if None in maps:
+        raise ValueError(f"grouped_mm {kind}: TMA cannot read its operands "
+                         f"at M={M}, K={K}, N={N}, E={E}")
+    return sum(maps, ())
+
+
+def _grad_launch(fn, kind, a, b, offsets, out_shape, M, K, N, E):
     name = fn.__name__
     tensors = (a, b, offsets)
     if not all(t.is_cuda and t.device == a.device for t in tensors):
@@ -233,19 +252,21 @@ def _grad_launch(fn, kind, a, b, offsets, out_shape, M, K, N, E, variant):
         raise ValueError(f"{name}: operands must be contiguous")
     if min(M, K, N, E) < 1 or E > MAX_EXPERTS:
         raise ValueError(f"{name}: bad sizes M={M}, K={K}, N={N}, E={E}")
-    planned = grad_route(a.dtype, K, N)
-    variant = variant or planned
-    if variant != planned:
-        raise ValueError(f"{name}: variant {variant!r} does not take "
-                         f"{a.dtype}")
-    if variant == "mma" and (a.data_ptr() % 16 or b.data_ptr() % 16):
+    variant = grad_route(a.dtype, K, N)
+    if variant != "simt" and (a.data_ptr() % 16 or b.data_ptr() % 16):
         raise ValueError(f"{name}: bf16 operands must be 16-byte aligned")
+    tma = _tma_array(grad_tma_args(kind, M, K, N, E)) \
+        if variant == "wgmma_tma" else None
     lib = build()
     out = torch.empty(out_shape, dtype=a.dtype, device=a.device)
+    # wgrad's wgmma_tma hands out its tiles from a counter on the card
+    counter = torch.empty(1, dtype=torch.int32, device=a.device) \
+        if tma is not None and kind == "wgrad" else None
     with torch.cuda.device(a.device):
         err = lib.grouped_mm_grad_launch(
             _KIND[kind], a.data_ptr(), b.data_ptr(), offsets.data_ptr(),
-            out.data_ptr(), M, K, N, E, _CODE[variant],
+            out.data_ptr(), M, K, N, E, _CODE[variant], tma,
+            counter.data_ptr() if counter is not None else None,
             torch.cuda.current_stream(a.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed ({variant}): CUDA "
@@ -256,33 +277,31 @@ def _grad_launch(fn, kind, a, b, offsets, out_shape, M, K, N, E, variant):
 
 
 def grouped_mm_dgrad_cuda(dy: torch.Tensor, w: torch.Tensor,
-                          offsets: torch.Tensor, *,
-                          variant: Optional[str] = None) -> torch.Tensor:
+                          offsets: torch.Tensor) -> torch.Tensor:
     """dgrad on the card: dy (M, N), w (E, K, N), offsets (E + 1,) int32,
     contiguous, one device.  Returns dx (M, K) in dy's dtype: rows
     ``offsets[e]:offsets[e + 1]`` of dy times ``w[e]^T``, rows of no expert
-    zero.  ``variant`` must be the one :func:`grad_route` names."""
+    zero; the variant is :func:`grad_route`'s."""
     if dy.ndim != 2 or w.ndim != 3 or dy.shape[1] != w.shape[2]:
         raise ValueError(f"grouped_mm_dgrad_cuda: bad shapes: dy "
                          f"{tuple(dy.shape)}, w {tuple(w.shape)}")
     (M, N), (E, K, _) = dy.shape, w.shape
     return _grad_launch(grouped_mm_dgrad_cuda, "dgrad", dy, w, offsets,
-                        (M, K), M, K, N, E, variant)
+                        (M, K), M, K, N, E)
 
 
 def grouped_mm_wgrad_cuda(x: torch.Tensor, dy: torch.Tensor,
-                          offsets: torch.Tensor, *,
-                          variant: Optional[str] = None) -> torch.Tensor:
+                          offsets: torch.Tensor) -> torch.Tensor:
     """wgrad on the card: x (M, K), dy (M, N), offsets (E + 1,) int32,
     contiguous, one device.  Returns dw (E, K, N) in x's dtype: for each
     expert ``x[rows]^T dy[rows]`` over its rows in one fixed order, exact
-    zeros for an expert with no rows."""
+    zeros for an expert with no rows; the variant is :func:`grad_route`'s."""
     if x.ndim != 2 or dy.ndim != 2 or x.shape[0] != dy.shape[0]:
         raise ValueError(f"grouped_mm_wgrad_cuda: bad shapes: x "
                          f"{tuple(x.shape)}, dy {tuple(dy.shape)}")
     (M, K), N, E = x.shape, dy.shape[1], offsets.numel() - 1
     return _grad_launch(grouped_mm_wgrad_cuda, "wgrad", x, dy, offsets,
-                        (E, K, N), M, K, N, E, variant)
+                        (E, K, N), M, K, N, E)
 
 
 def reset_counts() -> None:

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the grouped GEMM of two checkouts on one CUDA card, in turns.
 
-    python3 src/repro_torch/launch/compare_gmm.py OTHER_CHECKOUT \
+    python3 src/repro_torch/launch/compare_gmm.py [--grad] OTHER_CHECKOUT \
         [THIS_CHECKOUT]
 
 Runs four worker processes in the order other, this, this, other; each
@@ -24,6 +24,15 @@ its device busy time and the grouped GEMM's share, which the host clock
 (spreading 2x between calls) cannot give, and how that step's router
 spread the rows over the experts.  The card's name and power
 limit come first.  Needs one card.
+
+With ``--grad`` each worker times the backward instead: dgrad and wgrad
+(``grouped_mm_dgrad_cuda``, ``grouped_mm_wgrad_cuda`` on the variant the
+checkout's routing picks) at qwen3-moe's training shapes (M 65536 = batch
+8 x len 1024 x top-8, rows routed uniformly and on the smoke's skewed
+routing), events ms and the kernel's device ms, then four AdamW steps of
+the 2-layer qwen3-moe training run of ``chip_smoke.phase_train`` (8-bit
+moments, one batch of 8 x 1024 tokens): each step's synchronised wall and
+the steady one (the median of steps 2-4).
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ import importlib.util
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -40,6 +50,7 @@ import torch
 
 STAGES = ("decode", "verify", "len16", "len64", "len256")
 ARCH, LAYERS = "qwen3-moe-235b-a22b", 8
+TRAIN_M = 65536                 # backward rows: batch 8 x len 1024 x top-8
 
 
 def glue(h):
@@ -154,26 +165,96 @@ def prefill_step(cs, label, run):
           flush=True)
 
 
-def worker(root: Path, label: str, run: int) -> None:
+def time_grad(cs, label, run):
+    from repro_torch.kernels.grouped_mm import kernel
+    kernel.build()
+    rng = np.random.default_rng(32)
+    E, k = cs.QWEN3_MOE_EXPERTS["E"], cs.QWEN3_MOE_EXPERTS["k"]
+    for prod, (K, N) in cs.GMM_PRODUCTS.items():
+        w = cs.gmm_weights(E, K, N, torch.bfloat16, seed=21)
+        for stage in ("train", "skewed"):
+            if stage == "skewed":
+                offsets, M = cs.skewed_offsets(rng, TRAIN_M // k, E, k,
+                                               tail=64)
+                M = int(M)
+            else:
+                M = TRAIN_M
+                offsets = cs.routed_offsets(rng, M // k, E, k)
+            off = torch.from_numpy(offsets).cuda()
+            gen = torch.Generator("cuda").manual_seed(M + K)
+            x = torch.randn((M, K), generator=gen, device="cuda").bfloat16()
+            dy = torch.randn((M, N), generator=gen, device="cuda").bfloat16()
+            for kind in ("dgrad", "wgrad"):
+                fn = getattr(kernel, f"grouped_mm_{kind}_cuda")
+                args = (dy, w, off) if kind == "dgrad" else (x, dy, off)
+                before = dict(fn.by_variant)
+                fn(*args)
+                variant = next(v for v, n in fn.by_variant.items()
+                               if n > before.get(v, 0))
+                print(json.dumps(dict(
+                    checkout=label, run=run, shape=f"{prod} {stage}",
+                    fn=f"grouped_mm_{kind}", variant=variant, M=M,
+                    ms=cs.cuda_ms(lambda i: fn(*args), 5),
+                    device_ms=cs.device_ms(lambda i: fn(*args), 5,
+                                           (f"gmm_{kind}_",)),
+                    bound_ms=cs.grad_bound(kind, offsets, K, N,
+                                           torch.bfloat16)[0])), flush=True)
+            del x, dy
+        del w
+        torch.cuda.empty_cache()
+
+
+def train_steps(cs, label, run, steps=4):
+    from repro_torch.launch import train as launch
+    from repro_torch.optim.adamw import AdamWConfig
+    cfg = launch.train_config(ARCH, full=True, layers=2)
+    launch.check_fit(cfg, "cuda", 8)
+    opt_cfg = AdamWConfig(lr=cs.TRAIN_LR, warmup_steps=10, decay_steps=100,
+                          state_bits=8)
+    params, opt, step_fn = launch.setup(cfg, device="cuda", opt_cfg=opt_cfg)
+    dc = launch.data_config(cfg, cs.TRAIN_SEQ, cs.TRAIN_BATCH, full=True)
+    batch = launch.device_batch(dc, 0, "cuda")
+    walls, losses = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    print(json.dumps(dict(checkout=label, run=run,
+                          shape="qwen3-moe 2-layer train step",
+                          step_wall_ms=walls,
+                          steady_step_ms=float(np.median(walls[1:])),
+                          losses=losses)), flush=True)
+
+
+def worker(root: Path, label: str, run: int, grad: bool) -> None:
     sys.path.insert(0, str(root / "src"))
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   root / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
     torch.backends.cuda.matmul.allow_tf32 = False
-    time_kernels(cs, label, run)
-    prefill_step(cs, label, run)
+    if grad:
+        time_grad(cs, label, run)
+        train_steps(cs, label, run)
+    else:
+        time_kernels(cs, label, run)
+        prefill_step(cs, label, run)
 
 
 def main() -> int:
-    if len(sys.argv) >= 2 and sys.argv[1] == "--worker":
-        worker(Path(sys.argv[2]).resolve(), sys.argv[3], int(sys.argv[4]))
+    args = sys.argv[1:]
+    grad = "--grad" in args
+    args = [a for a in args if a != "--grad"]
+    if args and args[0] == "--worker":
+        worker(Path(args[1]).resolve(), args[2], int(args[3]), grad)
         return 0
-    if not torch.cuda.is_available() or len(sys.argv) not in (2, 3):
+    if not torch.cuda.is_available() or len(args) not in (1, 2):
         print(__doc__, file=sys.stderr)
         return 2
-    other = Path(sys.argv[1]).resolve()
-    this = Path(sys.argv[2] if len(sys.argv) == 3
+    other = Path(args[0]).resolve()
+    this = Path(args[1] if len(args) == 2
                 else Path(__file__).resolve().parents[3]).resolve()
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -182,7 +263,7 @@ def main() -> int:
     for run, (root, label) in enumerate(((other, "other"), (this, "this"),
                                          (this, "this"), (other, "other"))):
         subprocess.run([sys.executable, __file__, "--worker", str(root),
-                        label, str(run)], check=True)
+                        label, str(run)] + ["--grad"] * grad, check=True)
     return 0
 
 

@@ -1219,6 +1219,56 @@ def test_grouped_mm_backward_kernels_match_plain_versions(case, dtype):
     assert torch.equal(dw, grouped_mm_wgrad_cuda(x, dy, offsets))
 
 
+GMM_GRAD_BF16_CASES = GMM_VARIANT_CASES + [
+    # one expert of 1000 rows (8 row tiles, a ragged 64-row stage), K and N
+    # multiples of 8 and not of 64, rows past offsets[E]
+    (1100, 264, 136, 3, [37, 1000, 0], 0),
+    # skewed: one hot expert of 2000 rows beside experts of 1-63 rows and
+    # empty ones, rows before offsets[0]
+    (2300, 128, 256, 12, [2000, 1, 0, 63, 64, 65, 0, 2, 0, 30, 9, 0], 17),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", GMM_GRAD_BF16_CASES)
+def test_grouped_mm_backward_bf16_edge_cases_match_plain_versions(case):
+    """bf16 dgrad and wgrad (wgmma_tma) against the plain versions: experts
+    whose rows are no multiple of 64 or 128, empty experts, one expert of
+    several row tiles, rows before offsets[0] and past offsets[E], K and N
+    multiples of 8 and not of 64, and the forward's decode-sized cases; rows
+    of no expert and experts with no rows exact zeros; a second call the
+    same bits (one block an output tile, rows summed in order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.grouped_mm import (grouped_mm_dgrad_ref,
+                                                grouped_mm_wgrad_ref)
+    from repro_torch.kernels.grouped_mm.kernel import (
+        grouped_mm_dgrad_cuda, grouped_mm_wgrad_cuda)
+    dtype = torch.bfloat16
+    x, w, offsets = _gmm_case(case, dtype, seed=case[0] + 2)
+    M, N = x.shape[0], w.shape[2]
+    gen = torch.Generator("cuda").manual_seed(11)
+    dy = torch.randn((M, N), generator=gen, device="cuda").to(dtype)
+    counts = (grouped_mm_dgrad_cuda.by_variant["wgmma_tma"],
+              grouped_mm_wgrad_cuda.by_variant["wgmma_tma"])
+    dx = grouped_mm_dgrad_cuda(dy, w, offsets)
+    dw = grouped_mm_wgrad_cuda(x, dy, offsets)
+    assert grouped_mm_dgrad_cuda.by_variant["wgmma_tma"] == counts[0] + 1
+    assert grouped_mm_wgrad_cuda.by_variant["wgmma_tma"] == counts[1] + 1
+    torch.cuda.synchronize()
+    assert dx.shape == (M, w.shape[1]) and dw.shape == w.shape
+    assert torch.isfinite(dx).all() and torch.isfinite(dw).all()
+    assert _rel(grouped_mm_dgrad_ref(dy, w, offsets), dx) <= GMM_TOL[dtype]
+    assert _rel(grouped_mm_wgrad_ref(x, dy, offsets), dw) <= GMM_TOL[dtype]
+    lo, hi = int(offsets[0]), int(offsets[-1])
+    assert not dx[:lo].any() and not dx[hi:].any()
+    for e in range(w.shape[0]):
+        if offsets[e] == offsets[e + 1]:
+            assert not dw[e].any()
+    assert torch.equal(dx, grouped_mm_dgrad_cuda(dy, w, offsets))
+    assert torch.equal(dw, grouped_mm_wgrad_cuda(x, dy, offsets))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("swiglu", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
