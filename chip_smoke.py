@@ -9,7 +9,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build — compile the five CUDA libraries (paged attention; the SSD-scan
    kernels; the cannon_mm matmul; flash attention; the grouped GEMM) from
    the checkout's sources with nvcc for sm_90a, one nvcc each, started
-   together;
+   together; then fresh_thread: each library's first launch in a fresh
+   process on a new thread (the grouped GEMM's also inside a backward, on
+   the autograd engine's thread) gives the main thread's bits
+   (``repro_torch.launch.fresh_thread``, twelve cases at once);
 3. paged-attention kernel against its plain version on the card — random scrambled block
    tables with holes, qwen2-0.5b head geometry (14 q heads over 2 kv heads,
    hd 64, stride 16), B in {1, 8}, L in {1, 5, 16, 64, 256} (5: the
@@ -72,7 +75,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    torch.profiler, every one a replay: step wall time, device busy time
    and idle share, the top kernels; for mamba2 also one batch-8 len256
    chunked-prefill step (a replay): its wall time, device busy time and
-   the SSD kernels' share of it;
+   the SSD kernels' share of it; then decode_fixed — the fixed-batch
+   decode path (``serve/decode.py::make_decode_step``, the JAX launcher's
+   default) on the same weights: batch 8, a cache of 512 positions, 32
+   greedy tokens from one first token a slot, qwen2-0.5b in gemv,
+   batched and longctx (identical tokens, logits within 1e-6), mamba2-780m
+   in gemv; the tokens held against the engine's on the same one-token
+   prompts up to near-ties; the wall per token and the device busy time
+   per step beside the engine's replayed decode step;
 9. speculation — n-gram speculative decoding (k = 4) on each model, same
    weights and engine setting: eight repetitive prompts of the smoke's
    lengths, 32 greedy tokens, cold then warm, on a plain and on a
@@ -123,7 +133,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    (paged attention on every attention layer of every launch, the plain
    version never, one graph per step that ran), then eight replayed
    batch-8 decode steps of each under torch.profiler with paged
-   attention's share;
+   attention's share; then vlm — pixtral-12b at full width and depth (40
+   layers, d_model 5120, 32 q over 8 kv heads, hd 160, vocab 131072; 25.6
+   GB) through the same engine workload and gates on its text (its
+   ``vis_proj`` unused, as in the JAX engine) and the decode profile,
+   ``make_prefill`` on batch 2 of 1024 stub patch embeddings and 512 text
+   tokens (finite logits that the patches move), and a training run at 12
+   of its 40 layers (fp32 moments, 2 x (1024 patches + 1024 tokens));
 13. supervisor: the crash-safe ReplicaSupervisor on qwen2-0.5b and
    mamba2-780m at full width, its workers spawned processes on this card
    that load the kernels phase 2 built, the parent holding no engine
@@ -157,7 +173,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    its fused silu x up epilogue, then w2, each launch on the variant
    kernel.py::plan names for its step's rows, every len256 step on
    wgmma_tma; the plain versions never), graphs, profile (batch-8 decode,
-   and one batch-8 len256 prefill step with the grouped GEMM's share);
+   and one batch-8 len256 prefill step with the grouped GEMM's share), and
+   decode_fixed in gemv (the grouped GEMM twice per MoE layer and step);
 15. the kernels line, the card line, and the result line.
 
 Between 4 and 5 run the phases of the paper core and the last two
@@ -232,7 +249,14 @@ kernels:
   --full --layers 4 --steps 6 --ckpt-every 3`` (deterministic algorithms
   on) run straight, then stopped by a fault drill at step 4 past its retry
   budget and started again from the step-2 checkpoint: the resumed steps
-  give the straight run's losses bit for bit.
+  give the straight run's losses bit for bit;
+* encdec — whisper-base at full width and depth (6 encoder and 6 decoder
+  layers): the encoder over 1500 stub frames for batch 8 fills every
+  decoder layer's cross-K/V cache (``fill_cross_cache``), 32 greedy
+  fixed-batch decode tokens; teacher-forced, the decode logits against
+  ``forward`` and ``make_prefill`` on the same tokens and frames (bf16
+  within 2^-3 and greedy agreeing up to near-ties; fp32 within 1e-4);
+  then a training run of 6 steps on 8 x 448 tokens with their frames.
 
 It imports nothing of JAX and nothing of the ``repro`` package.  Without a
 card, or outside a checkout that holds ``src/repro_torch``, it exits
@@ -279,6 +303,8 @@ GMM_SWIGLU_REPLACES = "src/repro/models/moe.py:116-119"
 # each grouped-GEMM entry's headline shape in the kernels line
 GMM_HEADLINE = {"grouped_mm": "w2 len256", "grouped_mm_swiglu": "w1 len256"}
 HBM_BYTES_S = 3.35e12                       # H100 SXM, data sheet
+# the device of the training, fixed-batch decode, encdec and vlm phases
+DEV = "cuda"
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PROMPT_LENS = [5, 17, 40, 64, 100, 200, 300, 33]
 MAX_TOKENS = 32
@@ -1979,116 +2005,125 @@ def train_counters():
     return c
 
 
-def phase_train(smi):
-    """Each TRAIN_RUNS model at full width through the functions
-    launch/train.py calls (``train_config``, ``check_fit``, ``setup``,
-    ``data_config``, ``device_batch``): TRAIN_STEPS AdamW steps on one
-    batch of TRAIN_BATCH x TRAIN_SEQ tokens at the config's vocab, the
-    layer groups recomputed in the backward.  Gates, every run: every
-    parameter on the card; for the MoE model the grouped GEMM's kernels
-    launched as the layers and steps imply (forward, its recompute and the
-    swiglu backward's recomputed product; dgrad and wgrad for both
-    products), the plain versions never.  Gated runs also: every loss and
-    grad norm finite, the last loss (after 5 updates) below the first.
-    Steps TRAIN_PROFILED of the gated MoE run run under torch.profiler
+def train_model(arch, layers, bits, lr, gated, smi, seq=TRAIN_SEQ,
+                batch_size=TRAIN_BATCH):
+    """One run of ``arch`` at full width (``layers`` cuts its depth)
+    through the functions launch/train.py calls (``train_config``,
+    ``check_fit``, ``setup``, ``data_config``, ``device_batch``):
+    TRAIN_STEPS AdamW steps on one batch of ``batch_size`` x ``seq``
+    positions at the config's vocab (whisper's batch adds its encoder's
+    stub frames, pixtral's puts its patches in front of the text), the
+    layer groups recomputed in the backward.  Gates: every parameter on
+    the card; for an MoE model the grouped GEMM's kernels launched as the
+    layers and steps imply (forward, its recompute and the swiglu
+    backward's recomputed product; dgrad and wgrad for both products), the
+    plain versions never.  Gated runs also: every loss and grad norm
+    finite, the last loss (after 5 updates) below the first.  Steps
+    TRAIN_PROFILED of a gated MoE run run under torch.profiler
     (``phase_train_profile``); the steady wall is the median of the other
-    steps after the first.
-    Returns ({kernel: launches}, {kernel: {run: launches}}, rows, the
-    profile's row)."""
+    steps after the first.  Returns (row, the profile's row or None)."""
     from repro_torch.kernels.grouped_mm.kernel import reset_counts
     from repro_torch.launch import train as launch
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.tree import leaves
-    counts, by_run, rows, profile_row = {}, {}, [], None
-    for arch, layers, bits, lr, gated in TRAIN_RUNS:
-        gc.collect()
-        torch.cuda.empty_cache()
-        cfg = launch.train_config(arch, full=True, layers=layers)
-        need = launch.check_fit(cfg, "cuda", bits)
-        opt_cfg = AdamWConfig(lr=lr, warmup_steps=10, decay_steps=100,
-                              state_bits=bits)
-        run = f"{arch} train{'' if gated else ' probe'} ({cfg.n_layers} " \
-              f"layers, {bits}-bit moments, lr {lr:g})"
-        t0 = time.perf_counter()
-        params, opt, step_fn = launch.setup(cfg, device="cuda",
-                                            opt_cfg=opt_cfg)
-        torch.cuda.synchronize()
-        init_s = time.perf_counter() - t0
-        check(all(t.is_cuda for t in leaves(params)),
-              f"{arch}: a parameter is not on the card")
-        dc = launch.data_config(cfg, TRAIN_SEQ, TRAIN_BATCH, full=True)
-        batch = launch.device_batch(dc, 0, "cuda")
-        torch.cuda.reset_peak_memory_stats()
-        counters = train_counters()
-        zero_counts()
-        reset_counts()
-        for kern, plain in counters.values():
-            plain.launches = 0
-        n_moe = sum(f == "moe" for _, f in cfg.pattern()) * cfg.n_groups()
-        profiled = TRAIN_PROFILED if gated and n_moe else ()
-        prof = profiler() if profiled else None
-        losses, norms, walls = [], [], []
-        for i in range(TRAIN_STEPS):
-            if profiled and i == profiled[0]:
-                prof.start()
-                lead_in()
-            t0 = time.perf_counter()
-            params, opt, m = step_fn(params, opt, batch)
-            losses.append(float(m["loss"]))
-            norms.append(float(m["grad_norm"]))
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) * 1e3)
-            if profiled and i == profiled[-1]:
-                prof.stop()
-        got = {k: kern.launches for k, (kern, _) in counters.items()}
-        plain = {k: p.launches for k, (_, p) in counters.items()}
-        by_variant = {k: dict(kern.by_variant)
-                      for k, (kern, _) in counters.items()}
-        tokens = TRAIN_BATCH * TRAIN_SEQ
-        # the steady wall: the median of the steps after the first that
-        # ran without the profiler
-        rest = [t for i, t in enumerate(walls) if i and i not in profiled]
-        steady = sorted(rest)[len(rest) // 2]
-        row = dict(run=run, gated=gated, arch=arch, layers=cfg.n_layers,
-                   d_model=cfg.d_model, vocab=cfg.vocab_size,
-                   state_bits=bits, lr=lr,
-                   tokens_per_step=tokens, state_gb=round(need["total"] / 1e9,
-                                                          3),
-                   init_s=round(init_s, 3), step_wall_ms=walls,
-                   profiled_steps=list(profiled), steady_step_ms=steady, tokens_per_s=tokens / steady * 1e3,
-                   peak_gb=torch.cuda.max_memory_allocated() / 1e9,
-                   losses=losses, grad_norms=norms, launches=got,
-                   by_variant=by_variant, plain_launches=plain,
-                   nvidia_smi=smi)
-        emit("train", **row)
-        rows.append(row)
-        if gated:
-            check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
-                  f"{run}: a non-finite loss or grad norm {losses} {norms}")
-            check(losses[-1] < losses[0],
-                  f"{run}: the loss after {TRAIN_STEPS - 1} updates on one "
-                  f"batch is not below the first: {losses}")
-        check(not any(plain.values()), f"{run}: a plain version ran {plain}")
-        if n_moe:
-            per = n_moe * TRAIN_STEPS
-            want = {"grouped_mm_swiglu": 2 * per, "grouped_mm": 3 * per,
-                    "grouped_mm_dgrad": 2 * per, "grouped_mm_wgrad": 2 * per}
-            check(got == want, f"{run}: grouped GEMM launches {got}, the "
-                               f"layers and steps imply {want}")
-            for k in ("grouped_mm_dgrad", "grouped_mm_wgrad"):
-                check(by_variant[k]["wgmma_tma"] == got[k],
-                      f"{run}: {k} launched off wgmma_tma: {by_variant[k]}")
-        if profiled:
-            profile_row = phase_train_profile(
-                run, prof, [walls[i] for i in profiled],
-                [losses[i] for i in profiled], n_moe)
-        for k, n in got.items():
-            counts[k] = counts.get(k, 0) + n
-            if n:
-                by_run.setdefault(k, {})[run] = n
-        del params, opt, step_fn, batch, m, prof
     gc.collect()
     torch.cuda.empty_cache()
+    cfg = launch.train_config(arch, full=True, layers=layers)
+    need = launch.check_fit(cfg, DEV, bits)
+    opt_cfg = AdamWConfig(lr=lr, warmup_steps=10, decay_steps=100,
+                          state_bits=bits)
+    run = f"{arch} train{'' if gated else ' probe'} ({cfg.n_layers} " \
+          f"layers, {bits}-bit moments, lr {lr:g})"
+    t0 = time.perf_counter()
+    params, opt, step_fn = launch.setup(cfg, device=DEV, opt_cfg=opt_cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    check(all(t.device.type == DEV for t in leaves(params)),
+          f"{arch}: a parameter is not on the card")
+    dc = launch.data_config(cfg, seq, batch_size, full=True)
+    batch = launch.device_batch(dc, 0, DEV)
+    torch.cuda.reset_peak_memory_stats()
+    counters = train_counters()
+    zero_counts()
+    reset_counts()
+    for kern, plain in counters.values():
+        plain.launches = 0
+    n_moe = sum(f == "moe" for _, f in cfg.pattern()) * cfg.n_groups()
+    profiled = TRAIN_PROFILED if gated and n_moe else ()
+    prof = profiler() if profiled else None
+    losses, norms, walls = [], [], []
+    for i in range(TRAIN_STEPS):
+        if profiled and i == profiled[0]:
+            prof.start()
+            lead_in()
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if profiled and i == profiled[-1]:
+            prof.stop()
+    got = {k: kern.launches for k, (kern, _) in counters.items()}
+    plain = {k: p.launches for k, (_, p) in counters.items()}
+    by_variant = {k: dict(kern.by_variant)
+                  for k, (kern, _) in counters.items()}
+    tokens = batch_size * seq
+    # the steady wall: the median of the steps after the first that ran
+    # without the profiler
+    rest = [t for i, t in enumerate(walls) if i and i not in profiled]
+    steady = sorted(rest)[len(rest) // 2]
+    row = dict(run=run, gated=gated, arch=arch, layers=cfg.n_layers,
+               d_model=cfg.d_model, vocab=cfg.vocab_size, state_bits=bits,
+               lr=lr, batch=batch_size, seq=seq, tokens_per_step=tokens,
+               batch_shapes={k: list(v.shape) for k, v in batch.items()},
+               state_gb=round(need["total"] / 1e9, 3),
+               init_s=round(init_s, 3), step_wall_ms=walls,
+               profiled_steps=list(profiled), steady_step_ms=steady,
+               tokens_per_s=tokens / steady * 1e3,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               losses=losses, grad_norms=norms, launches=got,
+               by_variant=by_variant, plain_launches=plain, nvidia_smi=smi)
+    emit("train", **row)
+    if gated:
+        check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+              f"{run}: a non-finite loss or grad norm {losses} {norms}")
+        check(losses[-1] < losses[0],
+              f"{run}: the loss after {TRAIN_STEPS - 1} updates on one "
+              f"batch is not below the first: {losses}")
+    check(not any(plain.values()), f"{run}: a plain version ran {plain}")
+    if n_moe:
+        per = n_moe * TRAIN_STEPS
+        want = {"grouped_mm_swiglu": 2 * per, "grouped_mm": 3 * per,
+                "grouped_mm_dgrad": 2 * per, "grouped_mm_wgrad": 2 * per}
+        check(got == want, f"{run}: grouped GEMM launches {got}, the "
+                           f"layers and steps imply {want}")
+        for k in ("grouped_mm_dgrad", "grouped_mm_wgrad"):
+            check(by_variant[k]["wgmma_tma"] == got[k],
+                  f"{run}: {k} launched off wgmma_tma: {by_variant[k]}")
+    profile_row = None
+    if profiled:
+        profile_row = phase_train_profile(
+            run, prof, [walls[i] for i in profiled],
+            [losses[i] for i in profiled], n_moe)
+    del params, opt, step_fn, batch, m, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row, profile_row
+
+
+def phase_train(smi):
+    """Each TRAIN_RUNS model (``train_model``).  Returns ({kernel:
+    launches}, {kernel: {run: launches}}, rows, the profile's row)."""
+    counts, by_run, rows, profile_row = {}, {}, [], None
+    for arch, layers, bits, lr, gated in TRAIN_RUNS:
+        row, prof_row = train_model(arch, layers, bits, lr, gated, smi)
+        rows.append(row)
+        profile_row = prof_row or profile_row
+        for k, n in row["launches"].items():
+            counts[k] = counts.get(k, 0) + n
+            if n:
+                by_run.setdefault(k, {})[row["run"]] = n
     check(profile_row is not None, "no gated MoE run was profiled")
     return counts, by_run, rows, profile_row
 
@@ -2630,7 +2665,11 @@ def phase_engine(arch):
         "stablelm-12b": (
         (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd(),
          cfg.d_ff, cfg.vocab_size, cfg.norm),
-        (40, 5120, 32, 8, 160, 13824, 100352, "layernorm"))}
+        (40, 5120, 32, 8, 160, 13824, 100352, "layernorm")),
+        "pixtral-12b": (
+        (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd(),
+         cfg.d_ff, cfg.vocab_size, cfg.vis_patches),
+        (40, 5120, 32, 8, 160, 14336, 131072, 1024))}
     got, want = widths[arch]
     check(got == want, f"{arch} is not at its config's full width: {got}")
     check(cfg.compute_dtype == torch.bfloat16,
@@ -4091,6 +4130,294 @@ def phase_supervisor():
 
 
 
+# ---------------------------------------------------------------------------
+# The fresh-thread launches, the fixed-batch decode path, whisper and
+# pixtral.
+# ---------------------------------------------------------------------------
+
+DECODE_BATCH, DECODE_S_MAX = 8, 512
+# the fixed-batch modes each model runs: qwen2 all three (one function on
+# one card, held identical), the others the JAX launcher's default
+DECODE_MODES = {"qwen2-0.5b": ("gemv", "batched", "longctx"),
+                "mamba2-780m": ("gemv",), "qwen3-moe-235b-a22b": ("gemv",)}
+
+
+def phase_fresh_thread():
+    """Each kernel library's first launch in a fresh process on a new
+    thread (the grouped GEMM's also inside a backward, on the autograd
+    engine's thread), against the main thread's bits
+    (``repro_torch.launch.fresh_thread``, every case in a process of its
+    own, all at once).  Gate: every case launches and gives the same
+    bits."""
+    from repro_torch.launch.fresh_thread import CASES, run_all
+    t0 = time.perf_counter()
+    rows = run_all(workers=len(CASES))
+    bad = [r for r in rows if not r["ok"]]
+    emit("fresh_thread", cases=rows, seconds=time.perf_counter() - t0)
+    check(not bad, f"fresh_thread: first launches failed or differ: {bad}")
+
+
+def fixed_decode(cfg, params, first, mode):
+    """MAX_TOKENS greedy tokens of ``make_decode_step`` in ``mode`` from one
+    first token per slot (B = len(first)), over a cache of DECODE_S_MAX
+    positions.  Returns (tokens per slot, fp32 logits (B, n, V) on the
+    host, wall ms per token synchronised with the card, the step, the
+    cache and the last tokens, to run on)."""
+    from repro_torch.models.params import stored_heads
+    from repro_torch.serve.decode import cache_specs, make_decode_step
+    B = len(first)
+    step = make_decode_step(cfg, batch=B, s_max=DECODE_S_MAX, mode=mode)
+    cache = cache_specs(cfg, B, DECODE_S_MAX, mode, device=DEV,
+                        kvh=stored_heads(params, cfg)[1] or None)
+    tok = torch.tensor(first, dtype=torch.int32, device=DEV)
+    toks, rows = [], []
+    n = MAX_TOKENS
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(n):
+        logits = step(params, cache, tok, t)[:, 0, :cfg.vocab_size]
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        rows.append(logits)
+        toks.append(tok)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / n
+    tokens = torch.stack(toks, 1).cpu().tolist()
+    rows = torch.stack(rows, 1).float().cpu().numpy()
+    check(np.isfinite(rows).all(), f"{cfg.name} {mode}: non-finite logits")
+    return tokens, rows, wall, step, cache, tok
+
+
+def phase_decode_fixed(eng, arch, modes=("gemv",), engine_profile=None):
+    """The fixed-batch decode path (``serve/decode.py::make_decode_step``)
+    on the engine's weights: batch DECODE_BATCH, MAX_TOKENS greedy tokens
+    from one first token per slot, in each of ``modes`` (gemv first: the
+    JAX launcher's default).  Gates: the modes give identical tokens and
+    logits within 1e-6 of the largest (one function on one card); the
+    tokens equal the engine's on the same one-token prompts and weights up
+    to near-ties (``hold_tokens``); the grouped GEMM launched twice per
+    MoE layer and step (w1 fused, w2) on the gemv run, counted from 0 just
+    before it, and no plain version.  Reported: the wall per token and the
+    device busy time per step of the fixed path beside the engine's
+    batch-8 decode step (``engine_profile``).  Returns the gemv run's
+    kernel launches."""
+    from repro_torch.serve.engine import SamplingParams
+    cfg, params = eng.cfg, eng.params
+    rng = np.random.default_rng(5)
+    first = rng.integers(0, cfg.vocab_size, DECODE_BATCH).tolist()
+    counters = zero_counts()
+    tokens, rows, wall, step, cache, tok = fixed_decode(cfg, params, first,
+                                                        modes[0])
+    launches = {k: kern.launches for k, (kern, _) in counters.items()}
+    plain = {k: pl.launches for k, (_, pl) in counters.items()}
+    by_variant = {k: dict(kern.by_variant) for k, (kern, _) in
+                  counters.items() if k.startswith("grouped_mm")}
+    n_moe = cfg.n_groups() * [f for _, f in cfg.pattern()].count("moe")
+    want = dict.fromkeys(counters, 0)
+    want["grouped_mm"] = want["grouped_mm_swiglu"] = n_moe * MAX_TOKENS
+    check(launches == want, f"{arch} decode_fixed: kernel launches "
+                            f"{launches} != {want}")
+    check(not any(plain.values()),
+          f"{arch} decode_fixed: plain versions ran {plain}")
+    busy = busy_ms(lambda i: step(params, cache, tok, MAX_TOKENS + i), 8)
+    by_mode = {}
+    for mode in modes[1:]:
+        t2, r2, w2, _, _, _ = fixed_decode(cfg, params, first, mode)
+        diff = float(np.abs(r2 - rows).max() / np.abs(rows).max())
+        by_mode[mode] = dict(wall_ms_per_token=w2, tokens_equal=t2 == tokens,
+                             logits_identical=bool(np.array_equal(r2, rows)),
+                             logits_rel_diff=diff)
+        check(t2 == tokens and diff <= 1e-6,
+              f"{arch}: mode {mode} differs from {modes[0]}: {by_mode[mode]}")
+    prompts = [[f] for f in first]
+    outs, _, _, rec = serve_once(eng, prompts,
+                                 SamplingParams(max_tokens=MAX_TOKENS),
+                                 record=True)
+    ref_rows = {(tuple(prompts[b]), i): rows[b, i]
+                for b in range(DECODE_BATCH) for i in range(MAX_TOKENS)}
+    held = hold_tokens(f"{arch} decode_fixed vs engine", prompts, tokens,
+                       [c.tokens for c in outs], ref_rows, rec)
+    check(drained(eng), f"{arch}: the engine kept pages or slots")
+    emit("decode_fixed", config=cfg.name, n_layers=cfg.n_layers,
+         batch=DECODE_BATCH, s_max=DECODE_S_MAX, tokens=MAX_TOKENS,
+         modes=list(modes), wall_ms_per_token=wall,
+         device_busy_ms_per_step=busy, other_modes=by_mode,
+         kernel_launches=launches, plain_launches=plain,
+         grouped_mm_by_variant=by_variant, against_engine=held,
+         engine_decode_step={k: engine_profile[k] for k in (
+             "step_wall_ms", "device_busy_ms", "device_idle_share")}
+         if engine_profile else None,
+         first_tokens=tokens[0][:8])
+    return launches
+
+
+def phase_encdec(smi):
+    """whisper-base at full width and depth (6 encoder and 6 decoder
+    layers, d_model 512, vocab 51865, bf16), random weights from seed 0:
+    the encoder over 1500 stub frames for batch 8, every decoder layer's
+    cross K/V cached from it (``fill_cross_cache``), then MAX_TOKENS
+    greedy tokens of the fixed-batch path (gemv).  Teacher forcing: the
+    decode path's logits of the fed tokens against ``forward`` (and
+    ``make_prefill``'s last position) on the same tokens and frames, in
+    bf16 (reported; gated at 2^-3 of the largest logit, greedy agreeing
+    up to near-ties) and on the weights widened to fp32 (gated at 1e-4).
+    Then TRAIN_STEPS AdamW steps (``train_model``) on 8 x 448 tokens (the
+    published decoder context) with their frames.  No kernel of the port
+    runs on this path: attention is the plain one, as in the JAX decode
+    path, and the model has no MoE.  Returns the training row."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.params import init_params
+    from repro_torch.models.transformer import forward
+    from repro_torch.serve.decode import (_last_logits, cache_specs,
+                                          fill_cross_cache, make_decode_step,
+                                          make_prefill)
+    cfg = get_config("whisper-base")
+    got = (cfg.n_layers, cfg.enc_layers, cfg.enc_seq, cfg.d_model,
+           cfg.n_heads, cfg.d_ff, cfg.vocab_size, cfg.compute_dtype)
+    check(got == (6, 6, 1500, 512, 8, 2048, 51865, torch.bfloat16),
+          f"whisper-base is not at its full width: {got}")
+    gen = torch.Generator(DEV).manual_seed(0)
+    params = init_params(cfg, generator=gen, device=DEV)
+    frames = torch.randn((DECODE_BATCH, cfg.enc_seq, cfg.d_model),
+                         generator=gen, device=DEV)
+    first = np.random.default_rng(6).integers(
+        0, cfg.vocab_size, DECODE_BATCH).tolist()
+    counters = zero_counts()
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        c = dataclasses.replace(cfg, param_dtype=dtype, compute_dtype=dtype)
+        p = params if dtype == torch.bfloat16 else to_dtype(params, dtype)
+        cache = cache_specs(c, DECODE_BATCH, DECODE_S_MAX, "gemv",
+                            device=DEV)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc = fill_cross_cache(c, p, cache, frames)
+        torch.cuda.synchronize()
+        enc_ms = (time.perf_counter() - t0) * 1e3
+        check(tuple(enc.shape) == (DECODE_BATCH, cfg.enc_seq, cfg.d_model)
+              and bool(torch.isfinite(enc).all()),
+              f"whisper {dtype}: encoder output {tuple(enc.shape)}")
+        step = make_decode_step(c, batch=DECODE_BATCH, s_max=DECODE_S_MAX,
+                                mode="gemv")
+        tok = torch.tensor(first, dtype=torch.int32, device=DEV)
+        fed, dec = [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(MAX_TOKENS):
+            fed.append(tok)
+            logits = step(p, cache, tok, t)[:, 0, :cfg.vocab_size]
+            dec.append(logits)
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / MAX_TOKENS
+        fed = torch.stack(fed, 1)
+        dec = torch.stack(dec, 1).float()
+        with torch.no_grad():
+            x, _ = forward(c, p, {"tokens": fed, "frames": frames})
+            ref = _last_logits(p["lm_head"], x)[..., :cfg.vocab_size]
+        last = make_prefill(c, extra_batch_keys=("frames",))(
+            p, {"tokens": fed, "frames": frames})[:, 0, :cfg.vocab_size]
+        scale = float(ref.abs().max())
+        rel = float((dec - ref).abs().max()) / scale
+        rel_last = float((last - ref[:, -1]).abs().max()) / scale
+        ref_np, dec_np = ref.cpu().numpy(), dec.cpu().numpy()
+        flips = []
+        for b in range(DECODE_BATCH):
+            for i in range(MAX_TOKENS):
+                a, d = ref_np[b, i].argmax(), dec_np[b, i].argmax()
+                if a != d:
+                    row = ref_np[b, i]
+                    top = np.partition(row, -2)[-2:]
+                    flips.append(float((top[1] - top[0]) / row.std()))
+        tol = 2.0 ** -3 if dtype == torch.bfloat16 else 1e-4
+        rows[str(dtype)] = dict(encoder_ms=enc_ms, wall_ms_per_token=wall,
+                                teacher_forced_rel_err=rel,
+                                prefill_last_rel_err=rel_last,
+                                greedy_flips=len(flips),
+                                flip_margins=flips, tolerance=tol,
+                                first_tokens=fed[0, 1:9].tolist())
+        check(rel <= tol and rel_last <= tol,
+              f"whisper {dtype}: teacher-forced decode against forward "
+              f"{rel:.3g} (prefill {rel_last:.3g}) > {tol}")
+        check(all(m < SPEC_MARGIN for m in flips),
+              f"whisper {dtype}: greedy leaves forward's argmax away from "
+              f"a near-tie: {flips}")
+        del cache, enc, p
+    plain = {k: pl.launches for k, (_, pl) in counters.items()}
+    check(not any(plain.values()), f"whisper: plain versions ran {plain}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    row, _ = train_model("whisper-base", None, 32, TRAIN_LR, True, smi,
+                       seq=448, batch_size=DECODE_BATCH)
+    emit("encdec", config=cfg.name, batch=DECODE_BATCH, frames=cfg.enc_seq,
+         tokens=MAX_TOKENS, by_dtype=rows,
+         train={k: row[k] for k in ("steady_step_ms", "tokens_per_s",
+                                    "peak_gb", "losses")},
+         nvidia_smi=smi)
+    return row
+
+
+# pixtral-12b's training run: the depth that fits one card with fp32
+# AdamW moments (57.6 GB of state) beside a step's activations, and its
+# 1024 patch positions in front of 1024 text tokens
+VLM_TRAIN_LAYERS, VLM_TRAIN_SEQ, VLM_TRAIN_BATCH = 12, 2048, 2
+
+
+def phase_vlm(smi):
+    """pixtral-12b at full width, all 40 layers (d_model 5120, 32 q over 8
+    kv heads, hd 160, vocab 131072; 25.6 GB of bf16 weights), random
+    weights from seed 0: phase 6's engine workload on its text (paged
+    attention at hd 160, group 4, on every attention layer of every
+    launch; ``vis_proj`` unused, as in the JAX engine) and the profile
+    phase, then ``make_prefill`` on batch 2 of 1024 stub patch
+    embeddings in front of 512 text tokens (finite logits that the patches
+    move), then a training run at VLM_TRAIN_LAYERS layers.  Returns
+    (the engine's kernel launches, the training row)."""
+    import torch.nn.functional as F
+    from repro_torch.serve.decode import make_prefill
+    arch = "pixtral-12b"
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts, eng, prompts, arrivals, sampling, outputs, _ = phase_engine(arch)
+    phase_profile(eng, arrivals, sampling,
+                  shares={"paged_attention": ("paged_",)})
+    cfg, params = eng.cfg, eng.params
+    gen = torch.Generator(DEV).manual_seed(1)
+    P, T, B = cfg.vis_patches, 512, 2
+    text = torch.randint(0, cfg.vocab_size, (B, T), generator=gen,
+                         device=DEV, dtype=torch.int32)
+    tokens = torch.cat([torch.full((B, P), -1, dtype=torch.int32,
+                                   device=DEV), text], 1)
+    patches = torch.randn((B, P, cfg.d_model), generator=gen, device=DEV)
+    prefill = make_prefill(cfg, extra_batch_keys=("patches",))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = prefill(params, {"tokens": tokens, "patches": patches})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    bare = prefill(params, {"tokens": tokens,
+                            "patches": torch.zeros_like(patches)})
+    moved = float((F.softmax(logits.float(), -1)
+                   - F.softmax(bare.float(), -1)).abs().sum(-1).max())
+    check(tuple(logits.shape) == (B, 1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          f"pixtral prefill logits {tuple(logits.shape)}")
+    check(moved > 0, "pixtral prefill: the patches do not move the logits")
+    emit("vlm_prefill", config=cfg.name, batch=B, patches=P, text=T,
+         prefill_ms=prefill_ms, patch_effect_l1=moved,
+         max_memory_allocated=torch.cuda.max_memory_allocated())
+    del eng, params, logits, bare, patches
+    gc.collect()
+    torch.cuda.empty_cache()
+    row, _ = train_model(arch, VLM_TRAIN_LAYERS, 32, TRAIN_LR, True, smi,
+                       seq=VLM_TRAIN_SEQ, batch_size=VLM_TRAIN_BATCH)
+    emit("vlm", config=cfg.name, engine_launches=counts,
+         train={k: row[k] for k in ("layers", "steady_step_ms",
+                                    "tokens_per_s", "peak_gb", "losses",
+                                    "state_gb")}, nvidia_smi=smi)
+    return counts, row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4106,6 +4433,7 @@ def main() -> int:
 
     smi = phase_env()
     phase_build()
+    phase_fresh_thread()
     worst = phase_kernel_vs_plain()
     timing = phase_timing(n_layers=24)
     from repro_torch.configs import get_config
@@ -4125,15 +4453,17 @@ def main() -> int:
     grad_timing = phase_gmm_grad_timing()
     train_counts, train_by_run, train_rows, train_profile = phase_train(smi)
     phase_train_resume()
+    train_rows.append(phase_encdec(smi))
     ref_launches = phase_reference()
     launches, by_path, weights = {}, {}, {}
     for arch in ("qwen2-0.5b", "mamba2-780m"):
         counts, eng, prompts, arrivals, sampling, outputs, _ = \
             phase_engine(arch)
         phase_graphs(eng, prompts, arrivals, sampling, outputs)
-        phase_profile(eng, arrivals, sampling)
+        decode_profile = phase_profile(eng, arrivals, sampling)
         if eng.store.has_dense:
             phase_prefill_profile(eng)
+        phase_decode_fixed(eng, arch, DECODE_MODES[arch], decode_profile)
         params = eng.params
         del eng
         torch.cuda.empty_cache()
@@ -4166,7 +4496,10 @@ def main() -> int:
     del weights
     # the dense configs at full width, on an emptied cache, then the
     # replica supervisor (the parent holds no engine while workers run)
-    for arch, got in phase_dense_wide().items():
+    dense_runs = phase_dense_wide()
+    dense_runs["pixtral-12b"], vlm_train = phase_vlm(smi)
+    train_rows.append(vlm_train)
+    for arch, got in dense_runs.items():
         for k, n in got.items():
             if n:
                 launches[k] = launches.get(k, 0) + n
@@ -4186,12 +4519,17 @@ def main() -> int:
     moe_shares = {"grouped_mm": ("gmm_",),
                   "grouped_mm wgmma_tma": ("gmm_wgmma_tma",),
                   "paged_attention": ("paged_",)}
-    phase_profile(eng, arrivals, sampling, shares=moe_shares)
+    decode_profile = phase_profile(eng, arrivals, sampling,
+                                   shares=moe_shares)
     phase_prefill_profile(eng, moe_shares)
-    for k, n in counts.items():
-        if n:
-            launches[k] = launches.get(k, 0) + n
-            by_path.setdefault(k, {})[f"{arch} engine"] = n
+    fixed = phase_decode_fixed(eng, arch, DECODE_MODES[arch],
+                               decode_profile)
+    for path, got in ((f"{arch} engine", counts),
+                      (f"{arch} decode_fixed", fixed)):
+        for k, n in got.items():
+            if n:
+                launches[k] = launches.get(k, 0) + n
+                by_path.setdefault(k, {})[path] = n
     del eng
     torch.cuda.empty_cache()
     for k, n in train_counts.items():

@@ -142,7 +142,8 @@ def restore(ckpt_dir: str, step: Optional[int] = None, like: Any = None,
 # ---------------------------------------------------------------------------
 
 def _stacked(path: str) -> bool:
-    return "['layers']" in path
+    """A leaf stacked over layer groups: the decoder's or the encoder's."""
+    return "['layers']" in path or "['enc_layers']" in path
 
 
 def _skew(path: str, storage) -> Any:

@@ -36,4 +36,8 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         kw.update(d_inner=128, ssm_heads=8, ssm_headdim=16,
                   ssm_state=16, ssm_groups=min(cfg.ssm_groups, 4),
                   ssd_chunk=32)
+    if cfg.enc_layers:
+        kw.update(enc_layers=2, n_layers=2, enc_seq=32)
+    if cfg.vis_patches:
+        kw.update(vis_patches=16)
     return dataclasses.replace(cfg, **kw)

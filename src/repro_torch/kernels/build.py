@@ -30,6 +30,13 @@ BUILD_DIR = _ROOT / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MAX_SMEM = 232448          # bytes a block may use on Hopper (227 KB)
+# a launcher's status: stage * STAGE_BASE + the CUDA error the stage met
+# (csrc/launch_status.cuh)
+STAGE_BASE = 100000
+STAGES = {1: "its arguments", 2: "binding the thread to the device",
+          3: "fetching the tensor-map encoder", 4: "encoding a tensor map",
+          5: "granting dynamic shared memory", 6: "a device attribute query",
+          7: "zeroing a counter", 8: "the launch"}
 
 
 def _nvcc(src: Path) -> str:
@@ -91,3 +98,14 @@ def compile_library(src: Path, stem: str) -> Tuple[ctypes.CDLL, Dict]:
     info = dict(path=str(out), seconds=time.perf_counter() - t0,
                 built=bool(log), ptxas=log)
     return ctypes.CDLL(str(out)), info
+
+
+def launch_error(what: str, status: int) -> RuntimeError:
+    """The error a wrapper raises for a launcher's non-zero ``status``: the
+    check that refused the launch and the CUDA error it met there (a
+    ``cudaError_t``, or the ``CUresult`` of ``cuTensorMapEncodeTiled``
+    for the tensor-map stages)."""
+    stage, err = divmod(status, STAGE_BASE)
+    return RuntimeError(f"{what} kernel launch failed at "
+                        f"{STAGES.get(stage, f'stage {stage}')}: CUDA error "
+                        f"{err}")

@@ -80,6 +80,7 @@
 #include <stdint.h>
 
 #include "../../csrc/hopper.cuh"
+#include "../../csrc/launch_status.cuh"
 
 namespace {
 
@@ -658,7 +659,7 @@ int launch_f32(const void* a, const void* b, void* c, int P, int M, int N,
   mm_f32_kernel<TO><<<grid, kF32Threads, 0, s>>>(
       static_cast<const float*>(a), static_cast<const float*>(b),
       static_cast<TO*>(c), M, N, K, oa, ob, oc);
-  return (int)cudaGetLastError();
+  return launch_status::after_launch();
 }
 
 bool aligned16(const void* ptr) {
@@ -672,7 +673,7 @@ int launch_bf16(const void* a, const void* b, void* c, int P, int M, int N,
   mm_bf16_kernel<TO><<<grid, kBfThreads, 0, s>>>(
       static_cast<const bf16*>(a), static_cast<const bf16*>(b),
       static_cast<TO*>(c), M, N, K, oa, ob, oc);
-  return (int)cudaGetLastError();
+  return launch_status::after_launch();
 }
 
 // f32_vec's precondition on one operand: a unit stride along x (x_fast) or
@@ -688,10 +689,11 @@ template <typename TO>
 int launch_f32_vec(const void* a, const void* b, void* c, int P, int M,
                    int N, int K, Operand oa, Operand ob, Operand oc,
                    int layout, cudaStream_t s) {
+  using namespace launch_status;
   const bool ax = layout & 1, bx = layout & 2;
   if (!vec_operand_ok(a, oa.col, oa.row, oa.batch, ax) ||
       !vec_operand_ok(b, ob.row, ob.col, ob.batch, bx))
-    return (int)cudaErrorInvalidValue;
+    return fail(kArgs);
   const dim3 grid((N + kVecBN - 1) / kVecBN, (M + kVecBM - 1) / kVecBM, P);
   const float* pa = static_cast<const float*>(a);
   const float* pb = static_cast<const float*>(b);
@@ -702,47 +704,48 @@ int launch_f32_vec(const void* a, const void* b, void* c, int P, int M,
                          : mm_f32_vec_kernel<TO, false, false>);
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kVecSmem);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) return fail(kSmem, err);
   kernel<<<grid, kVecThreads, kVecSmem, s>>>(pa, pb, pc, M, N, K, oa, ob, oc);
-  return (int)cudaGetLastError();
+  return after_launch();
 }
 
 template <typename TO>
-int launch_wgmma(const void* a, const void* b, void* c, int P, int M, int N,
-                 int K, Operand oc, const unsigned long long* tma,
+int launch_wgmma(int dev, const void* a, const void* b, void* c, int P, int M,
+                 int N, int K, Operand oc, const unsigned long long* tma,
                  cudaStream_t s) {
+  using namespace launch_status;
   // the boxes the kernel's ring is laid out for
   if (tma == nullptr || oc.col != 1 || tma[5] != kWgBK ||
       tma[6] != kWgBM || tma[7] != 1 || tma[13] != kWgBBox ||
       tma[14] != kWgBK || tma[15] != 1)
-    return (int)cudaErrorInvalidValue;
-  CUtensorMap map_a, map_b;
-  if (!hopper::encode_map(&map_a, a, tma) ||
-      !hopper::encode_map(&map_b, b, tma + 8))
-    return (int)cudaErrorInvalidValue;
+    return fail(kArgs);
   const long long tiles = (long long)((M + kWgBM - 1) / kWgBM) *
                           ((N + kWgBN - 1) / kWgBN) * P;
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(mm_wgmma_tma_kernel<TO>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kWgSmem);
-  if (err != cudaSuccess) return (int)err;
-  if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  if (tiles > 0x7fffffff) return fail(kArgs);
+  if (hopper::tensor_map_encoder() == nullptr) return fail(kEncoder);
+  CUtensorMap map_a, map_b;
+  int res = hopper::encode_map(&map_a, a, tma);
+  if (res == 0) res = hopper::encode_map(&map_b, b, tma + 8);
+  if (res != 0) return fail(kEncode, (cudaError_t)res);
+  int sms = 0;
+  cudaError_t err =
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return fail(kQuery, err);
+  err = cudaFuncSetAttribute(mm_wgmma_tma_kernel<TO>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kWgSmem);
+  if (err != cudaSuccess) return fail(kSmem, err);
   // one block per SM (its shared memory allows no second), or fewer
   const int grid = (int)(tiles < sms ? tiles : sms);
   mm_wgmma_tma_kernel<TO><<<grid, kWgThreads, kWgSmem, s>>>(
       map_a, map_b, static_cast<TO*>(c), P, M, N, K, oc.batch, oc.row);
-  return (int)cudaGetLastError();
+  return after_launch();
 }
 
 template <typename TO>
-int launch(int variant, const void* a, const void* b, void* c, int P, int M,
-           int N, int K, Operand oa, Operand ob, Operand oc, int layout,
-           const unsigned long long* tma, cudaStream_t s) {
+int launch(int dev, int variant, const void* a, const void* b, void* c, int P,
+           int M, int N, int K, Operand oa, Operand ob, Operand oc,
+           int layout, const unsigned long long* tma, cudaStream_t s) {
   switch (variant) {
     case kF32General:
       return launch_f32<TO>(a, b, c, P, M, N, K, oa, ob, oc, s);
@@ -751,42 +754,44 @@ int launch(int variant, const void* a, const void* b, void* c, int P, int M,
     case kMmaGeneral:
       return launch_bf16<TO>(a, b, c, P, M, N, K, oa, ob, oc, s);
     case kWgmmaTma:
-      return launch_wgmma<TO>(a, b, c, P, M, N, K, oc, tma, s);
+      return launch_wgmma<TO>(dev, a, b, c, P, M, N, K, oc, tma, s);
   }
-  return (int)cudaErrorInvalidValue;
+  return launch_status::fail(launch_status::kArgs);
 }
 
 }  // namespace
 
-// C entry point for ctypes.  in_dtype / out_dtype: 0 = float32, 1 = bfloat16.
-// Strides in elements: (batch, row, col) for A (P, M, K), B (P, K, N) and
-// C (P, M, N).  variant: the Variant codes above (kernel.py::plan chooses
-// it); layout: f32_vec's operand layout bits; tma: wgmma_tma's 16 tensor-map
-// arguments (kernel.py::tma_args for A, then for B), else null.  Returns
-// cudaGetLastError() after the launch (0 = launched), or
-// cudaErrorInvalidValue, without launching, for a variant that the dtypes or
-// the layout do not allow.
-extern "C" int cannon_mm_launch(const void* a, const void* b, void* c, int P,
-                                int M, int N, int K, long long a_batch,
-                                long long a_row, long long a_col,
-                                long long b_batch, long long b_row,
-                                long long b_col, long long c_batch,
-                                long long c_row, long long c_col,
-                                int in_dtype, int out_dtype, int variant,
-                                int layout, const unsigned long long* tma,
-                                void* stream) {
+// C entry point for ctypes, on card `device`.  in_dtype / out_dtype: 0 =
+// float32, 1 = bfloat16.  Strides in elements: (batch, row, col) for A
+// (P, M, K), B (P, K, N) and C (P, M, N).  variant: the Variant codes above
+// (kernel.py::plan chooses it); layout: f32_vec's operand layout bits; tma:
+// wgmma_tma's 16 tensor-map arguments (kernel.py::tma_args for A, then for
+// B), else null.  Returns 0 once launched, else the launch_status code of
+// the check that refused it (csrc/launch_status.cuh): kArgs for a variant
+// that the dtypes or the layout do not allow.
+extern "C" int cannon_mm_launch(int device, const void* a, const void* b,
+                                void* c, int P, int M, int N, int K,
+                                long long a_batch, long long a_row,
+                                long long a_col, long long b_batch,
+                                long long b_row, long long b_col,
+                                long long c_batch, long long c_row,
+                                long long c_col, int in_dtype, int out_dtype,
+                                int variant, int layout,
+                                const unsigned long long* tma, void* stream) {
+  using namespace launch_status;
   if (P < 1 || P > 65535 || M < 1 || N < 1 || K < 1 ||
       (M + 127) / 128 > 65535)
-    return (int)cudaErrorInvalidValue;
+    return fail(kArgs);
   const bool bf16_in = variant == kMmaGeneral || variant == kWgmmaTma;
   if (in_dtype != (bf16_in ? 1 : 0) || (out_dtype != 0 && out_dtype != 1))
-    return (int)cudaErrorInvalidValue;
+    return fail(kArgs);
+  if (const int st = bind_device(device)) return st;
   const Operand oa{a_batch, a_row, a_col}, ob{b_batch, b_row, b_col},
       oc{c_batch, c_row, c_col};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return out_dtype == 0
-             ? launch<float>(variant, a, b, c, P, M, N, K, oa, ob, oc, layout,
-                             tma, s)
-             : launch<bf16>(variant, a, b, c, P, M, N, K, oa, ob, oc, layout,
-                            tma, s);
+             ? launch<float>(device, variant, a, b, c, P, M, N, K, oa, ob, oc,
+                             layout, tma, s)
+             : launch<bf16>(device, variant, a, b, c, P, M, N, K, oa, ob, oc,
+                            layout, tma, s);
 }

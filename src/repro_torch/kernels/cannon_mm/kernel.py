@@ -36,7 +36,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels import counted
-from repro_torch.kernels.build import compile_library
+from repro_torch.kernels.build import compile_library, launch_error
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "cannon_mm.cu"
 _CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -169,7 +169,7 @@ def build() -> ctypes.CDLL:
         return _lib
     lib, info = compile_library(_SRC, "cannon_mm")
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.cannon_mm_launch.argtypes = ([vp] * 3 + [i] * 4 + [ll] * 9
+    lib.cannon_mm_launch.argtypes = ([i] + [vp] * 3 + [i] * 4 + [ll] * 9
                                      + [i] * 4 + [vp, vp])
     lib.cannon_mm_launch.restype = i
     build_info.update(info)
@@ -214,13 +214,13 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor, *,
     tma = None if pl.tma is None else _tma_array(pl.tma)
     with torch.cuda.device(a.device):
         err = lib.cannon_mm_launch(
-            a3.data_ptr(), b3.data_ptr(), out.data_ptr(), P, M, N, K,
-            *pl.a_strides, *pl.b_strides, *out.stride(), _CODE[a.dtype],
-            _CODE[out_dtype], VARIANTS[pl.variant].code, pl.layout, tma,
+            a.device.index, a3.data_ptr(), b3.data_ptr(), out.data_ptr(), P,
+            M, N, K, *pl.a_strides, *pl.b_strides, *out.stride(),
+            _CODE[a.dtype], _CODE[out_dtype], VARIANTS[pl.variant].code,
+            pl.layout, tma,
             torch.cuda.current_stream(a.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"cannon_mm kernel launch failed ({pl.variant}): "
-                           f"CUDA error {err}")
+        raise launch_error(f"cannon_mm ({pl.variant})", err)
     matmul_cuda.launches += 1
     matmul_cuda.by_variant[pl.variant] += 1
     return out if batched else out[0]

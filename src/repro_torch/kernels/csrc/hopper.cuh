@@ -257,21 +257,25 @@ inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
 
 // A bf16 tensor map with the 128-byte swizzle from the 8 arguments of
 // cannon_mm/kernel.py::tma_args: arg[0..2] dims (cols, rows, P), arg[3..4]
-// byte strides (rows, P), arg[5..7] box (cols, rows, 1).
-inline bool encode_map(CUtensorMap* map, const void* base,
-                       const unsigned long long* arg) {
+// byte strides (rows, P), arg[5..7] box (cols, rows, 1).  Returns the
+// CUresult of cuTensorMapEncodeTiled (0 = encoded), which runs on the
+// calling thread's current context: the launcher binds the thread to the
+// tensors' device first (csrc/launch_status.cuh), or on a thread where no
+// context is current it returns CUDA_ERROR_INVALID_VALUE.
+inline int encode_map(CUtensorMap* map, const void* base,
+                      const unsigned long long* arg) {
   PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
-  if (encode == nullptr) return false;
+  if (encode == nullptr) return CUDA_ERROR_NOT_FOUND;
   const cuuint64_t dims[3] = {arg[0], arg[1], arg[2]};
   const cuuint64_t strides[2] = {arg[3], arg[4]};
   const cuuint32_t box[3] = {(cuuint32_t)arg[5], (cuuint32_t)arg[6],
                              (cuuint32_t)arg[7]};
   const cuuint32_t step[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(base), dims, strides, box, step,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return (int)encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                     const_cast<void*>(base), dims, strides, box, step,
+                     CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                     CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                     CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 }  // namespace hopper

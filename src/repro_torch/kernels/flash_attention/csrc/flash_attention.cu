@@ -62,6 +62,7 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "../../csrc/launch_status.cuh"
 #include "../../csrc/mma_tile.cuh"
 
 namespace {
@@ -368,21 +369,23 @@ __global__ void __launch_bounds__(32 * Bf16Tile<D>::kWarps,
 
 // The shared-memory limit is a per-device attribute: grant it once on each
 // device a kernel launches on.
+// Returns 0 or the launch_status code of the failed step.
 template <typename Kernel>
-cudaError_t grant_smem(Kernel kernel, size_t smem,
-                       bool (&granted)[kMaxDevices]) {
-  int dev = 0;
+int grant_smem(Kernel kernel, size_t smem, bool (&granted)[kMaxDevices]) {
+  namespace ls = launch_status;
+  int dev = 0;   // the launcher bound the thread to its tensors' device
   cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (e != cudaSuccess) return ls::fail(ls::kDevice, e);
+  if (dev >= kMaxDevices)
+    return ls::fail(ls::kDevice, cudaErrorInvalidDevice);
   if (!granted[dev]) {
     e = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
-    if (e != cudaSuccess) return e;
+    if (e != cudaSuccess) return ls::fail(ls::kSmem, e);
     granted[dev] = true;
   }
-  return cudaSuccess;
+  return 0;
 }
 
 template <int D>
@@ -391,14 +394,14 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
                float scale, cudaStream_t stream) {
   const size_t smem = smem_floats<D>() * sizeof(float);
   static bool granted[kMaxDevices] = {};
-  cudaError_t e = grant_smem(flash_f32_kernel<D>, smem, granted);
-  if (e != cudaSuccess) return (int)e;
+  if (const int st = grant_smem(flash_f32_kernel<D>, smem, granted))
+    return st;
   const dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
   flash_f32_kernel<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), Hq, Hkv, Sq,
       Skv, q_offset, causal, scale);
-  return (int)cudaGetLastError();
+  return launch_status::after_launch();
 }
 
 template <int D>
@@ -407,11 +410,11 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
                 int causal, float scale, cudaStream_t stream) {
   const size_t smem = Bf16Tile<D>::kSmem;
   static bool granted[kMaxDevices] = {};
-  cudaError_t e = grant_smem(flash_bf16_kernel<D>, smem, granted);
-  if (e != cudaSuccess) return (int)e;
+  if (const int st = grant_smem(flash_bf16_kernel<D>, smem, granted))
+    return st;
   constexpr int rows = Bf16Tile<D>::kRows;
   const long long blocks = (long long)((Sq + rows - 1) / rows) * Hq * B;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (blocks > 0x7fffffffLL) return launch_status::fail(launch_status::kArgs);
   flash_bf16_kernel<D><<<(unsigned)blocks, 32 * Bf16Tile<D>::kWarps, smem,
                          stream>>>(
       static_cast<const __nv_bfloat16*>(q),
@@ -419,7 +422,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
       static_cast<const __nv_bfloat16*>(v),
       static_cast<__nv_bfloat16*>(out), B, Hq, Hkv, Sq, Skv, q_offset,
       causal, scale * 1.4426950408889634f);
-  return (int)cudaGetLastError();
+  return launch_status::after_launch();
 }
 
 template <int D>
@@ -432,22 +435,26 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   if (dtype == 1)
     return launch_bf16<D>(q, k, v, out, B, Hq, Hkv, Sq, Skv, q_offset,
                           causal, scale, s);
-  return (int)cudaErrorInvalidValue;
+  return launch_status::fail(launch_status::kArgs);
 }
 
 }  // namespace
 
-// C entry point for ctypes.  dtype: 0 = float32, 1 = bfloat16 (q, k, v and
-// the output).  All four tensors contiguous; bf16 ones 16-byte aligned.
-// Returns cudaGetLastError() after the launch (0 = launched).
-extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int B, int Hq,
-                                      int Hkv, int Sq, int Skv, int D,
-                                      int q_offset, int causal, float scale,
-                                      int dtype, void* stream) {
+// C entry point for ctypes, on card `device`.  dtype: 0 = float32, 1 =
+// bfloat16 (q, k, v and the output).  All four tensors contiguous; bf16 ones
+// 16-byte aligned.  Returns 0 once launched, else the launch_status code of
+// the check that refused it (csrc/launch_status.cuh).
+extern "C" int flash_attention_launch(int device, const void* q,
+                                      const void* k, const void* v, void* out,
+                                      int B, int Hq, int Hkv, int Sq, int Skv,
+                                      int D, int q_offset, int causal,
+                                      float scale, int dtype, void* stream) {
+  using namespace launch_status;
   if (B < 1 || B > 65535 || Hq < 1 || Hq > 65535 || Hkv < 1 ||
-      Hq % Hkv != 0 || Sq < 1 || Skv < 1 || q_offset < 0)
-    return (int)cudaErrorInvalidValue;
+      Hq % Hkv != 0 || Sq < 1 || Skv < 1 || q_offset < 0 ||
+      (D != 32 && D != 64 && D != 128))
+    return fail(kArgs);
+  if (const int st = bind_device(device)) return st;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 32:
@@ -460,5 +467,5 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
       return launch<128>(q, k, v, out, B, Hq, Hkv, Sq, Skv, q_offset, causal,
                          scale, dtype, s);
   }
-  return (int)cudaErrorInvalidValue;
+  return fail(kArgs);
 }

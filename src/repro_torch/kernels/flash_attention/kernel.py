@@ -20,7 +20,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import counted, forbid_grad
-from repro_torch.kernels.build import compile_library
+from repro_torch.kernels.build import compile_library, launch_error
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 HEAD_DIMS = (32, 64, 128)
@@ -38,7 +38,7 @@ def build() -> ctypes.CDLL:
     lib, info = compile_library(_SRC, "flash_attention")
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.flash_attention_launch.argtypes = (
-        [vp] * 4 + [i] * 8 + [ctypes.c_float, i, vp])
+        [i] + [vp] * 4 + [i] * 8 + [ctypes.c_float, i, vp])
     lib.flash_attention_launch.restype = i
     build_info.update(info)
     _lib = lib
@@ -82,13 +82,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Hq,
-            Hkv, Sq, Skv, D, int(q_offset), int(bool(causal)), scale,
-            int(q.dtype == torch.bfloat16),
+            q.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), B, Hq, Hkv, Sq, Skv, D, int(q_offset),
+            int(bool(causal)), scale, int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error "
-                           f"{err}")
+        raise launch_error("flash_attention", err)
     flash_attention_cuda.launches += 1
     return out
 

@@ -93,6 +93,7 @@
 #include <stdint.h>
 
 #include "../../csrc/hopper.cuh"
+#include "../../csrc/launch_status.cuh"
 #include "../../csrc/mma_tile.cuh"
 
 namespace {
@@ -567,28 +568,28 @@ __global__ void __launch_bounds__(FTHREADS)
 // ---------------------------------------------------------------------------
 
 template <bool SWIGLU>
-int launch_wgmma(const void* x, const void* w, const void* offsets, void* out,
-                 int M, int K, int N, int E, const unsigned long long* tma,
-                 cudaStream_t s) {
+int launch_wgmma(int dev, const void* x, const void* w, const void* offsets,
+                 void* out, int M, int K, int N, int E,
+                 const unsigned long long* tma, cudaStream_t s) {
+  using namespace launch_status;
   // the boxes the kernel's ring is laid out for: 64 x 64 for x and w
   if (tma == nullptr || tma[5] != WG_BK || tma[6] != WG_BM || tma[7] != 1 ||
       tma[13] != 64 || tma[14] != WG_BK || tma[15] != 1)
-    return (int)cudaErrorInvalidValue;
+    return fail(kArgs);
+  if (hopper::tensor_map_encoder() == nullptr) return fail(kEncoder);
   CUtensorMap map_x, map_w;
-  if (!hopper::encode_map(&map_x, x, tma) ||
-      !hopper::encode_map(&map_w, w, tma + 8))
-    return (int)cudaErrorInvalidValue;
+  int res = hopper::encode_map(&map_x, x, tma);
+  if (res == 0) res = hopper::encode_map(&map_w, w, tma + 8);
+  if (res != 0) return fail(kEncode, (cudaError_t)res);
   auto kernel = gmm_wgmma_tma_kernel<SWIGLU>;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
   // once per device: the attribute call is not one a graph capture records
-  static bool smem_set[64] = {};
-  if (err == cudaSuccess && dev < 64 && !smem_set[dev]) {
-    err = cudaFuncSetAttribute(
+  static bool smem_set[kMaxDevices] = {};
+  if (!smem_set[dev]) {
+    const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
-    smem_set[dev] = err == cudaSuccess;
+    if (err != cudaSuccess) return fail(kSmem, err);
+    smem_set[dev] = true;
   }
-  if (err != cudaSuccess) return (int)err;
   const int tn = SWIGLU ? WG_BN / 2 : WG_BN;
   // blocks in launch order: the N tiles of one expert next to each other,
   // so their shared x rows come from L2; one block an SM (its shared
@@ -597,11 +598,11 @@ int launch_wgmma(const void* x, const void* w, const void* offsets, void* out,
   kernel<<<grid, WG_THREADS, WG_SMEM, s>>>(
       map_x, map_w, static_cast<const int*>(offsets), static_cast<bf16*>(out),
       M, K, N, E);
-  return (int)cudaGetLastError();
+  return after_launch();
 }
 
 template <bool SWIGLU>
-int launch(int variant, const void* x, const void* w, const int* off,
+int launch(int dev, int variant, const void* x, const void* w, const int* off,
            void* out, int M, int K, int N, int E,
            const unsigned long long* tma, cudaStream_t s) {
   const int cols = SWIGLU ? N / 2 : N;
@@ -612,7 +613,7 @@ int launch(int variant, const void* x, const void* w, const int* off,
       gmm_simt_kernel<SWIGLU><<<grid, FTHREADS, 0, s>>>(
           static_cast<const float*>(x), static_cast<const float*>(w), off,
           static_cast<float*>(out), M, K, N, E);
-      return (int)cudaGetLastError();
+      return launch_status::after_launch();
     }
     case kMma: {
       const int tn = SWIGLU ? BN / 2 : BN;
@@ -620,14 +621,13 @@ int launch(int variant, const void* x, const void* w, const int* off,
       gmm_mma_kernel<SWIGLU><<<grid, THREADS, 0, s>>>(
           static_cast<const bf16*>(x), static_cast<const bf16*>(w), off,
           static_cast<bf16*>(out), M, K, N, E);
-      return (int)cudaGetLastError();
+      return launch_status::after_launch();
     }
     case kWgmmaTma:
-      return launch_wgmma<SWIGLU>(x, w, off, out, M, K, N, E, tma, s);
+      return launch_wgmma<SWIGLU>(dev, x, w, off, out, M, K, N, E, tma, s);
   }
-  return (int)cudaErrorInvalidValue;
+  return launch_status::fail(launch_status::kArgs);
 }
-
 
 // ---------------------------------------------------------------------------
 // Backward: dgrad and wgrad (training; bf16 on wgmma fed by TMA, fp32 simt).
@@ -1171,54 +1171,54 @@ __global__ void __launch_bounds__(FTHREADS)
 // the backward's wgmma_tma launches.  tma: the tensor-map arguments
 // (kernel.py::grad_tma_args), 64 x 64 boxes: dgrad dy and w; wgrad x, dy
 // and dw (out).  counter: wgrad's tile counter, one int on the card.
-int launch_grad_wgmma(int kind, const void* a, const void* b, const int* off,
-                      void* out, int M, int K, int N, int E,
+int launch_grad_wgmma(int dev, int kind, const void* a, const void* b,
+                      const int* off, void* out, int M, int K, int N, int E,
                       const unsigned long long* tma, void* counter,
                       cudaStream_t s) {
+  using namespace launch_status;
   const int n_maps = kind == 0 ? 2 : 3;
   CUtensorMap maps[3];
-  if (tma == nullptr) return (int)cudaErrorInvalidValue;
+  if (tma == nullptr) return fail(kArgs);
   const void* bases[3] = {a, b, out};
   for (int i = 0; i < n_maps; ++i) {
     const unsigned long long* arg = tma + 8 * i;
-    if (arg[5] != 64 || arg[6] != 64 || arg[7] != 1 ||
-        !hopper::encode_map(&maps[i], bases[i], arg))
-      return (int)cudaErrorInvalidValue;
+    if (arg[5] != 64 || arg[6] != 64 || arg[7] != 1) return fail(kArgs);
   }
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= 64) return (int)cudaErrorInvalidValue;
+  if (hopper::tensor_map_encoder() == nullptr) return fail(kEncoder);
+  for (int i = 0; i < n_maps; ++i)
+    if (const int res = hopper::encode_map(&maps[i], bases[i], tma + 8 * i))
+      return fail(kEncode, (cudaError_t)res);
   // once per device and kernel: neither call is one a graph capture records
-  static bool smem_set[2][64] = {};
-  static int sms[64] = {};
+  static bool smem_set[2][kMaxDevices] = {};
+  static int sms[kMaxDevices] = {};
+  cudaError_t err;
   if (!smem_set[kind][dev]) {
     const cudaFuncAttribute smem = cudaFuncAttributeMaxDynamicSharedMemorySize;
     err = kind == 0
               ? cudaFuncSetAttribute(gmm_dgrad_wgmma_tma_kernel, smem, DG_SMEM)
               : cudaFuncSetAttribute(gmm_wgrad_wgmma_tma_kernel, smem, WR_SMEM);
-    if (err != cudaSuccess) return (int)err;
+    if (err != cudaSuccess) return fail(kSmem, err);
     smem_set[kind][dev] = true;
   }
   if (sms[dev] == 0) {
     err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
                                  dev);
-    if (err != cudaSuccess) return (int)err;
+    if (err != cudaSuccess) return fail(kQuery, err);
   }
   if (kind == 0) {
     // (K tile, slot), K tiles fastest; the last slot: the rows of no expert
     const long long blocks = (long long)((K + BW_BN - 1) / BW_BN) *
                              ((M + BW_BM - 1) / BW_BM + E + 1);
-    if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+    if (blocks > 0x7fffffff) return fail(kArgs);
     gmm_dgrad_wgmma_tma_kernel<<<(unsigned)blocks, BW_THREADS, DG_SMEM, s>>>(
         maps[0], maps[1], off, static_cast<bf16*>(out), M, K, N, E);
   } else {
     const long long tiles = (long long)((N + BW_BN - 1) / BW_BN) *
                             ((K + BW_BM - 1) / BW_BM) * E;
     if (tiles > 0x7fffffff - sms[dev] || counter == nullptr)
-      return (int)cudaErrorInvalidValue;
+      return fail(kArgs);
     err = cudaMemsetAsync(counter, 0, sizeof(int), s);
-    if (err != cudaSuccess) return (int)err;
+    if (err != cudaSuccess) return fail(kMemset, err);
     // one block an SM (its shared memory allows no second), or fewer
     gmm_wgrad_wgmma_tma_kernel<<<(unsigned)(tiles < sms[dev] ? tiles
                                                               : sms[dev]),
@@ -1226,69 +1226,71 @@ int launch_grad_wgmma(int kind, const void* a, const void* b, const int* off,
         maps[0], maps[1], maps[2], off, static_cast<int*>(counter), M, K, N,
         E);
   }
-  return (int)cudaGetLastError();
+  return after_launch();
 }
 
 }  // namespace
 
-// x (M, K), w (E, K, N), offsets (E + 1,) int32 on the card, out (M, N), or
-// (M, N / 2) with swiglu.  variant: the Variant codes above (kernel.py::plan
-// chooses it; simt takes fp32, the others bf16 with K and N multiples of 8,
-// N of 16 with swiglu, 16-byte aligned); tma: wgmma_tma's 16 tensor-map
-// arguments (kernel.py::tma_args for x, then for w), else null.  Returns
-// the launch's cudaGetLastError(), or cudaErrorInvalidValue, without
-// launching, for sizes the variant does not take.
-extern "C" int grouped_mm_launch(const void* x, const void* w,
+// x (M, K), w (E, K, N), offsets (E + 1,) int32 on card `device`, out
+// (M, N), or (M, N / 2) with swiglu.  variant: the Variant codes above
+// (kernel.py::plan chooses it; simt takes fp32, the others bf16 with K and
+// N multiples of 8, N of 16 with swiglu, 16-byte aligned); tma: wgmma_tma's
+// 16 tensor-map arguments (kernel.py::tma_args for x, then for w), else
+// null.  Returns 0 once launched, else the launch_status code of the check
+// that refused it (csrc/launch_status.cuh).
+extern "C" int grouped_mm_launch(int device, const void* x, const void* w,
                                  const void* offsets, void* out, int M, int K,
                                  int N, int E, int variant, int swiglu,
                                  const unsigned long long* tma,
                                  void* stream) {
-  if (M < 1 || K < 1 || N < 1 || E < 1 || E > 65534)
-    return (int)cudaErrorInvalidValue;
-  if (variant != kSimt && (K % 8 || N % (swiglu ? 16 : 8)))
-    return (int)cudaErrorInvalidValue;
-  if (swiglu && N % 2) return (int)cudaErrorInvalidValue;
+  using namespace launch_status;
+  if (M < 1 || K < 1 || N < 1 || E < 1 || E > 65534) return fail(kArgs);
+  if (variant != kSimt && (K % 8 || N % (swiglu ? 16 : 8))) return fail(kArgs);
+  if (swiglu && N % 2) return fail(kArgs);
+  if (const int st = bind_device(device)) return st;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* off = static_cast<const int*>(offsets);
-  return swiglu ? launch<true>(variant, x, w, off, out, M, K, N, E, tma, s)
-                : launch<false>(variant, x, w, off, out, M, K, N, E, tma, s);
+  return swiglu
+             ? launch<true>(device, variant, x, w, off, out, M, K, N, E, tma, s)
+             : launch<false>(device, variant, x, w, off, out, M, K, N, E, tma,
+                             s);
 }
 
-// The backward products.  kind 0, dgrad: a = dy (M, N), b = w (E, K, N),
-// out = dx (M, K).  kind 1, wgrad: a = x (M, K), b = dy (M, N), out = dw
-// (E, K, N).  variant: kSimt (fp32) or kWgmmaTma (bf16, K and N
-// multiples of 8, 16-byte aligned operands); tma: wgmma_tma's tensor-map
-// arguments (kernel.py::grad_tma_args: 16 for dgrad, 24 for wgrad), else
-// null; scratch: one int on the card for wgrad's wgmma_tma (its tile
-// counter, zeroed here before the launch), else null.  Returns the
-// launch's cudaGetLastError(), or cudaErrorInvalidValue, without launching,
-// for what the variant does not take.
-extern "C" int grouped_mm_grad_launch(int kind, const void* a, const void* b,
-                                      const void* offsets, void* out, int M,
-                                      int K, int N, int E, int variant,
+// The backward products on card `device`.  kind 0, dgrad: a = dy (M, N),
+// b = w (E, K, N), out = dx (M, K).  kind 1, wgrad: a = x (M, K), b = dy
+// (M, N), out = dw (E, K, N).  variant: kSimt (fp32) or kWgmmaTma (bf16,
+// K and N multiples of 8, 16-byte aligned operands); tma: wgmma_tma's
+// tensor-map arguments (kernel.py::grad_tma_args: 16 for dgrad, 24 for
+// wgrad), else null; scratch: one int on the card for wgrad's wgmma_tma
+// (its tile counter, zeroed here before the launch), else null.  Returns 0
+// once launched, else the launch_status code of the check that refused it.
+extern "C" int grouped_mm_grad_launch(int device, int kind, const void* a,
+                                      const void* b, const void* offsets,
+                                      void* out, int M, int K, int N, int E,
+                                      int variant,
                                       const unsigned long long* tma,
                                       void* scratch, void* stream) {
+  using namespace launch_status;
   if (M < 1 || K < 1 || N < 1 || E < 1 || E > 65534 || (kind != 0 && kind != 1))
-    return (int)cudaErrorInvalidValue;
-  if (variant != kSimt && (K % 8 || N % 8)) return (int)cudaErrorInvalidValue;
+    return fail(kArgs);
+  if (variant != kSimt && (K % 8 || N % 8)) return fail(kArgs);
+  if (variant != kSimt && variant != kWgmmaTma) return fail(kArgs);
+  if (const int st = bind_device(device)) return st;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* off = static_cast<const int*>(offsets);
   if (variant == kWgmmaTma)
-    return launch_grad_wgmma(kind, a, b, off, out, M, K, N, E, tma, scratch,
-                             s);
-  if (variant == kSimt) {
-    if (kind == 0) {
-      dim3 grid((K + FN - 1) / FN, E + 1);
-      gmm_dgrad_simt_kernel<<<grid, FTHREADS, 0, s>>>(
-          static_cast<const float*>(a), static_cast<const float*>(b), off,
-          static_cast<float*>(out), M, K, N, E);
-    } else {
-      dim3 grid((N + FN - 1) / FN, (K + FM - 1) / FM, E);
-      gmm_wgrad_simt_kernel<<<grid, FTHREADS, 0, s>>>(
-          static_cast<const float*>(a), static_cast<const float*>(b), off,
-          static_cast<float*>(out), M, K, N, E);
-    }
-    return (int)cudaGetLastError();
+    return launch_grad_wgmma(device, kind, a, b, off, out, M, K, N, E, tma,
+                             scratch, s);
+  if (kind == 0) {
+    dim3 grid((K + FN - 1) / FN, E + 1);
+    gmm_dgrad_simt_kernel<<<grid, FTHREADS, 0, s>>>(
+        static_cast<const float*>(a), static_cast<const float*>(b), off,
+        static_cast<float*>(out), M, K, N, E);
+  } else {
+    dim3 grid((N + FN - 1) / FN, (K + FM - 1) / FM, E);
+    gmm_wgrad_simt_kernel<<<grid, FTHREADS, 0, s>>>(
+        static_cast<const float*>(a), static_cast<const float*>(b), off,
+        static_cast<float*>(out), M, K, N, E);
   }
-  return (int)cudaErrorInvalidValue;
+  return after_launch();
 }

@@ -46,7 +46,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import counted, forbid_grad
-from repro_torch.kernels.build import compile_library
+from repro_torch.kernels.build import compile_library, launch_error
 from repro_torch.kernels.cannon_mm.kernel import tma_args
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "grouped_mm.cu"
@@ -74,9 +74,10 @@ def build() -> ctypes.CDLL:
         return _lib
     lib, info = compile_library(_SRC, "grouped_mm")
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.grouped_mm_launch.argtypes = [vp] * 4 + [i] * 6 + [vp, vp]
+    lib.grouped_mm_launch.argtypes = [i] + [vp] * 4 + [i] * 6 + [vp, vp]
     lib.grouped_mm_launch.restype = i
-    lib.grouped_mm_grad_launch.argtypes = [i] + [vp] * 4 + [i] * 5 + [vp] * 3
+    lib.grouped_mm_grad_launch.argtypes = ([i] * 2 + [vp] * 4 + [i] * 5
+                                           + [vp] * 3)
     lib.grouped_mm_grad_launch.restype = i
     build_info.update(info)
     _lib = lib
@@ -165,12 +166,11 @@ def _launch(fn, x, w, offsets, swiglu, variant):
                       device=x.device)
     with torch.cuda.device(x.device):
         err = lib.grouped_mm_launch(
-            x.data_ptr(), w.data_ptr(), offsets.data_ptr(), out.data_ptr(),
-            M, K, N, E, _CODE[variant], int(swiglu), tma,
+            x.device.index, x.data_ptr(), w.data_ptr(), offsets.data_ptr(),
+            out.data_ptr(), M, K, N, E, _CODE[variant], int(swiglu), tma,
             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed ({variant}): CUDA "
-                           f"error {err}")
+        raise launch_error(f"{name} ({variant})", err)
     fn.launches += 1
     fn.by_variant[variant] += 1
     return out
@@ -264,13 +264,13 @@ def _grad_launch(fn, kind, a, b, offsets, out_shape, M, K, N, E):
         if tma is not None and kind == "wgrad" else None
     with torch.cuda.device(a.device):
         err = lib.grouped_mm_grad_launch(
-            _KIND[kind], a.data_ptr(), b.data_ptr(), offsets.data_ptr(),
-            out.data_ptr(), M, K, N, E, _CODE[variant], tma,
+            a.device.index, _KIND[kind], a.data_ptr(), b.data_ptr(),
+            offsets.data_ptr(), out.data_ptr(), M, K, N, E, _CODE[variant],
+            tma,
             counter.data_ptr() if counter is not None else None,
             torch.cuda.current_stream(a.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed ({variant}): CUDA "
-                           f"error {err}")
+        raise launch_error(f"{name} ({variant})", err)
     fn.launches += 1
     fn.by_variant[variant] += 1
     return out

@@ -82,6 +82,7 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "../../csrc/launch_status.cuh"
 #include "../../csrc/mma_tile.cuh"
 
 namespace {
@@ -605,21 +606,23 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) paged_bf16_kernel(
 
 // The shared-memory limit is a per-device attribute: raise it on each device
 // a kernel launches on, to the most any of its launches asked for.
+// Returns 0 or the launch_status code of the failed step.
 template <typename Kernel>
-cudaError_t grant_smem(Kernel kernel, size_t smem,
-                       size_t (&granted)[kMaxDevices]) {
-  int dev = 0;
+int grant_smem(Kernel kernel, size_t smem, size_t (&granted)[kMaxDevices]) {
+  namespace ls = launch_status;
+  int dev = 0;   // the launcher bound the thread to its tensors' device
   cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (e != cudaSuccess) return ls::fail(ls::kDevice, e);
+  if (dev >= kMaxDevices)
+    return ls::fail(ls::kDevice, cudaErrorInvalidDevice);
   if (smem > 48 * 1024 && smem > granted[dev]) {
     e = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
-    if (e != cudaSuccess) return e;
+    if (e != cudaSuccess) return ls::fail(ls::kSmem, e);
     granted[dev] = smem;
   }
-  return cudaSuccess;
+  return 0;
 }
 
 int launch_f32(const void* q, const void* kc, const void* vc,
@@ -630,8 +633,7 @@ int launch_f32(const void* q, const void* kc, const void* vc,
   const Geometry geo = make_geometry(Hq, L, hd, kvh, stride);
   const size_t smem = smem_bytes(geo, hd);
   static size_t granted[kMaxDevices] = {};
-  cudaError_t e = grant_smem(paged_f32_kernel, smem, granted);
-  if (e != cudaSuccess) return (int)e;
+  if (const int st = grant_smem(paged_f32_kernel, smem, granted)) return st;
   const dim3 grid((L + geo.tile_l - 1) / geo.tile_l, kvh, B);
   paged_f32_kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(kc),
@@ -639,7 +641,7 @@ int launch_f32(const void* q, const void* kc, const void* vc,
       static_cast<const int*>(q_pos), static_cast<float*>(m_out),
       static_cast<float*>(l_out), static_cast<float*>(acc_out), Hq, L, hd,
       kvh, n_entries, stride, n_loc, row, qrows, scale, geo);
-  return (int)cudaGetLastError();
+  return launch_status::after_launch();
 }
 
 template <int DP>
@@ -651,8 +653,8 @@ int launch_tc(const void* q, const void* kc, const void* vc,
               const TcGeometry& geo, cudaStream_t stream) {
   const size_t smem = tc_smem_bytes(geo);
   static size_t granted[kMaxDevices] = {};
-  cudaError_t e = grant_smem(paged_bf16_kernel<DP>, smem, granted);
-  if (e != cudaSuccess) return (int)e;
+  if (const int st = grant_smem(paged_bf16_kernel<DP>, smem, granted))
+    return st;
   const dim3 grid(n_split, (L + geo.tile_l - 1) / geo.tile_l, B * kvh);
   paged_bf16_kernel<DP><<<grid, 32 * geo.warps, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
@@ -662,7 +664,7 @@ int launch_tc(const void* q, const void* kc, const void* vc,
       static_cast<float*>(l_out), static_cast<float*>(acc_out),
       static_cast<float*>(part), static_cast<int*>(counters), Hq, L, hd, kvh,
       n_entries, stride, n_loc, row, qrows, scale, geo);
-  return (int)cudaGetLastError();
+  return launch_status::after_launch();
 }
 
 }  // namespace
@@ -671,35 +673,37 @@ int launch_tc(const void* q, const void* kc, const void* vc,
 // bf16 splits the table over n_split blocks per tile; it then needs `part`
 // (at least part_floats >= B * kvh * n_qtiles * n_split * span floats) and
 // `counters` (B * kvh * n_qtiles ints, zero; the kernel leaves them zero).
-// fp32 takes n_split = 1.  kc and vc 16-byte aligned in bf16.  Returns
-// cudaGetLastError() after the launch (0 = launched).
+// fp32 takes n_split = 1.  kc and vc 16-byte aligned in bf16.  Runs on card
+// `device`.  Returns 0 once launched, else the launch_status code of the
+// check that refused it (csrc/launch_status.cuh).
 extern "C" int paged_attention_launch(
-    const void* q, const void* kc, const void* vc, const void* table,
-    const void* q_pos, void* m_out, void* l_out, void* acc_out, void* part,
-    void* counters, int B, int Hq, int L, int hd, int kvh, int n_entries,
+    int device, const void* q, const void* kc, const void* vc,
+    const void* table, const void* q_pos, void* m_out, void* l_out,
+    void* acc_out, void* part, void* counters, int B, int Hq, int L, int hd, int kvh, int n_entries,
     int stride, int n_loc, int row, int qrows, int n_split,
     long long part_floats, float scale, int dtype, void* stream) {
   if (B < 1 || L < 1 || hd < 1 || kvh < 1 || Hq % kvh != 0 || stride < 1 ||
       qrows < 1 || n_entries < 0 || n_split < 1 ||
       n_split > (n_entries > 1 ? n_entries : 1))
-    return (int)cudaErrorInvalidValue;
+    return launch_status::fail(launch_status::kArgs);
+  if (const int st = launch_status::bind_device(device)) return st;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    if (n_split != 1) return (int)cudaErrorInvalidValue;
+    if (n_split != 1) return launch_status::fail(launch_status::kArgs);
     return launch_f32(q, kc, vc, table, q_pos, m_out, l_out, acc_out, B, Hq,
                       L, hd, kvh, n_entries, stride, n_loc, row, qrows, scale,
                       s);
   }
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  if (dtype != 1) return launch_status::fail(launch_status::kArgs);
   const TcGeometry geo = make_tc_geometry(Hq, L, hd, kvh, stride);
   const long long n_qt = (L + geo.tile_l - 1) / geo.tile_l;
   if (!tc_supported(geo, hd) || n_qt > 65535 || (long long)B * kvh > 65535 ||
       n_split > 65535)
-    return (int)cudaErrorInvalidValue;
+    return launch_status::fail(launch_status::kArgs);
   if (n_split > 1 &&
       (part == nullptr || counters == nullptr ||
        part_floats < (long long)B * kvh * n_qt * n_split * tc_span(geo, hd)))
-    return (int)cudaErrorInvalidValue;
+    return launch_status::fail(launch_status::kArgs);
 #define PAGED_TC(DP)                                                        \
   return launch_tc<DP>(q, kc, vc, table, q_pos, m_out, l_out, acc_out, part, \
                        counters, B, Hq, L, hd, kvh, n_entries, stride, n_loc, \
@@ -713,7 +717,7 @@ extern "C" int paged_attention_launch(
     case 160: PAGED_TC(160);
   }
 #undef PAGED_TC
-  return (int)cudaErrorInvalidValue;
+  return launch_status::fail(launch_status::kArgs);
 }
 
 // Dynamic shared memory one launch of this geometry asks for (bytes), so the

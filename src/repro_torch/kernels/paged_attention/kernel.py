@@ -32,7 +32,8 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.kernels import counted, forbid_grad
-from repro_torch.kernels.build import MAX_SMEM, compile_library
+from repro_torch.kernels.build import (MAX_SMEM, compile_library,
+                                       launch_error)
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"
 # head sizes the bf16 kernel is instantiated for (160: stablelm-12b); the
@@ -138,7 +139,8 @@ def build() -> ctypes.CDLL:
     lib, info = compile_library(_SRC, "paged_attention")
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.paged_attention_launch.argtypes = (
-        [vp] * 10 + [i] * 11 + [ctypes.c_longlong, ctypes.c_float, i, vp])
+        [i] + [vp] * 10 + [i] * 11 + [ctypes.c_longlong, ctypes.c_float, i,
+                                     vp])
     lib.paged_attention_launch.restype = i
     lib.paged_attention_smem_bytes.argtypes = [i] * 6
     lib.paged_attention_smem_bytes.restype = ctypes.c_longlong
@@ -201,16 +203,16 @@ def paged_attention_cuda(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
         scratch = torch.empty(part, dtype=torch.float32, device=dev)
         part_ptr = scratch.data_ptr()     # held until the launch
         count_ptr = _split_counters(dev, B * kvh * n_qt).data_ptr()
-    args = (q.data_ptr(), kc.data_ptr(), vc.data_ptr(), table.data_ptr(),
-            q_pos.data_ptr(), m.data_ptr(), l.data_ptr(), acc.data_ptr(),
-            part_ptr, count_ptr, B, Hq, L, hd, kvh, T, stride, n_loc, row,
-            qrows, n_split, part, scale, int(bf16))
+    args = (dev.index, q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
+            table.data_ptr(), q_pos.data_ptr(), m.data_ptr(), l.data_ptr(),
+            acc.data_ptr(), part_ptr, count_ptr, B, Hq, L, hd, kvh, T, stride,
+            n_loc, row, qrows, n_split, part, scale, int(bf16))
+    lib = build()
     with torch.cuda.device(dev):
-        err = build().paged_attention_launch(
+        err = lib.paged_attention_launch(
             *args, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"paged_attention kernel launch failed: CUDA error "
-                           f"{err}")
+        raise launch_error("paged_attention", err)
     paged_attention_cuda.launches += 1
     return m, l, acc
 

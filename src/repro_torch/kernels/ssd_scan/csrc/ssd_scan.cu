@@ -89,6 +89,7 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "../../csrc/launch_status.cuh"
 #include "../../csrc/mma_tile.cuh"
 
 namespace {
@@ -135,21 +136,23 @@ __device__ void block_cumsum(const float* dt, size_t dt_stride, float a,
 
 // The shared-memory limit is a per-device attribute: grant it once on each
 // device a kernel launches on.
+// Returns 0 or the launch_status code of the failed step.
 template <typename Kernel>
-cudaError_t grant_smem(Kernel kernel, size_t smem,
-                       bool (&granted)[kMaxDevices]) {
-  int dev = 0;
+int grant_smem(Kernel kernel, size_t smem, bool (&granted)[kMaxDevices]) {
+  namespace ls = launch_status;
+  int dev = 0;   // the launcher bound the thread to its tensors' device
   cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (e != cudaSuccess) return ls::fail(ls::kDevice, e);
+  if (dev >= kMaxDevices)
+    return ls::fail(ls::kDevice, cudaErrorInvalidDevice);
   if (!granted[dev]) {
     e = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
-    if (e != cudaSuccess) return e;
+    if (e != cudaSuccess) return ls::fail(ls::kSmem, e);
     granted[dev] = true;
   }
-  return cudaSuccess;
+  return 0;
 }
 
 // ===========================================================================
@@ -630,29 +633,28 @@ int launch_scan(const ScanArgs& a, int n_bc, bool fused, cudaStream_t st) {
   static bool granted[2][kMaxDevices] = {};
   const size_t most = scan_layout<P>(kMaxL, kMaxN).bytes;
   const dim3 grid(a.H, n_bc, (a.L + kRows - 1) / kRows);
-  cudaError_t e;
   if (fused) {
-    e = grant_smem(fused_mma_kernel<P>, most, granted[1]);
-    if (e != cudaSuccess) return (int)e;
+    if (const int e = grant_smem(fused_mma_kernel<P>, most, granted[1]))
+      return e;
     fused_mma_kernel<P><<<grid, kThreads, smem, st>>>(a);
   } else {
-    e = grant_smem(chunk_mma_kernel<P>, most, granted[0]);
-    if (e != cudaSuccess) return (int)e;
+    if (const int e = grant_smem(chunk_mma_kernel<P>, most, granted[0]))
+      return e;
     chunk_mma_kernel<P><<<grid, kThreads, smem, st>>>(a);
   }
-  return (int)cudaGetLastError();
+  return launch_status::after_launch();
 }
 
 template <int P>
 int launch_apply(const ApplyArgs& a, int n_bc, cudaStream_t st) {
   const size_t smem = apply_layout<P>(a.N).bytes;
   static bool granted[kMaxDevices] = {};
-  cudaError_t e =
-      grant_smem(apply_mma_kernel<P>, apply_layout<P>(kMaxN).bytes, granted);
-  if (e != cudaSuccess) return (int)e;
+  if (const int e = grant_smem(apply_mma_kernel<P>,
+                               apply_layout<P>(kMaxN).bytes, granted))
+    return e;
   apply_mma_kernel<P><<<dim3((a.L + kRows - 1) / kRows, a.H, n_bc), kThreads,
                         smem, st>>>(a);
-  return (int)cudaGetLastError();
+  return launch_status::after_launch();
 }
 
 }  // namespace mma
@@ -887,7 +889,7 @@ int chunk_launch(const void* x, const float* dt, const float* A,
       static_cast<const T*>(x), dt, A, static_cast<const T*>(Bm),
       static_cast<const T*>(Cm), static_cast<T*>(y), states, cumexp, L, H, G,
       N, x_row, b_row, c_row);
-  return static_cast<int>(cudaGetLastError());
+  return launch_status::after_launch();
 }
 
 template <int P, typename T>
@@ -898,7 +900,7 @@ int apply_launch(const void* yi, const void* Cm, const float* cumexp,
                             0, st>>>(static_cast<const T*>(yi),
                                      static_cast<const T*>(Cm), cumexp, s_in,
                                      static_cast<T*>(out), L, H, G, N, c_row);
-  return static_cast<int>(cudaGetLastError());
+  return launch_status::after_launch();
 }
 
 }  // namespace simt
@@ -922,9 +924,11 @@ bool async_ok(const void* x, const void* Bm, const void* Cm, int N,
     case 64: { constexpr int PV = 64; return CALL; }            \
     case 128: { constexpr int PV = 128; return CALL; }          \
   }                                                             \
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_status::fail(launch_status::kArgs);
 
 }  // namespace
+
+namespace ls = launch_status;
 
 extern "C" {
 
@@ -937,22 +941,24 @@ int ssd_max_state_fused() { return mma::kMaxN; }
 // x_row, b_row and c_row are the elements between consecutive positions of
 // x, Bm and Cm (H*P and G*N when contiguous); y is contiguous.  variant 1 is
 // mma (bf16, N <= ssd_max_state_fused()), 0 simt; async (mma only) stages
-// through 16-byte cp.async, which needs 16-byte aligned rows.  Returns the
-// CUDA error of the launch (0 = launched).
-int ssd_chunk_launch(const void* x, const float* dt, const float* A,
+// through 16-byte cp.async, which needs 16-byte aligned rows.  Every entry
+// point runs on card `device` and returns 0 once launched, else the
+// launch_status code of the check that refused it (csrc/launch_status.cuh).
+int ssd_chunk_launch(int device, const void* x, const float* dt, const float* A,
                      const void* Bm, const void* Cm, void* y, float* states,
-                     float* cumexp, int Bsz, int nc, int L, int H, int P,
-                     int G, int N, int x_row, int b_row, int c_row,
-                     int is_bf16, int variant, int async, void* stream) {
+                     float* cumexp, int Bsz, int nc, int L, int H, int P, int G,
+                     int N, int x_row, int b_row, int c_row, int is_bf16,
+                     int variant, int async, void* stream) {
   if (L < 1 || L > kMaxL || G < 1 || H % G || N < 1 || x_row < 0 ||
       b_row < 0 || c_row < 0)
-    return cudaErrorInvalidValue;
+    return ls::fail(ls::kArgs);
+  if (const int e = ls::bind_device(device)) return e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_bc = Bsz * nc;
   if (variant == 1) {
-    if (!is_bf16 || N > mma::kMaxN) return cudaErrorInvalidValue;
+    if (!is_bf16 || N > mma::kMaxN) return ls::fail(ls::kArgs);
     if (async && !async_ok(x, Bm, Cm, N, x_row, b_row, c_row))
-      return cudaErrorMisalignedAddress;
+      return ls::fail(ls::kArgs, cudaErrorMisalignedAddress);
     mma::ScanArgs a = {
         static_cast<const __nv_bfloat16*>(x), dt, A,
         static_cast<const __nv_bfloat16*>(Bm),
@@ -974,18 +980,20 @@ int ssd_chunk_launch(const void* x, const float* dt, const float* A,
 // Pass 2.  y_intra/Cm/out share float or bfloat16; cumexp and states_in
 // are fp32.  c_row is the elements between consecutive positions of Cm;
 // the other operands are contiguous.  variant and async as for pass 1.
-int ssd_apply_launch(const void* yi, const void* Cm, const float* cumexp,
-                     const float* states_in, void* out, int Bsz, int nc,
-                     int L, int H, int P, int G, int N, int c_row,
-                     int is_bf16, int variant, int async, void* stream) {
+int ssd_apply_launch(int device, const void* yi, const void* Cm,
+                     const float* cumexp, const float* states_in, void* out,
+                     int Bsz, int nc, int L, int H, int P, int G, int N,
+                     int c_row, int is_bf16, int variant, int async,
+                     void* stream) {
   if (L < 1 || G < 1 || H % G || N < 1 || c_row < 0)
-    return cudaErrorInvalidValue;
+    return ls::fail(ls::kArgs);
+  if (const int e = ls::bind_device(device)) return e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_bc = Bsz * nc;
   if (variant == 1) {
-    if (!is_bf16 || N > mma::kMaxN) return cudaErrorInvalidValue;
+    if (!is_bf16 || N > mma::kMaxN) return ls::fail(ls::kArgs);
     if (async && !(aligned16(Cm) && N % 8 == 0 && c_row % 8 == 0))
-      return cudaErrorMisalignedAddress;
+      return ls::fail(ls::kArgs, cudaErrorMisalignedAddress);
     mma::ApplyArgs a = {static_cast<const __nv_bfloat16*>(yi),
                         static_cast<const __nv_bfloat16*>(Cm), cumexp,
                         states_in, static_cast<__nv_bfloat16*>(out), L, H, G,
@@ -1006,16 +1014,17 @@ int ssd_apply_launch(const void* yi, const void* Cm, const float* cumexp,
 // ssd_max_state_fused(), on the tensor cores: init (B, H, N, P) fp32
 // contiguous in, y (B, L, H, P) and final (B, H, N, P) fp32 out.  Strides
 // and async as for pass 1.
-int ssd_fused_launch(const void* x, const float* dt, const float* A,
-                     const void* Bm, const void* Cm, const float* init,
-                     void* y, float* final_state, int Bsz, int L, int H,
-                     int P, int G, int N, int x_row, int b_row, int c_row,
-                     int async, void* stream) {
+int ssd_fused_launch(int device, const void* x, const float* dt, const float* A,
+                     const void* Bm, const void* Cm, const float* init, void* y,
+                     float* final_state, int Bsz, int L, int H, int P, int G,
+                     int N, int x_row, int b_row, int c_row, int async,
+                     void* stream) {
   if (L < 1 || L > kMaxL || G < 1 || H % G || N < 1 ||
       N > mma::kMaxN || x_row < 0 || b_row < 0 || c_row < 0)
-    return cudaErrorInvalidValue;
+    return ls::fail(ls::kArgs);
   if (async && !async_ok(x, Bm, Cm, N, x_row, b_row, c_row))
-    return cudaErrorMisalignedAddress;
+    return ls::fail(ls::kArgs, cudaErrorMisalignedAddress);
+  if (const int e = ls::bind_device(device)) return e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   mma::ScanArgs a = {static_cast<const __nv_bfloat16*>(x), dt, A,
                      static_cast<const __nv_bfloat16*>(Bm),

@@ -30,7 +30,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels import counted, forbid_grad
-from repro_torch.kernels.build import compile_library
+from repro_torch.kernels.build import compile_library, launch_error
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
 HEAD_DIMS = (8, 16, 32, 64, 128)     # SSD head dims P the kernels take
@@ -108,11 +108,11 @@ def build() -> ctypes.CDLL:
         return _lib
     lib, info = compile_library(_SRC, "ssd_scan")
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.ssd_chunk_launch.argtypes = [vp] * 8 + [i] * 13 + [vp]
+    lib.ssd_chunk_launch.argtypes = [i] + [vp] * 8 + [i] * 13 + [vp]
     lib.ssd_chunk_launch.restype = i
-    lib.ssd_apply_launch.argtypes = [vp] * 5 + [i] * 11 + [vp]
+    lib.ssd_apply_launch.argtypes = [i] + [vp] * 5 + [i] * 11 + [vp]
     lib.ssd_apply_launch.restype = i
-    lib.ssd_fused_launch.argtypes = [vp] * 8 + [i] * 10 + [vp]
+    lib.ssd_fused_launch.argtypes = [i] + [vp] * 8 + [i] * 10 + [vp]
     lib.ssd_fused_launch.restype = i
     limits = {"ssd_max_chunk": MAX_CHUNK,
               "ssd_max_state_fused": FUSED_MAX_STATE}
@@ -214,13 +214,14 @@ def ssd_chunk_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     cumexp = torch.empty((B, nc, L, H), dtype=torch.float32, **kw)
     with torch.cuda.device(x.device):
         err = lib.ssd_chunk_launch(
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-            Cm.data_ptr(), y.data_ptr(), states.data_ptr(), cumexp.data_ptr(),
-            B, nc, L, H, P, G, N, *rows, int(x.dtype == torch.bfloat16),
+            x.device.index, x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+            Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(), states.data_ptr(),
+            cumexp.data_ptr(), B, nc, L, H, P, G, N, *rows,
+            int(x.dtype == torch.bfloat16),
             int(pl.variant == "mma"), int(pl.staging == "async"),
             _stream(x.device))
     if err != 0:
-        raise RuntimeError(f"ssd_chunk kernel launch failed: CUDA error {err}")
+        raise launch_error(f"ssd_chunk ({pl.variant})", err)
     ssd_chunk_cuda.launches += 1
     ssd_chunk_cuda.by_variant[pl.variant] += 1
     return y, states, cumexp
@@ -267,13 +268,13 @@ def ssd_apply_cuda(y_intra: torch.Tensor, Cm: torch.Tensor,
     out = torch.empty_like(y_intra)
     with torch.cuda.device(y_intra.device):
         err = lib.ssd_apply_launch(
-            y_intra.data_ptr(), Cm.data_ptr(), cumexp.data_ptr(),
-            states_in.data_ptr(), out.data_ptr(), B, nc, L, H, P, G, N,
-            c_row, int(y_intra.dtype == torch.bfloat16),
+            y_intra.device.index, y_intra.data_ptr(), Cm.data_ptr(),
+            cumexp.data_ptr(), states_in.data_ptr(), out.data_ptr(), B, nc,
+            L, H, P, G, N, c_row, int(y_intra.dtype == torch.bfloat16),
             int(pl.variant == "mma"), int(pl.staging == "async"),
             _stream(y_intra.device))
     if err != 0:
-        raise RuntimeError(f"ssd_apply kernel launch failed: CUDA error {err}")
+        raise launch_error(f"ssd_apply ({pl.variant})", err)
     ssd_apply_cuda.launches += 1
     ssd_apply_cuda.by_variant[pl.variant] += 1
     return out
@@ -319,13 +320,13 @@ def ssd_scan_fused_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     final = torch.empty((B, H, N, P), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.ssd_fused_launch(
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-            Cm.data_ptr(), init.data_ptr(), y.data_ptr(), final.data_ptr(),
-            B, L, H, P, G, N, *rows, int(pl.staging == "async"),
+            x.device.index, x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+            Bm.data_ptr(), Cm.data_ptr(), init.data_ptr(), y.data_ptr(),
+            final.data_ptr(), B, L, H, P, G, N, *rows,
+            int(pl.staging == "async"),
             _stream(x.device))
     if err != 0:
-        raise RuntimeError(f"ssd_fused kernel launch failed: CUDA error "
-                           f"{err}")
+        raise launch_error("ssd_fused", err)
     ssd_scan_fused_cuda.launches += 1
     return y, final
 

@@ -1,6 +1,8 @@
-"""Serving launcher: a mixed-length workload through the continuous-batching
-engine, on the card.
+"""Serving launcher, on the card: fixed-batch greedy decoding, or a
+mixed-length workload through the continuous-batching engine.
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
+      --mode gemv --batch 8 --tokens 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
       --engine --requests 8 --tokens 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \\
@@ -10,15 +12,32 @@ engine, on the card.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
       --supervised --kills 2
 
-serves the full-width model on ``cuda`` with random weights from seed 0
-(attention layers page their K/V, mamba layers keep dense state slots, MoE
-layers run their experts on the grouped GEMM).  ``--smoke`` takes the
-``reduced()`` config instead (as the JAX launcher always does); ``--device
-cpu`` runs the plain PyTorch versions of every kernel on the CPU.
-``--speculation ngram`` (or ``draft_model``, which self-drafts with the
-reduced target config and so needs ``--smoke``) verifies up to
-``--spec-k`` draft tokens per slot in one ``verify_bs{N}_len{k+1}``
-launch.
+serves the full-width model on ``cuda`` with random weights from seed 0.
+``--smoke`` takes the ``reduced()`` config instead (as the JAX launcher
+always does); ``--device cpu`` runs the plain PyTorch versions of every
+kernel on the CPU.
+
+Without ``--engine``, ``--service`` or ``--supervised`` (the JAX
+launcher's default) it decodes one fixed batch: ``--batch`` sequences from
+random first tokens, ``--tokens`` greedy steps of
+``serve/decode.py::make_decode_step`` in ``--mode`` (``gemv`` by default,
+``batched`` or ``longctx``: on one card the three compute the same
+function) over a contiguous cache of ``--s-max`` positions, and prints the
+wall per token, synchronised with the card, beside the card's name.
+Attention layers attend over the cache, mamba layers run the one-token
+recurrence, MoE layers run their experts on the grouped GEMM.  whisper-base
+is refused here, as the JAX launcher refuses it: its decoder needs an
+encoder pass to fill the cross-K/V cache
+(``serve/decode.py::fill_cross_cache``, as ``chip_smoke.py``'s ``encdec``
+phase does).
+
+With ``--engine`` attention layers page their K/V, mamba layers keep dense
+state slots and MoE layers run the grouped GEMM; ``--speculation ngram``
+(or ``draft_model``, which self-drafts with the reduced target config and
+so needs ``--smoke``) verifies up to ``--spec-k`` draft tokens per slot in
+one ``verify_bs{N}_len{k+1}`` launch.  pixtral-12b's text is served there
+too (its ``vis_proj`` unused), whisper-base is not: the engine keeps no
+cross caches.
 
 With ``--service`` the same workload arrives instead through the asyncio
 ``GenerateService`` front-end: concurrent streaming clients at Poisson
@@ -35,8 +54,7 @@ takes a drain checkpoint every 4 steps, and ``--kills`` hard-kills it
 mid-generation, evenly over the workload's tokens; each time a fresh
 worker restores the last good checkpoint and the streams resume.  The run
 ends by printing the supervised metrics snapshot (restarts, checkpoints,
-recovery seconds) and each failover's times.  The fixed-batch decode
-modes (the JAX launcher's default) come with the launchers slice.
+recovery seconds) and each failover's times.
 
 Before it allocates, the launcher reckons the weights' bytes from the
 config and raises, naming the device's memory, when they do not fit: the
@@ -55,7 +73,8 @@ import torch
 
 from repro_torch.configs import ARCH_NAMES, get_config, reduced
 from repro_torch.device import resolve_device
-from repro_torch.models.params import config_param_bytes
+from repro_torch.models.params import config_param_bytes, init_params
+from repro_torch.serve.decode import cache_specs, make_decode_step
 from repro_torch.serve.engine import (EngineConfig, SamplingParams,
                                       build_engine, generate)
 from repro_torch.serve.spec import SpeculationConfig
@@ -159,6 +178,48 @@ def _main_engine(cfg, args):
               f"{st.prefix_tokens_reused} prompt tokens reused "
               f"(hit rate {st.prefix_hit_rate:.2f}), "
               f"{st.prefix_evictions} evictions")
+
+
+def _main_fixed(cfg, args):
+    """The fixed batch: greedy tokens from random first ones, the wall per
+    token on the device (synchronised), the first sequences."""
+    import time
+    if cfg.enc_layers:
+        raise SystemExit("whisper serving needs an encoder pass; see "
+                         "chip_smoke.py's encdec phase for the full harness "
+                         "(serve/decode.py::fill_cross_cache)")
+    need = check_fit(cfg, args.device)
+    dev = resolve_device(args.device)
+    print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{need / 1e9:.2f} GB of weights")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(cfg, generator=gen, device=dev)
+    step = make_decode_step(cfg, batch=args.batch, s_max=args.s_max,
+                            mode=args.mode)
+    cache = cache_specs(cfg, args.batch, args.s_max, args.mode, device=dev)
+    rng = np.random.default_rng(0)
+    tok = torch.from_numpy(rng.integers(0, min(cfg.vocab_size, 256),
+                                        size=(args.batch,)).astype(np.int32)
+                           ).to(dev)
+    out_tokens = [tok]
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    for t in range(args.tokens):
+        logits = step(params, cache, tok, t)
+        tok = torch.argmax(logits[:, 0, :cfg.vocab_size], dim=-1).to(
+            torch.int32)
+        out_tokens.append(tok)
+    sync()
+    dt = (time.perf_counter() - t0) / max(args.tokens, 1)
+    where = torch.cuda.get_device_name(dev) if dev.type == "cuda" \
+        else "the CPU (plain versions)"
+    seqs = torch.stack(out_tokens, 1).cpu().numpy()
+    print(f"decoded {args.tokens} tokens x batch {args.batch} "
+          f"({args.mode}, s_max {args.s_max}): {dt * 1e3:.2f} ms/token on "
+          f"{where}")
+    for b in range(min(args.batch, 2)):
+        print(f"  seq[{b}]: {seqs[b][:16].tolist()} ...")
 
 
 def _main_service(cfg, args):
@@ -306,8 +367,12 @@ def main(argv=None):
                     help="per-request TTFT deadline in seconds for "
                          "--service (sheds infeasible requests under "
                          "--admission deadline)")
+    ap.add_argument("--mode", default="gemv",
+                    choices=["batched", "gemv", "longctx"],
+                    help="the fixed-batch decode layout (the default path; "
+                         "one function on one card)")
     ap.add_argument("--batch", type=int, default=8,
-                    help="largest batch bucket")
+                    help="the fixed batch, or the largest batch bucket")
     ap.add_argument("--tokens", type=int, default=32)
     ap.add_argument("--s-max", type=int, default=64)
     ap.add_argument("--requests", type=int, default=8,
@@ -329,9 +394,6 @@ def main(argv=None):
     ap.add_argument("--device", default=None, choices=["cuda", "cpu"],
                     help="default: cuda (raises without a GPU)")
     args = ap.parse_args(argv)
-    if not (args.engine or args.service or args.supervised):
-        ap.error("choose --engine, --service or --supervised (the "
-                 "fixed-batch decode modes are not ported yet)")
     if args.speculation == "draft_model" and not args.smoke:
         ap.error("--speculation draft_model self-drafts with the reduced "
                  "config, whose vocab only the reduced target shares: add "
@@ -339,12 +401,18 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = reduced(cfg)
+    if (args.engine or args.service or args.supervised) \
+            and args.mode != "gemv":
+        print(f"note: the engine serves through its per-slot paged step; "
+              f"--mode {args.mode} ignored")
     if args.supervised:
         _main_supervised(cfg, args)
     elif args.service:
         _main_service(cfg, args)
-    else:
+    elif args.engine:
         _main_engine(cfg, args)
+    else:
+        _main_fixed(cfg, args)
 
 
 if __name__ == "__main__":

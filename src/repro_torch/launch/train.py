@@ -5,11 +5,16 @@ the card.
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-780m --full
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch qwen3-moe-235b-a22b --full --layers 2 --state-bits 8
+  PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-base \\
+      --full --seq-len 448
+  PYTHONPATH=src python -m repro_torch.launch.train --arch pixtral-12b \\
+      --full --layers 12 --seq-len 2048 --global-batch 2
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
       --device cpu --steps 20          # the reduced config, on the CPU
 
-trains a decoder LM (dense, MoE, SSM or hybrid; whisper and pixtral come
-with a later slice) with AdamW on batches of the deterministic synthetic
+trains any family (dense, MoE, SSM, hybrid; whisper-base's encoder and
+decoder on stub frames; pixtral-12b's decoder on projected stub patch
+embeddings) with AdamW on batches of the deterministic synthetic
 pipeline, random weights from seed 0, the layer groups recomputed in
 the backward.  Without ``--full`` it takes the ``reduced()`` config, as
 the JAX launcher does; ``--full`` takes the full config, and ``--layers``
@@ -53,7 +58,7 @@ from repro_torch.configs import ARCH_NAMES, get_config, reduced
 from repro_torch.data.pipeline import DataConfig, make_batch
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.params import init_params, layer_leaves
+from repro_torch.models.params import init_params, param_leaves
 from repro_torch.optim.adamw import QBLOCK, AdamWConfig, init_state
 from repro_torch.runtime.fault_tolerance import (DEFAULT_CKPT_DIR,
                                                  FaultConfig, TrainController,
@@ -83,15 +88,8 @@ def train_config(arch: str, full: bool = False,
 
 def _leaf_sizes(cfg: ModelConfig):
     """(elements, bytes an element) of every parameter leaf."""
-    esz = torch.empty((), dtype=cfg.param_dtype).element_size()
-    D = cfg.d_model
-    out = [(cfg.vocab_size * D, esz)] * 2 + [(D, 4)] * (
-        2 if cfg.norm == "layernorm" else 1)
-    for mixer, ffn in cfg.pattern():
-        for shape, dt in layer_leaves(cfg, mixer, ffn).values():
-            out.append((math.prod(shape),
-                        torch.empty((), dtype=dt).element_size()))
-    return out
+    return [(math.prod(shape), torch.empty((), dtype=dt).element_size())
+            for shape, dt in param_leaves(cfg)]
 
 
 def train_state_bytes(cfg: ModelConfig, state_bits: int = 32,
@@ -139,10 +137,21 @@ def check_fit(cfg: ModelConfig, device, state_bits: int = 32,
 def data_config(cfg: ModelConfig, seq_len: int, global_batch: int,
                 full: bool) -> DataConfig:
     """The JAX launcher's batches: at the config's vocab with ``--full``,
-    at most 256 token ids otherwise."""
+    at most 256 token ids otherwise; whisper's carry ``enc_seq`` stub
+    frames at d_model, pixtral's ``vis_patches`` patch embeddings at
+    d_model in front of ``seq_len - vis_patches`` text tokens."""
     vocab = cfg.vocab_size if full else min(cfg.vocab_size, 256)
+    kw = {}
+    if cfg.enc_layers:
+        kw.update(frames=cfg.enc_seq, frame_dim=cfg.d_model)
+    if cfg.vis_patches:
+        if seq_len <= cfg.vis_patches:
+            raise ValueError(f"--seq-len {seq_len} leaves no text after "
+                             f"{cfg.name}'s {cfg.vis_patches} patches")
+        kw.update(patches=cfg.vis_patches, patch_dim=cfg.d_model)
+        seq_len -= cfg.vis_patches
     return DataConfig(vocab_size=vocab, seq_len=seq_len,
-                      global_batch=global_batch)
+                      global_batch=global_batch, **kw)
 
 
 def setup(cfg: ModelConfig, *, device, opt_cfg: AdamWConfig,

@@ -1,13 +1,14 @@
-"""Attention on one device: the training layer, and the flash-decoding
-partials with their log-sum-exp merge.
+"""Attention on one device: the training layer, encoder-decoder cross
+attention, and the flash-decoding partials with their log-sum-exp merge.
 
-``chunked_attention`` and ``attention_block`` are the counterparts of
-``repro.models.attention``'s at q = r = 1: the K/V ``fcollect`` over grid
-rows is the identity, every head is local, and the fused QKV projection is
-three ``torch.matmul`` calls.  The attention is differentiable torch, as
-the JAX training path's is jnp (it reaches no Pallas kernel): a running
-``(m, l, acc)`` over ``block_kv`` key blocks, each block recomputed in the
-backward (``torch.utils.checkpoint``), so the S x S scores never live.
+``chunked_attention``, ``attention_block`` and ``cross_attention_block``
+are the counterparts of ``repro.models.attention``'s at q = r = 1: the
+K/V ``fcollect`` over grid rows is the identity, every head is local, and
+the fused QKV projection is three ``torch.matmul`` calls.  The attention
+is differentiable torch, as the JAX training path's is jnp (it reaches no
+Pallas kernel): a running ``(m, l, acc)`` over ``block_kv`` key blocks,
+each block recomputed in the backward (``torch.utils.checkpoint``), so the
+S x S scores never live.
 
 ``attention_partial`` scores q against one run of keys with per-position
 labels and returns the unnormalised softmax partials ``(m, l, acc)``;
@@ -114,6 +115,34 @@ def attention_block(p: dict, x: torch.Tensor, cfg, pos_offset: int = 0
     out = chunked_attention(q.transpose(1, 2), k.transpose(1, 2),
                             v.transpose(1, 2), q_offset=pos_offset,
                             causal=cfg.causal, block_kv=cfg.attn_block_kv)
+    return out.transpose(1, 2).reshape(B, S, -1) @ p["wo"]
+
+
+def cross_kv(p: dict, enc: torch.Tensor, head_dim: int):
+    """One decoder layer's cross-attention K and V, (B, S_enc, kvh, hd)
+    each, projected from the encoder output enc (B, S_enc, D) with the
+    layer's own weights, no bias (the K/V half of
+    :func:`cross_attention_block`; the fixed-batch decode path caches
+    it)."""
+    B, S, _ = enc.shape
+    return ((enc @ p["wk"]).reshape(B, S, -1, head_dim),
+            (enc @ p["wv"]).reshape(B, S, -1, head_dim))
+
+
+def cross_attention_block(p: dict, x: torch.Tensor, enc: torch.Tensor,
+                          cfg) -> torch.Tensor:
+    """Encoder-decoder cross attention (``repro.models.attention.
+    cross_attention_block`` at q = r = 1): q from the decoder's x (B, S, D),
+    K/V from the encoder output (:func:`cross_kv`), no bias, no RoPE
+    (positions live in the encoder), no causal mask.  ``cfg`` is an
+    ``AttnStatic``."""
+    B, S, _ = x.shape
+    hd = cfg.head_dim
+    q = (x @ p["wq"]).reshape(B, S, -1, hd)
+    k, v = cross_kv(p, enc, hd)
+    out = chunked_attention(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), q_offset=0, causal=False,
+                            block_kv=cfg.attn_block_kv)
     return out.transpose(1, 2).reshape(B, S, -1) @ p["wo"]
 
 

@@ -1,13 +1,14 @@
 """Model configuration shared by every architecture family (torch dtypes).
 
-The dense-attention, MoE and SSM (Mamba2 / SSD) subset of
-``repro.models.config``: the fields and the grid-derived helpers the serving
-and training paths read.  Encoder-decoder and vision fields arrive with the
-slices that serve those families.  There is no ``ssd_backend`` field: the
-device of the tensors picks the serving SSD scan's route, as it does for
-paged attention, and training runs the differentiable chunked scan of
-``models/ssm.py`` at ``ssd_chunk``, as the JAX training path runs its jnp
-backend.
+``repro.models.config`` for the port: the fields and the grid-derived
+helpers the serving and training paths read, for the dense-attention, MoE,
+SSM (Mamba2 / SSD), encoder-decoder (whisper: ``enc_layers``,
+``enc_seq``) and vision-language (pixtral: ``vis_patches``) families.
+There is no ``ssd_backend`` field: the device of the tensors picks the
+serving SSD scan's route, as it does for paged attention, and training
+runs the differentiable chunked scan of ``models/ssm.py`` at
+``ssd_chunk``, as the JAX training path runs its jnp backend.  There is
+no ``sub_quadratic`` either: it is bookkeeping the JAX benchmarks read.
 """
 
 from __future__ import annotations
@@ -63,6 +64,13 @@ class ModelConfig:
     ssd_chunk: int = 128           # the full-sequence (training) scan's chunk
     # layer pattern; empty -> homogeneous ("attn", ffn_kind) x n_layers
     layer_pattern: LayerPattern = ()
+    # encoder-decoder (whisper): a non-causal ("attn", "mlp") encoder over
+    # enc_seq stub frames, cross attention in every decoder layer
+    enc_layers: int = 0
+    enc_seq: int = 1500
+    # VLM (pixtral): projected patch embeddings at the first vis_patches
+    # positions of the sequence
+    vis_patches: int = 0
     # numerics
     param_dtype: Any = torch.bfloat16
     compute_dtype: Any = torch.bfloat16
@@ -94,6 +102,13 @@ class ModelConfig:
         plen = len(self.pattern())
         assert self.n_layers % plen == 0, (self.n_layers, plen)
         return self.n_layers // plen
+
+    def encoder(self) -> "ModelConfig":
+        """The encoder stack's config (``transformer.py::_encode``): one
+        non-causal ``("attn", "mlp")`` layer per group, ``enc_layers``
+        groups."""
+        return dataclasses.replace(self, layer_pattern=(("attn", "mlp"),),
+                                   n_layers=self.enc_layers, causal=False)
 
 
 @dataclasses.dataclass(frozen=True)

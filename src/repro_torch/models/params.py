@@ -1,5 +1,4 @@
-"""Parameters of the dense, MoE and SSM models: initialisation and import
-from JAX.
+"""Parameters of every model family: initialisation and import from JAX.
 
 The tree has the JAX package's global layout (``repro.models.ref``'s
 ``gather_params`` output), one plain dict of tensors:
@@ -17,6 +16,12 @@ The tree has the JAX package's global layout (``repro.models.ref``'s
         A/dt_bias/D (G, H) fp32, ssm_norm (G, di) fp32, wo (G, di, D)}, the
         conv channels in the global ``[x | B | C]`` order; a layer whose ffn
         is ``"none"`` (mamba2) has no norm2 and no ffn.
+    encoder-decoder (``enc_layers``): every decoder layer also holds
+        ``cross`` (the attention leaves: wq, wk, wv, wo and the biases,
+        which cross attention does not read) and ``norm_cross``; beside
+        them ``enc_layers`` (one ``("attn", "mlp")`` entry stacked over the
+        encoder's layers), ``enc_pos (enc_seq, D)`` and ``enc_final_norm``
+    vision-language (``vis_patches``): ``vis_proj (D, D)``
 
 Head geometry lives in the weight shapes, not in the config
 (:func:`stored_heads`): weights initialised here use the native r=1
@@ -29,7 +34,7 @@ exactly the JAX result on the latter.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -60,12 +65,14 @@ _ONES = ("scale", "q_norm", "k_norm", "D", "ssm_norm")
 _ZEROS = ("bias", "bq", "bk", "bv", "conv_b", "dt_bias", "b_up", "b_down")
 
 
-def layer_leaves(cfg: ModelConfig, mixer: str, ffn: str
+def layer_leaves(cfg: ModelConfig, mixer: str, ffn: str,
+                 cross: bool = False
                  ) -> Dict[Tuple[str, str], Tuple[Tuple[int, ...], Any]]:
     """(part, name) -> (shape, dtype) of one layer position's leaves, each
     stacked over the G layer groups, at the native r=1 geometry, in the
     order :func:`init_params` draws them.  ``part`` is the key of the
-    layer's sub-dict: norm1, mixer, norm2 or ffn."""
+    layer's sub-dict: norm1, mixer, norm2 or ffn, and with ``cross`` (a
+    decoder layer of an encoder-decoder model) cross and norm_cross."""
     if mixer not in ("attn", "mamba") or ffn not in ("mlp", "moe", "none"):
         raise NotImplementedError(
             f"{cfg.name}: ({mixer}, {ffn}) layers come with a later slice")
@@ -78,15 +85,19 @@ def layer_leaves(cfg: ModelConfig, mixer: str, ffn: str
             n["bias"] = ((G, D), f32)
         return n
 
-    if mixer == "attn":
+    def attn():
         hd, Hq, kvh = cfg.hd(), cfg.heads_padded(1), cfg.kv_stored(1)[0]
-        m = {"wq": ((G, D, Hq * hd), dt), "wk": ((G, D, kvh * hd), dt),
+        a = {"wq": ((G, D, Hq * hd), dt), "wk": ((G, D, kvh * hd), dt),
              "wv": ((G, D, kvh * hd), dt), "wo": ((G, Hq * hd, D), dt)}
         if cfg.qkv_bias:
-            m.update(bq=((G, Hq * hd), dt), bk=((G, kvh * hd), dt),
+            a.update(bq=((G, Hq * hd), dt), bk=((G, kvh * hd), dt),
                      bv=((G, kvh * hd), dt))
         if cfg.qk_norm:
-            m.update(q_norm=((G, hd), f32), k_norm=((G, hd), f32))
+            a.update(q_norm=((G, hd), f32), k_norm=((G, hd), f32))
+        return a
+
+    if mixer == "attn":
+        m = attn()
     else:
         di, H = cfg.d_inner, cfg.ssm_heads
         gn, K = cfg.ssm_groups * cfg.ssm_state, cfg.conv_kernel
@@ -98,6 +109,8 @@ def layer_leaves(cfg: ModelConfig, mixer: str, ffn: str
              "D": ((G, H), f32), "ssm_norm": ((G, di), f32),
              "wo": ((G, di, D), dt)}
     parts = {"norm1": norm(), "mixer": m}
+    if cross:
+        parts.update(cross=attn(), norm_cross=norm())
     if ffn == "mlp":
         f = {"w_up": ((G, D, F), dt), "w_down": ((G, F, D), dt)}
         if cfg.act == "swiglu":
@@ -118,16 +131,41 @@ def _nbytes(shape, dtype) -> int:
     return math.prod(shape) * torch.empty((), dtype=dtype).element_size()
 
 
+def top_leaves(cfg: ModelConfig
+               ) -> Dict[Tuple[str, ...], Tuple[Tuple[int, ...], Any]]:
+    """path -> (shape, dtype) of every leaf outside ``layers`` and
+    ``enc_layers``: embed, lm_head, final_norm, and enc_pos,
+    enc_final_norm (encoder-decoder) and vis_proj (vision-language)."""
+    V, D, dt, f32 = cfg.vocab_size, cfg.d_model, cfg.param_dtype, \
+        torch.float32
+    norm = {"scale": ((D,), f32)}
+    if cfg.norm == "layernorm":
+        norm["bias"] = ((D,), f32)
+    out = {("embed",): ((V, D), dt), ("lm_head",): ((D, V), dt)}
+    out.update({("final_norm", k): v for k, v in norm.items()})
+    if cfg.enc_layers:
+        out[("enc_pos",)] = ((cfg.enc_seq, D), dt)
+        out.update({("enc_final_norm", k): v for k, v in norm.items()})
+    if cfg.vis_patches:
+        out[("vis_proj",)] = ((D, D), dt)
+    return out
+
+
+def param_leaves(cfg: ModelConfig) -> List[Tuple[Tuple[int, ...], Any]]:
+    """(shape, dtype) of every leaf :func:`init_params` allocates."""
+    out = list(top_leaves(cfg).values())
+    cross = bool(cfg.enc_layers)
+    for mixer, ffn in cfg.pattern():
+        out += list(layer_leaves(cfg, mixer, ffn, cross).values())
+    if cfg.enc_layers:
+        out += list(layer_leaves(cfg.encoder(), "attn", "mlp").values())
+    return out
+
+
 def config_param_bytes(cfg: ModelConfig) -> int:
     """Device bytes of the weights :func:`init_params` would allocate for
     ``cfg``, reckoned from the config alone (nothing is allocated)."""
-    total = 2 * _nbytes((cfg.vocab_size, cfg.d_model), cfg.param_dtype)
-    total += _nbytes((cfg.d_model,), torch.float32) * (
-        2 if cfg.norm == "layernorm" else 1)
-    for mixer, ffn in cfg.pattern():
-        total += sum(_nbytes(shape, dt) for shape, dt in
-                     layer_leaves(cfg, mixer, ffn).values())
-    return total
+    return sum(_nbytes(shape, dt) for shape, dt in param_leaves(cfg))
 
 
 def _init_leaf(name, shape, dtype, d_model, generator, device):
@@ -157,24 +195,36 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
     ``A = -exp(U(log .5, log 8))`` as in Mamba2.  Expert leaves are drawn
     one (group, expert) slice at a time."""
     dev = resolve_device(device)
-    dt, D = cfg.param_dtype, cfg.d_model
-    layers = []
-    for mixer, ffn in cfg.pattern():
-        layer: Dict[str, Dict[str, torch.Tensor]] = {}
-        for (part, name), (shape, ldt) in layer_leaves(cfg, mixer,
-                                                       ffn).items():
-            layer.setdefault(part, {})[name] = _init_leaf(
-                name, shape, ldt, D, generator, dev)
-        layers.append(layer)
-    final = {"scale": torch.ones((D,), dtype=torch.float32, device=dev)}
-    if cfg.norm == "layernorm":
-        final["bias"] = torch.zeros((D,), dtype=torch.float32, device=dev)
-    return {
-        "embed": _normal((cfg.vocab_size, D), None, dt, generator, dev),
-        "lm_head": _normal((D, cfg.vocab_size), D, dt, generator, dev),
-        "final_norm": final,
-        "layers": layers,
-    }
+    D = cfg.d_model
+
+    def stack(lcfg, cross):
+        layers = []
+        for mixer, ffn in lcfg.pattern():
+            layer: Dict[str, Dict[str, torch.Tensor]] = {}
+            for (part, name), (shape, ldt) in layer_leaves(
+                    lcfg, mixer, ffn, cross).items():
+                layer.setdefault(part, {})[name] = _init_leaf(
+                    name, shape, ldt, D, generator, dev)
+            layers.append(layer)
+        return layers
+
+    out: Dict[str, Any] = {"layers": stack(cfg, bool(cfg.enc_layers))}
+    if cfg.enc_layers:
+        out["enc_layers"] = stack(cfg.encoder(), False)
+    for path, (shape, ldt) in top_leaves(cfg).items():
+        # embed normal(0, 0.02), enc_pos normal with fan-in D (as the JAX
+        # spec declares it), the rest by name
+        if path == ("embed",):
+            leaf = _normal(shape, None, ldt, generator, dev)
+        elif path == ("enc_pos",):
+            leaf = _normal(shape, D, ldt, generator, dev)
+        else:
+            leaf = _init_leaf(path[-1], shape, ldt, D, generator, dev)
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf
+    return out
 
 
 def _to_tensor(a, device: torch.device) -> torch.Tensor:
@@ -201,7 +251,12 @@ def from_jax_params(gp, cfg: ModelConfig, *, device=None) -> Dict[str, Any]:
         return _to_tensor(node, dev)
 
     out = conv(gp)
-    missing = {"embed", "lm_head", "final_norm", "layers"} - set(out)
+    need = {"embed", "lm_head", "final_norm", "layers"}
+    if cfg.enc_layers:
+        need |= {"enc_layers", "enc_pos", "enc_final_norm"}
+    if cfg.vis_patches:
+        need.add("vis_proj")
+    missing = need - set(out)
     if missing:
         raise ValueError(f"{cfg.name}: parameter tree lacks {sorted(missing)}")
     return out

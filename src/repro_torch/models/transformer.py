@@ -1,12 +1,15 @@
-"""Decoder-LM forward and loss on one device (``repro.models.transformer``
-at q = r = 1).
+"""Model forward and loss on one device (``repro.models.transformer`` at
+q = r = 1).
 
-The training path of the dense, MoE, SSM and hybrid families: the token
-embedding, the layer stack over the pattern groups (each group
-recomputed in the backward when ``remat``, as the JAX stack's
-``jax.checkpoint`` does), the final norm, and the chunked cross-entropy.
-Every grid collective of the JAX code is the identity on one device: the
-embedding's row reduce-scatter, the loss's column max and sums, the row
+The training path of every family: the token embedding, whisper's encoder
+over its stub frames (``enc_pos`` added, a non-causal ``("attn", "mlp")``
+stack, ``enc_final_norm``) feeding every decoder layer's cross attention,
+pixtral's projected patch embeddings at the first positions, the layer
+stack over the pattern groups (each group recomputed in the backward when
+``remat``, as the JAX stack's ``jax.checkpoint`` does), the final norm,
+and the chunked cross-entropy.  Every grid collective of the JAX code is
+the identity on one device: the embedding's row reduce-scatter, the K/V
+``fcollect`` of cross attention, the loss's column max and sums, the row
 and data sums of the loss.
 
 Parameters are the port's global tree (:mod:`repro_torch.models.params`).
@@ -17,22 +20,18 @@ a list of its G per-group views (:mod:`repro_torch.train.step`).
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.attention import attention_block
+from repro_torch.models.attention import (attention_block,
+                                          cross_attention_block)
 from repro_torch.models.config import ModelConfig, attn_static
 from repro_torch.models.layers import apply_norm, mlp_apply
 from repro_torch.models.moe import moe_block
 from repro_torch.models.ssm import mamba_block
-
-# families whose inputs the port cannot take yet, and the slice that brings
-# them (as repro_torch.configs.LATER names them)
-LATER_FAMILIES = {"encdec": "the encoder-decoder slice",
-                  "vlm": "the vision-language slice"}
 
 
 def _grad_on(*tensors) -> bool:
@@ -102,8 +101,11 @@ def layer_params(entry: Dict[str, Any], g: int) -> Dict[str, Any]:
 
 
 def apply_layer(cfg: ModelConfig, mixer: str, ffn: str, p: Dict,
-                x: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """One (mixer, ffn) layer; returns (x, metrics)."""
+                x: torch.Tensor, cross: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One (mixer, ffn) layer; returns (x, metrics).  ``cross`` is the
+    encoder output that a decoder layer holding ``cross`` weights attends
+    to, after its mixer."""
     metrics: Dict[str, torch.Tensor] = {}
     h = apply_norm(cfg, p["norm1"], x)
     if mixer == "attn":
@@ -113,6 +115,10 @@ def apply_layer(cfg: ModelConfig, mixer: str, ffn: str, p: Dict,
     else:
         raise ValueError(mixer)
     x = x + h
+    if cross is not None and "cross" in p:
+        h = apply_norm(cfg, p["norm_cross"], x)
+        x = x + cross_attention_block(p["cross"], h, cross,
+                                      attn_static(cfg, causal=False))
     if ffn == "mlp":
         x = x + mlp_apply(cfg, p["ffn"], apply_norm(cfg, p["norm2"], x))
     elif ffn == "moe":
@@ -124,39 +130,78 @@ def apply_layer(cfg: ModelConfig, mixer: str, ffn: str, p: Dict,
 
 
 def stack_forward(cfg: ModelConfig, layers_p: list, x: torch.Tensor,
-                  remat: bool = False
+                  remat: bool = False, cross: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run the layer groups in order; returns (x, summed ``moe_aux``).
-    With ``remat`` each group is recomputed in the backward."""
+    With ``remat`` each group is recomputed in the backward; ``cross`` is
+    the encoder output the decoder layers attend to."""
     pattern = cfg.pattern()
 
-    def group(g, x):
+    def group(g, x, cross):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for pos, (mixer, ffn) in enumerate(pattern):
             x, metrics = apply_layer(cfg, mixer, ffn,
-                                     layer_params(layers_p[pos], g), x)
+                                     layer_params(layers_p[pos], g), x, cross)
             if "moe_aux" in metrics:
                 aux = aux + metrics["moe_aux"]
         return x, aux
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for g in range(cfg.n_groups()):
-        x, a = (checkpoint(group, g, x, use_reentrant=False)
-                if remat and torch.is_grad_enabled() else group(g, x))
+        x, a = (checkpoint(group, g, x, cross, use_reentrant=False)
+                if remat and torch.is_grad_enabled() else group(g, x, cross))
         aux = aux + a
     return x, aux
 
 
+def encode(cfg: ModelConfig, params: Dict, frames: torch.Tensor,
+           remat: bool = False) -> torch.Tensor:
+    """The whisper encoder (``transformer.py::_encode``) on stub frame
+    embeddings (B, S_enc, D): ``enc_pos`` added in the compute dtype, the
+    non-causal ``("attn", "mlp")`` stack, ``enc_final_norm``.  Returns the
+    encoder output (B, S_enc, D) every decoder layer projects its own
+    cross K/V from."""
+    ecfg = cfg.encoder()
+    frames = frames.to(cfg.compute_dtype)
+    x = frames + params["enc_pos"][None, :frames.shape[1]].to(frames.dtype)
+    x, _ = stack_forward(ecfg, params["enc_layers"], x, remat)
+    return apply_norm(ecfg, params["enc_final_norm"], x)
+
+
+def patch_inject(params: Dict, x: torch.Tensor, patches: torch.Tensor
+                 ) -> torch.Tensor:
+    """The vision stub (``transformer.py::_patch_inject``): precomputed
+    patch embeddings (B, P, D) in the compute dtype, times ``vis_proj``,
+    added at the first P positions of x (B, S, D), where the pipeline's
+    token id -1 left zero embeddings."""
+    P = patches.shape[1]
+    if P > x.shape[1]:
+        raise ValueError(f"{P} patches do not fit a sequence of "
+                         f"{x.shape[1]}")
+    proj = patches.to(x.dtype) @ params["vis_proj"]
+    return torch.cat([x[:, :P] + proj, x[:, P:]], dim=1)
+
+
+def _modality(cfg: ModelConfig, batch: Dict, key: str) -> torch.Tensor:
+    if key not in batch:
+        raise ValueError(f"{cfg.name}: a {cfg.family} batch needs "
+                         f"{key!r} beside the tokens")
+    return batch[key]
+
+
 def forward(cfg: ModelConfig, params: Dict, batch: Dict,
             remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """batch: tokens (B, S).  Returns (x after the final norm (B, S, D),
+    """batch: tokens (B, S) [+ frames (B, S_enc, D) for encoder-decoder,
+    patches (B, P, D) for vision-language models, whose token ids are -1
+    at the patch positions].  Returns (x after the final norm (B, S, D),
     summed MoE aux loss)."""
-    if cfg.family in LATER_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.family} training is not ported yet: it comes "
-            f"with {LATER_FAMILIES[cfg.family]}")
+    frames = _modality(cfg, batch, "frames") if cfg.enc_layers else None
+    patches = _modality(cfg, batch, "patches") if cfg.vis_patches else None
     x = embed_tokens(params["embed"], batch["tokens"], cfg.compute_dtype)
-    x, aux = stack_forward(cfg, params["layers"], x, remat)
+    cross = None if frames is None else encode(cfg, params, frames, remat)
+    if patches is not None:
+        x = patch_inject(params, x, patches)
+    x, aux = stack_forward(cfg, params["layers"], x, remat, cross)
     return apply_norm(cfg, params["final_norm"], x), aux
 
 

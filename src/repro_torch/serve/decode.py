@@ -1,9 +1,12 @@
-"""Serving step bodies over the paged KV arena, on one device.
+"""Serving step bodies on one device: the engine's over the paged KV arena,
+and the fixed-batch decode path over a contiguous cache.
 
 The counterparts of ``repro.serve.decode``'s ``make_decode_body(per_slot=
 True, paged=...)`` and ``make_prefill_chunk_body``, at q = r = 1: every
 SHMEM row/column collective is the identity, page routing ``p % q`` is
-trivial, and each gemv2d projection is one ``torch.matmul``.
+trivial, and each gemv2d projection is one ``torch.matmul``.  The
+fixed-batch path (``make_decode_step`` without ``paged``, ``cache_specs``
+and ``make_prefill``, at the end of this module) is described there.
 
 Both bodies read and write ONE state arena: a list with one entry per
 pattern position.  An attention entry is ``{"k", "v"}`` of shape
@@ -40,17 +43,21 @@ bf16 rounding, so a decode step is not an L = 1 chunk there.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, NamedTuple, Optional, Tuple
+from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
+                    Sequence, Tuple, Union)
 
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.kernels.paged_attention import paged_attention
-from repro_torch.models.attention import combine_partials
+from repro_torch.models.attention import (attention_partial, combine_partials,
+                                          cross_kv)
 from repro_torch.models.config import ModelConfig, attn_static
 from repro_torch.models.layers import (apply_norm, apply_rope, mlp_apply,
                                        rms_norm_local, rope_tables)
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.ssm import mamba_chunk_step, mamba_decode_step
+from repro_torch.models.transformer import encode, forward
 
 
 @dataclasses.dataclass(frozen=True)
@@ -297,3 +304,279 @@ def decode_step(cfg: ModelConfig, params, arena, tokens: torch.Tensor,
     return _run(cfg, params, arena, tokens[:, None], pos,
                 torch.ones_like(pos), table, slots, stride=stride,
                 decode=True, all_logits=False)
+
+
+# ---------------------------------------------------------------------------
+# The fixed-batch decode path: a contiguous cache, every slot one token a
+# step.
+# ---------------------------------------------------------------------------
+#
+# ``repro.serve.decode.make_decode_step`` without ``paged``, at q = r = 1.
+# The JAX package lays the cache out three ways for its grid: ``batched``
+# (batch over grid rows, Cannon projections), ``gemv`` (weights
+# stationary, the cache's sequence over grid rows, flash-decoding merge)
+# and ``longctx`` (the sequence over data x rows, batch replicated).  On one
+# card every grid collective is the identity and every shard is the whole
+# cache, so the three compute one function: each keeps its name and its
+# argument checks, and nothing else of the grid is emulated.  Attention
+# here is the plain ``attention_partial`` over the cache, as the JAX
+# package computes it in jnp on every non-paged mode; MoE layers run the
+# grouped GEMM on the card, as everywhere.  (The JAX ``gemv`` and
+# ``longctx`` modes read no QKV bias, ``_attn_decode_longctx``; the port
+# adds it in every mode, as JAX's ``batched`` does.  The two agree while
+# the biases are zero, as their initializer makes them.)
+
+DECODE_MODES = ("batched", "gemv", "longctx")
+
+CacheEntry = Dict[str, torch.Tensor]
+
+
+def _check_mode(mode: str, per_slot: bool = False) -> None:
+    if mode not in DECODE_MODES:
+        raise ValueError(f"mode must be one of {DECODE_MODES}, got {mode!r}")
+    if per_slot and mode == "longctx":
+        raise NotImplementedError(
+            "per-slot decode needs a data-sharded batch dim "
+            "(modes: batched, gemv)")
+
+
+def cache_specs(cfg: ModelConfig, batch: int, s_max: int, mode: str, *,
+                kvh: Optional[int] = None, device=None) -> List[CacheEntry]:
+    """The zeroed decode cache, one dict of leaves per pattern position,
+    allocated on ``device`` (the card unless the caller asks for the CPU):
+    ``repro.serve.decode.cache_specs`` at q = r = 1, where the three modes
+    share one layout, filled with zeros as the JAX launcher fills it.  An
+    attention position holds ``k``/``v`` ``(G, B, s_max, kvh, hd)`` and,
+    for an encoder-decoder model, ``cross_k``/``cross_v`` ``(G, B, enc_seq,
+    kvh, hd)``; a mamba position ``conv`` ``(G, B, k - 1, conv_ch)`` and
+    ``ssm`` ``(G, B, H, N, P)`` fp32.  ``kvh`` is the stored kv-head count
+    of the weights served (:func:`repro_torch.models.params.stored_heads`),
+    by default the config's."""
+    _check_mode(mode)
+    dev = resolve_device(device)
+    G, dt = cfg.n_groups(), cfg.compute_dtype
+
+    def zeros(shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    out = []
+    for mixer, _ in cfg.pattern():
+        if mixer == "attn":
+            kv = (G, batch, s_max,
+                  kvh if kvh is not None else cfg.kv_stored(1)[0], cfg.hd())
+            e = {"k": zeros(kv), "v": zeros(kv)}
+            if cfg.enc_layers:
+                cross = (G, batch, cfg.enc_seq) + kv[3:]
+                e.update(cross_k=zeros(cross), cross_v=zeros(cross))
+        elif mixer in ("mamba", "ssm"):
+            conv_ch = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+            e = {"conv": zeros((G, batch, cfg.conv_kernel - 1, conv_ch)),
+                 "ssm": zeros((G, batch, cfg.ssm_heads, cfg.ssm_state,
+                               cfg.ssm_headdim), torch.float32)}
+        else:
+            raise NotImplementedError(f"no decode cache for mixer {mixer!r}")
+        out.append(e)
+    return out
+
+
+def _group(cache: List[CacheEntry], g: int) -> List[CacheEntry]:
+    """Every position's leaves at layer group g (views)."""
+    return [{name: leaf[g] for name, leaf in e.items()} for e in cache]
+
+
+@torch.no_grad()
+def fill_cross_cache(cfg: ModelConfig, params, cache: List[CacheEntry],
+                     frames: torch.Tensor) -> torch.Tensor:
+    """Run the encoder over ``frames`` (B, enc_seq, D) and write every
+    decoder layer's cross K/V into ``cross_k``/``cross_v``, in place: the
+    K/V half of ``cross_attention_block`` (:func:`cross_kv`), applied per
+    layer to the encoder output, which is returned."""
+    if not cfg.enc_layers:
+        raise ValueError(f"{cfg.name} has no encoder")
+    enc = encode(cfg, params, frames)
+    for pos, entry in enumerate(cache):
+        lp = params["layers"][pos]
+        if "cross" not in lp or "cross_k" not in entry:
+            continue
+        for g in range(cfg.n_groups()):
+            k, v = cross_kv({n: t[g] for n, t in lp["cross"].items()}, enc,
+                            cfg.hd())
+            entry["cross_k"][g].copy_(k)
+            entry["cross_v"][g].copy_(v)
+    return enc
+
+
+class _Fixed(NamedTuple):
+    """What every layer of one fixed-batch step shares."""
+    rope: Tuple[torch.Tensor, torch.Tensor]   # (B or 1, 1, hd/2) each
+    q_pos: torch.Tensor                       # (1,) or (B, 1)
+    write: Union[int, torch.Tensor]           # the cache row: int or (B,)
+
+
+def _attn_decode_fixed(p, x, ast, kc, vc, op: _Fixed):
+    """One new token's attention over the contiguous cache (the JAX
+    ``_attn_decode_batched``): x (B, 1, D); kc/vc (B, s_max, kvh, hd) are
+    written in place at each slot's position, then every cached position
+    at or before it is attended to."""
+    B = x.shape[0]
+    hd = ast.head_dim
+    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if ast.qkv_bias:
+        q = q + p["bq"].to(q.dtype)
+        k = k + p["bk"].to(k.dtype)
+        v = v + p["bv"].to(v.dtype)
+    q = q.reshape(B, 1, -1, hd)
+    k = k.reshape(B, 1, -1, hd)
+    v = v.reshape(B, 1, -1, hd)
+    if ast.qk_norm:
+        q = rms_norm_local(q, p["q_norm"])
+        k = rms_norm_local(k, p["k_norm"])
+    cos, sin = op.rope
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    if isinstance(op.write, int):
+        kc[:, op.write] = k[:, 0].to(kc.dtype)
+        vc[:, op.write] = v[:, 0].to(vc.dtype)
+    else:
+        lanes = torch.arange(B, device=x.device)
+        kc[lanes, op.write] = k[:, 0].to(kc.dtype)
+        vc[lanes, op.write] = v[:, 0].to(vc.dtype)
+    S = kc.shape[1]
+    part = attention_partial(q.transpose(1, 2), kc.transpose(1, 2),
+                             vc.transpose(1, 2),
+                             kv_pos=torch.arange(S, device=x.device),
+                             q_pos=op.q_pos)
+    out = combine_partials(part).transpose(1, 2).reshape(B, 1, -1)
+    return out.to(x.dtype) @ p["wo"]
+
+
+def _cross_decode(p, x, ast, ck, cv):
+    """Cross attention of one new token against the cached encoder K/V
+    (the JAX ``_cross_decode``): ck/cv (B, enc_seq, kvh, hd), no mask."""
+    B = x.shape[0]
+    q = (x @ p["wq"]).reshape(B, 1, -1, ast.head_dim)
+    zero = torch.zeros(1, dtype=torch.int32, device=x.device)
+    part = attention_partial(q.transpose(1, 2), ck.transpose(1, 2),
+                             cv.transpose(1, 2),
+                             kv_pos=zero.expand(ck.shape[1]), q_pos=zero)
+    out = combine_partials(part).transpose(1, 2).reshape(B, 1, -1)
+    return out.to(x.dtype) @ p["wo"]
+
+
+def _fixed_layer(cfg, mixer, ffn, p, x, cache: CacheEntry, op: _Fixed):
+    """One layer of the fixed-batch step (the JAX ``_decode_layer`` on its
+    non-paged branches), its cache entry updated in place."""
+    h = apply_norm(cfg, p["norm1"], x)
+    if mixer == "attn":
+        x = x + _attn_decode_fixed(p["mixer"], h, attn_static(cfg),
+                                   cache["k"], cache["v"], op)
+    elif mixer in ("mamba", "ssm"):
+        h, (conv, ssm) = mamba_decode_step(p["mixer"], h, (cache["conv"],
+                                                           cache["ssm"]), cfg)
+        cache["conv"].copy_(conv)
+        cache["ssm"].copy_(ssm)
+        x = x + h
+    else:
+        raise NotImplementedError(f"mixer {mixer!r}")
+    if "cross" in p:
+        h = apply_norm(cfg, p["norm_cross"], x)
+        x = x + _cross_decode(p["cross"], h, attn_static(cfg),
+                              cache["cross_k"], cache["cross_v"])
+    if ffn == "mlp":
+        x = x + mlp_apply(cfg, p["ffn"], apply_norm(cfg, p["norm2"], x))
+    elif ffn == "moe":
+        x = x + moe_ffn(p["ffn"], apply_norm(cfg, p["norm2"], x), cfg)
+    elif ffn != "none":
+        raise NotImplementedError(f"({mixer}, {ffn}) layers")
+    return x
+
+
+def _fixed_operands(cfg, pos, B: int, s_max: int, device) -> _Fixed:
+    """RoPE tables, query positions and cache rows of one step: ``pos`` a
+    scalar (every slot at one position; an int or a 0-d tensor) or a (B,)
+    tensor.  The cache row is the position clamped into the cache, as the
+    JAX writes (a dynamic slice, a clipped one-hot) clamp it."""
+    if isinstance(pos, torch.Tensor) and pos.ndim == 1:
+        pos = pos.to(device=device, dtype=torch.int32)
+        if pos.shape[0] != B:
+            raise ValueError(f"per-slot pos must be ({B},), got "
+                             f"{tuple(pos.shape)}")
+        cos, sin = rope_tables(pos[:, None], cfg.hd(), cfg.rope_theta)
+        return _Fixed((cos, sin), pos[:, None],
+                      pos.clamp(0, s_max - 1).long())
+    t = int(pos)
+    posv = torch.full((1,), t, dtype=torch.int32, device=device)
+    cos, sin = rope_tables(posv, cfg.hd(), cfg.rope_theta)
+    return _Fixed((cos[None], sin[None]), posv, min(max(t, 0), s_max - 1))
+
+
+def make_decode_step(cfg: ModelConfig, *, batch: int, s_max: int,
+                     mode: str = "batched", per_slot: bool = False
+                     ) -> Callable:
+    """``step(params, cache, tokens, pos[, reset]) -> logits``: the
+    fixed-batch decode step (``repro.serve.decode.make_decode_step``
+    without ``paged``; the engine's paged step is :func:`decode_step`),
+    run under ``torch.no_grad()``.
+
+    tokens (B,) int; ``pos`` a scalar (every slot writes and attends at
+    one position) or, with ``per_slot``, a (B,) tensor of each slot's
+    position together with ``reset`` (B,): slots with ``reset > 0`` start
+    from a zeroed cache (every leaf of the slot, as the JAX step wipes it
+    inside the step).  ``longctx`` refuses ``per_slot``, as the JAX
+    package does.  Returns fp32 logits (B, 1, Vpad); ``cache``
+    (:func:`cache_specs`) is updated in place, so only the logits are
+    returned."""
+    _check_mode(mode, per_slot)
+    pattern = cfg.pattern()
+    G = cfg.n_groups()
+
+    @torch.no_grad()
+    def step(params, cache: List[CacheEntry], tokens: torch.Tensor, pos,
+             reset: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if tokens.shape != (batch,):
+            raise ValueError(f"tokens must be ({batch},), got "
+                             f"{tuple(tokens.shape)}")
+        if per_slot != (reset is not None) or per_slot != (
+                isinstance(pos, torch.Tensor) and pos.ndim == 1):
+            raise ValueError("per_slot steps take a (B,) pos and a reset "
+                             "vector; scalar steps take neither")
+        dev = tokens.device
+        if reset is not None:
+            wipe = reset.to(dev) > 0
+            for e in cache:
+                for leaf in e.values():
+                    leaf.masked_fill_(
+                        wipe.view((1, -1) + (1,) * (leaf.ndim - 2)), 0)
+        op = _fixed_operands(cfg, pos, batch, s_max, dev)
+        x = _embed_decode(params["embed"], tokens, cfg.compute_dtype)
+        layers = [_unstack(lp, G) for lp in params["layers"]]
+        for g in range(G):
+            caches = _group(cache, g)
+            for posn, (mixer, ffn) in enumerate(pattern):
+                x = _fixed_layer(cfg, mixer, ffn, layers[posn][g], x,
+                                 caches[posn], op)
+        x = apply_norm(cfg, params["final_norm"], x)
+        return _last_logits(params["lm_head"], x)
+
+    return step
+
+
+def make_prefill(cfg: ModelConfig, *,
+                 extra_batch_keys: Sequence[str] = ()) -> Callable:
+    """``prefill(params, batch) -> logits (B, 1, Vpad)`` fp32 of the last
+    position (``repro.serve.decode.make_prefill``): the full
+    training-style forward (:func:`repro_torch.models.transformer.forward`)
+    under ``torch.no_grad()``, then the lm_head on the final position.
+    ``batch`` holds ``tokens`` and each of ``extra_batch_keys`` (``frames``
+    for an encoder-decoder model, ``patches`` for a vision-language one)."""
+    keys = ("tokens",) + tuple(extra_batch_keys)
+
+    def prefill(params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        missing = [k for k in keys if k not in batch]
+        if missing:
+            raise ValueError(f"prefill batch lacks {missing}")
+        with torch.no_grad():
+            x, _ = forward(cfg, params, {k: batch[k] for k in keys})
+            return _last_logits(params["lm_head"], x[:, -1:])
+
+    return prefill

@@ -136,7 +136,14 @@ def layer_state_specs(cfg: ModelConfig, *, stride: int,
 
     ``kvh`` is the stored kv-head count of the weights being served (see
     :func:`repro_torch.models.params.stored_heads`); it defaults to the
-    config's native count."""
+    config's native count.  An encoder-decoder model has no spec: its
+    cross caches are per request and sequence-shaped, neither pages nor
+    O(1) slots, so it serves through the fixed-batch path
+    (``serve/decode.py::make_decode_step``), as in the JAX package."""
+    if cfg.enc_layers:
+        raise NotImplementedError(
+            "engine state specs: encoder cross caches are not paged or "
+            "O(1)-dense; serve encdec models through the fixed-batch path")
     entries: List[StateSpec] = []
     for (mixer, _) in cfg.pattern():
         if mixer == "attn":

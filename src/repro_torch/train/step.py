@@ -44,7 +44,7 @@ from repro_torch.tree import Pieces, flatten_with_paths, leaves, unflatten
 # any other name is replicated
 LAYOUTS = {**dict.fromkeys(("wq", "wk", "wv", "wo", "w_gate", "w_up",
                             "w_down", "wz", "wx", "wb", "wc", "wdt",
-                            "lm_head"), "blocked2d"),
+                            "lm_head", "vis_proj"), "blocked2d"),
            "embed": "vocab2d", "w1": "expert_flat", "w2": "expert_flat"}
 # replicated leaves drawn from a normal init, which the JAX decay mask
 # decays with the matrices
@@ -86,7 +86,7 @@ def _views(params) -> Tuple[Any, List[List[torch.Tensor]]]:
     paths, flat = flatten_with_paths(params)
     out = []
     for path, p in zip(paths, flat):
-        if path.startswith("['layers']"):
+        if path.startswith(("['layers']", "['enc_layers']")):
             vs = [p[g].detach().requires_grad_(True)
                   for g in range(p.shape[0])]
             out.append(Pieces(vs))

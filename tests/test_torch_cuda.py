@@ -2,8 +2,9 @@
 paged attention, the two SSD-scan passes and their fused launch, the
 cannon_mm matmul (forward, backward, and one emulated Cannon call), flash
 attention and the grouped GEMM of the MoE experts with its backward
-(dgrad, wgrad, the autograd functions); and the forward-only ops'
-refusal of inputs that require grad.
+(dgrad, wgrad, the autograd functions); the forward-only ops' refusal of
+inputs that require grad; and each library's first launch on a fresh
+thread of a fresh process, equal to the main thread's.
 
 Needs a CUDA card and nvcc; skips without a card.  The file imports no
 JAX, so on a machine without it run it past the suite's conftest:
@@ -1471,3 +1472,20 @@ def test_step_capture_survives_dead_engines_in_cycles():
         gc.set_threshold(*threshold)
         gc.collect()
     assert got == want
+
+
+@pytest.mark.gpu
+def test_every_library_launches_first_on_a_fresh_thread():
+    """Each kernel library's first call in a fresh process, on a new
+    thread (and the grouped GEMM's inside a backward, on the autograd
+    engine's thread), launches and gives the main thread's bits
+    (``repro_torch.launch.fresh_thread``: paged attention, the three SSD
+    entry points, cannon_mm bf16 and fp32, flash attention, the grouped
+    GEMM with and without its epilogue, dgrad and wgrad)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.launch.fresh_thread import CASES, run_all
+    rows = run_all()
+    assert [r["case"] for r in rows] == list(CASES)
+    bad = [r for r in rows if not r["ok"]]
+    assert not bad, bad

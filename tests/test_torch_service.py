@@ -425,7 +425,9 @@ def test_queued_submit_is_woken_when_engine_dies(engine):
 def test_launcher_serves_through_the_service_on_the_cpu():
     """``launch/serve.py --service`` (the JAX launcher's flags): Poisson
     clients through the service, the metrics snapshot printed; with
-    neither --engine nor --service it refuses."""
+    neither --engine nor --service it decodes one fixed batch (the JAX
+    launcher's default), and refuses whisper-base there, whose decoder
+    needs an encoder pass."""
     import contextlib
     import io
     import json
@@ -442,6 +444,12 @@ def test_launcher_serves_through_the_service_on_the_cpu():
         in text, text
     snap = json.loads(text[text.index("{"):])
     assert snap["submitted"] == 3 and snap["tokens"] == 12
-    with pytest.raises(SystemExit):
-        with contextlib.redirect_stderr(io.StringIO()):
-            serve.main(["--arch", "qwen2-0.5b", "--device", "cpu"])
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        serve.main(["--arch", "qwen2-0.5b", "--smoke", "--device", "cpu",
+                    "--tokens", "2"])
+    assert "decoded 2 tokens x batch 8 (gemv, s_max 64)" in out.getvalue()
+    with pytest.raises(SystemExit, match="encoder pass"):
+        with contextlib.redirect_stdout(io.StringIO()):
+            serve.main(["--arch", "whisper-base", "--smoke", "--device",
+                        "cpu"])

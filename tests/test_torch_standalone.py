@@ -42,7 +42,10 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
             "repro_torch.train.step", "repro_torch.data.pipeline",
             "repro_torch.ckpt.checkpoint",
             "repro_torch.runtime.fault_tolerance",
-            "repro_torch.launch.train", "repro_torch.tree"} <= set(mods)
+            "repro_torch.launch.train", "repro_torch.tree",
+            "repro_torch.launch.fresh_thread",
+            "repro_torch.configs.whisper_base",
+            "repro_torch.configs.pixtral_12b"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -105,10 +108,17 @@ def test_cpu_only_when_asked():
     assert [len(c.tokens) for c in outs] == [3, 3]
 
 
-def test_later_slices_raise_not_implemented():
-    for name in ("whisper-base", "pixtral-12b"):
-        with pytest.raises(NotImplementedError, match="slice"):
-            get_config(name)
+def test_later_slices_raise_not_implemented(monkeypatch):
+    """No slice is left: whisper-base and pixtral-12b, the last names in
+    ``LATER``, resolve now.  A name put in ``LATER`` still raises naming
+    its slice."""
+    from repro_torch import configs
+    assert configs.LATER == {}
+    assert get_config("whisper-base").family == "encdec"
+    assert get_config("pixtral-12b").family == "vlm"
+    monkeypatch.setitem(configs.LATER, "qwen2-0.5b", "a later slice")
+    with pytest.raises(NotImplementedError, match="slice"):
+        get_config("qwen2-0.5b")
 
 
 @pytest.mark.parametrize("name,widths,gb", [

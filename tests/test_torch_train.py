@@ -153,7 +153,9 @@ def test_every_gradient_leaf_matches_jax_grad(cases, family, remat):
 
 
 def test_encdec_and_vision_forward_raise_naming_the_slice():
-    for family in ("encdec", "vlm"):
-        cfg = dataclasses.replace(torch_config(CFGS["dense"]), family=family)
-        with pytest.raises(NotImplementedError, match="slice"):
-            loss_fn(cfg, {}, {})
+    """The encoder-decoder and vision-language forwards are ported (their
+    parity: tests/test_torch_encdec.py, tests/test_torch_vlm.py); a batch
+    without the input their slice added raises naming it."""
+    for family, key in (("encdec", "frames"), ("vlm", "patches")):
+        with pytest.raises(ValueError, match=key):
+            loss_fn(torch_config(CFGS[family]), {}, {})
