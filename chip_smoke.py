@@ -250,6 +250,18 @@ kernels:
   on) run straight, then stopped by a fault drill at step 4 past its retry
   budget and started again from the step-2 checkpoint: the resumed steps
   give the straight run's losses bit for bit;
+* dryrun — ``python -m repro_torch.launch.dryrun --all`` in the
+  background (the 40 arch x shape cells counted on the meta device,
+  DRYRUN_JOBS processes; each cell's line printed) while three cells run
+  on the card through ``dryrun.verify_cell`` (DRYRUN_VERIFY: qwen2-0.5b
+  decode_32k at full depth, qwen3-moe train_4k at 2 layers with 8-bit
+  moments, mamba2-780m prefill_32k): each measured peak within 15 % of
+  the reckoned one, counted FLOPs over the wall below the card's peak, a
+  cell that fits with max_layers at least its depth;
+* examples — ``repro_torch.examples`` quickstart, serve_decode and
+  train_lm in this process at small sizes: cannon_mm and paged_attention
+  launched, no plain version, train_lm's loss falling and a second run
+  resuming from its checkpoint;
 * encdec — whisper-base at full width and depth (6 encoder and 6 decoder
   layers): the encoder over 1500 stub frames for batch 8 fills every
   decoder layer's cross-K/V cache (``fill_cross_cache``), 32 greedy
@@ -463,7 +475,8 @@ def phase_env():
         check=True).stdout.strip().splitlines()[0]
     emit("env", python=sys.version.split()[0], torch=torch.__version__,
          cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
-         count=torch.cuda.device_count(), nvidia_smi=smi)
+         count=torch.cuda.device_count(), nvidia_smi=smi,
+         total_memory=torch.cuda.get_device_properties(0).total_memory)
     return smi
 
 
@@ -1553,13 +1566,15 @@ def gmm_bound(offsets, K, N, dtype, swiglu=False):
     """Least time of one call on these offsets: the active experts'
     weights, the routed rows of x and the output (N columns, N / 2 with
     the epilogue) each moved once at 3.35 TB/s, against 2 * rows * K * N
-    operations at the type's peak."""
+    operations at the type's peak (``kernels/grouped_mm/cost.py`` counts
+    both)."""
+    from repro_torch.kernels.grouped_mm import cost
     esz = torch.tensor([], dtype=dtype).element_size()
-    rows = int(offsets[-1] - offsets[0])
-    active = int((np.diff(offsets) > 0).sum())
-    out = N // 2 if swiglu else N
-    tb = (active * K * N + rows * (K + out)) * esz / HBM_BYTES_S * 1e3
-    to = 2 * rows * K * N / PEAK_FLOPS[dname(dtype)] * 1e3
+    rows, active, E = cost.from_offsets(offsets)
+    elems = cost.elements("swiglu" if swiglu else "forward", rows, K, N, E,
+                          active)
+    tb = elems * esz / HBM_BYTES_S * 1e3
+    to = cost.operations(rows, K, N) / PEAK_FLOPS[dname(dtype)] * 1e3
     return max(tb, to), "bytes" if tb >= to else "operations", active
 
 
@@ -1886,15 +1901,13 @@ def grad_bound(kind, offsets, K, N, dtype):
     """Least time of one backward product on these offsets: dgrad reads
     the active experts' weights, dy's routed rows and writes dx; wgrad
     reads x's and dy's routed rows and writes every expert's dw (E x K x
-    N, zeros included); 2 * rows * K * N operations each."""
+    N, zeros included); 2 * rows * K * N operations each
+    (``kernels/grouped_mm/cost.py``)."""
+    from repro_torch.kernels.grouped_mm import cost
     esz = torch.tensor([], dtype=dtype).element_size()
-    rows = int(offsets[-1] - offsets[0])
-    E = len(offsets) - 1
-    active = int((np.diff(offsets) > 0).sum())
-    elems = (active * K * N + rows * (K + N)) if kind == "dgrad" \
-        else (rows * (K + N) + E * K * N)
-    tb = elems * esz / HBM_BYTES_S * 1e3
-    to = 2 * rows * K * N / PEAK_FLOPS[dname(dtype)] * 1e3
+    rows, active, E = cost.from_offsets(offsets)
+    tb = cost.elements(kind, rows, K, N, E, active) * esz / HBM_BYTES_S * 1e3
+    to = cost.operations(rows, K, N) / PEAK_FLOPS[dname(dtype)] * 1e3
     return max(tb, to), "bytes" if tb >= to else "operations"
 
 
@@ -2242,6 +2255,161 @@ def phase_train_resume():
     check(all(failed[s] == straight[s] for s in failed),
           "train_resume: the drill's steps 0-3 differ from the straight run")
     shutil.rmtree(root, ignore_errors=True)
+
+
+# the dry run's cells checked on the card (arch, shape, options, layers,
+# batch): qwen2-0.5b decode_32k at full depth and the largest batch of 32
+# that the account puts well under the share (128 does not fit: the fixed
+# path repeats K and V in fp32 beside the 51.5 GB cache); qwen3-moe
+# train_4k at 2 layers, 8-bit moments and batch 2, the grouped GEMM's
+# forward and backward; mamba2-780m prefill_32k at full depth, batch 4
+DRYRUN_VERIFY = (("qwen2-0.5b", "decode_32k", {}, None, 96),
+                 ("qwen3-moe-235b-a22b", "train_4k", {"state_bits": 8}, 2, 2),
+                 ("mamba2-780m", "prefill_32k", {}, None, 4))
+DRYRUN_PEAK_TOL = 0.15       # measured peak within 15 % of the reckoned one
+DRYRUN_JOBS = 6              # processes that count the 40 cells
+
+
+def phase_dryrun(smi):
+    """``python -m repro_torch.launch.dryrun --all`` (the 40 cells on meta,
+    counted at 2 and 3 layer groups, in DRYRUN_JOBS processes) in the
+    background while ``dryrun.verify_cell`` runs DRYRUN_VERIFY's cells on
+    the card here.  Gates: every cell ok or skipped with applicable's
+    reason, a cell that fits reports at least its depth in max_layers; each
+    verified cell's measured peak within DRYRUN_PEAK_TOL of the reckoned
+    one and its counted FLOPs over the step wall below the card's peak for
+    its dtype; the grouped GEMM's launches on the qwen3-moe step."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import applicable, SHAPE_BY_NAME
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    out = ROOT / "build" / "smoke_dryrun"
+    shutil.rmtree(out, ignore_errors=True)
+    log = open(ROOT / "build" / "smoke_dryrun.log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--jobs", str(DRYRUN_JOBS), "--out", str(out)],
+        stdout=log, stderr=subprocess.STDOUT, cwd=str(ROOT),
+        env=dict(os.environ, PYTHONPATH=str(SRC)))
+    try:
+        verified, counts = [], {}
+        for arch, shape, kw, layers, batch in DRYRUN_VERIFY:
+            counters = zero_counts()
+            grad = grad_fns()
+            for kern, _ in grad.values():
+                kern.launches = 0
+            row = dryrun.verify_cell(arch, shape, dryrun.Options(**kw),
+                                     layers=layers, batch=batch, device=DEV)
+            row["launches"] = {name: kern.launches for name, (kern, _) in
+                               {**counters, **grad}.items() if kern.launches}
+            row["plain_launches"] = sum(p.launches for _, p in
+                                        {**counters, **grad}.values())
+            row["nvidia_smi"] = smi
+            emit("dryrun_verify", **row)
+            verified.append(row)
+            for name, n in row["launches"].items():
+                counts.setdefault(name, {})[f"dryrun {arch} {shape}"] = n
+            check(abs(row["peak_ratio"] - 1) <= DRYRUN_PEAK_TOL,
+                  f"dryrun: {arch} {shape} measured peak "
+                  f"{row['measured_peak_bytes']} against the reckoned "
+                  f"{row['reckoned_peak_bytes']}")
+            check(row["tflops_s"] < row["peak_tflops_s"],
+                  f"dryrun: {arch} {shape} reads {row['tflops_s']} TFLOP/s")
+            check(row["plain_launches"] == 0,
+                  f"dryrun: {arch} {shape} ran a plain version")
+        moe = verified[1]["launches"]
+        check(all(moe.get(n) for n in ("grouped_mm", "grouped_mm_swiglu",
+                                       "grouped_mm_dgrad",
+                                       "grouped_mm_wgrad")),
+              f"dryrun: the qwen3-moe step missed a grouped GEMM: {moe}")
+        rc = proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+    text = (ROOT / "build" / "smoke_dryrun.log").read_text()
+    check(rc == 0, f"dryrun --all exited {rc}: {text[-2000:]}")
+    cells = [json.loads(f.read_text()) for f in sorted(out.glob("*.json"))]
+    check(len(cells) == 40, f"dryrun --all wrote {len(cells)} cells")
+    for c in cells:
+        cfg = get_config(c["arch"])
+        ok, reason = applicable(cfg, SHAPE_BY_NAME[c["shape"]])
+        check(c["status"] == ("ok" if ok else "skipped")
+              and c.get("reason", "") == reason,
+              f"dryrun: cell {c['arch']} {c['shape']}: {c['status']}")
+        if c["status"] != "ok":
+            emit("dryrun_cell", arch=c["arch"], shape=c["shape"],
+                 status=c["status"], reason=c["reason"])
+            continue
+        emit("dryrun_cell", **{k: c[k] for k in (
+            "arch", "shape", "status", "n_layers", "batch", "flops",
+            "grouped_mm", "param_bytes", "resident_bytes", "peak_bytes",
+            "fits", "max_layers", "max_batch", "roofline", "device",
+            "memory_bytes")})
+        check(not c["fits"] or c["max_layers"] >= c["n_layers"],
+              f"dryrun: {c['arch']} {c['shape']} fits with max_layers "
+              f"{c['max_layers']} below its {c['n_layers']}")
+    emit("dryrun", cells=len(cells), ok=sum(c["status"] == "ok"
+                                            for c in cells),
+         fits=[f"{c['arch']} {c['shape']}" for c in cells if c.get("fits")],
+         all_seconds=next((json.loads(ln)["seconds"] for ln in
+                           text.splitlines() if ln.startswith("{")), None),
+         seconds=round(time.perf_counter() - t0, 2))
+    return counts
+
+
+def phase_examples():
+    """The three examples on the card at small sizes, in this process
+    (``main`` returning is the exit 0): quickstart (n 256) must launch
+    cannon_mm, serve_decode (2 layers) paged_attention, no plain version
+    anywhere; train_lm (2 layers of the ~100M LM, 12 steps) must lower the
+    loss, and a second run resume from its checkpoint."""
+    from repro_torch.examples import quickstart, serve_decode, train_lm
+    from repro_torch.kernels.cannon_mm import matmul_ref
+    from repro_torch.kernels.cannon_mm.kernel import matmul_cuda
+    t0 = time.perf_counter()
+    counters = {**kernel_counters(),
+                "cannon_mm": (matmul_cuda, matmul_ref)}
+    counts, rows = {}, {}
+
+    def run(name, fn, argv, must):
+        for kern, plain in counters.values():
+            kern.launches = plain.launches = 0
+        t = time.perf_counter()
+        out = fn(argv)
+        got = {k: kern.launches for k, (kern, _) in counters.items()
+               if kern.launches}
+        plain = {k: p.launches for k, (_, p) in counters.items()
+                 if p.launches}
+        rows[name] = dict(launches=got, plain=plain,
+                          seconds=round(time.perf_counter() - t, 2))
+        check(all(got.get(k) for k in must) and not plain,
+              f"examples: {name} launched {got}, plain {plain}")
+        for k, n in got.items():
+            counts.setdefault(k, {})[f"{name} example"] = n
+        return out
+
+    q = run("quickstart", quickstart.main, ["--n", "256"], ("cannon_mm",))
+    # fp32 sums of 256 products against the host's fp64 product
+    check(max(q["max_err"].values()) <= 1e-3, f"quickstart: {q['max_err']}")
+    s = run("serve_decode", serve_decode.main,
+            ["--layers", "2", "--tokens", "8"], ("paged_attention",))
+    check(all(len(c.tokens) == 8 for c in s["engine"]),
+          "serve_decode: short completions")
+    ckpt = ROOT / "build" / "smoke_example_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    args = ["--layers", "2", "--ckpt", str(ckpt), "--ckpt-every", "6",
+            "--lr", "1e-3", "--warmup", "3"]
+    t = run("train_lm", train_lm.main, args + ["--steps", "12"], ())
+    r = run("train_lm resumed", train_lm.main, args + ["--steps", "18"], ())
+    check(r["start"] == 12 and [s_ for s_, _ in r["losses"]]
+          == list(range(12, 18)), f"train_lm: resumed at {r['start']}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    emit("examples", runs=rows, quickstart_max_err=q["max_err"],
+         train_losses=[round(l_, 4) for _, l_ in t["losses"] + r["losses"]],
+         seconds=round(time.perf_counter() - t0, 2))
+    return counts
 
 
 def checking_engine():
@@ -4453,6 +4621,11 @@ def main() -> int:
     grad_timing = phase_gmm_grad_timing()
     train_counts, train_by_run, train_rows, train_profile = phase_train(smi)
     phase_train_resume()
+    gc.collect()
+    torch.cuda.empty_cache()
+    new_paths = {**phase_dryrun(smi)}
+    for k, paths in phase_examples().items():
+        new_paths.setdefault(k, {}).update(paths)
     train_rows.append(phase_encdec(smi))
     ref_launches = phase_reference()
     launches, by_path, weights = {}, {}, {}
@@ -4537,6 +4710,14 @@ def main() -> int:
             launches[k] = launches.get(k, 0) + n
             by_path.setdefault(k, {}).update(train_by_run[k])
 
+    # the dry run's verified cells and the examples (new_paths)
+    for k, paths in new_paths.items():
+        if k == "cannon_mm":
+            continue
+        launches[k] = launches.get(k, 0) + sum(paths.values())
+        by_path.setdefault(k, {}).update(paths)
+    mm_by_path = {"cannon": mm_launches, **new_paths.get("cannon_mm", {})}
+
     decode = timing[0]
     kernels = [{
         "name": "paged_attention", "route": "cuda", "source": SOURCE,
@@ -4609,8 +4790,8 @@ def main() -> int:
     top = mm_timing[2]                # the n = 8192 Cannon round
     kernels.append({
         "name": "cannon_mm", "route": "cuda", "source": MM_SOURCE,
-        "replaces": MM_REPLACES, "launches": mm_launches,
-        "by_variant": mm_by_variant,
+        "replaces": MM_REPLACES, "launches": sum(mm_by_path.values()),
+        "launches_by_path": mm_by_path, "by_variant": mm_by_variant,
         "max_abs_err": mm_worst[1], "max_rel_err": mm_worst[0],
         "ms": top["ms"], "plain_ms": top["plain_ms"],
         "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],

@@ -17,4 +17,4 @@ CONFIG = ModelConfig(
         vocab_size=65536, n_experts=16, top_k=2,
         d_inner=16384, ssm_heads=128, ssm_headdim=128, ssm_state=16,
         ssm_groups=8, layer_pattern=_JAMBA_PATTERN, rope_theta=1e6,
-        param_dtype=BF16, compute_dtype=BF16)
+        sub_quadratic=True, param_dtype=BF16, compute_dtype=BF16)

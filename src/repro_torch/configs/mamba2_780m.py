@@ -11,4 +11,4 @@ CONFIG = ModelConfig(
     name="mamba2-780m", family="ssm", d_model=1536, n_layers=48,
     vocab_size=50280, d_inner=3072, ssm_heads=48, ssm_headdim=64,
     ssm_state=128, ssm_groups=1, layer_pattern=(("mamba", "none"),),
-    param_dtype=BF16, compute_dtype=BF16)
+    sub_quadratic=True, param_dtype=BF16, compute_dtype=BF16)

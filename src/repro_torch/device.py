@@ -10,8 +10,10 @@ import torch
 def resolve_device(device: Optional[Union[str, torch.device]] = None
                    ) -> torch.device:
     """``None`` -> ``cuda`` (raises when no GPU is visible); an explicit
-    ``"cpu"`` runs the plain PyTorch versions of every kernel.  Nothing ever
-    falls back to the CPU on its own."""
+    ``"cpu"`` runs the plain PyTorch versions of every kernel; an explicit
+    ``"meta"`` allocates shapes and dtypes and computes nothing (the dry
+    run's account, ``launch/dryrun.py``).  Nothing ever falls back to the
+    CPU on its own."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -21,6 +23,6 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but CUDA is not available")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev

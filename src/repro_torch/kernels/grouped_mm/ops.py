@@ -1,8 +1,12 @@
 """Public grouped-GEMM ops, routed by device, with a gradient.
 
 A CUDA tensor goes to the hand-written kernels (:mod:`.kernel`), or the
-call raises; a CPU tensor goes to the plain versions (:mod:`.ref`).  There
-is no backend string and no fallback.
+call raises; a CPU tensor goes to the plain versions (:mod:`.ref`).  A
+meta tensor (the dry run, ``launch/dryrun.py``) takes the meta route: an
+empty meta tensor of the kernel's output shape and dtype, the launch's
+work added to the open counts of :mod:`.cost`; it computes nothing and
+stands in for the kernel's launch, not for a result.  There is no backend
+string and no fallback.
 
 Both ops are ``torch.autograd.Function`` subclasses.  The backward of
 ``grouped_mm`` is dgrad (``dy w[e]^T`` per expert) and wgrad
@@ -21,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.grouped_mm import cost
 from repro_torch.kernels.grouped_mm.kernel import (grouped_mm_cuda,
                                                    grouped_mm_dgrad_cuda,
                                                    grouped_mm_swiglu_cuda,
@@ -32,27 +37,51 @@ from repro_torch.kernels.grouped_mm.ref import (grouped_mm_dgrad_ref,
                                                 swiglu_grad)
 
 
-def _routed(name, cuda, ref, a, *args):
+def _meta(kind, a, b, offsets):
+    """The meta route of one launch of ``kind`` (:data:`.cost.KINDS`):
+    the wrapper's allocations on the meta device (its output, and wgrad's
+    tile counter on bf16), and the launch recorded at every row of
+    ``a``."""
+    M = a.shape[0]
+    if kind == "wgrad":                     # a = x (M, K), b = dy (M, N)
+        E, K, N = offsets.numel() - 1, a.shape[1], b.shape[1]
+        shape = (E, K, N)
+    elif kind == "dgrad":                   # a = dy (M, N), b = w (E, K, N)
+        E, K, N = b.shape
+        shape = (M, K)
+    else:                                   # a = x (M, K), b = w (E, K, N)
+        E, K, N = b.shape
+        shape = (M, N // 2 if kind == "swiglu" else N)
+    out = torch.empty(shape, dtype=a.dtype, device=a.device)
+    if kind == "wgrad" and a.dtype == torch.bfloat16:
+        torch.empty(1, dtype=torch.int32, device=a.device)   # the counter
+    cost.record(kind, M, K, N, E, min(E, M), a.element_size())
+    return out
+
+
+def _routed(name, kind, cuda, ref, a, *args):
     if a.device.type == "cpu":
         return ref(a, *args)
     if a.is_cuda:
         return cuda(a, *args)
+    if a.is_meta:
+        return _meta(kind, a, *args)
     raise ValueError(f"{name}: unsupported device {a.device}")
 
 
 def _forward(x, w, offsets):
-    return _routed("grouped_mm", grouped_mm_cuda, grouped_mm_ref, x, w,
-                   offsets)
+    return _routed("grouped_mm", "forward", grouped_mm_cuda, grouped_mm_ref,
+                   x, w, offsets)
 
 
 def _backward(ctx, x, w, offsets, dy):
     """(dx, dw) of the product x (M, K) by w (E, K, N) for cotangent dy."""
     dx = dw = None
     if ctx.needs_input_grad[0]:
-        dx = _routed("grouped_mm dgrad", grouped_mm_dgrad_cuda,
+        dx = _routed("grouped_mm dgrad", "dgrad", grouped_mm_dgrad_cuda,
                      grouped_mm_dgrad_ref, dy, w, offsets)
     if ctx.needs_input_grad[1]:
-        dw = _routed("grouped_mm wgrad", grouped_mm_wgrad_cuda,
+        dw = _routed("grouped_mm wgrad", "wgrad", grouped_mm_wgrad_cuda,
                      grouped_mm_wgrad_ref, x, dy, offsets)
     return dx, dw, None
 
@@ -73,7 +102,7 @@ class _GroupedMMSwiglu(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, offsets):
         ctx.save_for_backward(x, w, offsets)
-        return _routed("grouped_mm_swiglu", grouped_mm_swiglu_cuda,
+        return _routed("grouped_mm_swiglu", "swiglu", grouped_mm_swiglu_cuda,
                        grouped_mm_swiglu_ref, x, w, offsets)
 
     @staticmethod

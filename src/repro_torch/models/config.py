@@ -7,8 +7,10 @@ SSM (Mamba2 / SSD), encoder-decoder (whisper: ``enc_layers``,
 There is no ``ssd_backend`` field: the device of the tensors picks the
 serving SSD scan's route, as it does for paged attention, and training
 runs the differentiable chunked scan of ``models/ssm.py`` at
-``ssd_chunk``, as the JAX training path runs its jnp backend.  There is
-no ``sub_quadratic`` either: it is bookkeeping the JAX benchmarks read.
+``ssd_chunk``, as the JAX training path runs its jnp backend.
+``sub_quadratic`` marks the families whose decode state does not grow
+with the context (SSM, hybrid): ``configs/shapes.py::applicable`` runs the
+``long_500k`` shape only for them, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -75,6 +77,7 @@ class ModelConfig:
     param_dtype: Any = torch.bfloat16
     compute_dtype: Any = torch.bfloat16
     tie_embeddings: bool = False   # recorded; storage is always untied
+    sub_quadratic: bool = False    # True for ssm/hybrid: long_500k runnable
 
     # ---- derived (grid-dependent) ----------------------------------------
     def hd(self) -> int:

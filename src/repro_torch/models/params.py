@@ -185,7 +185,8 @@ def _init_leaf(name, shape, dtype, d_model, generator, device):
     return _normal(shape, fan_in, dtype, generator, device)
 
 
-def init_params(cfg: ModelConfig, *, generator: torch.Generator,
+def init_params(cfg: ModelConfig, *,
+                generator: Optional[torch.Generator] = None,
                 device=None) -> Dict[str, Any]:
     """Random weights at the native r=1 geometry, drawn from ``generator``
     (which must live on ``device``).  Initialisers follow the JAX package:
@@ -193,9 +194,26 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
     both expert leaves, ``transformer.py:86-96``), normal(0, 0.02)
     embeddings, unit norm scales, zero biases; the SSD decay
     ``A = -exp(U(log .5, log 8))`` as in Mamba2.  Expert leaves are drawn
-    one (group, expert) slice at a time."""
+    one (group, expert) slice at a time.  On ``device="meta"`` the same
+    tree is allocated and nothing is drawn (no generator is needed): the
+    counterpart of the JAX package's ``abstract_params``."""
     dev = resolve_device(device)
     D = cfg.d_model
+    if dev.type == "meta":
+        def make(path, shape, ldt):
+            return torch.empty(shape, dtype=ldt, device=dev)
+    elif generator is None:
+        raise ValueError("init_params draws its weights from a generator "
+                         "on the device; only device='meta' needs none")
+    else:
+        def make(path, shape, ldt):
+            # embed normal(0, 0.02), enc_pos normal with fan-in D (as the
+            # JAX spec declares it), the rest by name
+            if path == ("embed",):
+                return _normal(shape, None, ldt, generator, dev)
+            if path == ("enc_pos",):
+                return _normal(shape, D, ldt, generator, dev)
+            return _init_leaf(path[-1], shape, ldt, D, generator, dev)
 
     def stack(lcfg, cross):
         layers = []
@@ -203,8 +221,8 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
             layer: Dict[str, Dict[str, torch.Tensor]] = {}
             for (part, name), (shape, ldt) in layer_leaves(
                     lcfg, mixer, ffn, cross).items():
-                layer.setdefault(part, {})[name] = _init_leaf(
-                    name, shape, ldt, D, generator, dev)
+                layer.setdefault(part, {})[name] = make(
+                    (part, name), shape, ldt)
             layers.append(layer)
         return layers
 
@@ -212,18 +230,10 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
     if cfg.enc_layers:
         out["enc_layers"] = stack(cfg.encoder(), False)
     for path, (shape, ldt) in top_leaves(cfg).items():
-        # embed normal(0, 0.02), enc_pos normal with fan-in D (as the JAX
-        # spec declares it), the rest by name
-        if path == ("embed",):
-            leaf = _normal(shape, None, ldt, generator, dev)
-        elif path == ("enc_pos",):
-            leaf = _normal(shape, D, ldt, generator, dev)
-        else:
-            leaf = _init_leaf(path[-1], shape, ldt, D, generator, dev)
         node = out
         for key in path[:-1]:
             node = node.setdefault(key, {})
-        node[path[-1]] = leaf
+        node[path[-1]] = make(path, shape, ldt)
     return out
 
 

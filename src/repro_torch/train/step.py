@@ -157,8 +157,8 @@ def make_train_step(cfg: ModelConfig, *,
     metrics)``.  ``params`` and ``opt_state`` (``init_state``, plus
     ``resid`` from :func:`init_resid` with ``grad_compress``) are updated
     in place and returned, and left untouched when the loss is not finite
-    (one read of the loss on the host a step); ``batch`` holds tokens and labels (B, S) on the
-    parameters' device.  With ``microbatches`` the batch splits along B,
+    (one read of the loss on the host a step, none on the meta device);
+    ``batch`` holds tokens and labels (B, S) on the parameters' device.  With ``microbatches`` the batch splits along B,
     each part's gradient is accumulated in fp32 and the mean taken, as the
     JAX step does; its ce_loss is then the mean loss, aux and n_tokens 0."""
     def step_fn(params, opt_state, batch):
@@ -181,7 +181,9 @@ def make_train_step(cfg: ModelConfig, *,
                        "aux": torch.zeros((), device=dev),
                        "n_tokens": torch.zeros((), dtype=torch.int32,
                                                device=dev)}
-        if not bool(torch.isfinite(loss)):
+        # on the meta device (the dry run) there is no loss to read: the
+        # update runs
+        if not loss.is_meta and not bool(torch.isfinite(loss)):
             # in place, the update would poison the state: leave it as it
             # is (the JAX controller drops the returned state instead)
             nan = torch.full((), float("nan"), device=loss.device)
