@@ -6,13 +6,15 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. environment — torch/CUDA versions, the card's name and power limit;
-2. build — compile the five CUDA libraries (paged attention; the SSD-scan
-   kernels; the cannon_mm matmul; flash attention; the grouped GEMM) from
+2. build — compile the six CUDA libraries (paged attention; the SSD-scan
+   kernels; the cannon_mm matmul; flash attention; the grouped GEMM; the
+   symmetric heap) from
    the checkout's sources with nvcc for sm_90a, one nvcc each, started
    together; then fresh_thread: each library's first launch in a fresh
    process on a new thread (the grouped GEMM's also inside a backward, on
    the autograd engine's thread) gives the main thread's bits
-   (``repro_torch.launch.fresh_thread``, twelve cases at once);
+   (``repro_torch.launch.fresh_thread``, thirteen cases at once, the
+   symmetric heap's among them);
 3. paged-attention kernel against its plain version on the card — random scrambled block
    tables with holes, qwen2-0.5b head geometry (14 q heads over 2 kv heads,
    hd 64, stride 16), B in {1, 8}, L in {1, 5, 16, 64, 256} (5: the
@@ -159,7 +161,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    stream's high-water mark that differ from the delivered ones, which
    the dedup drops) and, in bf16, each stream's first divergence from
    the uninterrupted run with the reference's top-2 margin there;
-14. the engine at full width on an MoE model, last and after the cache is
+14. grid — on an emptied cache, the symmetric heap's two kernels
+   (``kernels/shmem_heap``: put, and reduce_slots, the sum or max over a
+   collective's slots in fp32) against their plain versions on a heap of
+   this process, bit for bit, at ragged edges and at qwen2-0.5b's gate|up
+   message of a decode step and of a len256 chunk (fp32 and bf16), and
+   timed at those messages against the plain version,
+   ``Tensor.copy_`` / ``torch.sum`` and the bytes bound; then qwen2-0.5b
+   at full width and depth (24 layers) on a 2x2 grid of four PE processes
+   on this card (``serve/engine/grid.py``: spawned, heaps mapped through
+   CUDA IPC, barriers over gloo, every step eager), the engine's prompts
+   and 32 greedy tokens in fp32 and in bf16 (served twice under
+   torch.profiler, the second pass timed), beside the 1x1 engine on the
+   same seed-0 weights, after the parts of one collective are timed.  Gates: four PEs on CUDA with CUDA-IPC heaps and gloo,
+   no plain version, paged attention on every layer of every step of
+   every PE at ``qrows`` 2, the heap kernels' launches as the steps'
+   puts and reductions imply, fp32 tokens equal to the 1x1 engine's, bf16
+   first-step logits within GRID_BF16_TOL of the 1x1 engine's (the
+   agreeing tokens printed), every step's heap bytes equal to the count reckoned
+   from the shapes, and the phase under 150 s.  Printed: the heap's size,
+   wall per step, collectives per step, barrier-wait share per PE, heap
+   bytes per step, device busy per PE and step, tokens/s against the 1x1
+   engine;
+15. the engine at full width on an MoE model, last and after the cache is
    emptied — qwen3-moe-235b-a22b at the repo config's full width (d_model
    4096, 64 q heads over 4 kv heads, hd 64, qk_norm, 128 experts top-8 of
    d_ff_expert 1536, vocab 151936, bf16; the config sets no head_dim, so
@@ -175,7 +199,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    wgmma_tma; the plain versions never), graphs, profile (batch-8 decode,
    and one batch-8 len256 prefill step with the grouped GEMM's share), and
    decode_fixed in gemv (the grouped GEMM twice per MoE layer and step);
-15. the kernels line, the card line, and the result line.
+16. the kernels line, the card line, and the result line.
 
 Between 4 and 5 run the phases of the paper core and the last two
 kernels:
@@ -486,10 +510,11 @@ def phase_build():
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.grouped_mm import kernel as gmm
     from repro_torch.kernels.paged_attention import kernel as paged
+    from repro_torch.kernels.shmem_heap import kernel as heap
     from repro_torch.kernels.ssd_scan import kernel as ssd
     t0 = time.perf_counter()
     mods = {"paged_attention": paged, "ssd_scan": ssd, "cannon_mm": mm,
-            "flash_attention": flash, "grouped_mm": gmm}
+            "flash_attention": flash, "grouped_mm": gmm, "shmem_heap": heap}
     with ThreadPoolExecutor(len(mods)) as pool:
         for fut in [pool.submit(m.build) for m in mods.values()]:
             fut.result()
@@ -4299,6 +4324,368 @@ def phase_supervisor():
 
 
 # ---------------------------------------------------------------------------
+# The grid: the paged engine on a 2x2 grid of PE processes.
+# ---------------------------------------------------------------------------
+
+HEAP_SOURCE = "src/repro_torch/kernels/shmem_heap/csrc/shmem_heap.cu"
+# no Pallas kernel: the XLA collectives ShmemGrid lowers to
+HEAP_REPLACES = {"shmem_put": "src/repro/core/shmem.py:137",
+                 "shmem_reduce_slots":
+                     "src/repro/core/shmem.py:154,159,163"}
+GRID_Q = GRID_R = 2
+# bf16 first-step logits of the grid against the 1x1 engine's, relative
+# to each row's largest.  A fixed limit between the sound grid's reading
+# (0.0170 on an H100) and a control whose every grid GEMV rounded its fp32
+# partials to bf16 before the row psum (0.0249): one extra rounding an op
+# fails it.  Not 2^-6: two bf16 paths that round at other points part by
+# more than that at 24 layers (the 1x1 bf16 engine is 0.0203 from fp32).
+GRID_BF16_TOL = 0.020
+GRID_PHASE_S = 150.0
+# the heap messages checked and timed: qwen2-0.5b's gate|up partial (fp32,
+# two slots) of a batch-8 decode step and of a batch-8 len256 chunk
+HEAP_SHAPES = {"decode": (8, 1, 2 * 2432), "len256": (8, 256, 2 * 2432)}
+
+
+def heap_kernels():
+    """put and reduce_slots against their plain versions on a heap of this
+    process (its table holds its own base), bit for bit, and timed.  Both
+    copy, and add in slot order in fp32, so they must agree exactly.
+
+    The edges: puts of fp32 and bf16 blocks at ragged sizes and offsets
+    (the 16-byte and the byte path) and every (in, out) dtype pair of sum
+    and max over 1, 2 and 4 slots.  The main path's messages
+    (HEAP_SHAPES, where the kernels' grid-stride loops run many passes):
+    the put of each in fp32 and bf16, and sum and max over 2 slots of fp32
+    into fp32 (as the engine reduces them) and of bf16 into bf16.  The
+    fp32 puts and sums of HEAP_SHAPES are the ones timed, against the plain
+    version, one PyTorch call of the same function (``Tensor.copy_`` of
+    the same bytes; ``torch.sum`` over the stacked slots) and the bytes
+    bound at 3.35 TB/s.  Returns the number of cases, each kernel's
+    largest absolute difference from its plain version (bytes for the
+    put) and the timing rows."""
+    from repro_torch.kernels.shmem_heap import (CudaHeap, shmem_put_ref,
+                                                shmem_reduce_slots_ref)
+    from repro_torch.kernels.shmem_heap.kernel import (
+        shmem_put_cuda, shmem_reduce_slots_cuda)
+    rng = np.random.default_rng(7)
+    # [0, 2 big): the reduction's slots; then the kernel's and the plain
+    # version's put destinations
+    big = int(np.prod(HEAP_SHAPES["len256"])) * 4
+    heap = CudaHeap(0, 1, 4 * big, torch.device("cuda", 0))
+    heap.open_peers([heap.handle])
+    view = heap.views[0]
+    cases, err = 0, {"shmem_put": 0.0, "shmem_reduce_slots": 0.0}
+    rows = []
+
+    def put_case(src, off):
+        nonlocal cases
+        raw = src.reshape(-1).view(torch.uint8)
+        n = raw.numel()
+        got = view[2 * big + off:2 * big + off + n]
+        want = view[3 * big + off:3 * big + off + n]
+        got.fill_(0xA5)
+        want.fill_(0x5A)
+        shmem_put_cuda(heap, src, 0, 2 * big + off)
+        shmem_put_ref(heap, src, 0, 3 * big + off)
+        torch.cuda.synchronize()
+        err["shmem_put"] = max(err["shmem_put"], float(
+            (got.float() - want.float()).abs().max()))
+        check(torch.equal(got, raw) and torch.equal(want, raw),
+              f"shmem_put {src.dtype} {tuple(src.shape)} at {off}: the "
+              f"bytes differ from the source")
+        cases += 1
+
+    def reduce_case(shape, din, dout, op, n, stride):
+        nonlocal cases
+        got = shmem_reduce_slots_cuda(heap, 0, stride, n, shape, din, dout,
+                                      op)
+        want = shmem_reduce_slots_ref(heap, 0, stride, n, shape, din, dout,
+                                      op)
+        torch.cuda.synchronize()
+        err["shmem_reduce_slots"] = max(
+            err["shmem_reduce_slots"],
+            float((got.float() - want.float()).abs().max()))
+        check(torch.equal(got, want),
+              f"shmem_reduce_slots {op} of {n} {din} slots of "
+              f"{tuple(shape)} -> {dout} differs from its plain version")
+        cases += 1
+
+    def fill_slots(shape, dtype, n, stride):
+        for k in range(n):
+            shmem_put_ref(heap, randn(rng, shape, dtype), 0, k * stride)
+
+    try:
+        for dtype in (torch.float32, torch.bfloat16):
+            for numel, off in ((1001, 256), (4097, 3), (7, 4099)):
+                put_case(randn(rng, (numel,), dtype), off)
+        numel = 65537
+        for din in (torch.float32, torch.bfloat16):
+            stride = -(-numel * torch.empty((), dtype=din).element_size()
+                       // 256) * 256
+            fill_slots((numel,), din, 4, stride)
+            for dout in (torch.float32, torch.bfloat16):
+                for op in ("sum", "max"):
+                    for n in (1, 2, 4):
+                        reduce_case((numel,), din, dout, op, n, stride)
+        for label, shape in HEAP_SHAPES.items():
+            for dtype in (torch.float32, torch.bfloat16):
+                nbytes = int(np.prod(shape)) * torch.empty(
+                    (), dtype=dtype).element_size()
+                put_case(randn(rng, shape, dtype), 0)
+                fill_slots(shape, dtype, 2, nbytes)
+                for op in ("sum", "max"):
+                    reduce_case(shape, dtype, dtype, op, 2, nbytes)
+            nbytes = int(np.prod(shape)) * 4
+            src = randn(rng, shape, torch.float32)
+            dst = view[2 * big:2 * big + nbytes]
+            raw = src.view(-1).view(torch.uint8)
+            fill_slots(shape, torch.float32, 2, nbytes)
+            slots = view[:2 * nbytes].view(torch.float32).view(2, -1)
+            put = dict(
+                ms=cuda_ms(lambda i: shmem_put_cuda(heap, src, 0, 2 * big),
+                           50),
+                plain_ms=cuda_ms(lambda i: shmem_put_ref(heap, src, 0,
+                                                         2 * big), 50),
+                library_ms=cuda_ms(lambda i: dst.copy_(raw), 50),
+                bound_ms=2 * nbytes / HBM_BYTES_S * 1e3)
+            red = dict(
+                ms=cuda_ms(lambda i: shmem_reduce_slots_cuda(
+                    heap, 0, nbytes, 2, shape, torch.float32, torch.float32),
+                    50),
+                plain_ms=cuda_ms(lambda i: shmem_reduce_slots_ref(
+                    heap, 0, nbytes, 2, shape, torch.float32, torch.float32),
+                    50),
+                library_ms=cuda_ms(lambda i: torch.sum(slots, dim=0), 50),
+                bound_ms=3 * nbytes / HBM_BYTES_S * 1e3)
+            for name, t in (("shmem_put", put), ("shmem_reduce_slots", red)):
+                rows.append(dict(kernel=name, shape=label, bytes=nbytes,
+                                 bound_by="bytes", **t))
+                emit("heap_timing", **rows[-1])
+    finally:
+        heap.close_peers()
+        heap.free()
+    return cases, err, rows
+
+
+def grid_cfg(dtype):
+    from repro_torch.configs import get_config
+    cfg = get_config("qwen2-0.5b")
+    return dataclasses.replace(cfg, param_dtype=dtype, compute_dtype=dtype)
+
+
+def one_device_passes(cfg, prompts, sampling, passes=2):
+    """The 1x1 engine (graphs) on the seed-0 weights, the workload served
+    ``passes`` times: the first pass's tokens and recorded rows, the
+    second pass's tokens/s and wall (warm: the prompts' pages in the
+    prefix cache, the steps captured; in bf16 its tokens may differ from
+    the first pass's, whose prefill ran in other chunks)."""
+    from repro_torch.models.params import init_params
+    from repro_torch.serve.engine import EngineStats, ServingEngine, generate
+    gen = torch.Generator("cuda").manual_seed(0)
+    eng = ServingEngine(cfg, params=init_params(cfg, generator=gen,
+                                                device="cuda"),
+                        engine_cfg=smoke_ec())
+    rec, _ = record_rows(eng)
+    outs = [c.tokens for c in generate(eng, prompts, sampling)]
+    rows = dict(rec)
+    out = dict(tokens=outs, rows=rows)
+    if passes < 2:
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+    eng.stats = EngineStats()
+    for ev in eng.kernel_events().values():
+        ev.first_enqueue_t = ev.last_enqueue_t = ev.last_done_t = 0.0
+    t0 = time.perf_counter()
+    generate(eng, prompts, sampling)
+    wall = time.perf_counter() - t0
+    out.update(tokens_per_s=eng.throughput_tok_s(), wall_s=wall,
+               steps=eng.stats.steps)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def grid_steps_summary(reports, cfg, plan, lo=0, hi=None):
+    """Per-step numbers of one job over steps [lo, hi): PE 0's wall per
+    step, the collectives and barrier-wait share per PE, the heap bytes
+    over all PEs against the reckoned count."""
+    from repro_torch.serve.engine.grid import (heap_bytes_by_step,
+                                               reckoned_heap_bytes)
+    hq = cfg.heads_padded(plan.grid_r) // plan.grid_r
+    kvh = cfg.kv_stored(plan.grid_r)[0] // plan.grid_r
+    logs = [r["grid_log"][lo:hi] for r in reports]
+    names = [s["name"] for s in logs[0]]
+    got = heap_bytes_by_step(reports)[lo:hi]
+    want = [reckoned_heap_bytes(cfg, plan, n, hq, kvh) for n in names]
+    decode = [k for k, n in enumerate(names) if n.startswith("serve_step")]
+    walls = [s["wall_s"] for s in logs[0]]
+    return dict(
+        steps=len(names), decode_steps=len(decode),
+        step_wall_ms=1e3 * float(np.mean(walls)),
+        decode_step_wall_ms=1e3 * float(np.mean([walls[k] for k in decode]))
+        if decode else None,
+        collectives_per_step=float(np.mean([s["collectives"]
+                                            for s in logs[0]])),
+        puts_per_step_per_pe=float(np.mean([s["puts"] for s in logs[0]])),
+        barrier_wait_share={r["pe"]: sum(s["wait_s"] for s in log)
+                            / max(sum(s["wall_s"] for s in log), 1e-9)
+                            for r, log in zip(reports, logs)},
+        heap_bytes_per_step=float(np.mean(got)),
+        heap_bytes_reckoned_per_step=float(np.mean(want)),
+        heap_bytes_equal=got == want), got == want
+
+
+def phase_grid(smi):
+    """qwen2-0.5b at full width and depth on a 2x2 grid of PE processes on
+    this card (``serve/engine/grid.py``): the heap's kernels against their
+    plain versions and timed, the parts of one collective timed on the
+    four PEs (``probe_latency``), then the engine's workload (PROMPT_LENS,
+    32 greedy tokens) in fp32 and in bf16 (served twice under
+    torch.profiler on every PE; the second pass timed), beside the 1x1
+    engine on the same seed-0 weights.  Gates: four PE processes
+    on CUDA with CUDA-IPC heaps over gloo (no NCCL), no plain version run,
+    paged attention on every layer of every step on every PE with
+    ``qrows`` 2 (PEs 0 and 1 row 0, 2 and 3 row 1), the heap kernels'
+    launches as the steps' puts and reductions imply, fp32 tokens equal
+    to the 1x1 engine's, bf16 first-step logits (the prompts' last
+    positions, from the same tokens in both) within GRID_BF16_TOL of the
+    1x1 engine's, every step's heap bytes equal to the count reckoned from
+    the shapes.  Returns the kernels' launches and
+    the numbers for the kernels line."""
+    from repro_torch.partition import grid_plan
+    from repro_torch.serve.decode import grid_messages
+    from repro_torch.serve.engine import SamplingParams
+    from repro_torch.serve.engine.grid import (GridJob, serve_on_grid,
+                                               step_shape)
+    t0 = time.perf_counter()
+    cases, heap_err, timing = heap_kernels()
+    emit("heap_vs_plain", cases=cases, max_abs_err=heap_err)
+    plan = grid_plan(GRID_Q, GRID_R)
+    cfg32, cfg16 = grid_cfg(torch.float32), grid_cfg(torch.bfloat16)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg16.vocab_size, n).tolist()
+               for n in PROMPT_LENS]
+    sampling = SamplingParams(max_tokens=MAX_TOKENS)
+    one = {"fp32": one_device_passes(cfg32, prompts, sampling, passes=1),
+           "bf16": one_device_passes(cfg16, prompts, sampling)}
+    t_grid = time.perf_counter()
+    jobs = [GridJob(cfg32, smoke_ec(), prompts, sampling, seed=0, record=2),
+            GridJob(cfg16, smoke_ec(), prompts, sampling, seed=0, record=2,
+                    passes=2, profile=True)]
+    runs = serve_on_grid(jobs, plan, device="cuda", timeout=300,
+                         latency=True)
+    grid_s = time.perf_counter() - t_grid
+    hq = cfg16.heads_padded(GRID_R) // GRID_R
+    kvh = cfg16.kv_stored(GRID_R)[0] // GRID_R
+    launches = {}
+    for label, reports, cfg in zip(("fp32", "bf16"), runs, (cfg32, cfg16)):
+        check(len(reports) == plan.n_pes
+              and all(r["device"].startswith("cuda") and r["heap"] ==
+                      "CudaHeap" and r["backend"] == "gloo"
+                      for r in reports),
+              f"grid {label}: not four PEs on CUDA with CUDA-IPC heaps over "
+              f"gloo: {[(r['device'], r['heap'], r['backend']) for r in reports]}")
+        pe0 = reports[0]
+        check(all(f == "length" for f in pe0["finish"])
+              and all(len(t) == MAX_TOKENS for t in pe0["tokens"]),
+              f"grid {label}: a request did not end with its "
+              f"{MAX_TOKENS} tokens")
+        for r in reports:
+            n = r["launches"]
+            steps = len(r["grid_log"])
+            plain = {k: v for k, v in n.items() if k.endswith("_ref") and v}
+            check(not plain, f"grid {label} PE {r['pe']}: plain versions "
+                             f"ran: {plain}")
+            check(n.get("paged_attention_cuda", 0)
+                  == steps * cfg.n_layers > 0,
+                  f"grid {label} PE {r['pe']}: paged attention launched "
+                  f"{n.get('paged_attention_cuda', 0)} times in {steps} "
+                  f"steps of {cfg.n_layers} layers")
+            puts = sum(s["puts"] for s in r["grid_log"])
+            reductions = sum(sum(1 for m in grid_messages(
+                cfg, plan, *step_shape(s["name"])[:2], hq=hq, kvh=kvh)
+                if "psum" in m.what or "pmax" in m.what)
+                for s in r["grid_log"])
+            check(n.get("shmem_put_cuda", 0) == puts
+                  and n.get("shmem_reduce_slots_cuda", 0) == reductions,
+                  f"grid {label} PE {r['pe']}: heap kernels {n} against "
+                  f"{puts} puts and {reductions} reductions")
+            for k, v in n.items():
+                if v:
+                    launches[k] = launches.get(k, 0) + v
+        summary, equal = grid_steps_summary(reports, cfg, plan)
+        check(equal, f"grid {label}: heap bytes per step differ from the "
+                     f"reckoned count")
+        emit("grid_run", run=label, heap_bytes_per_pe=pe0["heap_bytes"],
+             heap_slot_bytes=pe0["heap_slot_bytes"],
+             tokens_per_s=pe0["tokens_per_s"], wall_s=pe0["wall_s"],
+             pe_wall_s={r["pe"]: r["pe_wall_s"] for r in reports},
+             paged_attention_by_pe={r["pe"]: r["launches"].get(
+                 "paged_attention_cuda", 0) for r in reports},
+             **summary, nvidia_smi=smi)
+    fp32, bf16 = runs
+    check(fp32[0]["tokens"] == one["fp32"]["tokens"],
+          "grid fp32: greedy tokens differ from the 1x1 engine's")
+
+    def row_errs(dtype, out_idx, keys=None):
+        got = runs[0 if dtype == "fp32" else 1][0]["rows"]
+        return {k[0]: rel_err(torch.from_numpy(one[dtype]["rows"][
+            (tuple(prompts[k[0]]), k[1])]), torch.from_numpy(row))
+            for k, row in got.items() if k[1] == out_idx
+            and (keys is None or k[0] in keys)}
+    # the first step's logits (the prompt's last position) from the same
+    # tokens in both engines; the first decode step's only where the first
+    # sampled tokens agree (a bf16 near-tie may pick another token there)
+    first = row_errs("bf16", 0)
+    same0 = {n for n, (g, w) in enumerate(zip(bf16[0]["tokens"],
+                                              one["bf16"]["tokens"]))
+             if g[0] == w[0]}
+    decode = row_errs("bf16", 1, same0)
+    agree = [sum(a == b for a, b in zip(g, w)) for g, w in
+             zip(bf16[0]["tokens"], one["bf16"]["tokens"])]
+    fp32_errs = list(row_errs("fp32", 0).values()) \
+        + list(row_errs("fp32", 1).values())
+    warm = bf16[0]["passes"][1]
+    lo, hi = warm["steps"]
+    warm_summary, _ = grid_steps_summary(bf16, cfg16, plan, lo, hi)
+    busy = {r["pe"]: (r["busy_ms"] / len(r["grid_log"])
+                      if r.get("kernel_records") else "not measured")
+            for r in bf16}
+    phase_s = time.perf_counter() - t0
+    emit("grid", fp32_tokens_equal_1x1=True,
+         fp32_logits_max_rel_err=max(fp32_errs),
+         bf16_first_step_logits_max_rel_err=max(first.values(),
+                                                default=None),
+         bf16_first_step_tolerance=GRID_BF16_TOL,
+         bf16_first_decode_logits_max_rel_err=max(decode.values())
+         if decode else None, bf16_first_tokens_agreeing=len(same0),
+         bf16_tokens_agreeing=sum(agree),
+         bf16_tokens=sum(len(t) for t in bf16[0]["tokens"]),
+         bf16_requests_identical=sum(a == MAX_TOKENS for a in agree),
+         warm_tokens_per_s=warm["tokens_per_s"],
+         warm_tokens_per_s_1x1=one["bf16"]["tokens_per_s"],
+         warm_wall_s=warm["wall_s"], warm_wall_s_1x1=one["bf16"]["wall_s"],
+         warm=warm_summary,
+         collective_parts_us_by_pe={r["pe"]: r["latency_us"]
+                                    for r in fp32},
+         device_busy_ms_per_step_by_pe=busy,
+         kernel_records_by_pe={r["pe"]: r.get("kernel_records")
+                               for r in bf16},
+         profiled_pe_wall_s={r["pe"]: r["pe_wall_s"] for r in bf16},
+         profiled_steps=len(bf16[0]["grid_log"]),
+         grid_spawn_and_serve_s=grid_s, phase_s=phase_s, nvidia_smi=smi)
+    check(len(first) == len(prompts)
+          and max(first.values()) <= GRID_BF16_TOL,
+          f"grid bf16: first step's logits {max(first.values(), default=0)} "
+          f"from the 1x1 engine's (tolerance {GRID_BF16_TOL})")
+    check(phase_s < GRID_PHASE_S, f"the grid phase took {phase_s:.0f} s")
+    return launches, timing, heap_err
+
+
+# ---------------------------------------------------------------------------
 # The fresh-thread launches, the fixed-batch decode path, whisper and
 # pixtral.
 # ---------------------------------------------------------------------------
@@ -4682,6 +5069,13 @@ def main() -> int:
             if n:
                 launches[k] = launches.get(k, 0) + n
                 by_path.setdefault(k, {})[path] = n
+    # qwen2-0.5b on a 2x2 grid of PE processes, on an emptied cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    grid_launches, heap_rows, heap_err = phase_grid(smi)
+    n = grid_launches.get("paged_attention_cuda", 0)
+    launches["paged_attention"] += n
+    by_path["paged_attention"]["qwen2-0.5b grid 2x2 (4 PEs, qrows 2)"] = n
     # the MoE model last, on an emptied cache: 41.7 GB of weights
     gc.collect()
     torch.cuda.empty_cache()
@@ -4895,6 +5289,29 @@ def main() -> int:
                 "library", "bound_ms", "bound_by", "rows", "active_experts")}
                 for t in rows},
         })
+    # the heap's kernels: the grid path's puts and reductions, every PE
+    for name in ("shmem_put", "shmem_reduce_slots"):
+        rows = [t for t in heap_rows if t["kernel"] == name]
+        top = next(t for t in rows if t["shape"] == "len256")
+        kernels.append({
+            "name": name, "route": "cuda", "source": HEAP_SOURCE,
+            "replaces": HEAP_REPLACES[name],
+            "replaces_note": "XLA's collective-permute (put) and grouped "
+                             "all-reduce (psum/pmax), not Pallas kernels",
+            "launches": grid_launches.get(f"{name}_cuda", 0),
+            "launches_by_path": {"qwen2-0.5b grid 2x2 (4 PEs)":
+                                 grid_launches.get(f"{name}_cuda", 0)},
+            "max_abs_err": heap_err[name],
+            "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "library_ms": top["library_ms"],
+            "library": ("Tensor.copy_" if name == "shmem_put"
+                        else "torch.sum over the stacked slots"),
+            "shape": f"len256: {HEAP_SHAPES['len256']} fp32"
+                     + (", 2 slots" if name != "shmem_put" else ""),
+            "per_shape": {t["shape"]: {k: t[k] for k in (
+                "bytes", "ms", "plain_ms", "library_ms", "bound_ms")}
+                for t in rows}})
     emit("profiler_records", lead_in=PROFILE_LEAD_IN,
          windows=len(PROFILE_WINDOWS),
          windows_that_lost_work=sum(not k for _, _, k in PROFILE_WINDOWS),

@@ -12,7 +12,9 @@ one sees row ``i*r + j`` of the stack.
   * :func:`allgather_matmul` — the pure-OpenCL baseline: every PE fetches
     its full operand panels on every call.
   * :func:`summa_matmul` — broadcast-based 2D GEMM.
-  * :func:`gemv2d` — small-M path against stationary 2D weights.
+  * :func:`gemv2d` — small-M path against stationary 2D weights; given a
+    :class:`~repro_torch.core.pe_grid.PeGrid` it runs on one process's
+    local blocks instead (the engine's grid path).
 
 Block convention (row-major grid, PE = (i, j) = (pe // r, pe % r)):
   A block at (i, j) = A[i-th M slice, j-th K slice]
@@ -30,10 +32,12 @@ orders nothing.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 
+from repro_torch.core.pe_grid import PeGrid
 from repro_torch.core.shmem import ShmemGrid
 from repro_torch.kernels.cannon_mm import blocked_matmul
 
@@ -131,17 +135,42 @@ def summa_matmul(grid: ShmemGrid, a_blk: torch.Tensor, b_blk: torch.Tensor,
     return acc.to(out_dtype)
 
 
-def gemv2d(grid: ShmemGrid, x_vec: torch.Tensor, b_blk: torch.Tensor, *,
+def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., K) @ w (K, N) with an fp32 result, the JAX package's
+    ``preferred_element_type=float32`` product: on the card a bf16 pair is
+    multiplied as it is with fp32 output (``aten::mm.dtype``); on the CPU,
+    which has no such product, the operands are upcast (the same math up to
+    summation order), as are fp32 ones (a no-op)."""
+    if x.is_cuda and x.dtype == w.dtype != torch.float32:
+        lead = x.shape[:-1]
+        return torch.mm(x.reshape(-1, x.shape[-1]), w,
+                        out_dtype=torch.float32).reshape(*lead, w.shape[-1])
+    return torch.matmul(x.float(), w.float())
+
+
+def gemv2d(grid, x_vec: torch.Tensor, b_blk, *,
            out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Small-M GEMM against stationary 2D-blocked weights (decode path).
 
     x_vec (P, M, K_loc): at (i, j) x[:, K_j], replicated over rows; b_blk
     (P, K_loc, N_loc) natural.  A grid transpose moves the feature shard
     onto rows, each PE multiplies, and the row sum contracts K.  Returns
-    (P, M, N_loc): N over cols, replicated over rows."""
+    (P, M, N_loc): N over cols, replicated over rows.
+
+    On a :class:`PeGrid` the same on one PE's blocks: x_vec (..., K_loc),
+    b_blk (K_loc, N_loc), the local product in fp32 (:func:`matmul_f32`).
+    ``b_blk`` may be a sequence of blocks of one input (a fused
+    projection): their products are concatenated over N, so the put and
+    the psum are paid once."""
     out_dtype = out_dtype or x_vec.dtype
+    mm = matmul_f32 if isinstance(grid, PeGrid) \
+        else functools.partial(_mm, grid)
     x_t = grid.put(x_vec, grid.transpose_pairs())
-    return grid.psum_rows(_mm(grid, x_t, b_blk)).to(out_dtype)
+    if isinstance(b_blk, torch.Tensor):
+        part = mm(x_t, b_blk)
+    else:
+        part = torch.cat([mm(x_t, b) for b in b_blk], dim=-1)
+    return grid.psum_rows(part).to(out_dtype)
 
 
 # ---------------------------------------------------------------------------

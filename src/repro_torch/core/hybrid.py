@@ -9,7 +9,11 @@ CUDA graph (:class:`StepGraph`) captured once and replayed at every later
 itself, run eagerly.  ``enqueue`` builds on first use, counts the launch
 and stamps ``KernelEvent`` times, and ``finish()`` is the ``clFinish`` —
 ``torch.cuda.synchronize()`` on the card, a no-op on the CPU (where every
-call has already completed when it returns).
+call has already completed when it returns).  The queue of one PE of a
+grid of PE processes runs its steps eagerly on the card too: a step there
+waits on host barriers between its collectives, which a CUDA graph cannot
+hold (``CommandQueue.build`` says so; a barrier on the card is later
+work).
 
 A :class:`HybridKernel` is the paper's object: an OpenSHMEM program
 ``fn(grid, *blocks)`` nested in one launch, over the PE stacks of an
@@ -159,8 +163,18 @@ class CommandQueue:
     args whose writes are harmless before its first enqueue: on the card
     ``build`` runs it once on them."""
 
-    def __init__(self, device: torch.device):
+    GRID_EAGER = ("a step on a grid of {n} PE processes waits on host "
+                  "barriers between its collectives, which a CUDA graph "
+                  "cannot capture: such steps run eagerly until the grid "
+                  "has a barrier on the card")
+
+    def __init__(self, device: torch.device, grid=None):
+        """``grid``: this process's PeGrid when it is one PE of several;
+        its steps are then not captured, for ``eager_reason``."""
         self.device = torch.device(device)
+        n = 1 if grid is None else grid.n_pes
+        self.eager_reason = self.GRID_EAGER.format(n=n) if n > 1 else None
+        self.capture = self.device.type == "cuda" and n == 1
         self.events: Dict[str, KernelEvent] = {}
         self._compiled: Dict[str, Callable] = {}
         self._pending: List[str] = []
@@ -179,9 +193,17 @@ class CommandQueue:
         return len(self._compiled)
 
     def _executable(self, fn: Callable, example_args) -> Callable:
-        """The card's captured graph of ``fn``, or ``fn`` on the CPU."""
-        if self.device.type != "cuda":
-            return fn
+        """The card's captured graph of ``fn``, or ``fn`` itself on the CPU
+        and on a grid of several PEs (on the card uploading the host
+        operands at every call, as a graph's replay copies them in)."""
+        if not self.capture:
+            if self.device.type != "cuda":
+                return fn
+            dev = self.device
+
+            def run(*args):
+                return fn(*(a.to(dev) if _on_host(a) else a for a in args))
+            return run
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
             self._stream = torch.cuda.Stream(self.device)

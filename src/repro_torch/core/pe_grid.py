@@ -1,0 +1,381 @@
+"""One process's view of a ``q x r`` grid of PE processes.
+
+The JAX package runs a model inside ``shard_map``: every device of the
+mesh runs the same program on its own blocks, and ``repro.core.shmem.
+ShmemGrid`` gives that program OpenSHMEM's view (``my_pe``, puts along
+permutations, row and column reductions and gathers).  In the port a PE is
+a process (:mod:`repro_torch.runtime.pe` starts them), so :class:`PeGrid`
+has the same method names and the same semantics on LOCAL blocks:
+
+  * ``put(x, pairs)``: PE s writes its block into PE d's heap for every
+    (s, d); a PE that receives nothing gets zeros, as ``ppermute`` gives.
+  * ``psum_rows``/``psum_cols``/``pmax_rows``: every member of the group
+    (a grid column for ``rows``, a grid row for ``cols``) puts its block
+    into slot k of every member's heap, k its place in the group; after
+    the barrier each member reduces its own slots in slot order with an
+    fp32 accumulator (``shmem_reduce_slots``), so all get the same bits.
+  * ``all_gather_rows``/``all_gather_cols``: the same puts, then the slots
+    concatenated in group order; ``reduce_scatter_rows``: chunk m of every
+    block goes to member m, which sums what it receives.
+  * ``broadcast_from(x, root)``: the root puts to every PE.
+  * ``barrier_all``: the card's stream synchronised, then the host barrier
+    (:class:`repro_torch.runtime.pe.HostBarrier`).
+
+Every collective is: puts, one barrier, then a local reduction or copy.
+Before the barrier each PE synchronises its stream, so its puts have
+landed; after it each PE reads its own heap, so it sees every put of the
+collective.  Collective k uses half ``k % 2`` of the heap: a PE that runs
+ahead puts collective k+1 into the other half while a slow one still reads
+k, and collective k+2 comes after barrier k+1, which the slow PE passes
+only once its reads of k are done.  The heap (:mod:`repro_torch.kernels.
+shmem_heap`) is sized once, before the first collective (:meth:`reserve`).
+
+``comm_bytes`` counts each op's per-PE result bytes, as the stacked
+:class:`~repro_torch.core.shmem.ShmemGrid` does; ``heap_bytes`` the bytes
+this PE's puts wrote into heaps (its own included); ``wait_s`` the host
+time spent synchronising and in barriers.  At q = r = 1 every op returns
+its input and does no device work.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.shmem import GridGeometry
+from repro_torch.kernels.shmem_heap import (CpuHeap, CudaHeap, shmem_put,
+                                            shmem_reduce_slots, slot)
+
+ALIGN = 256                       # bytes: every slot starts on this
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
+class PeGrid(GridGeometry):
+    """PE ``pe`` of a ``q x r`` grid (row-major ``pe = i * r + j``).
+
+    ``comm`` is the host side of the grid (``barrier(what)``,
+    ``all_gather_object(obj)``, ``broadcast(tensor, src)``;
+    :class:`repro_torch.runtime.pe.GlooComm`), None at 1x1.  ``workdir``
+    holds the heaps' files on the CPU."""
+
+    def __init__(self, pe: int, q: int, r: int, *, device,
+                 comm=None, workdir: Optional[str] = None):
+        self.pe, self.q, self.r = int(pe), int(q), int(r)
+        if not 0 <= self.pe < self.n_pes:
+            raise ValueError(f"PE {pe} outside a {q}x{r} grid")
+        if self.n_pes > 1 and comm is None:
+            raise ValueError("a grid of several PEs needs its comm")
+        self.device = torch.device(device)
+        self.comm, self.workdir = comm, workdir
+        self.heap = None
+        self.slot_bytes = 0
+        self._parity = 0
+        self.comm_bytes = 0       # per-PE result bytes of every op so far
+        self.heap_bytes = 0       # bytes this PE's puts wrote into heaps
+        self.n_collectives = 0
+        self.n_puts = 0
+        self.wait_s = 0.0         # stream synchronise + host barrier
+
+    # -- identity ---------------------------------------------------------
+    def my_pe(self) -> int:
+        return self.pe
+
+    def my_coords(self) -> Tuple[int, int]:
+        return divmod(self.pe, self.r)
+
+    @property
+    def local(self) -> bool:
+        """True on a 1x1 grid, where every op is the identity."""
+        return self.n_pes == 1
+
+    def row_members(self) -> List[int]:
+        """The PEs of this PE's grid column (a ``*_rows`` collective's
+        group), in row order."""
+        _, j = self.my_coords()
+        return [i * self.r + j for i in range(self.q)]
+
+    def col_members(self) -> List[int]:
+        """The PEs of this PE's grid row (a ``*_cols`` group)."""
+        i, _ = self.my_coords()
+        return [i * self.r + j for j in range(self.r)]
+
+    # -- the heap -----------------------------------------------------------
+    @staticmethod
+    def heap_size(slot_bytes: int, q: int, r: int) -> int:
+        """Bytes of one PE's heap whose slots hold ``slot_bytes``: two
+        halves (collective parity) of ``max(q, r)`` slots each."""
+        slot_bytes = -(-int(slot_bytes) // ALIGN) * ALIGN
+        return 2 * max(q, r) * slot_bytes
+
+    def reserve(self, slot_bytes: int) -> int:
+        """Allocate this PE's heap with slots of ``slot_bytes`` (the
+        largest message a collective will carry) and map every peer's: a
+        collective call, once, before the first collective.  Returns the
+        heap's bytes."""
+        if self.local:
+            return 0
+        if self.heap is not None:
+            raise RuntimeError("the heap is sized once, before the first "
+                               "collective")
+        self.slot_bytes = -(-int(slot_bytes) // ALIGN) * ALIGN
+        n = self.heap_size(self.slot_bytes, self.q, self.r)
+        if self.device.type == "cuda":
+            heap = CudaHeap(self.pe, self.n_pes, n, self.device)
+        else:
+            heap = CpuHeap(self.pe, self.n_pes, n, self.workdir)
+        heap.open_peers(self.comm.all_gather_object(heap.handle))
+        self.heap = heap
+        self.comm.barrier()
+        return n
+
+    def close(self) -> None:
+        """Unmap the peers' heaps and free this one (collective)."""
+        if self.heap is None:
+            return
+        self._sync()
+        self.comm.barrier()          # every put has landed
+        self.heap.close_peers()
+        self.comm.barrier()          # every peer has unmapped this heap
+        self.heap.free()
+        self.heap = None
+
+    def _offset(self, k: int) -> int:
+        half = self._parity * max(self.q, self.r) * self.slot_bytes
+        return half + k * self.slot_bytes
+
+    def _check_fits(self, nbytes: int, what: str) -> None:
+        if self.heap is None:
+            raise RuntimeError(f"{what}: the heap was never reserved")
+        if nbytes > self.slot_bytes:
+            raise RuntimeError(
+                f"{what}: a {nbytes}-byte message exceeds the heap's "
+                f"{self.slot_bytes}-byte slots; reserve at least that")
+
+    def _put(self, x: torch.Tensor, dst: int, k: int) -> None:
+        shmem_put(self.heap, x, dst, self._offset(k))
+        self.heap_bytes += _nbytes(x)
+        self.n_puts += 1
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
+    def _barrier(self, what: str = "barrier_all") -> None:
+        t0 = time.perf_counter()
+        self._sync()
+        self.comm.barrier(what)
+        self.wait_s += time.perf_counter() - t0
+
+    def _done(self, out: torch.Tensor) -> torch.Tensor:
+        self._parity ^= 1
+        self.n_collectives += 1
+        self.comm_bytes += _nbytes(out)
+        return out
+
+    def _read(self, k: int, shape, dtype) -> torch.Tensor:
+        return slot(self.heap.views[self.pe], self._offset(k), tuple(shape),
+                    dtype).clone()
+
+    # -- one-sided communication (shmem_put analogues) ---------------------
+    def put(self, x: torch.Tensor, pairs: Sequence[Tuple[int, int]]
+            ) -> torch.Tensor:
+        """``shmem_put`` along ``pairs`` of (source, destination) PEs: this
+        PE's block goes to its destination; it returns what its source
+        sent (zeros when none)."""
+        srcs: Dict[int, int] = {}
+        for s, d in pairs:
+            if d in srcs:
+                raise ValueError(f"PE {d} receives twice in {pairs}")
+            srcs[d] = s
+        if self.local:
+            return x if srcs.get(0) == 0 else torch.zeros_like(x)
+        x = x.contiguous()
+        self._check_fits(_nbytes(x), "put")
+        dst = next((d for s, d in pairs if s == self.pe), None)
+        if dst is not None:
+            self._put(x, dst, 0)
+        self._barrier("put")
+        out = self._read(0, x.shape, x.dtype) if self.pe in srcs \
+            else torch.zeros_like(x)
+        return self._done(out)
+
+    def shift_rows(self, x: torch.Tensor, amount: int = 1) -> torch.Tensor:
+        return self.put(x, self.row_shift_pairs(amount))
+
+    def shift_cols(self, x: torch.Tensor, amount: int = 1) -> torch.Tensor:
+        return self.put(x, self.col_shift_pairs(amount))
+
+    # -- collectives over grid sub-axes ------------------------------------
+    def _scatter_puts(self, x: torch.Tensor, members: List[int],
+                      what: str) -> torch.Tensor:
+        """Put this PE's block into slot (its place in ``members``) of
+        every member's heap, then the barrier."""
+        x = x.contiguous()
+        self._check_fits(_nbytes(x), what)
+        k = members.index(self.pe)
+        for m in members:
+            self._put(x, m, k)
+        self._barrier(what)
+        return x
+
+    def _reduce(self, x: torch.Tensor, members: List[int], op: str,
+                what: str) -> torch.Tensor:
+        if self.local:
+            return x
+        x = self._scatter_puts(x, members, what)
+        out = shmem_reduce_slots(self.heap, self._offset(0), self.slot_bytes,
+                                 len(members), tuple(x.shape), x.dtype,
+                                 x.dtype, op)
+        return self._done(out)
+
+    def psum_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum over the grid rows of this PE's column, replicated there."""
+        return self._reduce(x, self.row_members(), "sum", "psum_rows")
+
+    def psum_cols(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum over the grid cols of this PE's row, replicated there."""
+        return self._reduce(x, self.col_members(), "sum", "psum_cols")
+
+    def pmax_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """Max over the grid rows (the axis paged KV pages shard on)."""
+        return self._reduce(x, self.row_members(), "max", "pmax_rows")
+
+    def _gather(self, x: torch.Tensor, members: List[int], axis: int,
+                tiled: bool, what: str) -> torch.Tensor:
+        if self.local:
+            return x if tiled else x.unsqueeze(axis)
+        x = self._scatter_puts(x, members, what)
+        parts = [self._read(k, x.shape, x.dtype) for k in range(len(members))]
+        out = torch.cat(parts, dim=axis) if tiled \
+            else torch.stack(parts, dim=axis)
+        return self._done(out)
+
+    def all_gather_rows(self, x: torch.Tensor, axis: int = 0,
+                        tiled: bool = True) -> torch.Tensor:
+        """fcollect over the grid rows: the q blocks of this PE's column,
+        in row order, concatenated along ``axis`` (or stacked)."""
+        return self._gather(x, self.row_members(), axis, tiled,
+                            "all_gather_rows")
+
+    def all_gather_cols(self, x: torch.Tensor, axis: int = 0,
+                        tiled: bool = True) -> torch.Tensor:
+        return self._gather(x, self.col_members(), axis, tiled,
+                            "all_gather_cols")
+
+    def reduce_scatter_rows(self, x: torch.Tensor, axis: int = 0
+                            ) -> torch.Tensor:
+        """Sum over this PE's column; grid row k keeps chunk k along
+        ``axis``."""
+        if self.local:
+            return x
+        if x.shape[axis] % self.q:
+            raise ValueError(f"axis {axis} of size {x.shape[axis]} does not "
+                             f"split into {self.q} chunks")
+        members = self.row_members()
+        chunks = [c.contiguous() for c in x.chunk(self.q, dim=axis)]
+        self._check_fits(_nbytes(chunks[0]), "reduce_scatter_rows")
+        k = members.index(self.pe)
+        for m, c in zip(members, chunks):
+            self._put(c, m, k)
+        self._barrier("reduce_scatter_rows")
+        shape = tuple(chunks[0].shape)
+        out = shmem_reduce_slots(self.heap, self._offset(0), self.slot_bytes,
+                                 self.q, shape, x.dtype, x.dtype, "sum")
+        return self._done(out)
+
+    def broadcast_from(self, x: torch.Tensor, root: int) -> torch.Tensor:
+        """``shmem_broadcast``: every PE gets PE ``root``'s block (``x``
+        gives the shape and dtype everywhere)."""
+        if self.local:
+            return x
+        x = x.contiguous()
+        self._check_fits(_nbytes(x), "broadcast_from")
+        if self.pe == root:
+            for m in range(self.n_pes):
+                self._put(x, m, 0)
+        self._barrier("broadcast_from")
+        return self._done(self._read(0, x.shape, x.dtype))
+
+    # -- synchronization ----------------------------------------------------
+    def barrier_all(self, *arrays):
+        """``shmem_barrier_all``: this PE's stream synchronised, then every
+        PE meets; hands its operands back."""
+        if not self.local:
+            self._barrier()
+        if not arrays:
+            return None
+        return arrays[0] if len(arrays) == 1 else arrays
+
+    def counters(self) -> Dict[str, float]:
+        """The grid's running counts (the engine reads deltas per step)."""
+        return {"collectives": self.n_collectives, "puts": self.n_puts,
+                "heap_bytes": self.heap_bytes, "comm_bytes": self.comm_bytes,
+                "wait_s": self.wait_s}
+
+
+def probe_collectives(grid: PeGrid, inputs: Dict[str, np.ndarray]
+                      ) -> Dict[str, np.ndarray]:
+    """Run every collective of :class:`PeGrid` once on this PE's block of
+    each stacked input (``inputs[name][pe]``) and return the results as
+    numpy: the grid's check against ``repro.core.shmem.ShmemGrid`` (the
+    CPU tests) and on the card (``chip_smoke.py``).  ``inputs`` holds
+    ``x`` (n_pes, M, N) and, for gemv2d, ``vec`` (n_pes, M, K) and
+    ``w`` (n_pes, K, N)."""
+    from repro_torch.core.cannon import gemv2d
+    dev = grid.device
+
+    def blk(name):
+        a = np.ascontiguousarray(inputs[name][grid.pe])
+        return torch.from_numpy(a).to(dev)
+
+    x = blk("x")
+    largest = max(_nbytes(x), _nbytes(blk("vec")),
+                  4 * inputs["vec"].shape[1] * inputs["w"].shape[2])
+    grid.reserve(largest)
+    out = {
+        "transpose": grid.put(x, grid.transpose_pairs()),
+        "shift_rows": grid.shift_rows(x, 1),
+        "shift_cols": grid.shift_cols(x, 1),
+        "psum_rows": grid.psum_rows(x),
+        "psum_cols": grid.psum_cols(x),
+        "pmax_rows": grid.pmax_rows(x),
+        "all_gather_rows": grid.all_gather_rows(x, axis=0),
+        "all_gather_cols": grid.all_gather_cols(x, axis=-1),
+        "reduce_scatter_rows": grid.reduce_scatter_rows(x, axis=0),
+        "broadcast_from": grid.broadcast_from(x, 1 % grid.n_pes),
+        "gemv2d": gemv2d(grid, blk("vec"), blk("w")),
+    }
+    grid.barrier_all()
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def probe_latency(grid: PeGrid, n: int = 200, numel: int = 8 * 4864
+                  ) -> Dict[str, float]:
+    """Mean microseconds a PE spends in the parts of one collective, over
+    ``n`` repetitions each: the host barrier alone, the stream synchronise
+    alone, a put of ``numel`` fp32 along the transpose, and a
+    ``psum_rows`` of that many (the engine's decode-step gate|up message
+    at the default).  What a grid step's wall is made of."""
+    x = torch.ones(numel, dtype=torch.float32, device=grid.device)
+    grid.reserve(x.numel() * 4)
+
+    def mean_us(fn):
+        fn()
+        grid.barrier_all()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return (time.perf_counter() - t0) / n * 1e6
+
+    out = {"barrier_us": mean_us(grid.comm.barrier),
+           "sync_us": mean_us(grid._sync),
+           "put_us": mean_us(lambda: grid.put(x, grid.transpose_pairs())),
+           "psum_rows_us": mean_us(lambda: grid.psum_rows(x))}
+    grid.barrier_all()
+    return out

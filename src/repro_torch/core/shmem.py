@@ -28,41 +28,19 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 
-class ShmemGrid:
-    """A logical ``q x r`` PE grid over the leading dimension of a stack.
+class GridGeometry:
+    """The PE arithmetic of a ``q x r`` grid, shared by the stacked
+    :class:`ShmemGrid` and the process grid
+    (:class:`repro_torch.core.pe_grid.PeGrid`): row-major ``pe = i * r +
+    j``, and the permutations as lists of (source, destination) PEs."""
 
-    Row-major embedding: ``pe = i * r + j`` with ``i`` the grid row (``mx``,
-    shards the token/seq dim) and ``j`` the grid col (``my``, shards the
-    feature dim)."""
+    q: int
+    r: int
 
-    def __init__(self, q: int, r: Optional[int] = None):
-        self.q = int(q)
-        self.r = int(r if r is not None else q)
-        if self.q < 1 or self.r < 1:
-            raise ValueError(f"grid {q}x{r} must be at least 1x1")
-        self.comm_bytes = 0      # per-PE result bytes of every op so far
-        self.flops = 0           # per-PE FLOPs of the local products so far
-        # device index tensors of the permutations used so far: building one
-        # from a list is a host-to-device copy, which waits for the stream
-        self._indices = {}
-
-    # -- identity ---------------------------------------------------------
     @property
     def n_pes(self) -> int:
         return self.q * self.r
 
-    def my_pe(self, like: torch.Tensor) -> torch.Tensor:
-        """PE ids shaped ``(n_pes, 1, ..., 1)`` to broadcast against the
-        stack ``like``, on its device."""
-        pe = torch.arange(self.n_pes, device=like.device)
-        return pe.reshape((self.n_pes,) + (1,) * (like.ndim - 1))
-
-    def my_coords(self, like: torch.Tensor
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-        pe = self.my_pe(like)
-        return pe // self.r, pe % self.r
-
-    # -- permutations (static python ints; OpenSHMEM-style PE math)
     def _pairs(self, dst_of_src) -> List[Tuple[int, int]]:
         return [(pe, int(dst_of_src(pe))) for pe in range(self.n_pes)]
 
@@ -117,6 +95,37 @@ class ShmemGrid:
             i, j = divmod(pe, self.r)
             return j * self.r + i
         return self._pairs(dst)
+
+
+class ShmemGrid(GridGeometry):
+    """A logical ``q x r`` PE grid over the leading dimension of a stack.
+
+    Row-major embedding: ``pe = i * r + j`` with ``i`` the grid row (``mx``,
+    shards the token/seq dim) and ``j`` the grid col (``my``, shards the
+    feature dim)."""
+
+    def __init__(self, q: int, r: Optional[int] = None):
+        self.q = int(q)
+        self.r = int(r if r is not None else q)
+        if self.q < 1 or self.r < 1:
+            raise ValueError(f"grid {q}x{r} must be at least 1x1")
+        self.comm_bytes = 0      # per-PE result bytes of every op so far
+        self.flops = 0           # per-PE FLOPs of the local products so far
+        # device index tensors of the permutations used so far: building one
+        # from a list is a host-to-device copy, which waits for the stream
+        self._indices = {}
+
+    # -- identity ---------------------------------------------------------
+    def my_pe(self, like: torch.Tensor) -> torch.Tensor:
+        """PE ids shaped ``(n_pes, 1, ..., 1)`` to broadcast against the
+        stack ``like``, on its device."""
+        pe = torch.arange(self.n_pes, device=like.device)
+        return pe.reshape((self.n_pes,) + (1,) * (like.ndim - 1))
+
+    def my_coords(self, like: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        pe = self.my_pe(like)
+        return pe // self.r, pe % self.r
 
     # -- helpers over the stack ----------------------------------------------
     def _check(self, x: torch.Tensor) -> None:

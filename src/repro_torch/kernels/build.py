@@ -36,7 +36,9 @@ STAGE_BASE = 100000
 STAGES = {1: "its arguments", 2: "binding the thread to the device",
           3: "fetching the tensor-map encoder", 4: "encoding a tensor map",
           5: "granting dynamic shared memory", 6: "a device attribute query",
-          7: "zeroing a counter", 8: "the launch"}
+          7: "zeroing a counter", 8: "the launch",
+          9: "allocating, zeroing or freeing a symmetric heap",
+          10: "exporting, opening or closing a CUDA IPC handle"}
 
 
 def _nvcc(src: Path) -> str:

@@ -37,6 +37,8 @@ enum Stage : int {
   kQuery = 6,     // a device attribute query (SM count)
   kMemset = 7,    // zeroing a counter before the launch
   kLaunch = 8,    // the launch itself: cudaGetLastError() after it
+  kHeap = 9,      // allocating, zeroing or freeing a symmetric heap
+  kIpc = 10,      // exporting, opening or closing a CUDA IPC handle
 };
 
 inline int fail(Stage stage, cudaError_t err = cudaErrorInvalidValue) {

@@ -15,8 +15,9 @@ equals the main thread's bit for bit.  Cases: paged attention (bf16
 decode), the three SSD entry points (bf16, their planned variants), the
 cannon_mm matmul (bf16 ``wgmma_tma`` and fp32 ``f32_vec``), flash
 attention (bf16), the grouped GEMM forward with and without the swiglu
-epilogue (``wgmma_tma``), its dgrad and wgrad (``wgmma_tma``), and the
-grouped GEMM inside a backward.
+epilogue (``wgmma_tma``), its dgrad and wgrad (``wgmma_tma``), the
+grouped GEMM inside a backward, and the symmetric heap (a one-PE heap
+allocated, opened, put into and reduced).
 
 With no ``--case`` every case runs in a fresh process of its own, a few
 at a time; each prints one JSON line and the last line sums them.  The
@@ -155,6 +156,32 @@ def _wgrad():
     return lambda: grouped_mm_wgrad_cuda(x, dy, off)
 
 
+def _heap():
+    """A one-PE heap made, opened, written and reduced inside the call, so
+    the first call's every library entry (alloc, open, put, reduce_slots,
+    close, free) runs on the new thread."""
+    from repro_torch.kernels.shmem_heap.kernel import (
+        CudaHeap, shmem_put_cuda, shmem_reduce_slots_cuda)
+    g = _gen(7)
+    x = _randn(g, (2, 8, 4864), torch.float32)
+
+    def call():
+        heap = CudaHeap(0, 1, 2 * x[0].numel() * 4, x.device)
+        try:
+            heap.open_peers([heap.handle])
+            stride = x[0].numel() * 4
+            for k in range(2):
+                shmem_put_cuda(heap, x[k], 0, k * stride)
+            out = shmem_reduce_slots_cuda(heap, 0, stride, 2, x[0].shape,
+                                          torch.float32, torch.float32)
+            torch.cuda.synchronize()
+            return out, heap.views[0].clone()
+        finally:
+            heap.close_peers()
+            heap.free()
+    return call
+
+
 # name -> a maker, run on the main thread, that builds the inputs and
 # returns the call
 CASES: Dict[str, Callable[[], Callable]] = {
@@ -170,6 +197,7 @@ CASES: Dict[str, Callable[[], Callable]] = {
     "grouped_mm_dgrad": _dgrad,
     "grouped_mm_wgrad": _wgrad,
     "grouped_mm_autograd": _gmm(False),
+    "shmem_heap": _heap,
 }
 
 
@@ -236,15 +264,17 @@ def run_case(name: str) -> dict:
 
 
 def prebuild() -> None:
-    """Compile the five libraries here (each nvcc in a thread of its own),
+    """Compile the six libraries here (each nvcc in a thread of its own),
     so the case processes only load them."""
     from repro_torch.kernels.cannon_mm import kernel as mm
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.grouped_mm import kernel as gmm
     from repro_torch.kernels.paged_attention import kernel as paged
+    from repro_torch.kernels.shmem_heap import kernel as heap
     from repro_torch.kernels.ssd_scan import kernel as ssd
-    with ThreadPoolExecutor(max_workers=5) as pool:
-        list(pool.map(lambda m: m.build(), (paged, ssd, mm, flash, gmm)))
+    with ThreadPoolExecutor(max_workers=6) as pool:
+        list(pool.map(lambda m: m.build(),
+                      (paged, ssd, mm, flash, gmm, heap)))
 
 
 def run_all(cases=None, workers: int = 6) -> list:

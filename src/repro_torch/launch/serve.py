@@ -11,6 +11,8 @@ mixed-length workload through the continuous-batching engine.
       --service --admission deadline
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
       --supervised --kills 2
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
+      --engine --grid 2x2
 
 serves the full-width model on ``cuda`` with random weights from seed 0.
 ``--smoke`` takes the ``reduced()`` config instead (as the JAX launcher
@@ -37,7 +39,13 @@ state slots and MoE layers run the grouped GEMM; ``--speculation ngram``
 so needs ``--smoke``) verifies up to ``--spec-k`` draft tokens per slot in
 one ``verify_bs{N}_len{k+1}`` launch.  pixtral-12b's text is served there
 too (its ``vis_proj`` unused), whisper-base is not: the engine keeps no
-cross caches.
+cross caches.  ``--engine --grid QxR`` serves the same workload on a
+``q x r`` grid of PE processes (``serve/engine/grid.py``; spawned, PE p on
+card ``p % device_count``, on the CPU with ``--device cpu``): PE 0
+schedules and samples, every PE runs each step body on its blocks of the
+weights, and the collectives put through the symmetric heap.  It prints
+the heap's size, the steps' collectives, barrier wait and heap bytes
+against the count reckoned from the shapes, and tokens/s.
 
 With ``--service`` the same workload arrives instead through the asyncio
 ``GenerateService`` front-end: concurrent streaming clients at Poisson
@@ -178,6 +186,48 @@ def _main_engine(cfg, args):
               f"{st.prefix_tokens_reused} prompt tokens reused "
               f"(hit rate {st.prefix_hit_rate:.2f}), "
               f"{st.prefix_evictions} evictions")
+
+
+def _main_grid(cfg, args):
+    """The engine's workload on a grid of PE processes."""
+    from repro_torch.partition import parse_grid
+    from repro_torch.serve.engine.grid import (GridJob, heap_bytes_by_step,
+                                               reckoned_heap_bytes,
+                                               serve_on_grid)
+    plan = parse_grid(args.grid)
+    device = args.device or "cuda"
+    need = check_fit(cfg, device)
+    print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{need / 1e9:.2f} GB of weights, on a {plan.grid_q}x"
+          f"{plan.grid_r} grid of PE processes ({device})")
+    prompts = _workload(cfg, args)
+    job = GridJob(cfg, _engine_cfg(args), prompts,
+                  SamplingParams(max_tokens=args.tokens), seed=0)
+    reports = serve_on_grid([job], plan, device=device)[0]
+    pe0 = reports[0]
+    for n, toks in enumerate(pe0["tokens"][:4]):
+        print(f"  req {n}: prompt[{len(prompts[n])}] -> {toks[:12]} "
+              f"({pe0['finish'][n]})")
+    log = pe0["grid_log"]
+    hq = cfg.heads_padded(plan.grid_r) // plan.grid_r
+    kvh = cfg.kv_stored(plan.grid_r)[0] // plan.grid_r
+    got = heap_bytes_by_step(reports)
+    want = [reckoned_heap_bytes(cfg, plan, s["name"], hq, kvh) for s in log]
+    wall = sum(s["wall_s"] for s in log)
+    print(f"heap: {pe0['heap_bytes']} bytes a PE (slots of "
+          f"{pe0['heap_slot_bytes']} bytes)")
+    print(f"served {len(prompts)} requests / "
+          f"{pe0['stats']['tokens_generated']} tokens in {len(log)} steps: "
+          f"{pe0['tokens_per_s']:.1f} tok/s, "
+          f"{1e3 * wall / max(len(log), 1):.1f} ms a step, "
+          f"{sum(s['collectives'] for s in log) / max(len(log), 1):.0f} "
+          f"collectives a step, barrier wait "
+          f"{sum(s['wait_s'] for s in log) / max(wall, 1e-9):.0%} of "
+          f"PE 0's step wall")
+    print(f"heap bytes over all PEs: {sum(got)} put, {sum(want)} reckoned "
+          f"from the shapes ({'equal' if got == want else 'DIFFERENT'})")
+    if got != want:
+        raise SystemExit("heap traffic differs from the reckoned count")
 
 
 def _main_fixed(cfg, args):
@@ -393,6 +443,9 @@ def main(argv=None):
                     help="serve the reduced config instead of full width")
     ap.add_argument("--device", default=None, choices=["cuda", "cpu"],
                     help="default: cuda (raises without a GPU)")
+    ap.add_argument("--grid", default=None,
+                    help="with --engine: serve on a QxR grid of PE "
+                         "processes (e.g. 2x2)")
     args = ap.parse_args(argv)
     if args.speculation == "draft_model" and not args.smoke:
         ap.error("--speculation draft_model self-drafts with the reduced "
@@ -409,6 +462,8 @@ def main(argv=None):
         _main_supervised(cfg, args)
     elif args.service:
         _main_service(cfg, args)
+    elif args.engine and args.grid:
+        _main_grid(cfg, args)
     elif args.engine:
         _main_engine(cfg, args)
     else:

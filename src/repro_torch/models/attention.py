@@ -14,7 +14,9 @@ S x S scores never live.
 labels and returns the unnormalised softmax partials ``(m, l, acc)``;
 ``combine_partials`` merges them.  On one device the KV cache is not
 sharded, so the SHMEM row reductions are the identity and the merge
-reduces to ``acc / max(l, 1e-30)``.
+reduces to ``acc / max(l, 1e-30)``; on a grid of PE processes the paged
+arena's pages are spread over the grid rows and the merge takes the row
+``pmax`` and ``psum``.
 
 ``NEG_INF`` stays finite: a row that has seen only masked keys keeps
 ``m = -1e30`` with ``exp(s - m) = 1``, which the merge then weighs to zero.
@@ -176,6 +178,18 @@ def attention_partial(q, k, v, *, kv_pos, q_pos,
     return AttnPartial(m, l, acc)
 
 
-def combine_partials(part) -> torch.Tensor:
-    """Normalise one device's partials: the LSE merge over a 1x1 grid."""
+def combine_partials(part, pctx=None) -> torch.Tensor:
+    """Merge the softmax partials of every grid row with the log-sum-exp
+    rule (``repro.models.attention.combine_partials`` over the rows, as
+    ``repro/serve/decode.py:389,445`` call it): the global max by a row
+    ``pmax``, each row's ``l`` and ``acc`` reweighted by ``exp(m - max)``
+    and summed by one row ``psum`` (the two ride one message).  On one
+    device (``pctx`` None or local) that is ``acc / max(l, 1e-30)``."""
+    if pctx is not None and not pctx.local:
+        grid = pctx.grid
+        w = torch.exp(part.m - grid.pmax_rows(part.m))
+        both = grid.psum_rows(torch.cat([part.acc * w[..., None],
+                                         (part.l * w)[..., None]], dim=-1))
+        return both[..., :-1] / torch.clamp(both[..., -1], min=1e-30)[
+            ..., None]
     return part.acc / torch.clamp(part.l, min=1e-30)[..., None]

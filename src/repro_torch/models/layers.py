@@ -1,43 +1,131 @@
-"""Building blocks of the dense model on one device (a 1x1 SHMEM grid).
+"""Building blocks of the dense model: on one device, and on one PE of a
+``q x r`` grid of PE processes.
 
-On one GPU the feature dim is never sharded, so the norms' column psums
-are the identity and every projection is one ``torch.matmul`` (the JAX
-package's ``dense``/``fused_dense`` gemv2d over the grid).  Numerics follow
-``repro.models.layers``: statistics in fp32, results cast back to the
-input dtype.
+On one GPU (a 1x1 grid, ``pctx`` None or local) the feature dim is never
+sharded, so the norms' column psums are the identity and every projection
+is one ``torch.matmul`` (the JAX package's ``dense``/``fused_dense``
+gemv2d over the grid).  On a grid of PE processes
+(:class:`~repro_torch.core.pe_grid.PeGrid`) the serving path's activations
+are ``repl_rows`` blocks, features over grid columns and replicated over
+rows, and these are ``repro.models.layers``' functions on one PE's blocks:
+:func:`dense` and :func:`fused_dense` are ``gemv2d`` (a transpose put, the
+local product in fp32, a row psum; a fused projection pays the put and the
+psum once), :func:`col_slice` cuts this PE's column block of a replicated
+bias or scale, and the norms add their statistics over the grid columns.
+Numerics follow ``repro.models.layers``: statistics in fp32, results cast
+back to the input dtype.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.core.cannon import gemv2d
+
+
+@dataclasses.dataclass(frozen=True)
+class ParallelContext:
+    """The grid a layer runs on (``repro.models.layers.ParallelContext`` of
+    the serving path: ``act_layout`` ``repl_rows``, weights stored
+    unskewed, every projection a gemv2d).  ``grid`` None is one device."""
+
+    grid: Optional[object] = None          # a PeGrid, or None (1x1)
+    act_layout: str = "repl_rows"
+    compute_dtype: torch.dtype = torch.float32
+
+    @property
+    def local(self) -> bool:
+        return self.grid is None or self.grid.local
+
+    @property
+    def q(self) -> int:
+        return 1 if self.grid is None else self.grid.q
+
+    @property
+    def r(self) -> int:
+        return 1 if self.grid is None else self.grid.r
+
+
+def col_slice(pctx: Optional[ParallelContext], vec: torch.Tensor,
+              n_loc: Optional[int] = None) -> torch.Tensor:
+    """This PE's column block of a replicated feature vector (..., N)."""
+    if pctx is None or pctx.local:
+        return vec
+    n_loc = n_loc or vec.shape[-1] // pctx.r
+    _, j = pctx.grid.my_coords()
+    return vec[..., j * n_loc:(j + 1) * n_loc]
+
+
+def dense(pctx: Optional[ParallelContext], x: torch.Tensor, w: torch.Tensor,
+          bias: Optional[torch.Tensor] = None,
+          out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """x (..., K_loc) @ W -> (..., N_loc): ``x @ w`` on one device; on a
+    grid ``gemv2d`` on this PE's block ``w`` (K/q, N/r), the result in
+    ``out_dtype`` (x's by default), then this PE's slice of ``bias``."""
+    if pctx is None or pctx.local:
+        y = x @ w
+    else:
+        y = gemv2d(pctx.grid, x, w, out_dtype=out_dtype or x.dtype)
+    if bias is not None:
+        y = y + col_slice(pctx, bias, y.shape[-1]).to(y.dtype)
+    return y
+
+
+def fused_dense(pctx: Optional[ParallelContext], x: torch.Tensor,
+                ws: Sequence[torch.Tensor],
+                biases: Optional[Sequence[Optional[torch.Tensor]]] = None
+                ) -> Tuple[torch.Tensor, ...]:
+    """Several projections of the same input (QKV, gate and up).  On one
+    device one ``x @ w`` each, as the 1x1 path always did; on a grid one
+    ``gemv2d`` over all the blocks, so one transpose put and one row psum
+    (the JAX package concatenates the weights; here the fp32 partial
+    products are concatenated, which is the same column for column)."""
+    if pctx is None or pctx.local:
+        ys = [x @ w for w in ws]
+    else:
+        y = gemv2d(pctx.grid, x, ws, out_dtype=x.dtype)
+        ys = list(torch.split(y, [w.shape[-1] for w in ws], dim=-1))
+    if biases is not None:
+        ys = [y if b is None else y + col_slice(pctx, b, y.shape[-1]).to(
+            y.dtype) for y, b in zip(ys, biases)]
+    return tuple(ys)
 
 
 # ---------------------------------------------------------------------------
 # Norms.
 # ---------------------------------------------------------------------------
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
-             ) -> torch.Tensor:
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
+             pctx: Optional[ParallelContext] = None) -> torch.Tensor:
     d = scale.shape[-1]
     x32 = x.float()
     ss = torch.sum(x32 * x32, dim=-1, keepdim=True)
+    if pctx is not None and not pctx.local:
+        ss = pctx.grid.psum_cols(ss)
     inv = torch.rsqrt(ss / d + eps)
-    return (x32 * inv * scale.float()).to(x.dtype)
+    return (x32 * inv * col_slice(pctx, scale).float()).to(x.dtype)
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-               eps: float = 1e-5) -> torch.Tensor:
+               eps: float = 1e-5, pctx: Optional[ParallelContext] = None
+               ) -> torch.Tensor:
+    """On a grid the two statistics ride one column psum."""
     d = scale.shape[-1]
     x32 = x.float()
-    mean = torch.sum(x32, dim=-1, keepdim=True) / d
-    var = torch.sum(x32 * x32, dim=-1, keepdim=True) / d - mean * mean
+    s1 = torch.sum(x32, dim=-1, keepdim=True)
+    s2 = torch.sum(x32 * x32, dim=-1, keepdim=True)
+    if pctx is not None and not pctx.local:
+        s1, s2 = pctx.grid.psum_cols(torch.cat([s1, s2], dim=-1)).split(1, -1)
+    mean = s1 / d
+    var = s2 / d - mean * mean
     inv = torch.rsqrt(var + eps)
-    y = (x32 - mean) * inv * scale.float()
-    return (y + bias.float()).to(x.dtype)
+    y = (x32 - mean) * inv * col_slice(pctx, scale).float()
+    return (y + col_slice(pctx, bias).float()).to(x.dtype)
 
 
 def rms_norm_local(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
@@ -103,13 +191,27 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 # Norm and MLP blocks (``repro.models.transformer._norm`` / ``mlp_apply``).
 # ---------------------------------------------------------------------------
 
-def apply_norm(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
+def apply_norm(cfg, p: dict, x: torch.Tensor,
+               pctx: Optional[ParallelContext] = None) -> torch.Tensor:
     if cfg.norm == "layernorm":
-        return layer_norm(x, p["scale"], p["bias"])
-    return rms_norm(x, p["scale"])
+        return layer_norm(x, p["scale"], p["bias"], pctx=pctx)
+    return rms_norm(x, p["scale"], pctx=pctx)
 
 
-def mlp_apply(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
+def mlp_apply(cfg, p: dict, x: torch.Tensor,
+              pctx: Optional[ParallelContext] = None) -> torch.Tensor:
+    if pctx is not None and not pctx.local:
+        # the grid form (repro.models.transformer.mlp_apply): gate and up
+        # in one fused gemv2d, the down projection in another
+        if cfg.act == "swiglu":
+            g, u = fused_dense(pctx, x, [p["w_gate"], p["w_up"]])
+            h = swiglu(g, u)
+        else:
+            (u,) = fused_dense(pctx, x, [p["w_up"]], biases=[
+                p["b_up"] if cfg.mlp_bias else None])
+            h = gelu(u)
+        return dense(pctx, h, p["w_down"],
+                     bias=p["b_down"] if cfg.mlp_bias else None)
     if cfg.act == "swiglu":
         h = swiglu(x @ p["w_gate"], x @ p["w_up"])
     else:

@@ -28,7 +28,9 @@ Head geometry lives in the weight shapes, not in the config
 geometry (qwen2-0.5b: 14 q heads over 2 kv heads), while weights carried
 over from the JAX engine keep its r=4 storage (q heads padded to 16 with
 real random weights, kv heads replicated to 4).  The same code computes
-exactly the JAX result on the latter.
+exactly the JAX result on the latter.  :func:`shard_params` cuts one PE's
+blocks out of either tree for a grid of PE processes, in the JAX grid's
+block layout.
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, pad_to_multiple
 
 
 def _normal(shape, fan_in: Optional[int], dtype, generator, device):
@@ -291,3 +293,101 @@ def param_bytes(params) -> int:
             return sum(walk(v) for v in node)
         return node.numel() * node.element_size()
     return walk(params)
+
+
+# ---------------------------------------------------------------------------
+# One PE's blocks of the global tree (the JAX package's stored layout).
+# ---------------------------------------------------------------------------
+
+# leaves held whole by every PE (col_slice cuts them where they are used)
+_WHOLE = ("scale", "bias", "bq", "bk", "bv", "q_norm", "k_norm", "b_up",
+          "b_down")
+
+
+def _grid_heads(params, cfg: ModelConfig, r: int):
+    """The tree's attention leaves with the heads the JAX grid stores at
+    ``r`` columns: ``heads_padded(r)`` q heads and ``kv_stored(r)`` kv
+    heads.  A tree that already has them (weights carried over from the
+    JAX engine) is taken as it is; a native one whose q heads divide over
+    the columns gets its kv heads repeated, each ``rep`` times in a row,
+    which keeps every q head on its own kv head's values.  A native tree
+    that would need padded q heads is refused: the padded model is not the
+    native one (initialise it in the grid geometry)."""
+    hq, kvh = stored_heads(params, cfg)
+    hp, ks = cfg.heads_padded(r), cfg.kv_stored(r)[0]
+    if (hq, kvh) == (hp, ks) or hq == 0:
+        return None
+    if hq != hp or ks % kvh:
+        raise NotImplementedError(
+            f"{cfg.name}: {hq} q heads over {kvh} kv heads cannot be cut "
+            f"into {r} columns as stored; the grid stores {hp} over {ks}")
+    return ks // kvh
+
+
+def _block(a: torch.Tensor, i: int, j: int, q: int, r: int) -> torch.Tensor:
+    """Block (i, j) of the last two dims (K/q rows, N/r cols)."""
+    K, N = a.shape[-2:]
+    if K % q or N % r:
+        raise ValueError(f"{tuple(a.shape)} does not block into {q}x{r}")
+    kb, nb = K // q, N // r
+    return a[..., i * kb:(i + 1) * kb, j * nb:(j + 1) * nb].contiguous()
+
+
+def shard_params(params, cfg: ModelConfig, plan, pe: int) -> Dict[str, Any]:
+    """PE ``pe``'s blocks of the global tree in the JAX package's layout
+    (``repro.models.params`` ``blocked2d``/``vocab2d``, unskewed as the
+    serving path stores them): every projection ``(d_in/q, d_out/r)`` in
+    natural position (K block i, N block j); the embedding's vocabulary
+    rows over the grid rows and its features over the columns; the
+    lm_head's features over rows and vocabulary over columns, the
+    vocabulary padded with zeros to a multiple of ``q * r`` as the JAX
+    specs pad it; norms, biases and qk-norm scales whole.  Heads follow
+    :func:`_grid_heads`.  Attention-and-MLP models only; the SSM, MoE,
+    encoder and vision layers come with later slices of the grid."""
+    q, r = plan.grid_q, plan.grid_r
+    i, j = plan.coords(pe)
+    for mixer, ffn in cfg.pattern():
+        if mixer != "attn" or ffn not in ("mlp", "none"):
+            raise NotImplementedError(
+                f"{cfg.name}: ({mixer}, {ffn}) layers on a PE grid come "
+                f"with a later slice (ROADMAP.md)")
+    if cfg.enc_layers:
+        raise NotImplementedError(f"{cfg.name}: encoder-decoder models on a "
+                                  f"PE grid come with a later slice")
+    rep = _grid_heads(params, cfg, r)
+    vpad = pad_to_multiple(params["embed"].shape[0], q * r)
+
+    def pad_rows(a):
+        return torch.nn.functional.pad(a, (0, 0, 0, vpad - a.shape[0]))
+
+    def pad_cols(a):
+        return torch.nn.functional.pad(a, (0, vpad - a.shape[1]))
+
+    def layer(lp):
+        out = {}
+        for part, leaves in lp.items():
+            out[part] = {}
+            for name, a in leaves.items():
+                if rep and name in ("wk", "wv"):
+                    G, D, n = a.shape
+                    a = a.reshape(G, D, n // cfg.hd(), cfg.hd()) \
+                        .repeat_interleave(rep, dim=2).reshape(G, D, -1)
+                elif rep and name in ("bk", "bv"):
+                    G, n = a.shape
+                    a = a.reshape(G, n // cfg.hd(), cfg.hd()) \
+                        .repeat_interleave(rep, dim=1).reshape(G, -1)
+                out[part][name] = a.clone() if name in _WHOLE \
+                    else _block(a, i, j, q, r)
+        return out
+
+    vb, db = vpad // q, params["embed"].shape[1] // r
+    out = {
+        "embed": pad_rows(params["embed"])[i * vb:(i + 1) * vb,
+                                           j * db:(j + 1) * db].contiguous(),
+        "lm_head": _block(pad_cols(params["lm_head"]), i, j, q, r),
+        "final_norm": {k: v.clone() for k, v in params["final_norm"].items()},
+        "layers": [layer(lp) for lp in params["layers"]],
+    }
+    if "vis_proj" in params:
+        out["vis_proj"] = _block(params["vis_proj"], i, j, q, r)
+    return out

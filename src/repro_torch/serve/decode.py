@@ -2,11 +2,22 @@
 and the fixed-batch decode path over a contiguous cache.
 
 The counterparts of ``repro.serve.decode``'s ``make_decode_body(per_slot=
-True, paged=...)`` and ``make_prefill_chunk_body``, at q = r = 1: every
-SHMEM row/column collective is the identity, page routing ``p % q`` is
-trivial, and each gemv2d projection is one ``torch.matmul``.  The
-fixed-batch path (``make_decode_step`` without ``paged``, ``cache_specs``
-and ``make_prefill``, at the end of this module) is described there.
+True, paged=...)`` and ``make_prefill_chunk_body``.  On one device (no
+``pctx``, or a local one) every SHMEM row/column collective is the
+identity, page routing ``p % q`` is trivial, and each gemv2d projection is
+one ``torch.matmul``.  On one PE of a ``q x r`` grid of PE processes
+(``pctx`` holding its :class:`~repro_torch.core.pe_grid.PeGrid`) each piece
+takes its grid form, as in ``repro/serve/decode.py:343-449, 560-590``:
+the embedding sums this row's vocabulary block over the rows, every
+projection is a gemv2d, the norms add their statistics over the columns,
+K/V are written on the page's owner row only (the other rows write
+scratch), the paged kernel scores this row's pages (``row=i, qrows=q``)
+and the row partials merge with the LSE rule, and the lm_head's vocabulary
+blocks are gathered over the columns, for the last position only at
+prefill.  :func:`grid_messages` reckons every message such a step puts
+into the heaps.  The fixed-batch path (``make_decode_step`` without
+``paged``, ``cache_specs`` and ``make_prefill``, at the end of this
+module) is described there.
 
 Both bodies read and write ONE state arena: a list with one entry per
 pattern position.  An attention entry is ``{"k", "v"}`` of shape
@@ -48,13 +59,17 @@ from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
 
 import torch
 
+from repro_torch.core.cannon import matmul_f32
 from repro_torch.device import resolve_device
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.models.attention import (attention_partial, combine_partials,
                                           cross_kv)
-from repro_torch.models.config import ModelConfig, attn_static
-from repro_torch.models.layers import (apply_norm, apply_rope, mlp_apply,
-                                       rms_norm_local, rope_tables)
+from repro_torch.models.config import (ModelConfig, attn_static,
+                                       pad_to_multiple)
+from repro_torch.models.layers import (ParallelContext, apply_norm,
+                                       apply_rope, dense, fused_dense,
+                                       mlp_apply, rms_norm_local,
+                                       rope_tables)
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.ssm import mamba_chunk_step, mamba_decode_step
 from repro_torch.models.transformer import encode, forward
@@ -82,66 +97,78 @@ class PagedKV:
 # Pieces of the bodies.
 # ---------------------------------------------------------------------------
 
-def _embed_decode(embed: torch.Tensor, tokens: torch.Tensor, compute_dtype
-                  ) -> torch.Tensor:
+def _embed_decode(embed: torch.Tensor, tokens: torch.Tensor, compute_dtype,
+                  pctx: Optional[ParallelContext] = None) -> torch.Tensor:
     """tokens (B,) or (B, L) -> (B, 1, D) or (B, L, D); ids outside the
-    (padded) vocabulary embed to zero."""
+    (padded) vocabulary embed to zero.  On a grid ``embed`` is this PE's
+    (V/q, D/r) block: each row looks up the ids of its vocabulary block,
+    and a row psum adds the blocks (``repro/serve/decode.py:560``)."""
     V = embed.shape[0]
+    if pctx is not None and not pctx.local:
+        tokens = tokens - pctx.grid.my_coords()[0] * V
     hit = (tokens >= 0) & (tokens < V)
     x = embed[tokens.clamp(0, V - 1).long()]
     x = torch.where(hit[..., None], x, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
     x = x.to(compute_dtype)
+    if pctx is not None and not pctx.local:
+        x = pctx.grid.psum_rows(x)
     return x if tokens.ndim == 2 else x[:, None, :]
 
 
-def _last_logits(lm_head: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def _last_logits(lm_head: torch.Tensor, x: torch.Tensor,
+                 pctx: Optional[ParallelContext] = None) -> torch.Tensor:
     """x (B, n, D) -> logits (B, n, Vpad) in fp32, the JAX package's
     fp32-accumulated ``out_dtype=float32`` gemv; a bf16 product would round
-    the logits to bf16.  On the card a bf16 lm_head is multiplied as it
-    is, with fp32 output (``aten::mm.dtype``); on the CPU, which has no
-    such product, the operands are upcast (the same math up to summation
-    order), as are fp32 ones (a no-op)."""
-    if x.is_cuda and x.dtype == lm_head.dtype != torch.float32:
-        B, n, D = x.shape
-        return torch.mm(x.reshape(B * n, D), lm_head,
-                        out_dtype=torch.float32).reshape(B, n, -1)
-    return torch.matmul(x.float(), lm_head.float())
+    the logits to bf16 (:func:`repro_torch.core.cannon.matmul_f32`).  On a
+    grid the gemv2d gives this column's vocabulary block, and the blocks
+    are gathered over the columns (``repro/serve/decode.py:579``)."""
+    if pctx is not None and not pctx.local:
+        logits = dense(pctx, x, lm_head, out_dtype=torch.float32)
+        return pctx.grid.all_gather_cols(logits, axis=-1)
+    return matmul_f32(x, lm_head)
 
 
 def _write_index(table: torch.Tensor, pos2: torch.Tensor,
-                 n_valid: torch.Tensor, stride: int, scratch: int
+                 n_valid: torch.Tensor, stride: int, scratch: int,
+                 row: int = 0, qrows: int = 1
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(page, offset), each (B, L), of every K/V position a launch writes:
     a valid chunk column (``j < n_valid``) writes its table page (the
     entry clipped to the table, as in the JAX body), and a padding column,
     an idle slot (table -1) or an unallocated entry writes the ``scratch``
-    page instead.  Computed once per launch and shared by every layer."""
+    page instead.  On grid row ``row`` of ``qrows`` only the pages this
+    row owns are written, at their local index ``p // qrows``; a page of
+    another row is scratch here.  Computed once per launch and shared by
+    every layer."""
     B, T = table.shape
     L = pos2.shape[1]
     valid = torch.arange(L, device=pos2.device)[None, :] < n_valid[:, None]
     tidx = (pos2 // stride).clamp(0, T - 1).long()
     pid = torch.gather(table, 1, tidx)
-    page = torch.where(valid & (pid >= 0), pid, scratch).long()
+    if qrows == 1:
+        page = torch.where(valid & (pid >= 0), pid, scratch).long()
+    else:
+        mine = valid & (pid >= 0) & (pid % qrows == row)
+        page = torch.where(mine, pid // qrows, scratch).long()
     return page, (pos2 % stride).long()
 
 
 def _attn_prefill_chunk_paged(p, x, cfg, kc, vc, rope, pos2, widx, table,
-                              stride):
+                              stride, pctx=None):
     """Chunked-prefill attention against the paged arena.
 
     x (B, L, D): slot b advances positions ``pos2[b]``; kc/vc
     (n_blocks, stride, kvh, hd) are this layer's arena pages, written in
     place.  Head counts come from the weight shapes, and query head h
-    reads kv head ``h // (Hq / kvh)``."""
+    reads kv head ``h // (Hq / kvh)``.  On a grid x is (B, L, D/r), the
+    heads are this column's, the pages this row's."""
     ast = attn_static(cfg)
     B, L = x.shape[:2]
     hd = ast.head_dim
-    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
-    if ast.qkv_bias:
-        q = q + p["bq"].to(q.dtype)
-        k = k + p["bk"].to(k.dtype)
-        v = v + p["bv"].to(v.dtype)
+    q, k, v = fused_dense(pctx, x, [p["wq"], p["wk"], p["wv"]],
+                          biases=[p["bq"], p["bk"], p["bv"]]
+                          if ast.qkv_bias else None)
     q = q.reshape(B, L, -1, hd)
     k = k.reshape(B, L, -1, hd)
     v = v.reshape(B, L, -1, hd)
@@ -155,11 +182,13 @@ def _attn_prefill_chunk_paged(p, x, cfg, kc, vc, rope, pos2, widx, table,
     kc.index_put_(widx, k.to(kc.dtype))
     vc.index_put_(widx, v.to(vc.dtype))
 
+    row, qrows = (0, 1) if pctx is None or pctx.local \
+        else (pctx.grid.my_coords()[0], pctx.q)
     part = paged_attention(q.transpose(1, 2).contiguous(), kc, vc, table,
-                           pos2, stride=stride)
-    out = combine_partials(part)                      # (B, Hq, L, hd) fp32
+                           pos2, stride=stride, row=row, qrows=qrows)
+    out = combine_partials(part, pctx)                # (B, Hq, L, hd) fp32
     out = out.transpose(1, 2).reshape(B, L, -1)
-    return out.to(x.dtype) @ p["wo"]
+    return dense(pctx, out.to(x.dtype), p["wo"])
 
 
 def _unstack(tree, n: int) -> List:
@@ -202,14 +231,16 @@ class _Operands(NamedTuple):
     widx: Optional[Tuple] = None
     table: Optional[torch.Tensor] = None
     dense: Optional[Tuple] = None         # dense layers: _dense_index
+    pctx: Optional[ParallelContext] = None    # a PE of a grid
 
 
 def _decode_layer(cfg, mixer, ffn, p, x, cache, op: _Operands):
-    h = apply_norm(cfg, p["norm1"], x)
+    h = apply_norm(cfg, p["norm1"], x, op.pctx)
     if mixer == "attn":
         x = x + _attn_prefill_chunk_paged(p["mixer"], h, cfg, cache["k"],
                                           cache["v"], op.rope, op.pos2,
-                                          op.widx, op.table, op.stride)
+                                          op.widx, op.table, op.stride,
+                                          op.pctx)
     elif mixer in ("mamba", "ssm"):
         st = _dense_slot_gather(cache, op.dense[0])
         state = (st["conv"], st["ssm"])
@@ -223,8 +254,8 @@ def _decode_layer(cfg, mixer, ffn, p, x, cache, op: _Operands):
     else:
         raise NotImplementedError(f"mixer {mixer!r}")
     if ffn == "mlp":
-        h = apply_norm(cfg, p["norm2"], x)
-        x = x + mlp_apply(cfg, p["ffn"], h)
+        h = apply_norm(cfg, p["norm2"], x, op.pctx)
+        x = x + mlp_apply(cfg, p["ffn"], h, op.pctx)
     elif ffn == "moe":
         h = apply_norm(cfg, p["norm2"], x)
         x = x + moe_ffn(p["ffn"], h, cfg)
@@ -234,20 +265,25 @@ def _decode_layer(cfg, mixer, ffn, p, x, cache, op: _Operands):
 
 
 def _run(cfg: ModelConfig, params, arena, tokens, pos, n_valid, table,
-         slots, *, stride: int, decode: bool, all_logits: bool
-         ) -> torch.Tensor:
+         slots, *, stride: int, decode: bool, all_logits: bool,
+         pctx: Optional[ParallelContext] = None) -> torch.Tensor:
     B, L = tokens.shape
     G = cfg.n_groups()
     pattern = cfg.pattern()
-    x = _embed_decode(params["embed"], tokens, cfg.compute_dtype)
-    op = _Operands(stride=stride, n_valid=n_valid, decode=decode)
+    if pctx is not None and pctx.local:
+        pctx = None
+    x = _embed_decode(params["embed"], tokens, cfg.compute_dtype, pctx)
+    op = _Operands(stride=stride, n_valid=n_valid, decode=decode, pctx=pctx)
     if any(m == "attn" for m, _ in pattern):
         pos2 = (pos[:, None] + torch.arange(L, dtype=torch.int32,
                                             device=pos.device)[None, :])
         scratch = next(e["k"].shape[1] for e in arena if "k" in e) - 1
+        row, qrows = (0, 1) if pctx is None \
+            else (pctx.grid.my_coords()[0], pctx.q)
         op = op._replace(rope=rope_tables(pos2, cfg.hd(), cfg.rope_theta),
                          pos2=pos2, widx=_write_index(table, pos2, n_valid,
-                                                      stride, scratch),
+                                                      stride, scratch, row,
+                                                      qrows),
                          table=table)
     if any(m in ("mamba", "ssm") for m, _ in pattern):
         scratch = next(e["ssm"].shape[1] for e in arena if "ssm" in e) - 1
@@ -263,8 +299,8 @@ def _run(cfg: ModelConfig, params, arena, tokens, pos, n_valid, table,
         # lm_head (both pointwise over positions, so the gather commutes)
         idx = (n_valid - 1).clamp(0, L - 1).long()
         x = torch.gather(x, 1, idx[:, None, None].expand(B, 1, x.shape[-1]))
-    x = apply_norm(cfg, params["final_norm"], x)
-    return _last_logits(params["lm_head"], x)
+    x = apply_norm(cfg, params["final_norm"], x, pctx)
+    return _last_logits(params["lm_head"], x, pctx)
 
 
 # ---------------------------------------------------------------------------
@@ -275,7 +311,9 @@ def prefill_chunk_step(cfg: ModelConfig, params, arena, tokens: torch.Tensor,
                        pos: torch.Tensor, n_valid: torch.Tensor,
                        table: Optional[torch.Tensor] = None,
                        slots: Optional[torch.Tensor] = None, *, stride: int,
-                       all_logits: bool = False) -> torch.Tensor:
+                       all_logits: bool = False,
+                       pctx: Optional[ParallelContext] = None
+                       ) -> torch.Tensor:
     """The ``prefill_bs{N}_len{L}`` body: up to L tokens per slot per launch.
 
     tokens (B, L), pos (B,), n_valid (B,), table (B, T) when any layer
@@ -287,15 +325,16 @@ def prefill_chunk_step(cfg: ModelConfig, params, arena, tokens: torch.Tensor,
     prefix in one :func:`mamba_chunk_step`.  Returns fp32 logits
     ``(B, 1, Vpad)`` of each slot's last valid position, or ``(B, L, Vpad)``
     with ``all_logits`` (the speculative-verify variant).  ``arena`` is
-    updated in place."""
+    updated in place.  ``pctx`` runs it as one PE of a grid."""
     return _run(cfg, params, arena, tokens, pos, n_valid, table, slots,
-                stride=stride, decode=False, all_logits=all_logits)
+                stride=stride, decode=False, all_logits=all_logits,
+                pctx=pctx)
 
 
 def decode_step(cfg: ModelConfig, params, arena, tokens: torch.Tensor,
                 pos: torch.Tensor, table: Optional[torch.Tensor] = None,
-                slots: Optional[torch.Tensor] = None, *, stride: int
-                ) -> torch.Tensor:
+                slots: Optional[torch.Tensor] = None, *, stride: int,
+                pctx: Optional[ParallelContext] = None) -> torch.Tensor:
     """The ``serve_step_bs{N}`` body: every slot advances one position.
 
     tokens (B,), pos (B,), table (B, T) and/or slots (B,) int32 -> fp32
@@ -303,7 +342,60 @@ def decode_step(cfg: ModelConfig, params, arena, tokens: torch.Tensor,
     and write only scratch."""
     return _run(cfg, params, arena, tokens[:, None], pos,
                 torch.ones_like(pos), table, slots, stride=stride,
-                decode=True, all_logits=False)
+                decode=True, all_logits=False, pctx=pctx)
+
+
+class Message(NamedTuple):
+    """One collective's message in a grid step: its name, the bytes of the
+    block each PE puts, and how many puts of it each PE makes."""
+    what: str
+    nbytes: int
+    puts: int
+
+
+def grid_messages(cfg: ModelConfig, plan, batch: int, length: int, *,
+                  hq: int, kvh: int, all_logits: bool = False
+                  ) -> List[Message]:
+    """Every message one paged step puts into the heaps on ``plan``'s grid,
+    in the order the body sends them: ``batch`` slots of ``length``
+    positions (1 for a decode step), this PE's ``hq`` q heads and ``kvh``
+    kv heads.  A gemv2d is a transpose put (one put of the compute-dtype
+    input) and a row psum (q puts of the fp32 partial); a row or column
+    collective puts its block to each of the group's q or r members.  The
+    largest ``nbytes`` sizes the heap's slots, and ``n_pes * sum(nbytes *
+    puts)`` is the step's heap traffic, which the grid counts as
+    ``heap_bytes``."""
+    q, r = plan.grid_q, plan.grid_r
+    esz = torch.empty((), dtype=cfg.compute_dtype).element_size()
+    hd = cfg.hd()
+    D, F = cfg.d_model // r, cfg.d_ff // r
+    V = pad_to_multiple(cfg.vocab_size, q * r) // r
+    n = batch * length
+    stats = 2 if cfg.norm == "layernorm" else 1
+
+    def gemv(tag, k, n_out, rows=n):
+        return [Message(f"{tag} put", rows * k * esz, 1),
+                Message(f"{tag} psum_rows", rows * n_out * 4, q)]
+
+    out = [Message("embed psum_rows", n * D * esz, q)]
+    for mixer, ffn in cfg.pattern():
+        layer = [Message("norm1 psum_cols", n * stats * 4, r)]
+        layer += gemv("qkv", D, (hq + 2 * kvh) * hd)
+        layer += [Message("attn pmax_rows", batch * hq * length * 4, q),
+                  Message("attn psum_rows",
+                          batch * hq * length * (hd + 1) * 4, q)]
+        layer += gemv("wo", hq * hd, D)
+        if ffn == "mlp":
+            layer.append(Message("norm2 psum_cols", n * stats * 4, r))
+            layer += gemv("gate_up", D, (2 if cfg.act == "swiglu" else 1)
+                          * F)
+            layer += gemv("down", F, D)
+        out += layer * cfg.n_groups()
+    last = batch * (length if all_logits else 1)
+    out.append(Message("final psum_cols", last * stats * 4, r))
+    out += gemv("lm_head", D, V, rows=last)
+    out.append(Message("logits all_gather_cols", last * V * 4, r))
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -30,7 +30,9 @@ host-side ownership layer over that arena:
                  from, so occupancy-in-bytes tracks the real arena.
 
 Pure host code: no device tensors are touched here (a copy of
-``repro.serve.engine.block_cache`` with identical behaviour).
+``repro.serve.engine.block_cache`` with identical behaviour).  On a grid of
+PE processes the pool is the controller's (PE 0): page ids stay global,
+and each step body routes page ``p`` to grid row ``p % q``.
 """
 
 from __future__ import annotations
@@ -49,20 +51,27 @@ class PoolExhausted(Exception):
 @dataclasses.dataclass(frozen=True)
 class BlockLayout:
     """Device footprint of one KV page (``block_pos_stride`` positions of one
-    sequence, across all layer groups)."""
+    sequence, across all layer groups and the PEs that store it), and where
+    a page lives on a grid of ``q`` rows."""
 
     block_pos_stride: int
     bytes_per_block: int
+    q: int = 1                    # grid rows: page p on row p % q, at p // q
 
 
-def block_layout(specs, *, block_pos_stride: int) -> BlockLayout:
+def block_layout(specs, *, block_pos_stride: int, plan=None) -> BlockLayout:
     """Price one page from the engine's StateSpec list
     (:class:`repro_torch.serve.state.ModelStateSpecs`), the single source
     of truth for the arena's shapes.  Dense-state layers contribute zero
     page bytes: their residency is priced per slot
-    (:attr:`DenseSlotPool.slot_bytes`)."""
+    (:attr:`DenseSlotPool.slot_bytes`).  With a grid ``plan`` the specs
+    must be that grid's; a page then spans its row's r PEs."""
+    q = 1 if plan is None else plan.grid_q
+    if specs.q != q:
+        raise ValueError(f"state specs of {specs.q} grid rows priced for a "
+                         f"plan of {q}")
     return BlockLayout(block_pos_stride=block_pos_stride,
-                       bytes_per_block=specs.page_bytes())
+                       bytes_per_block=specs.page_bytes(), q=q)
 
 
 class BlockPool:

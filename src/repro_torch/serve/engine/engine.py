@@ -42,8 +42,18 @@ step, cancel, drain_to, restore_from — mutates scheduler, pool and arena
 state and runs on the one thread that drives the engine
 (:mod:`repro_torch.serve.service` runs all of them on its engine thread).
 
-This is ``repro.serve.engine.engine`` at q = r = 1 with the host logic
-unchanged.
+This is ``repro.serve.engine.engine`` with the host logic unchanged: on
+one device (q = r = 1), or as one PE of a ``q x r`` grid of PE processes
+(``plan`` and ``grid``; :mod:`repro_torch.serve.engine.grid` starts them).
+On a grid every PE builds the engine on its own blocks (``shard_params``)
+and its row's share of the arena, and PE 0 is the controller: it alone
+runs the scheduler, the block pool, the prefix cache and sampling.  For
+each step it broadcasts the step's kind, bucket, chunk length and host
+operands to the other PEs (:meth:`ServingEngine.follow` is their loop),
+every PE runs the step body, whose collectives put through the symmetric
+heap, and PE 0 reads the logits the body gathered.  Grid steps run eagerly
+(``CommandQueue``); speculation and the step guard stay on one device for
+now.
 """
 
 from __future__ import annotations
@@ -60,8 +70,10 @@ from repro_torch.core.hybrid import CommandQueue
 from repro_torch.device import resolve_device
 from repro_torch.kernels.paged_attention.kernel import \
     reserve_split_counters
-from repro_torch.models.params import init_params, stored_heads
-from repro_torch.serve.decode import PagedKV, decode_step, prefill_chunk_step
+from repro_torch.models.layers import ParallelContext
+from repro_torch.models.params import init_params, shard_params, stored_heads
+from repro_torch.serve.decode import (PagedKV, decode_step, grid_messages,
+                                      prefill_chunk_step)
 from repro_torch.serve.engine.block_cache import BlockPool, block_layout
 from repro_torch.serve.engine.request import (Request, RequestState,
                                               SamplingParams)
@@ -184,6 +196,7 @@ class Step:
     ops: Dict[str, Optional[torch.Tensor]]
     views: Dict[str, np.ndarray]
     rows: torch.Tensor            # fp32 logits rows on the host
+    key: Tuple[int, int, bool] = (0, 0, False)   # (bucket, chunk, verify)
 
     @classmethod
     def build(cls, queue: CommandQueue, name: str, body, params, arena,
@@ -211,12 +224,17 @@ class Step:
         for k, a in self.views.items():
             a.fill(-1 if k in ("table", "slots") else 0)
 
+    def launch(self, queue: CommandQueue, params, arena) -> torch.Tensor:
+        """Enqueue the step on its operands as filled; its logits on the
+        device."""
+        return queue.enqueue(self.name, self.body, params, arena,
+                             *self.ops.values())
+
     def run(self, queue: CommandQueue, params, arena) -> np.ndarray:
         """Enqueue the step on its operands as filled; return its logits
         rows on the host (only the real vocabulary crosses, into
         ``rows``; valid until the step's next run)."""
-        logits = queue.enqueue(self.name, self.body, params, arena,
-                               *self.ops.values())
+        logits = self.launch(queue, params, arena)
         n, vocab = self.rows.shape[1:]
         self.rows.copy_(logits[:, :n, :vocab], non_blocking=True)
         if queue.device.type == "cuda":
@@ -225,16 +243,33 @@ class Step:
 
 
 class ServingEngine:
-    """Batch-generate service over one device."""
+    """Batch-generate service over one device, or one PE's share of it on
+    a grid of PE processes (``plan`` and this process's ``grid``)."""
 
     def __init__(self, cfg, *, params=None,
-                 engine_cfg: Optional[EngineConfig] = None, seed: int = 0):
+                 engine_cfg: Optional[EngineConfig] = None, seed: int = 0,
+                 plan=None, grid=None):
         ec = engine_cfg or EngineConfig()
         if ec.s_max % ec.block_pos_stride:
             raise ValueError(
                 f"s_max={ec.s_max} must be a multiple of "
                 f"block_pos_stride={ec.block_pos_stride}")
-        self.device = resolve_device(ec.device)
+        self.plan = plan
+        self.grid = None
+        if plan is not None and plan.n_pes > 1:
+            if grid is None or (grid.q, grid.r) != (plan.grid_q,
+                                                    plan.grid_r):
+                raise ValueError(
+                    f"a {plan.grid_q}x{plan.grid_r} engine runs in each PE "
+                    f"process of its grid, on that PE's PeGrid "
+                    f"(repro_torch.serve.engine.grid.serve_on_grid)")
+            self._refuse_on_grid(cfg, ec)
+            self.grid = grid
+            self.device = grid.device
+        else:
+            self.device = resolve_device(ec.device)
+        self.pctx = ParallelContext(self.grid, compute_dtype=cfg
+                                    .compute_dtype) if self.grid else None
         self.cfg, self.engine_cfg = cfg, ec
 
         blocks_per_seq = ec.s_max // ec.block_pos_stride
@@ -249,6 +284,8 @@ class ServingEngine:
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = init_params(cfg, generator=gen, device=self.device)
+            if self.grid is not None:
+                params = shard_params(params, cfg, plan, self.grid.pe)
         self.params = params
         # head geometry comes from the weights (native r=1, or the r=4
         # storage of weights carried over from the JAX engine).  The
@@ -257,12 +294,13 @@ class ServingEngine:
         # rule below derives from it.
         hq, kvh = stored_heads(params, cfg)
         self.state_specs = layer_state_specs(
-            cfg, stride=ec.block_pos_stride, kvh=kvh)
+            cfg, plan, stride=ec.block_pos_stride, kvh=kvh)
 
         self.pool = BlockPool(self.paged.n_blocks, self.paged.block_pos_stride,
                               layout=block_layout(
                                   self.state_specs,
-                                  block_pos_stride=ec.block_pos_stride),
+                                  block_pos_stride=ec.block_pos_stride,
+                                  plan=plan),
                               prefix_cache=ec.prefix_cache)
         self.store = StateStore(self.state_specs,
                                 n_blocks=self.paged.n_blocks,
@@ -272,8 +310,18 @@ class ServingEngine:
         self.scheduler = Scheduler(self.pool, SchedulerConfig(ec.buckets),
                                    state=self.store)
 
-        self.queue = CommandQueue(self.device)
+        self.queue = CommandQueue(self.device, grid=self.grid)
         self._heads = (hq, kvh)
+        # the heap's slots hold the largest message of any step this engine
+        # can run, fixed before the first step; every step's log on a grid
+        self.heap_slot_bytes = self.heap_bytes = 0
+        self.grid_log = []
+        if self.grid is not None:
+            self.heap_slot_bytes = max(
+                m.nbytes for L in (1,) + self._chunks
+                for m in grid_messages(cfg, plan, ec.buckets[-1], L,
+                                       hq=hq, kvh=kvh))
+            self.heap_bytes = self.grid.reserve(self.heap_slot_bytes)
         self.reserve_split_counters((1,) + self._chunks)
         # step cache keyed by (bucket, L, verify): L=0 is the one-position
         # decode step, L>0 a chunked-prefill step from the ladder or, with
@@ -393,9 +441,12 @@ class ServingEngine:
             shapes["table"] = (bucket, self._table_width) \
                 if self.store.needs_pages else None
             shapes["slots"] = (bucket,) if self.store.has_dense else None
+            if self.pctx is not None:
+                body = functools.partial(body, pctx=self.pctx)
             step = Step.build(self.queue, name, body, self.params,
                               self.store.arena, shapes,
                               (bucket, rows, self.cfg.vocab_size))
+            step.key = key
             self._kernels[key] = step
         return step
 
@@ -507,7 +558,7 @@ class ServingEngine:
                 slots[s] = r.dense_slot
         if inj is not None:
             inj.fire("launch")
-        rows = step.run(self.queue, self.params, self.store.arena)
+        rows = self._run_step(step)
         if inj is not None:
             inj.fire("device")      # the enqueue "happened"; stats below
             #                         only count steps that got this far
@@ -519,6 +570,85 @@ class ServingEngine:
         else:
             self.stats.decode_launches += 1
         return rows[:, 0], fed
+
+    # -- the grid: controller and followers ----------------------------------
+
+    @staticmethod
+    def _refuse_on_grid(cfg, ec: EngineConfig) -> None:
+        """What a grid engine does not run yet (ROADMAP.md queues each)."""
+        if any(m != "attn" or f not in ("mlp", "none")
+               for m, f in cfg.pattern()):
+            raise NotImplementedError(
+                f"{cfg.name}: only attention-and-MLP models serve on a PE "
+                f"grid so far (SSM and MoE layers come with later slices)")
+        if ec.speculation is not None or ec.fault_injector is not None \
+                or ec.resilience is not None:
+            raise NotImplementedError(
+                "speculation and the step guard run on one device only")
+
+    def _run_step(self, step: Step) -> np.ndarray:
+        """Run one step: on a grid PE 0 first tells the followers which
+        step and its operands, and every PE's step is logged."""
+        if self.grid is None:
+            return step.run(self.queue, self.params, self.store.arena)
+        self._grid_header(1, step.key)
+        flat = self._grid_operands(step)
+        self.grid.comm.broadcast(flat, 0)
+        return self._grid_run(step, lambda: step.run(
+            self.queue, self.params, self.store.arena))
+
+    def _grid_header(self, kind: int, key=(0, 0, False)) -> None:
+        self.grid.comm.broadcast(torch.tensor(
+            [kind, key[0], key[1], int(key[2])], dtype=torch.int64), 0)
+
+    @staticmethod
+    def _grid_operands(step: Step) -> torch.Tensor:
+        """The step's host operands packed into one int32 vector."""
+        return torch.cat([t.reshape(-1) for t in step.ops.values()
+                          if t is not None])
+
+    def _grid_run(self, step: Step, run):
+        """``run()`` with this PE's grid counters and wall logged."""
+        before = self.grid.counters()
+        t0 = time.perf_counter()
+        out = run()
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        after = self.grid.counters()
+        self.grid_log.append(dict(
+            name=step.name, wall_s=time.perf_counter() - t0,
+            **{k: after[k] - before[k] for k in after}))
+        return out
+
+    def follow(self) -> int:
+        """A follower's loop (every PE but 0): take each step PE 0
+        announces, fill its operands, run its body, until PE 0 releases the
+        grid (:meth:`release_followers`).  Returns the steps run."""
+        if self.grid is None or self.grid.pe == 0:
+            raise RuntimeError("follow() runs on the PEs after the first")
+        n = 0
+        while True:
+            header = torch.zeros(4, dtype=torch.int64)
+            self.grid.comm.broadcast(header, 0)
+            kind, bucket, chunk, verify = header.tolist()
+            if kind == 0:
+                return n
+            step = self._kernel(bucket, chunk or None, bool(verify))
+            flat = self._grid_operands(step)
+            self.grid.comm.broadcast(flat, 0)
+            at = 0
+            for t in step.ops.values():
+                if t is not None:
+                    t.view(-1).copy_(flat[at:at + t.numel()])
+                    at += t.numel()
+            self._grid_run(step, lambda: step.launch(
+                self.queue, self.params, self.store.arena))
+            n += 1
+
+    def release_followers(self) -> None:
+        """PE 0: end every follower's :meth:`follow` loop."""
+        if self.grid is not None and self.grid.pe == 0:
+            self._grid_header(0)
 
     def _count_launch(self) -> None:
         """A step was enqueued: count it and the pools' high-water

@@ -72,11 +72,13 @@ class StateStore:
         # zeroed or snapshot-restored at admission — recurrent state has no
         # mask.  Each leaf has one scratch page or slot row past the pool
         # (index n_blocks, n_slots), which takes the writes the step bodies
-        # drop (repro_torch.serve.decode); the pools never hand it out.
+        # drop (repro_torch.serve.decode); the pools never hand it out.  On
+        # a grid of PE processes a PE's paged leaves hold its row's
+        # ceil(n_blocks / q) pages, then the scratch page.
         self.arena = [{name: torch.zeros(shape, dtype=dt, device=device)
                        for name, (shape, dt) in entry.items()}
                       for entry in specs.arena_shapes(
-                          n_blocks + 1,
+                          specs.blocks_local(n_blocks) + 1,
                           (n_slots if specs.has_dense else 1) + 1)]
         self.slot_pool: Optional[DenseSlotPool] = DenseSlotPool(
             n_slots, slot_bytes=specs.dense_slot_bytes()) \

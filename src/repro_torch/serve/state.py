@@ -2,8 +2,12 @@
 
 The single source of truth for the device shapes of the engine's resident
 state arena, the step operands derived from it, and its bytes-resident
-accounting — ``repro.serve.state`` at q = r = 1.  Two state kinds cover
-every mixer the port serves:
+accounting — ``repro.serve.state``: on one device, or, given a grid plan,
+on one PE of a grid of PE processes, where a PE holds its grid column's
+share of the kv heads (``kv_stored(r) // r``) and physical page ``p`` lives
+on grid row ``p % q`` at local index ``p // q``, so a PE's paged leaves
+hold ``ceil(n_blocks / q)`` pages.  Two state kinds cover every mixer the
+port serves:
 
   :class:`PagedSpec`  — attention: K/V grow with sequence length, so they
       are split into physical pages addressed through per-slot block
@@ -37,9 +41,10 @@ class PagedSpec:
     """Attention-mixer state: K/V pages addressed through a block table.
 
     The arena leaf for one layer position is
-    ``(G, n_blocks, stride, kvh, hd)``: one grid row owns every page."""
+    ``(G, n_blocks_local, stride, kvh, hd)``: on one device every page, on
+    a grid the pages of this PE's row."""
 
-    kvh: int                      # stored kv heads
+    kvh: int                      # stored kv heads (this PE's share)
     hd: int                       # head dim
     stride: int                   # cache positions per physical page
     dtype: Any = torch.bfloat16
@@ -85,6 +90,8 @@ class ModelStateSpecs:
 
     entries: Tuple[StateSpec, ...]     # one per pattern position
     groups: int                        # layer groups (leading arena dim)
+    q: int = 1                         # grid rows (page id space shards)
+    r: int = 1                         # grid cols (head shards)
 
     @property
     def has_paged(self) -> bool:
@@ -100,6 +107,10 @@ class ModelStateSpecs:
             if isinstance(e, PagedSpec):
                 return e.stride
         raise ValueError("no paged layer: stride is undefined")
+
+    def blocks_local(self, n_blocks: int) -> int:
+        """Pages a PE holds of a pool of ``n_blocks`` (rows shard them)."""
+        return -(-n_blocks // self.q)
 
     def arena_shapes(self, n_blocks: int, n_slots: int = 1
                      ) -> List[Dict[str, Tuple]]:
@@ -117,8 +128,10 @@ class ModelStateSpecs:
         return out
 
     def page_bytes(self) -> int:
-        """Device bytes of ONE physical page across all paged layers."""
-        return sum(self.groups * _nbytes(shape, dt)
+        """Device bytes of ONE physical page across all paged layers (on a
+        grid a page lives on one row, its heads spread over the r
+        columns)."""
+        return sum(self.groups * self.r * _nbytes(shape, dt)
                    for e in self.entries if isinstance(e, PagedSpec)
                    for shape, dt in e.leaves.values())
 
@@ -129,14 +142,18 @@ class ModelStateSpecs:
                    for _, shape, dt in e.leaves)
 
 
-def layer_state_specs(cfg: ModelConfig, *, stride: int,
+def layer_state_specs(cfg: ModelConfig, plan=None, *, stride: int,
                       kvh: Optional[int] = None) -> ModelStateSpecs:
     """Derive the per-layer state contract from ``ModelConfig.pattern()``:
     ``attn`` -> :class:`PagedSpec`, ``mamba``/``ssm`` -> :class:`DenseSpec`.
 
     ``kvh`` is the stored kv-head count of the weights being served (see
     :func:`repro_torch.models.params.stored_heads`); it defaults to the
-    config's native count.  An encoder-decoder model has no spec: its
+    config's native count.  With a grid ``plan`` (a
+    :class:`repro_torch.partition.MeshPlan`) the specs are one PE's:
+    ``kvh = kv_stored(r)[0] // r``, as the JAX grid stores them, and only
+    attention layers (the SSM on the grid comes later).  An
+    encoder-decoder model has no spec: its
     cross caches are per request and sequence-shaped, neither pages nor
     O(1) slots, so it serves through the fixed-batch path
     (``serve/decode.py::make_decode_step``), as in the JAX package."""
@@ -144,6 +161,14 @@ def layer_state_specs(cfg: ModelConfig, *, stride: int,
         raise NotImplementedError(
             "engine state specs: encoder cross caches are not paged or "
             "O(1)-dense; serve encdec models through the fixed-batch path")
+    q = r = 1
+    if plan is not None and plan.n_pes > 1:
+        q, r = plan.grid_q, plan.grid_r
+        kvh = cfg.kv_stored(r)[0] // r
+        if any(m != "attn" for m, _ in cfg.pattern()):
+            raise NotImplementedError(
+                f"{cfg.name}: dense-state (SSM) layers on a PE grid come "
+                f"with a later slice (ROADMAP.md)")
     entries: List[StateSpec] = []
     for (mixer, _) in cfg.pattern():
         if mixer == "attn":
@@ -155,4 +180,5 @@ def layer_state_specs(cfg: ModelConfig, *, stride: int,
         else:
             raise NotImplementedError(
                 f"no StateSpec mapping for mixer {mixer!r}")
-    return ModelStateSpecs(entries=tuple(entries), groups=cfg.n_groups())
+    return ModelStateSpecs(entries=tuple(entries), groups=cfg.n_groups(),
+                           q=q, r=r)

@@ -3,8 +3,10 @@ paged attention, the two SSD-scan passes and their fused launch, the
 cannon_mm matmul (forward, backward, and one emulated Cannon call), flash
 attention and the grouped GEMM of the MoE experts with its backward
 (dgrad, wgrad, the autograd functions); the forward-only ops' refusal of
-inputs that require grad; and each library's first launch on a fresh
-thread of a fresh process, equal to the main thread's.
+inputs that require grad; each library's first launch on a fresh
+thread of a fresh process, equal to the main thread's; the symmetric
+heap's put and reduce_slots, and every PeGrid collective on four PE
+processes of the card against the same grid on the CPU.
 
 Needs a CUDA card and nvcc; skips without a card.  The file imports no
 JAX, so on a machine without it run it past the suite's conftest:
@@ -1481,7 +1483,8 @@ def test_every_library_launches_first_on_a_fresh_thread():
     engine's thread), launches and gives the main thread's bits
     (``repro_torch.launch.fresh_thread``: paged attention, the three SSD
     entry points, cannon_mm bf16 and fp32, flash attention, the grouped
-    GEMM with and without its epilogue, dgrad and wgrad)."""
+    GEMM with and without its epilogue, dgrad and wgrad, the symmetric
+    heap)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from repro_torch.launch.fresh_thread import CASES, run_all
@@ -1489,3 +1492,77 @@ def test_every_library_launches_first_on_a_fresh_thread():
     assert [r["case"] for r in rows] == list(CASES)
     bad = [r for r in rows if not r["ok"]]
     assert not bad, bad
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_heap_kernels_match_plain(dtype):
+    """The symmetric heap's put and reduce_slots against their plain
+    versions on one heap of this process: bytes equal, and sums and maxes
+    over 1, 2 and 3 slots bit for bit (both add in slot order in fp32), at
+    small sizes and at 3000001 elements, where the kernels' grid-stride
+    loops run many passes (the launch covers 270336 threads)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.shmem_heap import (CudaHeap, shmem_put_ref,
+                                                shmem_reduce_slots_ref)
+    from repro_torch.kernels.shmem_heap.kernel import (
+        shmem_put_cuda, shmem_reduce_slots_cuda)
+    heap = CudaHeap(0, 1, 1 << 26, torch.device("cuda", 0))
+    heap.open_peers([heap.handle])
+    try:
+        g = torch.Generator(device="cuda").manual_seed(3)
+        for numel, off in ((4096, 0), (999, 4096 + 5), (3000001, 0),
+                           (3000001, 7)):
+            src = torch.randn(numel, generator=g, device="cuda").to(dtype)
+            heap.views[0].fill_(0xA5)
+            shmem_put_cuda(heap, src, 0, off)
+            torch.cuda.synchronize()
+            raw = src.view(torch.uint8)
+            assert torch.equal(heap.views[0][off:off + raw.numel()], raw)
+        stride = 1 << 24
+        for numel in (5000, 3000001):
+            for k in range(3):
+                shmem_put_ref(heap, torch.randn(numel, generator=g,
+                                                device="cuda").to(dtype),
+                              0, k * stride)
+            for out in (torch.float32, torch.bfloat16):
+                for op in ("sum", "max"):
+                    for n in (1, 2, 3):
+                        got = shmem_reduce_slots_cuda(
+                            heap, 0, stride, n, (numel,), dtype, out, op)
+                        want = shmem_reduce_slots_ref(
+                            heap, 0, stride, n, (numel,), dtype, out, op)
+                        assert torch.equal(got, want), (numel, out, op, n)
+    finally:
+        heap.close_peers()
+        heap.free()
+
+
+@pytest.mark.gpu
+def test_cuda_pe_grid_matches_the_cpu_grid():
+    """Every PeGrid collective on four PE processes of the card (heaps over
+    CUDA IPC) against the same four PEs on the CPU: permutations and
+    gathers equal, sums within fp32 rel 1e-6."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.core.pe_grid import probe_collectives
+    from repro_torch.partition import grid_plan
+    from repro_torch.runtime.pe import run_pes
+    rng = np.random.default_rng(4)
+    inputs = {"x": rng.standard_normal((4, 4, 6)).astype(np.float32),
+              "vec": rng.standard_normal((4, 3, 8)).astype(np.float32),
+              "w": rng.standard_normal((4, 8, 5)).astype(np.float32)}
+    card = run_pes(probe_collectives, grid_plan(2, 2), args=(inputs,),
+                   device="cuda", timeout=120)
+    host = run_pes(probe_collectives, grid_plan(2, 2), args=(inputs,),
+                   device="cpu", timeout=120)
+    for pe in range(4):
+        for op, want in host[pe].items():
+            if op in ("psum_rows", "psum_cols", "reduce_scatter_rows",
+                      "gemv2d"):
+                np.testing.assert_allclose(card[pe][op], want, rtol=1e-6,
+                                           atol=1e-6, err_msg=op)
+            else:
+                np.testing.assert_array_equal(card[pe][op], want,
+                                              err_msg=op)

@@ -45,7 +45,11 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
             "repro_torch.launch.train", "repro_torch.tree",
             "repro_torch.launch.fresh_thread",
             "repro_torch.configs.whisper_base",
-            "repro_torch.configs.pixtral_12b"} <= set(mods)
+            "repro_torch.configs.pixtral_12b",
+            "repro_torch.partition", "repro_torch.core.pe_grid",
+            "repro_torch.runtime.pe", "repro_torch.kernels.shmem_heap.kernel",
+            "repro_torch.kernels.shmem_heap.ref",
+            "repro_torch.serve.engine.grid"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -151,3 +155,33 @@ def test_moe_archs_resolve_and_serve_reduced_on_the_cpu(name):
     outs = generate(eng, [[1, 2, 3], list(range(4, 15))],
                     SamplingParams(max_tokens=3))
     assert [len(c.tokens) for c in outs] == [3, 3]
+
+
+def test_pe_grid_on_the_card_needs_cuda():
+    """A grid of PE processes runs on the card unless asked for the CPU,
+    and raises before it spawns anything when there is no card."""
+    from repro_torch.core.pe_grid import probe_collectives
+    from repro_torch.partition import grid_plan
+    from repro_torch.runtime.pe import run_pes
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_pes(probe_collectives, grid_plan(2, 2), args=({},))
+
+
+def test_one_by_one_plan_is_the_one_device_engine():
+    """A 1x1 plan spawns nothing, reserves no heap, and serves the one-device
+    engine's tokens; its queue would capture on the card."""
+    from repro_torch.partition import grid_plan
+    cfg = reduced(get_config("qwen2-0.5b"))
+    ec = EngineConfig(s_max=32, buckets=(1, 2), block_pos_stride=4,
+                      device="cpu")
+    prompts = [[1, 2, 3], list(range(4, 15))]
+    outs = []
+    for plan in (None, grid_plan(1, 1)):
+        eng = ServingEngine(cfg, engine_cfg=ec, plan=plan)
+        assert eng.grid is None and eng.pctx is None
+        assert eng.heap_bytes == 0 and eng.queue.eager_reason is None
+        outs.append([c.tokens for c in generate(
+            eng, prompts, SamplingParams(max_tokens=4))])
+    assert outs[0] == outs[1]
