@@ -145,12 +145,14 @@ Phases, in order; any failure raises and the script exits non-zero:
 13. supervisor: the crash-safe ReplicaSupervisor on qwen2-0.5b and
    mamba2-780m at full width, its workers spawned processes on this card
    that load the kernels phase 2 built, the parent holding no engine
-   while they run: an fp32 pass and a bf16 pass, each with two
-   ``kill_replica`` calls at fixed token counts and, between them, one
+   while they run: a pass in fp32 and one in bf16 of each, each pass
+   with the failure SUPERVISED names at a fixed token count: in fp32 one
    corrupted checkpoint followed by an injected ``process_kill`` (the
-   restore falls back to the previous good checkpoint).  Gates: every
+   restore falls back to the previous good checkpoint), in bf16 a
+   ``kill_replica`` call.  Gates: every
    stream ends "length" with 32 tokens, none duplicated or dropped, the
-   last worker holds no page, slot or request, three failovers, no
+   last worker holds no page, slot or request, one failover for each
+   failure and the corrupted checkpoint seen where one was injected, no
    watchdog trip, each worker's own kernel counts (``("stats",)``) as in
    phase 6 with the plain versions at 0 and nothing built; in fp32 the
    streams equal an in-process uninterrupted run's tokens exactly and no
@@ -166,23 +168,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    collective's slots in fp32) against their plain versions on a heap of
    this process, bit for bit, at ragged edges and at qwen2-0.5b's gate|up
    message of a decode step and of a len256 chunk (fp32 and bf16), and
-   timed at those messages against the plain version,
-   ``Tensor.copy_`` / ``torch.sum`` and the bytes bound; then qwen2-0.5b
-   at full width and depth (24 layers) on a 2x2 grid of four PE processes
-   on this card (``serve/engine/grid.py``: spawned, heaps mapped through
-   CUDA IPC, barriers over gloo, every step eager), the engine's prompts
-   and 32 greedy tokens in fp32 and in bf16 (served twice under
-   torch.profiler, the second pass timed), beside the 1x1 engine on the
-   same seed-0 weights, after the parts of one collective are timed.  Gates: four PEs on CUDA with CUDA-IPC heaps and gloo,
-   no plain version, paged attention on every layer of every step of
-   every PE at ``qrows`` 2, the heap kernels' launches as the steps'
-   puts and reductions imply, fp32 tokens equal to the 1x1 engine's, bf16
-   first-step logits within GRID_BF16_TOL of the 1x1 engine's (the
-   agreeing tokens printed), every step's heap bytes equal to the count reckoned
-   from the shapes, and the phase under 150 s.  Printed: the heap's size,
-   wall per step, collectives per step, barrier-wait share per PE, heap
-   bytes per step, device busy per PE and step, tokens/s against the 1x1
-   engine;
+   timed at those messages (CUDA events and the profiler's device time)
+   against the plain version, ``Tensor.copy_`` / ``torch.sum`` and the
+   bytes bound; then, in one spawn of four PE processes on this card
+   (``serve/engine/grid.py``: heaps mapped through CUDA IPC, barriers on
+   the host, steps broadcast over gloo, every step eager), after the parts
+   of one collective are timed, four prompts ([5, 40, 100, 300], 16
+   greedy tokens) on qwen2-0.5b (24 layers), mamba2-780m (48 layers)
+   and qwen3-moe (full width, 2 of 94 layers, capacity_factor 4 =
+   n_pes), each in fp32 and in bf16 (served twice under torch.profiler,
+   the second pass timed), and qwen2-0.5b and mamba2-780m in bf16 at
+   their first 1 and 2 layers, beside the 1x1 engine on the same seed-0
+   weights; qwen3-moe in
+   bf16 at its capacity_factor 1.25 (the share of dropped pairs); the
+   reduced jamba in fp32 at capacity_factor 4.
+   Gates: four PEs on CUDA with CUDA-IPC heaps and gloo, no plain
+   version, on every PE paged attention on every attention layer of
+   every step at ``qrows`` 2, the fused SSD scan (bf16) or its two simt
+   passes (fp32) on every mamba layer of every chunk step, both grouped
+   GEMMs on every MoE layer of every step, the heap kernels' launches as
+   the steps' puts and reductions imply, fp32 tokens equal to the 1x1
+   engine's, bf16 first-step logits within GRID_BF16_TOL of the 1x1
+   engine's per job, every step's heap bytes equal to the count
+   reckoned from the shapes, nothing dropped at capacity_factor 4, and
+   the phase under GRID_PHASE_S.  Printed per job: the heap's size, wall
+   per step, collectives per step, barrier-wait share per PE, heap bytes
+   per step, device busy per PE and step, tokens/s against the 1x1
+   engine, the dense-slot commands PE 0 sent, the MoE pairs dropped;
 15. the engine at full width on an MoE model, last and after the cache is
    emptied — qwen3-moe-235b-a22b at the repo config's full width (d_model
    4096, 64 q heads over 4 kv heads, hd 64, qk_norm, 128 experts top-8 of
@@ -271,8 +283,9 @@ kernels:
   card's name and power limit;
 * train_resume — ``python -m repro_torch.launch.train --arch qwen2-0.5b
   --full --layers 4 --steps 6 --ckpt-every 3`` (deterministic algorithms
-  on) run straight, then stopped by a fault drill at step 4 past its retry
-  budget and started again from the step-2 checkpoint: the resumed steps
+  on) run straight and, beside it, stopped by a fault drill at step 4 past
+  its retry budget, then started again from the step-2 checkpoint: the
+  resumed steps
   give the straight run's losses bit for bit;
 * dryrun — ``python -m repro_torch.launch.dryrun --all`` in the
   background (the 40 arch x shape cells counted on the meta device,
@@ -405,11 +418,16 @@ def make_case(rng, *, B, L, hd, Hq, kvh, stride, s_max, dtype,
     q_pos = (torch.tensor(start, dtype=torch.int32)[:, None]
              + torch.arange(L, dtype=torch.int32)[None, :])
     q = torch.from_numpy(rng.standard_normal((B, Hq, L, hd), "float32"))
-    arenas = [[(torch.from_numpy(rng.standard_normal(
-                  (n_loc, stride, kvh, hd), "float32")).to("cuda", dtype),
-                torch.from_numpy(rng.standard_normal(
-                    (n_loc, stride, kvh, hd), "float32")).to("cuda", dtype))
-               for _ in range(qrows)] for _ in range(layers)]
+    # the arenas are drawn on the card, from a generator seeded by ``rng``:
+    # on the host, 40 layers' arenas at stablelm-12b's geometry take tens
+    # of seconds a case
+    gen = torch.Generator("cuda").manual_seed(int(rng.integers(2 ** 62)))
+
+    def arena():
+        return torch.randn((n_loc, stride, kvh, hd), generator=gen,
+                           device="cuda").to(dtype)
+    arenas = [[(arena(), arena()) for _ in range(qrows)]
+              for _ in range(layers)]
     return dict(q=q.to("cuda", dtype), arenas=arenas,
                 table=torch.from_numpy(table).cuda(), q_pos=q_pos.cuda(),
                 stride=stride, qrows=qrows)
@@ -2223,9 +2241,9 @@ def phase_train_profile(run, prof, walls, losses, n_moe):
     return row
 
 
-def train_run(args, ckpt_dir, label):
-    """launch/train.py as a subprocess: (return code, {step: loss},
-    summary or None, wall seconds)."""
+def train_proc(args, ckpt_dir):
+    """launch/train.py as a subprocess: (its completed process, wall
+    seconds)."""
     cmd = [sys.executable, "-m", "repro_torch.launch.train", *args,
            "--ckpt-dir", str(ckpt_dir)]
     env = dict(os.environ, PYTHONPATH=str(SRC),
@@ -2233,7 +2251,13 @@ def train_run(args, ckpt_dir, label):
     t0 = time.perf_counter()
     res = subprocess.run(cmd, capture_output=True, text=True, env=env,
                          cwd=str(ROOT), timeout=600)
-    wall = time.perf_counter() - t0
+    return res, time.perf_counter() - t0
+
+
+def train_run(label, proc):
+    """One ``train_proc`` read: (return code, {step: loss}, summary or
+    None, wall seconds)."""
+    res, wall = proc
     losses, summary = {}, None
     for line in res.stdout.splitlines():
         if line.startswith("{"):
@@ -2251,23 +2275,30 @@ def train_run(args, ckpt_dir, label):
 def phase_train_resume():
     """``python -m repro_torch.launch.train --arch qwen2-0.5b --full
     --layers 4 --steps 6 --ckpt-every 3`` (deterministic algorithms on),
-    run straight; then run with its step 4 (0-based) failing past the
-    retry budget, which stops it after steps 0-3 with the checkpoint of
-    step 2; then started again, resuming from that checkpoint.  The
+    run straight and, beside it, with its step 4 (0-based) failing past
+    the retry budget, which stops it after steps 0-3 with the checkpoint
+    of step 2; then started again, resuming from that checkpoint.  The
     resumed steps 3-5 must give the straight run's losses bit for bit."""
     base = ["--arch", "qwen2-0.5b", "--full", "--layers", "4", "--steps",
             "6", "--ckpt-every", "3", "--log-every", "1", "--deterministic"]
     root = ROOT / "build" / "smoke_train_ckpt"
     shutil.rmtree(root, ignore_errors=True)
-    rc, straight, _, _ = train_run(base, root / "straight", "straight")
+    # the straight run and the drill share nothing: side by side (each
+    # process's start is most of its wall)
+    with ThreadPoolExecutor(2) as ex:
+        both = [ex.submit(train_proc, base, root / "straight"),
+                ex.submit(train_proc, base + ["--fail-at-step", "4"],
+                          root / "resumed")]
+        both = [f.result() for f in both]
+    rc, straight, _, _ = train_run("straight", both[0])
     check(rc == 0 and sorted(straight) == list(range(6)),
           f"train_resume: the straight run failed ({rc}): {straight}")
-    rc, failed, _, _ = train_run(base + ["--fail-at-step", "4"],
-                                 root / "resumed", "failed at step 4")
+    rc, failed, _, _ = train_run("failed at step 4", both[1])
     check(rc != 0 and sorted(failed) == [0, 1, 2, 3],
           f"train_resume: the drill did not stop after step 3 ({rc}): "
           f"{failed}")
-    rc, resumed, summary, _ = train_run(base, root / "resumed", "resumed")
+    rc, resumed, summary, _ = train_run("resumed", train_proc(
+        base, root / "resumed"))
     check(rc == 0 and summary and summary["start_step"] == 3
           and sorted(resumed) == [3, 4, 5],
           f"train_resume: the resumed run ({rc}) did not run steps 3-5 "
@@ -4102,8 +4133,9 @@ def counting_supervisor():
     return Counting
 
 
-SUP_KILLS = (48, 176)         # kill_replica at these delivered-token counts
-SUP_ARM = 112                 # arm the corrupt + process_kill pair here
+# the i-th failure of a supervised pass comes once SUP_AT[i] tokens are
+# delivered (and the i-th worker is up)
+SUP_AT = (48, 112, 176)
 SUP_TIMEOUT_S = 600.0         # one supervised pass, worker starts included
 
 
@@ -4135,18 +4167,18 @@ def child_launch_gate(label, cfg, st):
     return got
 
 
-def supervised_pass(arch, dtype, workdir):
+def supervised_pass(arch, dtype, workdir, failures):
     """One supervised run of the mixed lengths (32 greedy tokens each) on
     ``arch`` at full width in ``dtype``, against an in-process
     ``spec.build()`` engine's uninterrupted run, which the parent drops
-    before any worker spawns.  The schedule: ``kill_replica`` at
-    SUP_KILLS[0] delivered tokens; at SUP_ARM the ArmedInjector is armed
-    (the next checkpoint is corrupted, the worker dies at its next step);
-    ``kill_replica`` again at SUP_KILLS[1].  Gates: every stream ends
-    "length" with 32 tokens and its completion equals what it streamed
-    (zero duplicated, zero dropped), the last worker holds no page, slot
-    or request (zero leaked), three failovers with the corrupted
-    checkpoint seen, no watchdog trip, each child's kernel counts
+    before any worker spawns.  ``failures`` is the schedule, failure i at
+    SUP_AT[i] delivered tokens: "kill" a ``kill_replica`` call, "inject"
+    the ArmedInjector armed (the next checkpoint is corrupted, the worker
+    dies at its next step).  Gates: every stream ends "length" with 32
+    tokens and its completion equals what it streamed (zero duplicated,
+    zero dropped), the last worker holds no page, slot or request (zero
+    leaked), one failover a failure with the corrupted checkpoint seen
+    where one was injected, no watchdog trip, each child's kernel counts
     (``child_launch_gate``); in fp32 the streams equal the uninterrupted
     tokens exactly and no replayed token diverges.  Returns the pass's
     record and the children's launches."""
@@ -4205,18 +4237,16 @@ def supervised_pass(arch, dtype, workdir):
                     await asyncio.sleep(0.005)
 
             async def killer():
-                await until(SUP_KILLS[0], 1)
-                snaps.append(await sup.replica_stats())
-                kills.append(("kill_replica", time.time(), delivered()))
-                await sup.kill_replica()
-                await until(SUP_ARM, 2)
-                snaps.append(await sup.replica_stats())
-                kills.append(("injected", None, delivered()))
-                open(arm, "w").close()
-                await until(SUP_KILLS[1], 3)
-                snaps.append(await sup.replica_stats())
-                kills.append(("kill_replica", time.time(), delivered()))
-                await sup.kill_replica()
+                for i, failure in enumerate(failures):
+                    await until(SUP_AT[i], i + 1)
+                    snaps.append(await sup.replica_stats())
+                    if failure == "kill":
+                        kills.append(("kill_replica", time.time(),
+                                      delivered()))
+                        await sup.kill_replica()
+                    else:
+                        kills.append(("injected", None, delivered()))
+                        open(arm, "w").close()
 
             tasks = [asyncio.create_task(consume(s)) for s in streams]
             await asyncio.wait_for(asyncio.gather(killer(), *tasks),
@@ -4249,9 +4279,11 @@ def supervised_pass(arch, dtype, workdir):
     check(last["pool_free"] == last["pool_blocks"]
           and last["dense_slots_used"] == 0 and last["live_requests"] == 0,
           f"{label}: the last worker leaked: {last}")
-    check(sup.n_failovers == 3 and sup.n_spawns == 4,
-          f"{label}: {sup.n_failovers} failovers, {sup.n_spawns} spawns")
-    check(sup.n_ckpt_corruptions == 1,
+    check(sup.n_failovers == len(failures)
+          and sup.n_spawns == len(failures) + 1,
+          f"{label}: {sup.n_failovers} failovers, {sup.n_spawns} spawns "
+          f"for the failures {failures}")
+    check(sup.n_ckpt_corruptions == failures.count("inject"),
           f"{label}: {sup.n_ckpt_corruptions} corrupted checkpoints seen")
     check(not any("watchdog" in f["reason"] for f in sup.failovers),
           f"{label}: the watchdog tripped with no stall injected")
@@ -4290,7 +4322,8 @@ def supervised_pass(arch, dtype, workdir):
         hold_tokens(label, prompts, want, streamed)
         check(not sup.divergences, f"{label}: replayed tokens diverged at "
               f"{sup.divergences}")
-    row = dict(config=cfg.name, dtype=dname(dtype), wall_s=wall,
+    row = dict(config=cfg.name, dtype=dname(dtype), failures=failures,
+               wall_s=wall,
                reference_s=ref_s, failovers=failovers,
                incarnations=len(sup.incarnations),
                replayed_tokens=sup.replayed,
@@ -4305,26 +4338,34 @@ def supervised_pass(arch, dtype, workdir):
     return row, launches
 
 
+# the supervised passes and their failures, one a pass (each costs a
+# worker's start, about 10 s): in fp32, where replays must reproduce the
+# delivered tokens exactly, a corrupted checkpoint with an injected kill
+# (the restore falls back to the checkpoint before); in bf16 a kill
+SUPERVISED = (("qwen2-0.5b", torch.float32, ("inject",)),
+              ("qwen2-0.5b", torch.bfloat16, ("kill",)),
+              ("mamba2-780m", torch.float32, ("inject",)),
+              ("mamba2-780m", torch.bfloat16, ("kill",)))
+
+
 def phase_supervisor():
-    """The replica supervisor on qwen2-0.5b and mamba2-780m at full width,
-    the workers spawned on this card: a pass in fp32, then one in bf16
-    (``supervised_pass``).  Returns the children's launches by path."""
+    """The replica supervisor at full width, the workers spawned on this
+    card: one ``supervised_pass`` for each of SUPERVISED.  Returns the
+    children's launches by path."""
     import tempfile
     out = {}
     with tempfile.TemporaryDirectory() as d:
-        for arch in ("qwen2-0.5b", "mamba2-780m"):
-            for dtype in (torch.float32, torch.bfloat16):
-                _, launches = supervised_pass(arch, dtype, d)
-                key = f"{arch} supervisor"
-                for k, n in launches.items():
-                    out.setdefault(key, {})[k] = \
-                        out.get(key, {}).get(k, 0) + n
+        for arch, dtype, failures in SUPERVISED:
+            _, launches = supervised_pass(arch, dtype, d, failures)
+            key = f"{arch} supervisor"
+            for k, n in launches.items():
+                out.setdefault(key, {})[k] = out.get(key, {}).get(k, 0) + n
     return out
 
 
 
 # ---------------------------------------------------------------------------
-# The grid: the paged engine on a 2x2 grid of PE processes.
+# The grid: the serving engine on a 2x2 grid of PE processes.
 # ---------------------------------------------------------------------------
 
 HEAP_SOURCE = "src/repro_torch/kernels/shmem_heap/csrc/shmem_heap.cu"
@@ -4333,14 +4374,28 @@ HEAP_REPLACES = {"shmem_put": "src/repro/core/shmem.py:137",
                  "shmem_reduce_slots":
                      "src/repro/core/shmem.py:154,159,163"}
 GRID_Q = GRID_R = 2
+# the grid's workload: four of the engine phase's prompts, 16 greedy tokens
+GRID_PROMPT_LENS = [5, 40, 100, 300]
+GRID_MAX_TOKENS = 16
+GRID_MOE_LAYERS = 2                # of qwen3-moe's 94 (24 GB in fp32)
+GRID_MOE_CF = 4.0                  # = n_pes: cap = T k, nothing can drop
+# qwen2-0.5b's and mamba2-780m's bf16 jobs also at their first this many
+# layers, where one extra rounding stands well out of the bf16 noise
+# (deeper, every layer amplifies the roundings of both engines alike)
+GRID_SHALLOW = {"qwen2-0.5b": 1, "mamba2-780m": 2}
 # bf16 first-step logits of the grid against the 1x1 engine's, relative
-# to each row's largest.  A fixed limit between the sound grid's reading
-# (0.0170 on an H100) and a control whose every grid GEMV rounded its fp32
-# partials to bf16 before the row psum (0.0249): one extra rounding an op
-# fails it.  Not 2^-6: two bf16 paths that round at other points part by
-# more than that at 24 layers (the 1x1 bf16 engine is 0.0203 from fp32).
-GRID_BF16_TOL = 0.020
-GRID_PHASE_S = 150.0
+# to each row's largest, per job: a fixed limit between the sound grid's
+# reading and a control whose every grid GEMV rounds its fp32 partials to
+# bf16 before the row psum (one extra rounding an op fails it), near
+# their geometric mean.  On an H100, sound / control: qwen2-0.5b 0.01913
+# / 0.02126, its first layer 0.00378 / 0.01148, mamba2-780m 0.2130 /
+# 0.3379 (its 1x1 bf16 engine is itself 0.295 from fp32), its first two
+# layers 0.00439 / 0.03999, qwen3-moe 0.0135 / 0.0235.  PERF.md has the
+# readings.
+GRID_BF16_TOL = {"qwen2-0.5b bf16": 0.0202, "qwen2-0.5b bf16 1L": 0.0066,
+                 "mamba2-780m bf16": 0.27, "mamba2-780m bf16 2L": 0.013,
+                 "qwen3-moe-235b-a22b bf16": 0.018}
+GRID_PHASE_S = 300.0
 # the heap messages checked and timed: qwen2-0.5b's gate|up partial (fp32,
 # two slots) of a batch-8 decode step and of a batch-8 len256 chunk
 HEAP_SHAPES = {"decode": (8, 1, 2 * 2432), "len256": (8, 256, 2 * 2432)}
@@ -4360,7 +4415,9 @@ def heap_kernels():
     fp32 puts and sums of HEAP_SHAPES are the ones timed, against the plain
     version, one PyTorch call of the same function (``Tensor.copy_`` of
     the same bytes; ``torch.sum`` over the stacked slots) and the bytes
-    bound at 3.35 TB/s.  Returns the number of cases, each kernel's
+    bound at 3.35 TB/s, each kernel and library call by CUDA events and by
+    the profiler's device time (which leaves out the wrapper's host
+    time).  Returns the number of cases, each kernel's
     largest absolute difference from its plain version (bytes for the
     put) and the timing rows."""
     from repro_torch.kernels.shmem_heap import (CudaHeap, shmem_put_ref,
@@ -4441,21 +4498,37 @@ def heap_kernels():
             raw = src.view(-1).view(torch.uint8)
             fill_slots(shape, torch.float32, 2, nbytes)
             slots = view[:2 * nbytes].view(torch.float32).view(2, -1)
+            def put_k(i):
+                shmem_put_cuda(heap, src, 0, 2 * big)
+
+            def put_lib(i):
+                dst.copy_(raw)
+
+            def red_k(i):
+                shmem_reduce_slots_cuda(heap, 0, nbytes, 2, shape,
+                                        torch.float32, torch.float32)
+
+            def red_lib(i):
+                torch.sum(slots, dim=0)
+            # events time around back-to-back calls (the wrapper's host
+            # time where it exceeds the kernel's) beside the profiler's
+            # device time of the kernel or copy alone
             put = dict(
-                ms=cuda_ms(lambda i: shmem_put_cuda(heap, src, 0, 2 * big),
-                           50),
+                ms=cuda_ms(put_k, 50),
+                device_ms=device_ms(put_k, 50, ("put_kernel",)),
                 plain_ms=cuda_ms(lambda i: shmem_put_ref(heap, src, 0,
                                                          2 * big), 50),
-                library_ms=cuda_ms(lambda i: dst.copy_(raw), 50),
+                library_ms=cuda_ms(put_lib, 50),
+                library_device_ms=device_ms(put_lib, 50, ("Memcpy",)),
                 bound_ms=2 * nbytes / HBM_BYTES_S * 1e3)
             red = dict(
-                ms=cuda_ms(lambda i: shmem_reduce_slots_cuda(
-                    heap, 0, nbytes, 2, shape, torch.float32, torch.float32),
-                    50),
+                ms=cuda_ms(red_k, 50),
+                device_ms=device_ms(red_k, 50, ("reduce_kernel",)),
                 plain_ms=cuda_ms(lambda i: shmem_reduce_slots_ref(
                     heap, 0, nbytes, 2, shape, torch.float32, torch.float32),
                     50),
-                library_ms=cuda_ms(lambda i: torch.sum(slots, dim=0), 50),
+                library_ms=cuda_ms(red_lib, 50),
+                library_device_ms=device_ms(red_lib, 50, ("reduce_kernel",)),
                 bound_ms=3 * nbytes / HBM_BYTES_S * 1e3)
             for name, t in (("shmem_put", put), ("shmem_reduce_slots", red)):
                 rows.append(dict(kernel=name, shape=label, bytes=nbytes,
@@ -4467,10 +4540,43 @@ def heap_kernels():
     return cases, err, rows
 
 
-def grid_cfg(dtype):
-    from repro_torch.configs import get_config
-    cfg = get_config("qwen2-0.5b")
-    return dataclasses.replace(cfg, param_dtype=dtype, compute_dtype=dtype)
+def grid_cfg(arch, dtype, **kw):
+    """``arch`` in ``dtype`` as the grid phase serves it: qwen3-moe at
+    GRID_MOE_LAYERS of its 94 at capacity_factor GRID_MOE_CF, qwen2-0.5b
+    and mamba2-780m whole, jamba reduced (fp32), each with ``kw`` on
+    top."""
+    from repro_torch.configs import get_config, reduced
+    if arch == "jamba":
+        return dataclasses.replace(
+            reduced(get_config("jamba-1.5-large-398b")), **kw)
+    cfg = get_config(arch)
+    if arch == "qwen3-moe-235b-a22b":
+        kw.setdefault("n_layers", GRID_MOE_LAYERS)
+        kw.setdefault("capacity_factor", GRID_MOE_CF)
+    return dataclasses.replace(cfg, param_dtype=dtype, compute_dtype=dtype,
+                               **kw)
+
+
+def grid_table():
+    """The grid phase's jobs, as (label, config, passes, profiled,
+    compared with the 1x1 engine): qwen2-0.5b, mamba2-780m and qwen3-moe
+    (cf GRID_MOE_CF) each in fp32 and in bf16 (two passes, profiled),
+    qwen2-0.5b and mamba2-780m in bf16 at their first GRID_SHALLOW layers,
+    qwen3-moe in bf16 at capacity_factor 1.25 and the reduced jamba in
+    fp32 (cf GRID_MOE_CF)."""
+    f32, b16 = torch.float32, torch.bfloat16
+    moe = "qwen3-moe-235b-a22b"
+    table = [(f"{arch} {d}", grid_cfg(arch, dt), 2 if dt == b16 else 1,
+              dt == b16, True)
+             for arch in ("qwen2-0.5b", "mamba2-780m", moe)
+             for d, dt in (("fp32", f32), ("bf16", b16))]
+    table += [(f"{arch} bf16 {n}L", grid_cfg(arch, b16, n_layers=n), 1,
+               False, True) for arch, n in GRID_SHALLOW.items()]
+    return table + [
+        (f"{moe} bf16 cf1.25", grid_cfg(moe, b16, capacity_factor=1.25), 1,
+         False, False),
+        ("jamba fp32", grid_cfg("jamba", f32, capacity_factor=GRID_MOE_CF),
+         1, False, True)]
 
 
 def one_device_passes(cfg, prompts, sampling, passes=2):
@@ -4489,20 +4595,16 @@ def one_device_passes(cfg, prompts, sampling, passes=2):
     outs = [c.tokens for c in generate(eng, prompts, sampling)]
     rows = dict(rec)
     out = dict(tokens=outs, rows=rows)
-    if passes < 2:
-        del eng
-        gc.collect()
-        torch.cuda.empty_cache()
-        return out
-    eng.stats = EngineStats()
-    for ev in eng.kernel_events().values():
-        ev.first_enqueue_t = ev.last_enqueue_t = ev.last_done_t = 0.0
-    t0 = time.perf_counter()
-    generate(eng, prompts, sampling)
-    wall = time.perf_counter() - t0
-    out.update(tokens_per_s=eng.throughput_tok_s(), wall_s=wall,
-               steps=eng.stats.steps)
-    del eng
+    if passes >= 2:
+        eng.stats = EngineStats()
+        for ev in eng.kernel_events().values():
+            ev.first_enqueue_t = ev.last_enqueue_t = ev.last_done_t = 0.0
+        t0 = time.perf_counter()
+        generate(eng, prompts, sampling)
+        wall = time.perf_counter() - t0
+        out.update(tokens_per_s=eng.throughput_tok_s(), wall_s=wall,
+                   steps=eng.stats.steps)
+    del eng, gen
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -4512,10 +4614,9 @@ def grid_steps_summary(reports, cfg, plan, lo=0, hi=None):
     """Per-step numbers of one job over steps [lo, hi): PE 0's wall per
     step, the collectives and barrier-wait share per PE, the heap bytes
     over all PEs against the reckoned count."""
-    from repro_torch.serve.engine.grid import (heap_bytes_by_step,
+    from repro_torch.serve.engine.grid import (heap_bytes_by_step, pe_heads,
                                                reckoned_heap_bytes)
-    hq = cfg.heads_padded(plan.grid_r) // plan.grid_r
-    kvh = cfg.kv_stored(plan.grid_r)[0] // plan.grid_r
+    hq, kvh = pe_heads(cfg, plan)
     logs = [r["grid_log"][lo:hi] for r in reports]
     names = [s["name"] for s in logs[0]]
     got = heap_bytes_by_step(reports)[lo:hi]
@@ -4538,151 +4639,234 @@ def grid_steps_summary(reports, cfg, plan, lo=0, hi=None):
         heap_bytes_equal=got == want), got == want
 
 
-def phase_grid(smi):
-    """qwen2-0.5b at full width and depth on a 2x2 grid of PE processes on
-    this card (``serve/engine/grid.py``): the heap's kernels against their
-    plain versions and timed, the parts of one collective timed on the
-    four PEs (``probe_latency``), then the engine's workload (PROMPT_LENS,
-    32 greedy tokens) in fp32 and in bf16 (served twice under
-    torch.profiler on every PE; the second pass timed), beside the 1x1
-    engine on the same seed-0 weights.  Gates: four PE processes
-    on CUDA with CUDA-IPC heaps over gloo (no NCCL), no plain version run,
-    paged attention on every layer of every step on every PE with
-    ``qrows`` 2 (PEs 0 and 1 row 0, 2 and 3 row 1), the heap kernels'
-    launches as the steps' puts and reductions imply, fp32 tokens equal
-    to the 1x1 engine's, bf16 first-step logits (the prompts' last
-    positions, from the same tokens in both) within GRID_BF16_TOL of the
-    1x1 engine's, every step's heap bytes equal to the count reckoned from
-    the shapes.  Returns the kernels' launches and
-    the numbers for the kernels line."""
-    from repro_torch.partition import grid_plan
+def layer_counts(cfg):
+    """Layers of each kind in ``cfg``: attention, mamba, MoE."""
+    pattern = cfg.pattern()
+    return {kind: cfg.n_groups() * sum(kind in pair for pair in pattern)
+            for kind in ("attn", "mamba", "moe")}
+
+
+def check_grid_job(label, cfg, reports, plan, max_tokens):
+    """The gates of one grid job on every PE (``phase_grid``); returns its
+    kernels' launches summed over the PEs."""
     from repro_torch.serve.decode import grid_messages
+    from repro_torch.serve.engine.grid import pe_heads, step_shape
+    check(len(reports) == plan.n_pes
+          and all(r["device"].startswith("cuda") and r["heap"] == "CudaHeap"
+                  and r["backend"] == "gloo" for r in reports),
+          f"grid {label}: not four PEs on CUDA with CUDA-IPC heaps over "
+          f"gloo: {[(r['device'], r['heap'], r['backend']) for r in reports]}")
+    pe0 = reports[0]
+    check(all(f == "length" for f in pe0["finish"])
+          and all(len(t) == max_tokens for t in pe0["tokens"]),
+          f"grid {label}: a request did not end with its {max_tokens} "
+          f"tokens")
+    hq, kvh = pe_heads(cfg, plan)
+    kinds = layer_counts(cfg)
+    bf16 = cfg.compute_dtype == torch.bfloat16
+    launches = {}
+    for r in reports:
+        n, log = r["launches"], r["grid_log"]
+        steps = len(log)
+        chunks = sum(s["name"].startswith("prefill") for s in log)
+        where = f"grid {label} PE {r['pe']}"
+        plain = {k: v for k, v in n.items() if k.endswith("_ref") and v}
+        check(not plain, f"{where}: plain versions ran: {plain}")
+        want = {"paged_attention_cuda": steps * kinds["attn"],
+                "grouped_mm_cuda": steps * kinds["moe"],
+                "grouped_mm_swiglu_cuda": steps * kinds["moe"],
+                "ssd_scan_fused_cuda": chunks * kinds["mamba"] * bf16,
+                "ssd_chunk_cuda": chunks * kinds["mamba"] * (not bf16),
+                "ssd_apply_cuda": chunks * kinds["mamba"] * (not bf16)}
+        got = {k: n.get(k, 0) for k in want}
+        check(got == want and (not kinds["mamba"] or chunks),
+              f"{where}: kernel launches {got}, expected {want} over "
+              f"{steps} steps ({chunks} chunks) of {kinds}")
+        puts = sum(s["puts"] for s in log)
+        reductions = sum(sum(1 for m in grid_messages(
+            cfg, plan, *step_shape(s["name"])[:2], hq=hq, kvh=kvh)
+            if "psum" in m.what or "pmax" in m.what) for s in log)
+        check(n.get("shmem_put_cuda", 0) == puts
+              and n.get("shmem_reduce_slots_cuda", 0) == reductions,
+              f"{where}: heap kernels {n} against {puts} puts and "
+              f"{reductions} reductions")
+        for k, v in n.items():
+            if v:
+                launches[k] = launches.get(k, 0) + v
+    return launches
+
+
+def phase_grid(smi):
+    """The serving engine on a 2x2 grid of PE processes on this card
+    (``serve/engine/grid.py``), one spawn for every job: the heap's kernels
+    against their plain versions and timed, the parts of one collective
+    timed on the four PEs (``probe_latency``), then GRID_PROMPT_LENS'
+    prompts with GRID_MAX_TOKENS greedy tokens on the jobs of
+    ``grid_table``: qwen2-0.5b (24 layers), mamba2-780m (48 layers) and
+    qwen3-moe (full width, GRID_MOE_LAYERS layers, capacity_factor
+    GRID_MOE_CF = n_pes: nothing can drop), each in fp32 and in bf16
+    (served twice under torch.profiler on every PE; the second pass
+    timed), qwen2-0.5b and mamba2-780m in bf16 at their first
+    GRID_SHALLOW layers, each beside
+    the 1x1 engine on the same seed-0 weights; qwen3-moe once more in bf16
+    at the config's capacity_factor 1.25 (the share of dropped pairs); the
+    reduced jamba (attention, mamba and MoE layers) in fp32.  Gates: four
+    PE processes on CUDA with CUDA-IPC heaps over gloo (no NCCL), no plain
+    version run, on every PE paged attention on every attention layer of
+    every step (``qrows`` 2), the fused SSD scan (bf16) or its two simt
+    passes (fp32) on every mamba layer of every chunk step, both grouped
+    GEMMs on every MoE layer of every step, the heap kernels' launches as
+    the steps' puts and reductions imply; fp32 tokens equal to the 1x1
+    engine's; bf16 first-step logits (the prompts' last positions, from
+    the same tokens in both) within GRID_BF16_TOL[label] of the 1x1
+    engine's; every step's heap bytes equal to the count reckoned from the
+    shapes.  Returns the kernels' launches by job and the heap kernels'
+    rows and errors."""
+    from repro_torch.partition import grid_plan
     from repro_torch.serve.engine import SamplingParams
-    from repro_torch.serve.engine.grid import (GridJob, serve_on_grid,
-                                               step_shape)
+    from repro_torch.serve.engine.grid import GridJob, serve_on_grid
     t0 = time.perf_counter()
     cases, heap_err, timing = heap_kernels()
     emit("heap_vs_plain", cases=cases, max_abs_err=heap_err)
     plan = grid_plan(GRID_Q, GRID_R)
-    cfg32, cfg16 = grid_cfg(torch.float32), grid_cfg(torch.bfloat16)
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg16.vocab_size, n).tolist()
-               for n in PROMPT_LENS]
-    sampling = SamplingParams(max_tokens=MAX_TOKENS)
-    one = {"fp32": one_device_passes(cfg32, prompts, sampling, passes=1),
-           "bf16": one_device_passes(cfg16, prompts, sampling)}
+    sampling = SamplingParams(max_tokens=GRID_MAX_TOKENS)
+    table = grid_table()
+    prompts = {}
+    for label, cfg, *_ in table:
+        rng = np.random.default_rng(0)
+        prompts[label] = [rng.integers(0, cfg.vocab_size, n).tolist()
+                          for n in GRID_PROMPT_LENS]
+    t_one = time.perf_counter()
+    one = {label: one_device_passes(cfg, prompts[label], sampling, passes)
+           for label, cfg, passes, _, ref in table if ref}
+    one_s = time.perf_counter() - t_one
     t_grid = time.perf_counter()
-    jobs = [GridJob(cfg32, smoke_ec(), prompts, sampling, seed=0, record=2),
-            GridJob(cfg16, smoke_ec(), prompts, sampling, seed=0, record=2,
-                    passes=2, profile=True)]
-    runs = serve_on_grid(jobs, plan, device="cuda", timeout=300,
+    jobs = [GridJob(cfg, smoke_ec(), prompts[label], sampling, seed=0,
+                    record=2, passes=passes, profile=profile)
+            for label, cfg, passes, profile, _ in table]
+    runs = serve_on_grid(jobs, plan, device="cuda", timeout=900,
                          latency=True)
     grid_s = time.perf_counter() - t_grid
-    hq = cfg16.heads_padded(GRID_R) // GRID_R
-    kvh = cfg16.kv_stored(GRID_R)[0] // GRID_R
-    launches = {}
-    for label, reports, cfg in zip(("fp32", "bf16"), runs, (cfg32, cfg16)):
-        check(len(reports) == plan.n_pes
-              and all(r["device"].startswith("cuda") and r["heap"] ==
-                      "CudaHeap" and r["backend"] == "gloo"
-                      for r in reports),
-              f"grid {label}: not four PEs on CUDA with CUDA-IPC heaps over "
-              f"gloo: {[(r['device'], r['heap'], r['backend']) for r in reports]}")
-        pe0 = reports[0]
-        check(all(f == "length" for f in pe0["finish"])
-              and all(len(t) == MAX_TOKENS for t in pe0["tokens"]),
-              f"grid {label}: a request did not end with its "
-              f"{MAX_TOKENS} tokens")
-        for r in reports:
-            n = r["launches"]
-            steps = len(r["grid_log"])
-            plain = {k: v for k, v in n.items() if k.endswith("_ref") and v}
-            check(not plain, f"grid {label} PE {r['pe']}: plain versions "
-                             f"ran: {plain}")
-            check(n.get("paged_attention_cuda", 0)
-                  == steps * cfg.n_layers > 0,
-                  f"grid {label} PE {r['pe']}: paged attention launched "
-                  f"{n.get('paged_attention_cuda', 0)} times in {steps} "
-                  f"steps of {cfg.n_layers} layers")
-            puts = sum(s["puts"] for s in r["grid_log"])
-            reductions = sum(sum(1 for m in grid_messages(
-                cfg, plan, *step_shape(s["name"])[:2], hq=hq, kvh=kvh)
-                if "psum" in m.what or "pmax" in m.what)
-                for s in r["grid_log"])
-            check(n.get("shmem_put_cuda", 0) == puts
-                  and n.get("shmem_reduce_slots_cuda", 0) == reductions,
-                  f"grid {label} PE {r['pe']}: heap kernels {n} against "
-                  f"{puts} puts and {reductions} reductions")
-            for k, v in n.items():
-                if v:
-                    launches[k] = launches.get(k, 0) + v
+    launches, failed, grid_rows = {}, [], {}
+    for (label, cfg, passes, profile, ref), reports in zip(table, runs):
+        launches[label] = check_grid_job(label, cfg, reports, plan,
+                                         GRID_MAX_TOKENS)
         summary, equal = grid_steps_summary(reports, cfg, plan)
         check(equal, f"grid {label}: heap bytes per step differ from the "
                      f"reckoned count")
-        emit("grid_run", run=label, heap_bytes_per_pe=pe0["heap_bytes"],
-             heap_slot_bytes=pe0["heap_slot_bytes"],
-             tokens_per_s=pe0["tokens_per_s"], wall_s=pe0["wall_s"],
-             pe_wall_s={r["pe"]: r["pe_wall_s"] for r in reports},
-             paged_attention_by_pe={r["pe"]: r["launches"].get(
-                 "paged_attention_cuda", 0) for r in reports},
-             **summary, nvidia_smi=smi)
-    fp32, bf16 = runs
-    check(fp32[0]["tokens"] == one["fp32"]["tokens"],
-          "grid fp32: greedy tokens differ from the 1x1 engine's")
-
-    def row_errs(dtype, out_idx, keys=None):
-        got = runs[0 if dtype == "fp32" else 1][0]["rows"]
-        return {k[0]: rel_err(torch.from_numpy(one[dtype]["rows"][
-            (tuple(prompts[k[0]]), k[1])]), torch.from_numpy(row))
-            for k, row in got.items() if k[1] == out_idx
-            and (keys is None or k[0] in keys)}
-    # the first step's logits (the prompt's last position) from the same
-    # tokens in both engines; the first decode step's only where the first
-    # sampled tokens agree (a bf16 near-tie may pick another token there)
-    first = row_errs("bf16", 0)
-    same0 = {n for n, (g, w) in enumerate(zip(bf16[0]["tokens"],
-                                              one["bf16"]["tokens"]))
-             if g[0] == w[0]}
-    decode = row_errs("bf16", 1, same0)
-    agree = [sum(a == b for a, b in zip(g, w)) for g, w in
-             zip(bf16[0]["tokens"], one["bf16"]["tokens"])]
-    fp32_errs = list(row_errs("fp32", 0).values()) \
-        + list(row_errs("fp32", 1).values())
-    warm = bf16[0]["passes"][1]
-    lo, hi = warm["steps"]
-    warm_summary, _ = grid_steps_summary(bf16, cfg16, plan, lo, hi)
-    busy = {r["pe"]: (r["busy_ms"] / len(r["grid_log"])
-                      if r.get("kernel_records") else "not measured")
-            for r in bf16}
+        pe0 = reports[0]
+        row = dict(run=label, layers=cfg.n_layers,
+                   heap_bytes_per_pe=pe0["heap_bytes"],
+                   heap_slot_bytes=pe0["heap_slot_bytes"],
+                   tokens_per_s=pe0["tokens_per_s"], wall_s=pe0["wall_s"],
+                   pe_wall_s={r["pe"]: r["pe_wall_s"] for r in reports},
+                   state_commands=pe0["state_commands"],
+                   launches_by_pe={r["pe"]: {
+                       k: v for k, v in r["launches"].items() if v}
+                       for r in reports}, **summary)
+        if pe0["moe_pairs"]:
+            row.update(capacity_factor=cfg.capacity_factor,
+                       moe_pairs=pe0["moe_pairs"],
+                       moe_dropped=pe0["moe_dropped"],
+                       moe_dropped_share=pe0["moe_dropped"]
+                       / pe0["moe_pairs"])
+            check(cfg.capacity_factor < plan.n_pes
+                  or pe0["moe_dropped"] == 0,
+                  f"grid {label}: {pe0['moe_dropped']} pairs dropped at "
+                  f"capacity_factor {cfg.capacity_factor}")
+        if passes > 1:
+            lo, hi = pe0["passes"][1]["steps"]
+            row["warm"], _ = grid_steps_summary(reports, cfg, plan, lo, hi)
+            row.update(warm_tokens_per_s=pe0["passes"][1]["tokens_per_s"],
+                       warm_wall_s=pe0["passes"][1]["wall_s"])
+        if profile:
+            row.update(
+                device_busy_ms_per_step_by_pe={
+                    r["pe"]: (r["busy_ms"] / len(r["grid_log"])
+                              if r.get("kernel_records") else "not measured")
+                    for r in reports},
+                kernel_records_by_pe={r["pe"]: r.get("kernel_records")
+                                      for r in reports},
+                profiled_steps=len(pe0["grid_log"]))
+        if ref:
+            row.update(compare_1x1(label, cfg, prompts[label], one[label],
+                                   pe0))
+            failed += row["failed"]
+            grid_rows[label] = pe0["rows"]
+        emit("grid_run", **row, nvidia_smi=smi)
+    # each bf16 job's noise beside its gate where an fp32 job of the same
+    # model and depth ran: the 1x1 bf16 engine's and the grid's first-step
+    # logits from the 1x1 fp32 engine's (the bf16 weights are the fp32
+    # ones rounded)
+    for label in grid_rows:
+        ref = label.replace(" bf16", " fp32")
+        if ref == label or ref not in one:
+            continue
+        want, ps = one[ref]["rows"], prompts[ref]
+        emit("grid_bf16_noise", run=label, one_bf16_from_fp32=max(
+            rel_err(torch.from_numpy(want[(tuple(p), 0)]), torch.from_numpy(
+                one[label]["rows"][(tuple(p), 0)])) for p in ps),
+             grid_bf16_from_fp32=max(
+                 rel_err(torch.from_numpy(want[(tuple(ps[k]), 0)]),
+                         torch.from_numpy(row))
+                 for (k, n), row in grid_rows[label].items()
+                 if n == 0), nvidia_smi=smi)
+    check(not failed, "; ".join(failed))
     phase_s = time.perf_counter() - t0
-    emit("grid", fp32_tokens_equal_1x1=True,
-         fp32_logits_max_rel_err=max(fp32_errs),
-         bf16_first_step_logits_max_rel_err=max(first.values(),
-                                                default=None),
-         bf16_first_step_tolerance=GRID_BF16_TOL,
-         bf16_first_decode_logits_max_rel_err=max(decode.values())
-         if decode else None, bf16_first_tokens_agreeing=len(same0),
-         bf16_tokens_agreeing=sum(agree),
-         bf16_tokens=sum(len(t) for t in bf16[0]["tokens"]),
-         bf16_requests_identical=sum(a == MAX_TOKENS for a in agree),
-         warm_tokens_per_s=warm["tokens_per_s"],
-         warm_tokens_per_s_1x1=one["bf16"]["tokens_per_s"],
-         warm_wall_s=warm["wall_s"], warm_wall_s_1x1=one["bf16"]["wall_s"],
-         warm=warm_summary,
+    emit("grid", jobs=[label for label, *_ in table],
          collective_parts_us_by_pe={r["pe"]: r["latency_us"]
-                                    for r in fp32},
-         device_busy_ms_per_step_by_pe=busy,
-         kernel_records_by_pe={r["pe"]: r.get("kernel_records")
-                               for r in bf16},
-         profiled_pe_wall_s={r["pe"]: r["pe_wall_s"] for r in bf16},
-         profiled_steps=len(bf16[0]["grid_log"]),
-         grid_spawn_and_serve_s=grid_s, phase_s=phase_s, nvidia_smi=smi)
-    check(len(first) == len(prompts)
-          and max(first.values()) <= GRID_BF16_TOL,
-          f"grid bf16: first step's logits {max(first.values(), default=0)} "
-          f"from the 1x1 engine's (tolerance {GRID_BF16_TOL})")
+                                    for r in runs[0]},
+         one_device_s=one_s, grid_spawn_and_serve_s=grid_s, phase_s=phase_s,
+         nvidia_smi=smi)
     check(phase_s < GRID_PHASE_S, f"the grid phase took {phase_s:.0f} s")
     return launches, timing, heap_err
+
+
+def compare_1x1(label, cfg, prompts, one, pe0):
+    """A grid job's first pass against the 1x1 engine's: fp32 tokens
+    equal, bf16 first-step logits within GRID_BF16_TOL (the gates: their
+    failures under ``failed``, which ``phase_grid`` checks once every job
+    is reported), the first decode step's and the tokens' agreement, warm
+    tokens/s.  The
+    first step's logits come from the same tokens in both engines; the
+    first decode step's are compared only where the first sampled tokens
+    agree (a bf16 near-tie may pick another token there)."""
+    def errs(out_idx, keys=None):
+        return {k[0]: rel_err(torch.from_numpy(one["rows"][
+            (tuple(prompts[k[0]]), k[1])]), torch.from_numpy(row))
+            for k, row in pe0["rows"].items() if k[1] == out_idx
+            and (keys is None or k[0] in keys)}
+    first = errs(0)
+    same0 = {n for n, (g, w) in enumerate(zip(pe0["tokens"], one["tokens"]))
+             if g[0] == w[0]}
+    decode = errs(1, same0)
+    agree = [sum(a == b for a, b in zip(g, w))
+             for g, w in zip(pe0["tokens"], one["tokens"])]
+    out = dict(first_step_logits_max_rel_err=max(first.values()),
+               first_decode_logits_max_rel_err=max(decode.values())
+               if decode else None,
+               tokens_agreeing=sum(agree),
+               tokens=sum(len(t) for t in pe0["tokens"]),
+               tokens_equal_1x1=pe0["tokens"] == one["tokens"])
+    failed = []
+    if len(first) != len(prompts):
+        failed.append(f"grid {label}: {len(first)} first steps recorded")
+    if cfg.compute_dtype == torch.float32:
+        if not out["tokens_equal_1x1"]:
+            failed.append(f"grid {label}: greedy tokens differ from the 1x1 "
+                          f"engine's")
+    else:
+        tol = GRID_BF16_TOL[label]
+        out["first_step_tolerance"] = tol
+        if out["first_step_logits_max_rel_err"] > tol:
+            failed.append(f"grid {label}: first step's logits "
+                          f"{out['first_step_logits_max_rel_err']} from the "
+                          f"1x1 engine's (tolerance {tol})")
+    out["failed"] = failed
+    if "tokens_per_s" in one:
+        out.update(warm_tokens_per_s_1x1=one["tokens_per_s"],
+                   warm_wall_s_1x1=one["wall_s"])
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4973,6 +5157,20 @@ def phase_vlm(smi):
     return counts, row
 
 
+PHASE_SECONDS = {}
+
+
+def timed(name, fn, *args, **kw):
+    """``fn(*args, **kw)``, its wall seconds printed and added to
+    PHASE_SECONDS[name] (a phase called several times sums)."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    PHASE_SECONDS[name] = round(PHASE_SECONDS.get(name, 0.0)
+                                + time.perf_counter() - t0, 1)
+    emit("seconds", of=name, seconds=PHASE_SECONDS[name])
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4986,55 +5184,61 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = T_START[0] = time.perf_counter()
 
-    smi = phase_env()
-    phase_build()
-    phase_fresh_thread()
-    worst = phase_kernel_vs_plain()
-    timing = phase_timing(n_layers=24)
+    smi = timed("env", phase_env)
+    timed("build", phase_build)
+    timed("fresh_thread", phase_fresh_thread)
+    worst = timed("kernel_vs_plain", phase_kernel_vs_plain)
+    timing = timed("timing", phase_timing, n_layers=24)
     from repro_torch.configs import get_config
-    dense_timing = {arch: phase_timing(
-        n_layers=get_config(arch).n_layers, Hq=Hq, kvh=kvh, hd=hd,
-        geometry=arch) for arch, (Hq, kvh, hd) in DENSE_GEOMS.items()}
-    ssd_worst = phase_ssd_vs_plain()
-    ssd_timing = phase_ssd_timing()
-    mm_worst = phase_mm_vs_plain()
-    mm_launches, mm_by_variant, cannon_worst, table1_live = phase_cannon()
-    mm_timing = phase_mm_timing()
-    flash_worst = phase_flash_vs_plain()
-    flash_launches, flash_timing = phase_flash_timing()
-    gmm_worst = phase_gmm_vs_plain()
-    gmm_timing = phase_gmm_timing()
-    grad_worst = phase_gmm_grad_vs_plain()
-    grad_timing = phase_gmm_grad_timing()
-    train_counts, train_by_run, train_rows, train_profile = phase_train(smi)
-    phase_train_resume()
+    dense_timing = {arch: timed(
+        "timing", phase_timing, n_layers=get_config(arch).n_layers, Hq=Hq,
+        kvh=kvh, hd=hd, geometry=arch)
+        for arch, (Hq, kvh, hd) in DENSE_GEOMS.items()}
+    ssd_worst = timed("ssd_vs_plain", phase_ssd_vs_plain)
+    ssd_timing = timed("ssd_timing", phase_ssd_timing)
+    mm_worst = timed("mm_vs_plain", phase_mm_vs_plain)
+    mm_launches, mm_by_variant, cannon_worst, table1_live = timed(
+        "cannon", phase_cannon)
+    mm_timing = timed("mm_timing", phase_mm_timing)
+    flash_worst = timed("flash_vs_plain", phase_flash_vs_plain)
+    flash_launches, flash_timing = timed("flash_timing", phase_flash_timing)
+    gmm_worst = timed("gmm_vs_plain", phase_gmm_vs_plain)
+    gmm_timing = timed("gmm_timing", phase_gmm_timing)
+    grad_worst = timed("gmm_grad_vs_plain", phase_gmm_grad_vs_plain)
+    grad_timing = timed("gmm_grad_timing", phase_gmm_grad_timing)
+    train_counts, train_by_run, train_rows, train_profile = timed(
+        "train", phase_train, smi)
+    timed("train_resume", phase_train_resume)
     gc.collect()
     torch.cuda.empty_cache()
-    new_paths = {**phase_dryrun(smi)}
-    for k, paths in phase_examples().items():
+    new_paths = {**timed("dryrun", phase_dryrun, smi)}
+    for k, paths in timed("examples", phase_examples).items():
         new_paths.setdefault(k, {}).update(paths)
-    train_rows.append(phase_encdec(smi))
-    ref_launches = phase_reference()
+    train_rows.append(timed("encdec", phase_encdec, smi))
+    ref_launches = timed("reference", phase_reference)
     launches, by_path, weights = {}, {}, {}
     for arch in ("qwen2-0.5b", "mamba2-780m"):
         counts, eng, prompts, arrivals, sampling, outputs, _ = \
-            phase_engine(arch)
-        phase_graphs(eng, prompts, arrivals, sampling, outputs)
-        decode_profile = phase_profile(eng, arrivals, sampling)
+            timed("engine", phase_engine, arch)
+        timed("graphs", phase_graphs, eng, prompts, arrivals, sampling,
+              outputs)
+        decode_profile = timed("profile", phase_profile, eng, arrivals,
+                               sampling)
         if eng.store.has_dense:
-            phase_prefill_profile(eng)
-        phase_decode_fixed(eng, arch, DECODE_MODES[arch], decode_profile)
+            timed("prefill_profile", phase_prefill_profile, eng)
+        timed("decode_fixed", phase_decode_fixed, eng, arch,
+              DECODE_MODES[arch], decode_profile)
         params = eng.params
         del eng
         torch.cuda.empty_cache()
-        spec_counts = phase_speculation(arch, params)
+        spec_counts = timed("speculation", phase_speculation, arch, params)
         if arch == "mamba2-780m":
             # the same weights in fp32: verify and decode rows then differ
             # by the order of fp32 sums only (the bf16 run's differences
             # are the two paths' bf16 roundings)
-            fp32 = phase_speculation(arch, to_dtype(params, torch.float32),
-                                     dtype=torch.float32,
-                                     drafters=("replay",))
+            fp32 = timed("speculation", phase_speculation, arch,
+                         to_dtype(params, torch.float32),
+                         dtype=torch.float32, drafters=("replay",))
             for k, n in fp32.items():
                 spec_counts[k] = spec_counts.get(k, 0) + n
         weights[arch] = params
@@ -5045,9 +5249,11 @@ def main() -> int:
                     launches[k] = launches.get(k, 0) + n
                     by_path.setdefault(k, {})[f"{arch} {path}"] = n
     # the service and the resilience layer on the same weights
-    paths = {"qwen2-0.5b service": phase_service(weights["qwen2-0.5b"])}
+    paths = {"qwen2-0.5b service": timed("service", phase_service,
+                                         weights["qwen2-0.5b"])}
     for arch in ("qwen2-0.5b", "mamba2-780m"):
-        paths[f"{arch} resilience"] = phase_resilience(arch, weights[arch])
+        paths[f"{arch} resilience"] = timed("resilience", phase_resilience,
+                                            arch, weights[arch])
     for path, got in paths.items():
         for k, n in got.items():
             if n:
@@ -5056,41 +5262,50 @@ def main() -> int:
     del weights
     # the dense configs at full width, on an emptied cache, then the
     # replica supervisor (the parent holds no engine while workers run)
-    dense_runs = phase_dense_wide()
-    dense_runs["pixtral-12b"], vlm_train = phase_vlm(smi)
+    dense_runs = timed("dense_wide", phase_dense_wide)
+    dense_runs["pixtral-12b"], vlm_train = timed("vlm", phase_vlm, smi)
     train_rows.append(vlm_train)
     for arch, got in dense_runs.items():
         for k, n in got.items():
             if n:
                 launches[k] = launches.get(k, 0) + n
                 by_path.setdefault(k, {})[f"{arch} engine"] = n
-    for path, got in phase_supervisor().items():
+    for path, got in timed("supervisor", phase_supervisor).items():
         for k, n in got.items():
             if n:
                 launches[k] = launches.get(k, 0) + n
                 by_path.setdefault(k, {})[path] = n
-    # qwen2-0.5b on a 2x2 grid of PE processes, on an emptied cache
+    # every decoder family on a 2x2 grid of PE processes, on an emptied
+    # cache
     gc.collect()
     torch.cuda.empty_cache()
-    grid_launches, heap_rows, heap_err = phase_grid(smi)
-    n = grid_launches.get("paged_attention_cuda", 0)
-    launches["paged_attention"] += n
-    by_path["paged_attention"]["qwen2-0.5b grid 2x2 (4 PEs, qrows 2)"] = n
+    grid_launches, heap_rows, heap_err = timed("grid", phase_grid, smi)
+    heap_by_path = {}
+    for label, got in grid_launches.items():
+        for k, n in got.items():
+            if not k.endswith("_cuda"):
+                continue
+            name, path = k[:-len("_cuda")], f"{label} grid 2x2 (4 PEs)"
+            if name.startswith("shmem_"):
+                heap_by_path.setdefault(name, {})[path] = n
+            else:
+                launches[name] = launches.get(name, 0) + n
+                by_path.setdefault(name, {})[path] = n
     # the MoE model last, on an emptied cache: 41.7 GB of weights
     gc.collect()
     torch.cuda.empty_cache()
     arch = "qwen3-moe-235b-a22b"
     counts, eng, prompts, arrivals, sampling, outputs, moe_routes_ = \
-        phase_engine(arch)
-    phase_graphs(eng, prompts, arrivals, sampling, outputs)
+        timed("engine", phase_engine, arch)
+    timed("graphs", phase_graphs, eng, prompts, arrivals, sampling, outputs)
     moe_shares = {"grouped_mm": ("gmm_",),
                   "grouped_mm wgmma_tma": ("gmm_wgmma_tma",),
                   "paged_attention": ("paged_",)}
-    decode_profile = phase_profile(eng, arrivals, sampling,
-                                   shares=moe_shares)
-    phase_prefill_profile(eng, moe_shares)
-    fixed = phase_decode_fixed(eng, arch, DECODE_MODES[arch],
-                               decode_profile)
+    decode_profile = timed("profile", phase_profile, eng, arrivals,
+                           sampling, shares=moe_shares)
+    timed("prefill_profile", phase_prefill_profile, eng, moe_shares)
+    fixed = timed("decode_fixed", phase_decode_fixed, eng, arch,
+                  DECODE_MODES[arch], decode_profile)
     for path, got in ((f"{arch} engine", counts),
                       (f"{arch} decode_fixed", fixed)):
         for k, n in got.items():
@@ -5298,9 +5513,8 @@ def main() -> int:
             "replaces": HEAP_REPLACES[name],
             "replaces_note": "XLA's collective-permute (put) and grouped "
                              "all-reduce (psum/pmax), not Pallas kernels",
-            "launches": grid_launches.get(f"{name}_cuda", 0),
-            "launches_by_path": {"qwen2-0.5b grid 2x2 (4 PEs)":
-                                 grid_launches.get(f"{name}_cuda", 0)},
+            "launches": sum(heap_by_path[name].values()),
+            "launches_by_path": heap_by_path[name],
             "max_abs_err": heap_err[name],
             "ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
@@ -5309,9 +5523,11 @@ def main() -> int:
                         else "torch.sum over the stacked slots"),
             "shape": f"len256: {HEAP_SHAPES['len256']} fp32"
                      + (", 2 slots" if name != "shmem_put" else ""),
+            "device_ms": top["device_ms"],
+            "library_device_ms": top["library_device_ms"],
             "per_shape": {t["shape"]: {k: t[k] for k in (
-                "bytes", "ms", "plain_ms", "library_ms", "bound_ms")}
-                for t in rows}})
+                "bytes", "ms", "device_ms", "plain_ms", "library_ms",
+                "library_device_ms", "bound_ms")} for t in rows}})
     emit("profiler_records", lead_in=PROFILE_LEAD_IN,
          windows=len(PROFILE_WINDOWS),
          windows_that_lost_work=sum(not k for _, _, k in PROFILE_WINDOWS),
@@ -5326,6 +5542,7 @@ def main() -> int:
     emit("table1_summary", rows=[{k: r[k] for k in (
         "size", "hybrid_ms", "opencl_ms", "hybrid_wire_bytes",
         "opencl_wire_bytes", "bytes_ratio")} for r in table1_live])
+    emit("phase_seconds", **PHASE_SECONDS)
     print(json.dumps({"kernels": kernels}), flush=True)
     emit("done", seconds=round(time.perf_counter() - t_start, 1))
     print(smi, flush=True)

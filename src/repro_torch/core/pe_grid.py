@@ -18,6 +18,10 @@ has the same method names and the same semantics on LOCAL blocks:
     concatenated in group order; ``reduce_scatter_rows``: chunk m of every
     block goes to member m, which sums what it receives.
   * ``broadcast_from(x, root)``: the root puts to every PE.
+  * ``all_to_all(x)``: the flat exchange over every PE (``lax.all_to_all``
+    with ``split_axis=0, concat_axis=0, tiled=True``): block p of x's
+    leading axis goes into slot (this PE) of PE p's heap, and each PE
+    reads its slots in source-PE order.
   * ``barrier_all``: the card's stream synchronised, then the host barrier
     (:class:`repro_torch.runtime.pe.HostBarrier`).
 
@@ -28,7 +32,9 @@ collective.  Collective k uses half ``k % 2`` of the heap: a PE that runs
 ahead puts collective k+1 into the other half while a slow one still reads
 k, and collective k+2 comes after barrier k+1, which the slow PE passes
 only once its reads of k are done.  The heap (:mod:`repro_torch.kernels.
-shmem_heap`) is sized once, before the first collective (:meth:`reserve`).
+shmem_heap`) is sized once, before the first collective (:meth:`reserve`):
+each half holds ``max(q, r)`` slots, or ``n_pes`` where the flat exchange
+runs.
 
 ``comm_bytes`` counts each op's per-PE result bytes, as the stacked
 :class:`~repro_torch.core.shmem.ShmemGrid` does; ``heap_bytes`` the bytes
@@ -75,12 +81,16 @@ class PeGrid(GridGeometry):
         self.comm, self.workdir = comm, workdir
         self.heap = None
         self.slot_bytes = 0
+        self.n_slots = 0          # slots a half of the heap holds
         self._parity = 0
         self.comm_bytes = 0       # per-PE result bytes of every op so far
         self.heap_bytes = 0       # bytes this PE's puts wrote into heaps
         self.n_collectives = 0
         self.n_puts = 0
         self.wait_s = 0.0         # stream synchronise + host barrier
+        self.moe_pairs = 0        # pairs this PE's grid MoE layers routed
+        self.moe_dropped = 0      # and dropped at capacity
+        self._dropped: List[torch.Tensor] = []   # device counts not read
 
     # -- identity ---------------------------------------------------------
     def my_pe(self) -> int:
@@ -107,15 +117,18 @@ class PeGrid(GridGeometry):
 
     # -- the heap -----------------------------------------------------------
     @staticmethod
-    def heap_size(slot_bytes: int, q: int, r: int) -> int:
+    def heap_size(slot_bytes: int, q: int, r: int,
+                  all_to_all: bool = False) -> int:
         """Bytes of one PE's heap whose slots hold ``slot_bytes``: two
-        halves (collective parity) of ``max(q, r)`` slots each."""
+        halves (collective parity) of ``max(q, r)`` slots each, or of
+        ``q * r`` with ``all_to_all`` (the flat exchange's)."""
         slot_bytes = -(-int(slot_bytes) // ALIGN) * ALIGN
-        return 2 * max(q, r) * slot_bytes
+        return 2 * (q * r if all_to_all else max(q, r)) * slot_bytes
 
-    def reserve(self, slot_bytes: int) -> int:
+    def reserve(self, slot_bytes: int, all_to_all: bool = False) -> int:
         """Allocate this PE's heap with slots of ``slot_bytes`` (the
-        largest message a collective will carry) and map every peer's: a
+        largest message a collective will carry), ``n_pes`` of them a half
+        with ``all_to_all`` (else ``max(q, r)``), and map every peer's: a
         collective call, once, before the first collective.  Returns the
         heap's bytes."""
         if self.local:
@@ -124,7 +137,8 @@ class PeGrid(GridGeometry):
             raise RuntimeError("the heap is sized once, before the first "
                                "collective")
         self.slot_bytes = -(-int(slot_bytes) // ALIGN) * ALIGN
-        n = self.heap_size(self.slot_bytes, self.q, self.r)
+        self.n_slots = self.n_pes if all_to_all else max(self.q, self.r)
+        n = self.heap_size(self.slot_bytes, self.q, self.r, all_to_all)
         if self.device.type == "cuda":
             heap = CudaHeap(self.pe, self.n_pes, n, self.device)
         else:
@@ -146,7 +160,7 @@ class PeGrid(GridGeometry):
         self.heap = None
 
     def _offset(self, k: int) -> int:
-        half = self._parity * max(self.q, self.r) * self.slot_bytes
+        half = self._parity * self.n_slots * self.slot_bytes
         return half + k * self.slot_bytes
 
     def _check_fits(self, nbytes: int, what: str) -> None:
@@ -302,6 +316,30 @@ class PeGrid(GridGeometry):
         self._barrier("broadcast_from")
         return self._done(self._read(0, x.shape, x.dtype))
 
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """The flat exchange over every PE: x (n_pes * m, ...) splits
+        into n_pes blocks along axis 0, block p goes to PE p, and the
+        result stacks the blocks received in source-PE order (an MoE
+        layer's dispatch and combine).  Needs a heap reserved with
+        ``all_to_all``; any dtype (the put copies bytes)."""
+        if self.local:
+            return x
+        n = self.n_pes
+        if x.shape[0] % n:
+            raise ValueError(f"axis 0 of size {x.shape[0]} does not split "
+                             f"into {n} blocks")
+        if self.n_slots < n:
+            raise RuntimeError("all_to_all: the heap was reserved without "
+                               "the flat exchange's n_pes slots")
+        blocks = [b.contiguous() for b in x.chunk(n, dim=0)]
+        self._check_fits(_nbytes(blocks[0]), "all_to_all")
+        for p, b in enumerate(blocks):
+            self._put(b, p, self.pe)
+        self._barrier("all_to_all")
+        shape = tuple(blocks[0].shape)
+        out = torch.cat([self._read(k, shape, x.dtype) for k in range(n)])
+        return self._done(out)
+
     # -- synchronization ----------------------------------------------------
     def barrier_all(self, *arrays):
         """``shmem_barrier_all``: this PE's stream synchronised, then every
@@ -312,11 +350,23 @@ class PeGrid(GridGeometry):
             return None
         return arrays[0] if len(arrays) == 1 else arrays
 
+    def note_drops(self, pairs: int, dropped: torch.Tensor) -> None:
+        """A grid MoE layer routed ``pairs`` pairs and dropped ``dropped``
+        of them (a count on the device, read with the next
+        :meth:`counters`)."""
+        self.moe_pairs += pairs
+        self._dropped.append(dropped)
+
     def counters(self) -> Dict[str, float]:
-        """The grid's running counts (the engine reads deltas per step)."""
+        """The grid's running counts (the engine reads deltas per step,
+        after the step's stream is synchronised)."""
+        if self._dropped:
+            self.moe_dropped += int(torch.stack(self._dropped).sum())
+            self._dropped = []
         return {"collectives": self.n_collectives, "puts": self.n_puts,
                 "heap_bytes": self.heap_bytes, "comm_bytes": self.comm_bytes,
-                "wait_s": self.wait_s}
+                "wait_s": self.wait_s, "moe_pairs": self.moe_pairs,
+                "moe_dropped": self.moe_dropped}
 
 
 def probe_collectives(grid: PeGrid, inputs: Dict[str, np.ndarray]
@@ -337,7 +387,7 @@ def probe_collectives(grid: PeGrid, inputs: Dict[str, np.ndarray]
     x = blk("x")
     largest = max(_nbytes(x), _nbytes(blk("vec")),
                   4 * inputs["vec"].shape[1] * inputs["w"].shape[2])
-    grid.reserve(largest)
+    grid.reserve(largest, all_to_all=True)
     out = {
         "transpose": grid.put(x, grid.transpose_pairs()),
         "shift_rows": grid.shift_rows(x, 1),
@@ -350,6 +400,11 @@ def probe_collectives(grid: PeGrid, inputs: Dict[str, np.ndarray]
         "reduce_scatter_rows": grid.reduce_scatter_rows(x, axis=0),
         "broadcast_from": grid.broadcast_from(x, 1 % grid.n_pes),
         "gemv2d": gemv2d(grid, blk("vec"), blk("w")),
+        "all_to_all": grid.all_to_all(x),
+        # the MoE int8 wire's payload and its expert ids take the byte path
+        "all_to_all_int8": grid.all_to_all(
+            torch.clamp(torch.round(x * 40), -127, 127).to(torch.int8)),
+        "all_to_all_int32": grid.all_to_all((x * 1000).to(torch.int32)),
     }
     grid.barrier_all()
     return {k: v.cpu().numpy() for k, v in out.items()}

@@ -13,6 +13,10 @@ mixed-length workload through the continuous-batching engine.
       --supervised --kills 2
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
       --engine --grid 2x2
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \\
+      --engine --grid 2x2
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch qwen3-moe-235b-a22b --layers 2 --engine --grid 2x2
 
 serves the full-width model on ``cuda`` with random weights from seed 0.
 ``--smoke`` takes the ``reduced()`` config instead (as the JAX launcher
@@ -43,9 +47,15 @@ cross caches.  ``--engine --grid QxR`` serves the same workload on a
 ``q x r`` grid of PE processes (``serve/engine/grid.py``; spawned, PE p on
 card ``p % device_count``, on the CPU with ``--device cpu``): PE 0
 schedules and samples, every PE runs each step body on its blocks of the
-weights, and the collectives put through the symmetric heap.  It prints
-the heap's size, the steps' collectives, barrier wait and heap bytes
-against the count reckoned from the shapes, and tokens/s.
+weights, and the collectives put through the symmetric heap.  Every
+decoder family serves there: mamba layers keep their columns' channels and
+heads in each PE's dense slots, MoE layers exchange tokens with the
+experts' owner PEs.  It prints the heap's size, the steps' collectives,
+barrier wait and heap bytes against the count reckoned from the shapes,
+tokens/s, the state commands PE 0 sent and the MoE pairs dropped at the
+config's capacity factor.  ``--layers N`` cuts the model to its first N
+layers (a multiple of its pattern), as a full MoE config needs on one
+card.
 
 With ``--service`` the same workload arrives instead through the asyncio
 ``GenerateService`` front-end: concurrent streaming clients at Poisson
@@ -74,6 +84,7 @@ never cuts depth on its own; ``--smoke`` is the way to a small model.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 
 import numpy as np
@@ -192,7 +203,7 @@ def _main_grid(cfg, args):
     """The engine's workload on a grid of PE processes."""
     from repro_torch.partition import parse_grid
     from repro_torch.serve.engine.grid import (GridJob, heap_bytes_by_step,
-                                               reckoned_heap_bytes,
+                                               pe_heads, reckoned_heap_bytes,
                                                serve_on_grid)
     plan = parse_grid(args.grid)
     device = args.device or "cuda"
@@ -209,8 +220,7 @@ def _main_grid(cfg, args):
         print(f"  req {n}: prompt[{len(prompts[n])}] -> {toks[:12]} "
               f"({pe0['finish'][n]})")
     log = pe0["grid_log"]
-    hq = cfg.heads_padded(plan.grid_r) // plan.grid_r
-    kvh = cfg.kv_stored(plan.grid_r)[0] // plan.grid_r
+    hq, kvh = pe_heads(cfg, plan)
     got = heap_bytes_by_step(reports)
     want = [reckoned_heap_bytes(cfg, plan, s["name"], hq, kvh) for s in log]
     wall = sum(s["wall_s"] for s in log)
@@ -226,6 +236,11 @@ def _main_grid(cfg, args):
           f"PE 0's step wall")
     print(f"heap bytes over all PEs: {sum(got)} put, {sum(want)} reckoned "
           f"from the shapes ({'equal' if got == want else 'DIFFERENT'})")
+    if pe0["state_commands"]:
+        print(f"dense slot commands PE 0 sent: {pe0['state_commands']}")
+    if pe0["moe_pairs"]:
+        print(f"MoE: {pe0['moe_dropped']} of {pe0['moe_pairs']} routed pairs "
+              f"dropped at capacity_factor {cfg.capacity_factor}")
     if got != want:
         raise SystemExit("heap traffic differs from the reckoned count")
 
@@ -443,6 +458,9 @@ def main(argv=None):
                     help="serve the reduced config instead of full width")
     ap.add_argument("--device", default=None, choices=["cuda", "cpu"],
                     help="default: cuda (raises without a GPU)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="serve the first N layers only (a multiple of the "
+                         "layer pattern)")
     ap.add_argument("--grid", default=None,
                     help="with --engine: serve on a QxR grid of PE "
                          "processes (e.g. 2x2)")
@@ -454,6 +472,11 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = reduced(cfg)
+    if args.layers is not None:
+        if args.layers % len(cfg.pattern()):
+            ap.error(f"--layers must be a multiple of {cfg.name}'s "
+                     f"{len(cfg.pattern())}-layer pattern")
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     if (args.engine or args.service or args.supervised) \
             and args.mode != "gemv":
         print(f"note: the engine serves through its per-slot paged step; "

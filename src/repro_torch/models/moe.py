@@ -32,23 +32,38 @@ past ``offsets[E]`` where the grouped GEMM writes zeros.  Nothing reads a
 count on the host (no ``bincount``, ``nonzero``, boolean indexing or
 ``.item()``), so a step body holding the block can be captured as a CUDA
 graph, and the combine uses no atomics, so a replay gives the same bits.
+
+On one PE of a ``q x r`` grid of PE processes (``moe_ffn`` with a grid
+``pctx``) the block takes the form of ``repro/models/moe.py:32-150``
+(:func:`_moe_grid`): experts over the flat PE space (PE p owns experts
+``[p E_loc, (p+1) E_loc)``), tokens row-replicated with their features
+over the columns, dispatch and combine as ``all_to_all`` exchanges through
+the symmetric heap, and capacity per owner PE.  Its shapes are fixed by
+(T, k) too: every exchange carries ``cap`` rows a PE pair.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels.grouped_mm import grouped_mm, grouped_mm_swiglu
+from repro_torch.models.layers import ParallelContext
+
+
+def _quantise(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row int8 codes and fp32 scales ``max|x| / 127 + 1e-12``
+    (``moe.py:88-94``)."""
+    f = t.float()
+    sc = f.abs().amax(-1, keepdim=True) / 127.0 + 1e-12
+    return torch.clamp(torch.round(f / sc), -127, 127).to(torch.int8), sc
 
 
 def _int8_wire(t: torch.Tensor) -> torch.Tensor:
     """The int8 dispatch/combine round trip of ``moe.py:88-94``, per row."""
-    f = t.float()
-    sc = f.abs().amax(-1, keepdim=True) / 127.0 + 1e-12
-    q8 = torch.clamp(torch.round(f / sc), -127, 127).to(torch.int8)
+    q8, sc = _quantise(t)
     return (q8.float() * sc).to(t.dtype)
 
 
@@ -106,9 +121,122 @@ def _n_kept(n: int, cfg) -> int:
     return min(math.ceil(n * cfg.capacity_factor), n)
 
 
-def moe_ffn(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg
-            ) -> torch.Tensor:
-    """The serving path's block: x (B, S, D) -> y, no metrics."""
+def moe_capacity(cfg, n_pes: int, tokens: int) -> int:
+    """Pairs a PE takes for each owner PE in one grid MoE layer of
+    ``tokens`` tokens: ``ceil(T k / n_pes * capacity_factor)``."""
+    return int(math.ceil(tokens * cfg.top_k / n_pes * cfg.capacity_factor))
+
+
+def _moe_grid(pctx: ParallelContext, p: Dict[str, torch.Tensor],
+              x: torch.Tensor, cfg) -> torch.Tensor:
+    """The MoE block on one PE of a grid: x (B, S, D/r) row-replicated ->
+    y of the same shape.  ``p``: router (D, E) fp32 whole, w1 (E_loc, D,
+    2F) and w2 (E_loc, F, D) this PE's experts.
+
+      * router logits: this column's rows of the router against x in
+        fp32, summed over the columns, so every PE routes alike; softmax,
+        top-k, renorm;
+      * each pair's rank among the pairs bound for its owner PE ``e //
+        E_loc``, kept below ``cap = ceil(T k / n_pes * capacity_factor)``;
+      * send buffers (n_pes, cap, D/r) of this PE's feature slice and
+        (n_pes, cap) of local expert ids, flat ``all_to_all``; the int8
+        wire sends codes and scales of the rows instead, both ways;
+      * full-D rows from the r column slices each source row sent, sorted
+        by local expert, ``grouped_mm_swiglu`` and ``grouped_mm`` over the
+        PE's E_loc experts, unsorted; the exchange back;
+      * each pair's row by (owner, rank), dropped pairs zero, and the fp32
+        combine over k in its fixed order.
+
+    Slots no pair filled carry the id E_loc: they sort past
+    ``offsets[E_loc]``, where the grouped GEMM writes zeros (the JAX block
+    feeds them to expert 0 as zero rows, whose outputs are zeros too)."""
+    grid = pctx.grid
+    n_pes, q, r = grid.n_pes, grid.q, grid.r
+    B, S, D_loc = x.shape
+    T = B * S
+    E, k = cfg.n_experts, cfg.top_k
+    E_loc = E // n_pes
+    n = T * k
+    cap = moe_capacity(cfg, n_pes, T)
+    dev = x.device
+    _, j = grid.my_coords()
+
+    x2 = x.reshape(T, D_loc)
+    wr = p["router"][j * D_loc:(j + 1) * D_loc]
+    logits = grid.psum_cols(x2.float() @ wr.float())
+    probs = torch.softmax(logits, dim=-1)
+    top_w, top_e = torch.topk(probs, k, dim=-1)
+    if cfg.router_renorm:
+        top_w = top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
+
+    # ---- dispatch bookkeeping (identical on every PE) ----------------------
+    fe = top_e.reshape(n)
+    fw = top_w.reshape(n).float()
+    ft = torch.arange(T, device=dev)[:, None].expand(T, k).reshape(n)
+    dest = fe // E_loc
+    oh = torch.nn.functional.one_hot(dest, n_pes).to(torch.int32)
+    pos = ((torch.cumsum(oh, 0) - oh) * oh).sum(-1)          # exclusive rank
+    valid = pos < cap
+    slot = torch.where(valid, pos, cap)                      # cap: dropped
+    grid.note_drops(n, (~valid).sum())
+
+    send_x = torch.zeros((n_pes, cap + 1, D_loc), dtype=x.dtype, device=dev)
+    send_x[dest, slot] = x2[ft]
+    send_le = torch.full((n_pes, cap + 1), E_loc, dtype=torch.int32,
+                         device=dev)
+    send_le[dest, slot] = (fe % E_loc).to(torch.int32)
+    send_x, send_le = send_x[:, :cap], send_le[:, :cap]
+
+    int8_wire = cfg.moe_wire_dtype == "int8"
+
+    def exchange(t: torch.Tensor) -> torch.Tensor:
+        """(n_pes, cap, ...) out and the blocks received back, in x's
+        dtype; int8 codes and fp32 scales on the wire with the int8
+        option."""
+        if not int8_wire:
+            return grid.all_to_all(t)
+        q8, sc = _quantise(t)
+        return (grid.all_to_all(q8).float() * grid.all_to_all(sc)).to(
+            t.dtype)
+
+    recv_x = exchange(send_x)                                # (n_pes, cap, Dl)
+    recv_le = grid.all_to_all(send_le)
+    # source PE (i_s, j_s) sent columns j_s of row i_s's tokens: the r
+    # slices of a source row make full-D rows
+    xs = recv_x.reshape(q, r, cap, D_loc).transpose(1, 2).reshape(
+        q * cap, r * D_loc)
+    les = recv_le.reshape(q, r, cap)[:, 0].reshape(q * cap).long()
+
+    # ---- this PE's experts: sort, two grouped GEMMs, unsort -----------------
+    M = q * cap
+    perm = torch.argsort(les, stable=True)
+    counts = torch.zeros(E_loc + 1, dtype=torch.int32, device=dev
+                         ).scatter_add_(0, les, torch.ones(
+                             M, dtype=torch.int32, device=dev))
+    offsets = torch.zeros(E_loc + 1, dtype=torch.int32, device=dev)
+    offsets[1:] = torch.cumsum(counts[:E_loc], 0)
+    h = grouped_mm_swiglu(xs[perm], p["w1"], offsets)        # (M, F)
+    ye = grouped_mm(h, p["w2"], offsets)                     # (M, D)
+    ys = torch.empty_like(ye)
+    ys[perm] = ye
+
+    # ---- the exchange back and the combine ---------------------------------
+    yd = ys.reshape(q, cap, r, D_loc).transpose(1, 2).reshape(
+        n_pes, cap, D_loc)
+    back = exchange(yd)                                      # (n_pes, cap, Dl)
+    got = back[dest, slot.clamp(max=cap - 1)]                # (n, D_loc)
+    got = torch.where(valid[:, None], got, torch.zeros((), dtype=got.dtype,
+                                                       device=dev))
+    y = (got.float().reshape(T, k, D_loc) * fw.reshape(T, k, 1)).sum(1)
+    return y.to(x.dtype).reshape(B, S, D_loc)
+
+
+def moe_ffn(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
+            pctx: Optional[ParallelContext] = None) -> torch.Tensor:
+    """The serving path's block: x (B, S, D) -> y, no metrics; with a
+    grid ``pctx`` the grid form (:func:`_moe_grid`)."""
+    if pctx is not None and not pctx.local:
+        return _moe_grid(pctx, p, x, cfg)
     return _moe(p, x, cfg)[0]
 
 

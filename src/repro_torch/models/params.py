@@ -301,7 +301,10 @@ def param_bytes(params) -> int:
 
 # leaves held whole by every PE (col_slice cuts them where they are used)
 _WHOLE = ("scale", "bias", "bq", "bk", "bv", "q_norm", "k_norm", "b_up",
-          "b_down")
+          "b_down", "router", "conv_w", "conv_b", "A", "dt_bias", "D",
+          "ssm_norm")
+# expert leaves (G, E, ...), cut over the flat PE space
+_EXPERT = ("w1", "w2")
 
 
 def _grid_heads(params, cfg: ModelConfig, r: int):
@@ -314,8 +317,10 @@ def _grid_heads(params, cfg: ModelConfig, r: int):
     that would need padded q heads is refused: the padded model is not the
     native one (initialise it in the grid geometry)."""
     hq, kvh = stored_heads(params, cfg)
+    if hq == 0:
+        return None
     hp, ks = cfg.heads_padded(r), cfg.kv_stored(r)[0]
-    if (hq, kvh) == (hp, ks) or hq == 0:
+    if (hq, kvh) == (hp, ks):
         return None
     if hq != hp or ks % kvh:
         raise NotImplementedError(
@@ -335,25 +340,28 @@ def _block(a: torch.Tensor, i: int, j: int, q: int, r: int) -> torch.Tensor:
 
 def shard_params(params, cfg: ModelConfig, plan, pe: int) -> Dict[str, Any]:
     """PE ``pe``'s blocks of the global tree in the JAX package's layout
-    (``repro.models.params`` ``blocked2d``/``vocab2d``, unskewed as the
-    serving path stores them): every projection ``(d_in/q, d_out/r)`` in
-    natural position (K block i, N block j); the embedding's vocabulary
-    rows over the grid rows and its features over the columns; the
-    lm_head's features over rows and vocabulary over columns, the
-    vocabulary padded with zeros to a multiple of ``q * r`` as the JAX
-    specs pad it; norms, biases and qk-norm scales whole.  Heads follow
-    :func:`_grid_heads`.  Attention-and-MLP models only; the SSM, MoE,
-    encoder and vision layers come with later slices of the grid."""
+    (``repro.models.params`` ``blocked2d``/``vocab2d``/``expert_flat``,
+    unskewed as the serving path stores them): every projection ``(d_in/q,
+    d_out/r)`` in natural position (K block i, N block j), the mamba
+    projections ``wz``/``wx``/``wb``/``wc``/``wdt``/``wo`` included; the
+    embedding's vocabulary rows over the grid rows and its features over
+    the columns; the lm_head's features over rows and vocabulary over
+    columns, the vocabulary padded with zeros to a multiple of ``q * r`` as
+    the JAX specs pad it; the MoE experts over the flat PE space, PE p
+    holding experts ``[p E/n_pes, (p+1) E/n_pes)`` of ``w1``/``w2``; norms,
+    biases, qk-norm scales, the router (fp32) and the mamba conv, decay,
+    skip and norm leaves whole (``col_slice`` and ``_conv_param_slice`` cut
+    them where they are used).  Heads follow :func:`_grid_heads`.  Encoder
+    layers come with a later slice of the grid."""
     q, r = plan.grid_q, plan.grid_r
     i, j = plan.coords(pe)
-    for mixer, ffn in cfg.pattern():
-        if mixer != "attn" or ffn not in ("mlp", "none"):
-            raise NotImplementedError(
-                f"{cfg.name}: ({mixer}, {ffn}) layers on a PE grid come "
-                f"with a later slice (ROADMAP.md)")
+    n_pes = q * r
     if cfg.enc_layers:
         raise NotImplementedError(f"{cfg.name}: encoder-decoder models on a "
                                   f"PE grid come with a later slice")
+    if any(f == "moe" for _, f in cfg.pattern()) and cfg.n_experts % n_pes:
+        raise ValueError(f"{cfg.name}: {cfg.n_experts} experts do not split "
+                         f"over {n_pes} PEs")
     rep = _grid_heads(params, cfg, r)
     vpad = pad_to_multiple(params["embed"].shape[0], q * r)
 
@@ -376,8 +384,13 @@ def shard_params(params, cfg: ModelConfig, plan, pe: int) -> Dict[str, Any]:
                     G, n = a.shape
                     a = a.reshape(G, n // cfg.hd(), cfg.hd()) \
                         .repeat_interleave(rep, dim=1).reshape(G, -1)
-                out[part][name] = a.clone() if name in _WHOLE \
-                    else _block(a, i, j, q, r)
+                if name in _WHOLE:
+                    out[part][name] = a.clone()
+                elif name in _EXPERT:
+                    e = a.shape[1] // n_pes
+                    out[part][name] = a[:, pe * e:(pe + 1) * e].clone()
+                else:
+                    out[part][name] = _block(a, i, j, q, r)
         return out
 
     vb, db = vpad // q, params["embed"].shape[1] // r

@@ -10,6 +10,18 @@ fused in-projection is five ``torch.matmul`` calls on the global
 ``[z | x | B | C | dt]`` weights.  The conv runs over the global channel
 order ``[x | B | C]``.
 
+On one PE of a ``q x r`` grid of PE processes (a ``pctx`` holding its
+:class:`~repro_torch.core.pe_grid.PeGrid`) the two serving steps take the
+grid form of ``repro/models/ssm.py:155-287``: the input is row-replicated
+(the engine's ``repl_rows`` layout), so there is no halo and no relay;
+column j owns heads ``[j H/r, (j+1) H/r)`` and the matching channels.  The
+five in-projections are one ``fused_dense`` (gemv2d), the conv runs over
+the local channel order ``[x_j | B_j | C_j]`` (:func:`_conv_param_slice`),
+B and C are gathered over the columns and cut to the groups covering the
+local heads (:func:`_slice_groups`), ``A``, ``dt_bias`` and ``D`` are
+column-sliced, the gated norm adds its statistic over the columns, and
+``wo`` is a gemv2d.  The SSD scan runs on the PE's ``H/r`` heads.
+
 The serving steps call the SSD scan op, the hand-written kernels on the
 card.  Training calls :func:`ssd_scan_differentiable`, the port of the JAX
 package's jnp backend (``repro.kernels.ssd_scan.ops``: ``_chunk_math_jnp``,
@@ -26,7 +38,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan import ssd_decode_step, ssd_scan
-from repro_torch.models.layers import rms_norm
+from repro_torch.models.layers import (ParallelContext, col_slice, dense,
+                                       fused_dense, rms_norm)
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -34,8 +47,66 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
-def _in_proj(p: Dict, x: torch.Tensor):
-    return tuple(x @ p[name] for name in ("wz", "wx", "wb", "wc", "wdt"))
+_IN = ("wz", "wx", "wb", "wc", "wdt")
+
+
+def _on_grid(pctx: Optional[ParallelContext]) -> bool:
+    return pctx is not None and not pctx.local
+
+
+def _in_proj(p: Dict, x: torch.Tensor,
+             pctx: Optional[ParallelContext] = None):
+    """The five in-projections: five products on one device, one fused
+    gemv2d on a grid."""
+    if _on_grid(pctx):
+        return fused_dense(pctx, x, [p[name] for name in _IN])
+    return tuple(x @ p[name] for name in _IN)
+
+
+def _conv_param_slice(pctx: Optional[ParallelContext], w: torch.Tensor,
+                      di: int, gn: int) -> torch.Tensor:
+    """Conv weights or bias (..., di + 2 gn) cut to this column's local
+    channel order ``[x_j | B_j | C_j]`` (the global order is ``[x | B |
+    C]``, so one contiguous slice would mix segments); whole on one
+    device."""
+    if not _on_grid(pctx):
+        return w
+    r = pctx.r
+    _, j = pctx.grid.my_coords()
+    di_loc, gn_loc = di // r, gn // r
+    return torch.cat([w[..., j * di_loc:(j + 1) * di_loc],
+                      w[..., di + j * gn_loc:di + (j + 1) * gn_loc],
+                      w[..., di + gn + j * gn_loc:di + gn + (j + 1) * gn_loc]],
+                     dim=-1)
+
+
+def _slice_groups(bc: torch.Tensor, G: int, r: int, j: int, axis: int
+                  ) -> torch.Tensor:
+    """The B/C groups covering column j's heads: G/r whole groups when
+    G >= r, else the one group the r/G consecutive columns share."""
+    if G >= r:
+        if G % r:
+            raise ValueError(f"{G} groups over {r} columns")
+        gpc = G // r
+        return bc.narrow(axis, j * gpc, gpc)
+    if r % G:
+        raise ValueError(f"{G} groups over {r} columns")
+    return bc.narrow(axis, j // (r // G), 1)
+
+
+def _local_bc(pctx: Optional[ParallelContext], Bc: torch.Tensor,
+              Cc: torch.Tensor, G: int, N: int):
+    """B and C (..., gn_loc) -> (..., G_loc, N) for this PE's heads: on a
+    grid gathered over the columns, then cut to the covering groups."""
+    lead = Bc.shape[:-1]
+    if not _on_grid(pctx):
+        return Bc.reshape(*lead, G, N), Cc.reshape(*lead, G, N)
+    _, j = pctx.grid.my_coords()
+    out = []
+    for t in (Bc, Cc):
+        full = pctx.grid.all_gather_cols(t, axis=-1).reshape(*lead, G, N)
+        out.append(_slice_groups(full, G, pctx.r, j, axis=len(lead)))
+    return tuple(out)
 
 
 def _conv1d_causal(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
@@ -53,11 +124,24 @@ def _conv1d_causal(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
 
 
 def _gated_out(p: Dict, y: torch.Tensor, xh: torch.Tensor, z: torch.Tensor,
-               dtype) -> torch.Tensor:
-    """Skip (D), gate (silu z), grouped rms norm and out projection."""
-    y = y.float() + p["D"].float()[:, None] * xh.float()
+               dtype, pctx: Optional[ParallelContext] = None
+               ) -> torch.Tensor:
+    """Skip (D), gate (silu z), grouped rms norm and out projection; on a
+    grid over this PE's heads, the norm's statistic summed over the
+    columns and ``wo`` a gemv2d (on one device ``col_slice`` and the
+    norm's psum are the identity and ``dense`` is one product)."""
+    Dskip = col_slice(pctx, p["D"], xh.shape[-2]).float()
+    y = y.float() + Dskip[:, None] * xh.float()
     y = y.reshape(z.shape) * F.silu(z.float())
-    return rms_norm(y.to(dtype), p["ssm_norm"]) @ p["wo"]
+    return dense(pctx, rms_norm(y.to(dtype), p["ssm_norm"], pctx=pctx),
+                 p["wo"])
+
+
+def _local_heads(pctx: Optional[ParallelContext], p: Dict, cfg):
+    """(H_loc, A, dt_bias) of this PE's heads (every head on one
+    device)."""
+    h = cfg.ssm_heads // pctx.r if _on_grid(pctx) else cfg.ssm_heads
+    return h, col_slice(pctx, p["A"], h), col_slice(pctx, p["dt_bias"], h)
 
 
 def ssd_scan_differentiable(x: torch.Tensor, dt: torch.Tensor,
@@ -141,8 +225,16 @@ def mamba_block(p: Dict, x: torch.Tensor, cfg) -> torch.Tensor:
     return _gated_out(p, y, xh, z, x.dtype)
 
 
+def _bc_width(cfg, pctx: Optional[ParallelContext]) -> int:
+    """B's (and C's) channels on this PE: ``G N``, or ``G N / r`` on a
+    grid."""
+    gn = cfg.ssm_groups * cfg.ssm_state
+    return gn // pctx.r if _on_grid(pctx) else gn
+
+
 def mamba_chunk_step(p: Dict, x: torch.Tensor, state: Tuple, cfg,
-                     n_valid: torch.Tensor
+                     n_valid: torch.Tensor,
+                     pctx: Optional[ParallelContext] = None
                      ) -> Tuple[torch.Tensor, Tuple[torch.Tensor,
                                                     torch.Tensor]]:
     """Multi-token state advance for chunked prefill.
@@ -153,17 +245,21 @@ def mamba_chunk_step(p: Dict, x: torch.Tensor, state: Tuple, cfg,
     zeroed, so the SSD recurrence is the identity there, and the new conv
     window gathers the last k-1 inputs *before* ``n_valid``), so one step
     serves every partial chunk.  The SSD scan runs with ``chunk = L``: the
-    CUDA kernels on the card, their plain versions on the CPU."""
+    CUDA kernels on the card, their plain versions on the CPU.  With a
+    grid ``pctx`` x is this PE's (B, L, D/r) block, and the state and the
+    result are its columns' channels and heads (module docstring)."""
     conv_state, ssm_state = state
     B, L = x.shape[:2]
-    H, P = cfg.ssm_heads, cfg.ssm_headdim
-    G, N = cfg.ssm_groups, cfg.ssm_state
-    di, gn, kconv = H * P, G * N, cfg.conv_kernel
+    P, G, N = cfg.ssm_headdim, cfg.ssm_groups, cfg.ssm_state
+    H, A, dt_bias = _local_heads(pctx, p, cfg)
+    di, gn, kconv = H * P, _bc_width(cfg, pctx), cfg.conv_kernel
 
-    z, xc, Bc, Cc, dt = _in_proj(p, x)
+    z, xc, Bc, Cc, dt = _in_proj(p, x, pctx)
     xBC = torch.cat([xc, Bc, Cc], dim=-1)                  # (B, L, conv_ch)
     halo = conv_state.to(xBC.dtype)
-    out = _conv1d_causal(xBC, p["conv_w"], p["conv_b"], halo)
+    out = _conv1d_causal(
+        xBC, _conv_param_slice(pctx, p["conv_w"], cfg.d_inner, G * N),
+        _conv_param_slice(pctx, p["conv_b"], cfg.d_inner, G * N), halo)
     # new conv window: the last (k-1) PRE-activation inputs at positions
     # strictly before n_valid (n_valid = 0 leaves the state untouched)
     full = torch.cat([halo, xBC], dim=1)                   # (B, k-1+L, C)
@@ -173,38 +269,40 @@ def mamba_chunk_step(p: Dict, x: torch.Tensor, state: Tuple, cfg,
         full, 1, gidx[..., None].expand(B, kconv - 1, full.shape[-1]))
     xBC_a = F.silu(out.float()).to(x.dtype)
     xh = xBC_a[..., :di].reshape(B, L, H, P)
-    Bg = xBC_a[..., di:di + gn].reshape(B, L, G, N)
-    Cg = xBC_a[..., di + gn:].reshape(B, L, G, N)
+    Bg, Cg = _local_bc(pctx, xBC_a[..., di:di + gn], xBC_a[..., di + gn:],
+                       G, N)
 
-    dt = _softplus(dt.float() + p["dt_bias"])              # (B, L, H)
+    dt = _softplus(dt.float() + dt_bias)                   # (B, L, H)
     valid = torch.arange(L, device=x.device)[None, :] < n_valid[:, None]
     dt = torch.where(valid[..., None], dt, 0.0)            # identity step
-    y, new_ssm = ssd_scan(xh, dt, p["A"].float(), Bg, Cg,
+    y, new_ssm = ssd_scan(xh, dt, A.float(), Bg, Cg,
                           init_state=ssm_state.float(), chunk=L)
-    return _gated_out(p, y, xh, z, x.dtype), (new_conv, new_ssm)
+    return _gated_out(p, y, xh, z, x.dtype, pctx), (new_conv, new_ssm)
 
 
-def mamba_decode_step(p: Dict, x: torch.Tensor, state: Tuple, cfg
+def mamba_decode_step(p: Dict, x: torch.Tensor, state: Tuple, cfg,
+                      pctx: Optional[ParallelContext] = None
                       ) -> Tuple[torch.Tensor, Tuple[torch.Tensor,
                                                      torch.Tensor]]:
     """Single-token decode.  x (B, 1, D); state = (conv_state (B, k-1,
     conv_ch) PRE-activation, ssm_state (B, H, N, P) fp32).  The conv is an
-    fp32 product over the window, as in the JAX decode step."""
+    fp32 product over the window, as in the JAX decode step.  With a grid
+    ``pctx``, this PE's columns (module docstring)."""
     conv_state, ssm_state = state
     B = x.shape[0]
-    H, P = cfg.ssm_heads, cfg.ssm_headdim
-    G, N = cfg.ssm_groups, cfg.ssm_state
-    di, gn = H * P, G * N
+    P, G, N = cfg.ssm_headdim, cfg.ssm_groups, cfg.ssm_state
+    H, A, dt_bias = _local_heads(pctx, p, cfg)
+    di, gn = H * P, _bc_width(cfg, pctx)
 
-    z, xc, Bc, Cc, dt = _in_proj(p, x)
+    z, xc, Bc, Cc, dt = _in_proj(p, x, pctx)
     xBC = torch.cat([xc, Bc, Cc], dim=-1)[:, 0]            # (B, conv_ch)
     window = torch.cat([conv_state, xBC[:, None]], dim=1)  # (B, k, conv_ch)
-    out = torch.einsum("bkc,kc->bc", window.float(), p["conv_w"].float()) \
-        + p["conv_b"]
+    conv_w = _conv_param_slice(pctx, p["conv_w"], cfg.d_inner, G * N)
+    conv_b = _conv_param_slice(pctx, p["conv_b"], cfg.d_inner, G * N)
+    out = torch.einsum("bkc,kc->bc", window.float(), conv_w.float()) + conv_b
     xBC_t = F.silu(out).to(x.dtype)
     xh = xBC_t[:, :di].reshape(B, H, P)
-    Bt = xBC_t[:, di:di + gn].reshape(B, G, N)
-    Ct = xBC_t[:, di + gn:].reshape(B, G, N)
-    dt_t = _softplus(dt[:, 0].float() + p["dt_bias"])      # (B, H)
-    y, new_ssm = ssd_decode_step(xh, dt_t, p["A"].float(), Bt, Ct, ssm_state)
-    return _gated_out(p, y, xh, z, x.dtype), (window[:, 1:], new_ssm)
+    Bt, Ct = _local_bc(pctx, xBC_t[:, di:di + gn], xBC_t[:, di + gn:], G, N)
+    dt_t = _softplus(dt[:, 0].float() + dt_bias)           # (B, H)
+    y, new_ssm = ssd_decode_step(xh, dt_t, A.float(), Bt, Ct, ssm_state)
+    return _gated_out(p, y, xh, z, x.dtype, pctx), (window[:, 1:], new_ssm)

@@ -70,7 +70,7 @@ from repro_torch.models.layers import (ParallelContext, apply_norm,
                                        apply_rope, dense, fused_dense,
                                        mlp_apply, rms_norm_local,
                                        rope_tables)
-from repro_torch.models.moe import moe_ffn
+from repro_torch.models.moe import moe_capacity, moe_ffn
 from repro_torch.models.ssm import mamba_chunk_step, mamba_decode_step
 from repro_torch.models.transformer import encode, forward
 
@@ -245,10 +245,11 @@ def _decode_layer(cfg, mixer, ffn, p, x, cache, op: _Operands):
         st = _dense_slot_gather(cache, op.dense[0])
         state = (st["conv"], st["ssm"])
         if op.decode:
-            h, (conv, ssm) = mamba_decode_step(p["mixer"], h, state, cfg)
+            h, (conv, ssm) = mamba_decode_step(p["mixer"], h, state, cfg,
+                                               op.pctx)
         else:
             h, (conv, ssm) = mamba_chunk_step(p["mixer"], h, state, cfg,
-                                              op.n_valid)
+                                              op.n_valid, op.pctx)
         x = x + h
         _dense_slot_scatter(cache, {"conv": conv, "ssm": ssm}, op.dense[1])
     else:
@@ -257,8 +258,8 @@ def _decode_layer(cfg, mixer, ffn, p, x, cache, op: _Operands):
         h = apply_norm(cfg, p["norm2"], x, op.pctx)
         x = x + mlp_apply(cfg, p["ffn"], h, op.pctx)
     elif ffn == "moe":
-        h = apply_norm(cfg, p["norm2"], x)
-        x = x + moe_ffn(p["ffn"], h, cfg)
+        h = apply_norm(cfg, p["norm2"], x, op.pctx)
+        x = x + moe_ffn(p["ffn"], h, cfg, op.pctx)
     elif ffn != "none":
         raise NotImplementedError(f"({mixer}, {ffn}) layers")
     return x
@@ -356,16 +357,22 @@ class Message(NamedTuple):
 def grid_messages(cfg: ModelConfig, plan, batch: int, length: int, *,
                   hq: int, kvh: int, all_logits: bool = False
                   ) -> List[Message]:
-    """Every message one paged step puts into the heaps on ``plan``'s grid,
-    in the order the body sends them: ``batch`` slots of ``length``
-    positions (1 for a decode step), this PE's ``hq`` q heads and ``kvh``
-    kv heads.  A gemv2d is a transpose put (one put of the compute-dtype
-    input) and a row psum (q puts of the fp32 partial); a row or column
-    collective puts its block to each of the group's q or r members.  The
-    largest ``nbytes`` sizes the heap's slots, and ``n_pes * sum(nbytes *
-    puts)`` is the step's heap traffic, which the grid counts as
-    ``heap_bytes``."""
+    """Every message one step puts into the heaps on ``plan``'s grid, in
+    the order the body sends them: ``batch`` slots of ``length`` positions
+    (1 for a decode step), this PE's ``hq`` q heads and ``kvh`` kv heads.
+    A gemv2d is a transpose put (one put of the compute-dtype input) and a
+    row psum (q puts of the fp32 partial); a row or column collective puts
+    its block to each of the group's q or r members; a flat exchange puts
+    one block to each of the n_pes PEs.  A mamba layer: the norm, its five
+    in-projections as one gemv2d, B and C gathered over the columns, the
+    gated norm and ``wo``.  An MoE layer: the norm, the router's column
+    psum, then the tokens' rows and their local expert ids out and the rows
+    back, each as a flat exchange of ``cap`` rows a PE (the int8 wire: the
+    codes and their fp32 scales each way).  The largest ``nbytes`` sizes
+    the heap's slots, and ``n_pes * sum(nbytes * puts)`` is the step's heap
+    traffic, which the grid counts as ``heap_bytes``."""
     q, r = plan.grid_q, plan.grid_r
+    n_pes = q * r
     esz = torch.empty((), dtype=cfg.compute_dtype).element_size()
     hd = cfg.hd()
     D, F = cfg.d_model // r, cfg.d_ff // r
@@ -377,19 +384,46 @@ def grid_messages(cfg: ModelConfig, plan, batch: int, length: int, *,
         return [Message(f"{tag} put", rows * k * esz, 1),
                 Message(f"{tag} psum_rows", rows * n_out * 4, q)]
 
+    def rows_out(tag, cap, width):
+        """A flat exchange of ``cap`` rows of ``width`` compute-dtype
+        features to every PE (int8 codes and fp32 scales on the int8
+        wire)."""
+        if cfg.moe_wire_dtype == "int8":
+            return [Message(f"{tag} all_to_all int8", cap * width, n_pes),
+                    Message(f"{tag} all_to_all scales", cap * 4, n_pes)]
+        return [Message(f"{tag} all_to_all", cap * width * esz, n_pes)]
+
     out = [Message("embed psum_rows", n * D * esz, q)]
     for mixer, ffn in cfg.pattern():
         layer = [Message("norm1 psum_cols", n * stats * 4, r)]
-        layer += gemv("qkv", D, (hq + 2 * kvh) * hd)
-        layer += [Message("attn pmax_rows", batch * hq * length * 4, q),
-                  Message("attn psum_rows",
-                          batch * hq * length * (hd + 1) * 4, q)]
-        layer += gemv("wo", hq * hd, D)
+        if mixer == "attn":
+            layer += gemv("qkv", D, (hq + 2 * kvh) * hd)
+            layer += [Message("attn pmax_rows", batch * hq * length * 4, q),
+                      Message("attn psum_rows",
+                              batch * hq * length * (hd + 1) * 4, q)]
+            layer += gemv("wo", hq * hd, D)
+        else:
+            di, H = cfg.d_inner // r, cfg.ssm_heads // r
+            gn = cfg.ssm_groups * cfg.ssm_state // r
+            layer += gemv("in_proj", D, 2 * di + 2 * gn + H)
+            layer += [Message("B all_gather_cols", n * gn * esz, r),
+                      Message("C all_gather_cols", n * gn * esz, r),
+                      Message("ssm_norm psum_cols", n * 4, r)]
+            layer += gemv("wo", di, D)
         if ffn == "mlp":
             layer.append(Message("norm2 psum_cols", n * stats * 4, r))
             layer += gemv("gate_up", D, (2 if cfg.act == "swiglu" else 1)
                           * F)
             layer += gemv("down", F, D)
+        elif ffn == "moe":
+            cap = moe_capacity(cfg, n_pes, n)
+            layer.append(Message("norm2 psum_cols", n * stats * 4, r))
+            layer.append(Message("router psum_cols", n * cfg.n_experts * 4,
+                                 r))
+            layer += rows_out("moe rows", cap, D)
+            layer.append(Message("moe expert ids all_to_all", cap * 4,
+                                 n_pes))
+            layer += rows_out("moe rows back", cap, D)
         out += layer * cfg.n_groups()
     last = batch * (length if all_logits else 1)
     out.append(Message("final psum_cols", last * stats * 4, r))

@@ -51,7 +51,13 @@ runs the scheduler, the block pool, the prefix cache and sampling.  For
 each step it broadcasts the step's kind, bucket, chunk length and host
 operands to the other PEs (:meth:`ServingEngine.follow` is their loop),
 every PE runs the step body, whose collectives put through the symmetric
-heap, and PE 0 reads the logits the body gathered.  Grid steps run eagerly
+heap, and PE 0 reads the logits the body gathered.  Every decoder family
+serves there: attention pages its K/V over the grid rows, mamba layers keep
+their columns' channels and heads in each PE's dense slots, MoE layers
+exchange their tokens with the experts' owners.  Each PE's arena is its
+own, so PE 0's store logs every operation on its dense slots (zero, write,
+read, drop a snapshot) and sends the log before its next step; the others
+apply it to their shards (``state_store.py``).  Grid steps run eagerly
 (``CommandQueue``); speculation and the step guard stay on one device for
 now.
 """
@@ -61,7 +67,9 @@ from __future__ import annotations
 import dataclasses
 import functools
 import time
-from typing import TYPE_CHECKING, Dict, Iterator, Optional, Sequence, Tuple
+from collections import deque
+from typing import (TYPE_CHECKING, Any, Callable, Dict, Iterator, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -321,7 +329,11 @@ class ServingEngine:
                 m.nbytes for L in (1,) + self._chunks
                 for m in grid_messages(cfg, plan, ec.buckets[-1], L,
                                        hq=hq, kvh=kvh))
-            self.heap_bytes = self.grid.reserve(self.heap_slot_bytes)
+            self.heap_bytes = self.grid.reserve(
+                self.heap_slot_bytes,
+                all_to_all=any(f == "moe" for _, f in cfg.pattern()))
+            if self.grid.pe == 0:
+                self.store.commands = []
         self.reserve_split_counters((1,) + self._chunks)
         # step cache keyed by (bucket, L, verify): L=0 is the one-position
         # decode step, L>0 a chunked-prefill step from the ladder or, with
@@ -575,12 +587,7 @@ class ServingEngine:
 
     @staticmethod
     def _refuse_on_grid(cfg, ec: EngineConfig) -> None:
-        """What a grid engine does not run yet (ROADMAP.md queues each)."""
-        if any(m != "attn" or f not in ("mlp", "none")
-               for m, f in cfg.pattern()):
-            raise NotImplementedError(
-                f"{cfg.name}: only attention-and-MLP models serve on a PE "
-                f"grid so far (SSM and MoE layers come with later slices)")
+        """What a grid engine does not run yet (ROADMAP.md queues it)."""
         if ec.speculation is not None or ec.fault_injector is not None \
                 or ec.resilience is not None:
             raise NotImplementedError(
@@ -591,6 +598,11 @@ class ServingEngine:
         step and its operands, and every PE's step is logged."""
         if self.grid is None:
             return step.run(self.queue, self.params, self.store.arena)
+        cmds = self.store.commands
+        if cmds:
+            self.store.commands = []
+            self._grid_header(2, (len(cmds), 0, False))
+            self.grid.comm.broadcast(torch.tensor(cmds, dtype=torch.int64), 0)
         self._grid_header(1, step.key)
         flat = self._grid_operands(step)
         self.grid.comm.broadcast(flat, 0)
@@ -598,6 +610,8 @@ class ServingEngine:
             self.queue, self.params, self.store.arena))
 
     def _grid_header(self, kind: int, key=(0, 0, False)) -> None:
+        """PE 0 tells the followers what comes next: 1 a step (``key``), 2
+        ``key[0]`` state commands, 0 the end."""
         self.grid.comm.broadcast(torch.tensor(
             [kind, key[0], key[1], int(key[2])], dtype=torch.int64), 0)
 
@@ -621,9 +635,10 @@ class ServingEngine:
         return out
 
     def follow(self) -> int:
-        """A follower's loop (every PE but 0): take each step PE 0
-        announces, fill its operands, run its body, until PE 0 releases the
-        grid (:meth:`release_followers`).  Returns the steps run."""
+        """A follower's loop (every PE but 0): apply the state commands PE
+        0 sends, take each step it announces, fill its operands, run its
+        body, until PE 0 releases the grid (:meth:`release_followers`).
+        Returns the steps run."""
         if self.grid is None or self.grid.pe == 0:
             raise RuntimeError("follow() runs on the PEs after the first")
         n = 0
@@ -633,6 +648,12 @@ class ServingEngine:
             kind, bucket, chunk, verify = header.tolist()
             if kind == 0:
                 return n
+            if kind == 2:
+                cmds = torch.zeros((bucket, 3), dtype=torch.int64)
+                self.grid.comm.broadcast(cmds, 0)
+                for op, a, b in cmds.tolist():
+                    self.store.apply(op, a, b)
+                continue
             step = self._kernel(bucket, chunk or None, bool(verify))
             flat = self._grid_operands(step)
             self.grid.comm.broadcast(flat, 0)
@@ -763,13 +784,23 @@ class ServingEngine:
         p = np.exp(z)
         return int(rng.choice(len(row), p=p / p.sum()))
 
-    def drain(self) -> None:
-        """Run until every submitted request reaches FINISHED."""
+    def drain(self, arrivals: Sequence[Tuple[int, Callable[[], Any]]] = ()
+              ) -> None:
+        """Run until every submitted request reaches FINISHED.
+        ``arrivals``, pairs ``(step, submit)`` in step order, calls each
+        ``submit()`` before the step it names; an idle engine skips ahead
+        to the next arrival."""
+        pending = deque(arrivals)
         steps = 0
         limit = self.engine_cfg.max_steps
-        while self.scheduler.has_work:
+        while self.scheduler.has_work or pending:
+            while pending and pending[0][0] <= steps:
+                pending.popleft()[1]()
             if not self.step():
-                break
+                if not pending:
+                    break
+                steps = pending[0][0]
+                continue
             steps += 1
             if limit is not None and steps > limit:
                 raise RuntimeError(f"drain exceeded max_steps={limit}")

@@ -3,9 +3,10 @@
 :func:`serve_on_grid` starts ``q * r`` PE processes
 (:func:`repro_torch.runtime.pe.run_pes`) and runs :func:`grid_serve_pe` on
 each: every PE builds a :class:`~repro_torch.serve.engine.ServingEngine` on
-its own blocks of the weights (drawn on its device from a seed, or cut
-from a global numpy tree), PE 0 serves the prompts through ``generate``
-(the controller: scheduler, pool, prefix cache, sampling) while the other
+its own blocks of the weights (drawn on its device from a seed, one PE at a
+time so that one full tree is on a card at once, or cut from a global
+numpy tree), PE 0 serves the prompts (``ServingEngine.drain``; the
+controller: scheduler, pool, prefix cache, sampling) while the other
 PEs follow its steps (``ServingEngine.follow``), and each PE reports what
 it measured.  A run takes several jobs, one engine each, in one spawn of
 the grid (the PEs' start-up is paid once).
@@ -16,23 +17,29 @@ tokens, finish reasons, ``EngineStats``, wall and tokens/s, and the logits
 rows of the first ``record`` outputs of every request of the first pass;
 on every PE its per-step log (step name, wall, collectives, puts, heap
 bytes, wait in barriers), its kernels' launch counts over the job, and
-with ``profile`` its device busy time over the job.
+with ``profile`` its device busy time over the job, the state commands its
+store logged or applied, and the pairs its MoE layers routed and dropped
+(the sums of its step log's).
+
+A job's requests arrive all at once, or each at the step and with the
+priority ``arrivals`` gives it, under an ``admission`` policy of
+:mod:`repro_torch.serve.service.admission` (a priority policy preempts).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.pe_grid import probe_latency
 from repro_torch.kernels import count_delta, launch_counts
-from repro_torch.models.params import from_jax_params, shard_params
+from repro_torch.models.params import (from_jax_params, init_params,
+                                       shard_params)
 from repro_torch.runtime.pe import run_pes
-from repro_torch.serve.engine.api import generate
 from repro_torch.serve.engine.engine import (EngineConfig, EngineStats,
                                              ServingEngine)
 from repro_torch.serve.engine.request import SamplingParams
@@ -53,6 +60,9 @@ class GridJob:
     record: int = 0                   # outputs whose logits rows PE 0 keeps
     profile: bool = False             # device busy time per PE
     passes: int = 1                   # times PE 0 serves the prompts
+    # (step, priority) of each prompt; None: all at step 0, priority 0
+    arrivals: Optional[List[Tuple[int, int]]] = None
+    admission: Optional[str] = None   # a policy name; None is fifo
 
 
 def _kernel_counts(delta) -> Dict[str, int]:
@@ -84,6 +94,9 @@ def _serve(grid, eng: ServingEngine, job: GridJob) -> Dict[str, Any]:
     eng._sample = sampled
     per = job.sampling if isinstance(job.sampling, (list, tuple)) \
         else [job.sampling or SamplingParams()] * len(job.prompts)
+    if job.admission is not None:
+        from repro_torch.serve.service.admission import make_policy
+        eng.scheduler.admission = make_policy(job.admission)
     passes = []
     for k in range(job.passes):
         eng.stats = EngineStats()
@@ -91,9 +104,7 @@ def _serve(grid, eng: ServingEngine, job: GridJob) -> Dict[str, Any]:
             ev.first_enqueue_t = ev.last_enqueue_t = ev.last_done_t = 0.0
         first = len(eng.grid_log)
         t0 = time.perf_counter()
-        reqs = [eng.submit(p, s) for p, s in zip(job.prompts, per)]
-        index.update({r.request_id: n for n, r in enumerate(reqs)})
-        eng.drain()
+        reqs = _drain(eng, job, per, index)
         passes.append({
             "tokens": [list(r.output_tokens) for r in reqs],
             "finish": [r.finish_reason for r in reqs],
@@ -109,6 +120,25 @@ def _serve(grid, eng: ServingEngine, job: GridJob) -> Dict[str, Any]:
             "heap_slot_bytes": eng.heap_slot_bytes}
 
 
+def _drain(eng: ServingEngine, job: GridJob, sampling, index) -> list:
+    """Serve ``job``'s prompts on PE 0's engine as its ``arrivals`` say;
+    ``index`` maps each request's id to its prompt's number.  Returns the
+    requests in prompt order."""
+    n = len(job.prompts)
+    arrivals = job.arrivals or [(0, 0)] * n
+    reqs: list = [None] * n
+
+    def submit(k):
+        def go():
+            reqs[k] = eng.submit(job.prompts[k], sampling[k],
+                                 priority=arrivals[k][1])
+            index[reqs[k].request_id] = k
+        return go
+    eng.drain(sorted(((arrivals[k][0], submit(k)) for k in range(n)),
+                     key=lambda a: a[0]))
+    return reqs
+
+
 def grid_serve_pe(grid, jobs: Sequence[GridJob], latency: bool = False
                   ) -> List[Dict[str, Any]]:
     """The PE target of :func:`serve_on_grid`: with ``latency`` first the
@@ -121,11 +151,7 @@ def grid_serve_pe(grid, jobs: Sequence[GridJob], latency: bool = False
         grid.close()
     out = []
     for job in jobs:
-        params = None
-        if job.weights is not None:
-            full = from_jax_params(job.weights, job.cfg, device=grid.device)
-            params = shard_params(full, job.cfg, _plan(grid), grid.pe)
-            del full
+        params = _pe_params(grid, job)
         eng = ServingEngine(job.cfg, params=params,
                             engine_cfg=job.engine_cfg, seed=job.seed,
                             plan=_plan(grid), grid=grid)
@@ -144,6 +170,9 @@ def grid_serve_pe(grid, jobs: Sequence[GridJob], latency: bool = False
             res.update(_busy_ms(prof))
         res["launches"] = _kernel_counts(count_delta(before,
                                                      launch_counts()))
+        res["moe_pairs"] = sum(s["moe_pairs"] for s in eng.grid_log)
+        res["moe_dropped"] = sum(s["moe_dropped"] for s in eng.grid_log)
+        res["state_commands"] = dict(eng.store.n_commands)
         if lat is not None and not out:
             res["latency_us"] = lat
         res.update(grid_log=eng.grid_log, pe=grid.pe,
@@ -156,6 +185,28 @@ def grid_serve_pe(grid, jobs: Sequence[GridJob], latency: bool = False
         if grid.device.type == "cuda":
             torch.cuda.empty_cache()
     return out
+
+
+def _pe_params(grid, job: GridJob):
+    """This PE's blocks of the job's weights: cut from the global numpy
+    tree, or drawn on the PE's device from the job's seed as a one-device
+    engine draws them.  The PEs draw in turn, each freeing its full tree
+    before the next starts, so the card holds one full tree at a time."""
+    plan = _plan(grid)
+    if job.weights is not None:
+        full = from_jax_params(job.weights, job.cfg, device=grid.device)
+        return shard_params(full, job.cfg, plan, grid.pe)
+    params = None
+    for turn in range(grid.n_pes):
+        if turn == grid.pe:
+            gen = torch.Generator(device=grid.device).manual_seed(job.seed)
+            full = init_params(job.cfg, generator=gen, device=grid.device)
+            params = shard_params(full, job.cfg, plan, grid.pe)
+            del full, gen
+            if grid.device.type == "cuda":
+                torch.cuda.empty_cache()
+        grid.comm.barrier(f"weights {turn}")
+    return params
 
 
 def _plan(grid):
@@ -180,6 +231,15 @@ def step_shape(name: str):
     bucket = int(name.split("_bs")[1].split("_")[0])
     length = int(name.split("_len")[1]) if "_len" in name else 1
     return bucket, length, name.startswith("verify")
+
+
+def pe_heads(cfg, plan):
+    """(q heads, kv heads) a PE holds on ``plan``'s grid, as the JAX grid
+    stores them; (0, 0) for a model with no attention layer."""
+    if not any(m == "attn" for m, _ in cfg.pattern()):
+        return 0, 0
+    r = plan.grid_r
+    return cfg.heads_padded(r) // r, cfg.kv_stored(r)[0] // r
 
 
 def reckoned_heap_bytes(cfg, plan, name: str, hq: int, kvh: int) -> int:

@@ -193,6 +193,7 @@ class Scheduler:
         for i, r in enumerate(self.waiting):
             if r.request_id == request_id:
                 del self.waiting[i]
+                self.state.on_release(r)
                 r.finish("cancelled")
                 return True
         for r in self.running:
@@ -225,6 +226,7 @@ class Scheduler:
             out.append(r)
         while self.waiting:
             r = self.waiting.popleft()
+            self.state.on_release(r)
             r.finish(reason)
             out.append(r)
         return out

@@ -29,11 +29,24 @@ every lifecycle event through the hook face (``needs_pages`` /
 ``plan_resume`` / ``can_admit`` / ``commit_admit`` / ``on_release``);
 :class:`NullStateHook` is that face for a scheduler with no state store at
 all.
+
+On a grid of PE processes every PE's arena is its own (the JAX controller's
+``.at[].set`` writes one global array).  PE 0's store decides; with
+:attr:`StateStore.commands` set it logs each operation on its arena as a
+command ``(op, a, b)``: :data:`ZERO` a slot at admission, :data:`WRITE`
+snapshot b into slot a (prefix adoption, preemption restore), :data:`READ`
+slot a into snapshot b (a published prefix, a preempted page-free
+request), :data:`DROP` snapshot a where PE 0 lets its copy go (FIFO or
+tree eviction, a snapshot replaced, a preempted request's snapshot at its
+readmission or its end).  PE 0 numbers its snapshots; the engine sends
+the log to the other PEs before its next step, and each applies it to its
+own shard (:meth:`StateStore.apply`), keeping its own host snapshots under
+PE 0's numbers.  A follower decides nothing itself.
 """
 
 from __future__ import annotations
 
-from collections import OrderedDict, deque
+from collections import Counter, OrderedDict, deque
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -42,6 +55,16 @@ from repro_torch.serve.engine.block_cache import DenseSlotPool
 from repro_torch.serve.state import DenseSpec, ModelStateSpecs
 
 HostLeaves = Dict[Tuple[int, str], torch.Tensor]
+
+# the commands of a grid controller's store (module docstring)
+ZERO, WRITE, READ, DROP = range(4)
+COMMANDS = ("zero", "write", "read", "drop")
+
+
+class Snapshot(dict):
+    """Host leaves of one dense slot, numbered by a grid controller's
+    store (``sid``) so the other PEs can name their copies."""
+    __slots__ = ("sid",)
 
 
 class StateStore:
@@ -65,6 +88,8 @@ class StateStore:
         self._tree = pool.cache if (pool is not None and specs.has_paged
                                     and pool.cache is not None) else None
         self._snap_nodes: "deque" = deque()   # FIFO cap over tree snapshots
+        if self._tree is not None:
+            self._tree.on_dense_drop = self._drop
         # ONE arena for the engine's lifetime; the step bodies write it in
         # place, and captured step graphs hold its addresses, so no leaf is
         # ever replaced.  Pages are never zeroed again: stale KV past a
@@ -91,6 +116,13 @@ class StateStore:
         self._prefix: "OrderedDict[Tuple[int, ...], HostLeaves]" = \
             OrderedDict()
         self.n_restores = 0            # snapshot copies INTO a slot
+        # a grid: PE 0's log of commands for the other PEs (None off the
+        # controller), a follower's snapshots by PE 0's number, and the
+        # commands each PE has logged or applied, by kind
+        self.commands: Optional[List[Tuple[int, int, int]]] = None
+        self._held: Dict[int, HostLeaves] = {}
+        self._next_sid = 0
+        self.n_commands: Counter = Counter()
 
     # -- spec-derived facts -------------------------------------------------
 
@@ -174,19 +206,27 @@ class StateStore:
             if snap is None:
                 raise RuntimeError(
                     f"no dense snapshot at resume position {resume}")
-        request.dense_snapshot = None
         if snap is None:
             self._zero_slot(request.dense_slot)
         else:
             self._write_slot(request.dense_slot, snap)
             self.n_restores += 1
+        if request.dense_snapshot is not None:
+            self._drop(request.dense_snapshot[1])
+            request.dense_snapshot = None
 
     def on_release(self, request, preempting: bool = False) -> None:
         """Retire/preempt: free the dense slot — after snapshotting it onto
         the request when the snapshot alone is a consistent resume point
         (page-free configs with progress; hybrid preemption drops state
-        because its paged KV is released alongside)."""
-        if not self.has_dense or request.dense_slot is None:
+        because its paged KV is released alongside).  A preempted request
+        that ends before its readmission lets its snapshot go."""
+        if not self.has_dense:
+            return
+        if not preempting and request.dense_snapshot is not None:
+            self._drop(request.dense_snapshot[1])
+            request.dense_snapshot = None
+        if request.dense_slot is None:
             return
         if preempting and not self.needs_pages and request.num_cached > 0:
             request.dense_snapshot = (request.num_cached,
@@ -208,16 +248,21 @@ class StateStore:
                 return
             if node.dense_snap is None:
                 self._snap_nodes.append(node)
+            else:
+                self._drop(node.dense_snap)
             node.dense_snap = self.read_slot(slot)
             while len(self._snap_nodes) > self.MAX_PREFIX_SNAPSHOTS:
                 old = self._snap_nodes.popleft()
                 if not old.detached:
+                    self._drop(old.dense_snap)
                     old.dense_snap = None
             return
+        if key in self._prefix:
+            self._drop(self._prefix[key])
         self._prefix[key] = self.read_slot(slot)
         self._prefix.move_to_end(key)
         while len(self._prefix) > self.MAX_PREFIX_SNAPSHOTS:
-            self._prefix.popitem(last=False)
+            self._drop(self._prefix.popitem(last=False)[1])
 
     def has_dense_prefix(self, key: Tuple[int, ...]) -> bool:
         if self._tree is not None:
@@ -231,19 +276,55 @@ class StateStore:
         return {(i, name): leaf for i in self._dense_idx
                 for name, leaf in self.arena[i].items()}
 
+    def _log(self, op: int, a: int, b: int = 0) -> None:
+        if self.commands is not None:
+            self.commands.append((op, a, b))
+            self.n_commands[COMMANDS[op]] += 1
+
     def _zero_slot(self, slot: int) -> None:
         for leaf in self._dense_leaves().values():
             leaf[:, slot].zero_()
+        self._log(ZERO, slot)
 
     def _write_slot(self, slot: int, host_leaves: HostLeaves) -> None:
         for key, leaf in self._dense_leaves().items():
             leaf[:, slot].copy_(host_leaves[key])
+        if self.commands is not None:
+            self._log(WRITE, slot, host_leaves.sid)
 
     def read_slot(self, slot: int) -> HostLeaves:
         """Copy one dense slot's rows to the host (waits for in-flight
-        work on the card)."""
-        return {key: leaf[:, slot].to("cpu", copy=True)
-                for key, leaf in self._dense_leaves().items()}
+        work on the card).  On a grid controller the copy is a numbered
+        :class:`Snapshot`, and the other PEs take theirs."""
+        leaves = {key: leaf[:, slot].to("cpu", copy=True)
+                  for key, leaf in self._dense_leaves().items()}
+        if self.commands is None:
+            return leaves
+        snap = Snapshot(leaves)
+        snap.sid = self._next_sid
+        self._next_sid += 1
+        self._log(READ, slot, snap.sid)
+        return snap
+
+    def _drop(self, snap: Optional[HostLeaves]) -> None:
+        """PE 0 lets a snapshot go: the other PEs drop theirs."""
+        if self.commands is not None and snap is not None:
+            self._log(DROP, snap.sid)
+
+    def apply(self, op: int, a: int, b: int) -> None:
+        """A follower: carry out one command of PE 0's log on this PE's
+        shard of the arena."""
+        if op == ZERO:
+            self._zero_slot(a)
+        elif op == WRITE:
+            self._write_slot(a, self._held[b])
+        elif op == READ:
+            self._held[b] = self.read_slot(a)
+        elif op == DROP:
+            del self._held[a]
+        else:
+            raise ValueError(f"unknown state command {op}")
+        self.n_commands[COMMANDS[op]] += 1
 
     def snapshot_slots(self, slots: Sequence[int]) -> List[HostLeaves]:
         """Snapshot the dense rows of ``slots`` where the arena lives: one

@@ -106,6 +106,9 @@ class RadixPrefixCache:
         self._claims: Dict[int, RadixNode] = {}      # page id -> claimant
         self._evictable: Set[RadixNode] = set()      # claims with refs == 0
         self._tick = 0                               # LRU clock
+        # told of each dense snapshot an eviction lets go (the StateStore
+        # of a grid controller logs it for the other PEs)
+        self.on_dense_drop = None
 
     # -- accounting ---------------------------------------------------------
 
@@ -272,10 +275,16 @@ class RadixPrefixCache:
         del self._claims[best.page]
         best.parent.children.pop(best.block, None)
         best.detached = True
-        best.dense_snap = None
+        self._drop_dense(best)
         return best.page
 
     # -- internals ----------------------------------------------------------
+
+    def _drop_dense(self, node: RadixNode) -> None:
+        """Let ``node``'s dense snapshot go, telling ``on_dense_drop``."""
+        if node.dense_snap is not None and self.on_dense_drop is not None:
+            self.on_dense_drop(node.dense_snap)
+        node.dense_snap = None
 
     def _blockers(self, node: Optional[RadixNode], delta: int) -> None:
         """Add ``delta`` to the live-descendant count of ``node`` and every
@@ -297,7 +306,7 @@ class RadixPrefixCache:
         live = 0
         for n in nodes:
             n.detached = True
-            n.dense_snap = None
+            self._drop_dense(n)
             if self._claims.get(n.page) is n:
                 del self._claims[n.page]
                 if n in self._evictable:

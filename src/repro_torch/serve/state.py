@@ -75,11 +75,13 @@ class DenseSpec:
 StateSpec = Union[PagedSpec, DenseSpec]
 
 
-def _mamba_dense_spec(cfg: ModelConfig) -> DenseSpec:
-    conv_ch = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+def _mamba_dense_spec(cfg: ModelConfig, r: int = 1) -> DenseSpec:
+    """A mamba layer's slot on one PE: its columns' ``(d_inner + 2 G N) /
+    r`` conv channels and ``H / r`` heads (``repro/serve/state.py:95``)."""
+    conv_ch = (cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state) // r
     return DenseSpec(leaves=(
         ("conv", (cfg.conv_kernel - 1, conv_ch), cfg.compute_dtype),
-        ("ssm", (cfg.ssm_heads, cfg.ssm_state, cfg.ssm_headdim),
+        ("ssm", (cfg.ssm_heads // r, cfg.ssm_state, cfg.ssm_headdim),
          torch.float32),
     ))
 
@@ -136,8 +138,10 @@ class ModelStateSpecs:
                    for shape, dt in e.leaves.values())
 
     def dense_slot_bytes(self) -> int:
-        """Device bytes of ONE dense slot across all dense layers."""
-        return sum(self.groups * _nbytes(shape, dt)
+        """Device bytes of ONE dense slot across all dense layers (on a
+        grid its channels and heads spread over the r columns, and every
+        grid row holds a replica: the JAX package's count)."""
+        return sum(self.groups * self.q * self.r * _nbytes(shape, dt)
                    for e in self.entries if isinstance(e, DenseSpec)
                    for _, shape, dt in e.leaves)
 
@@ -151,8 +155,8 @@ def layer_state_specs(cfg: ModelConfig, plan=None, *, stride: int,
     :func:`repro_torch.models.params.stored_heads`); it defaults to the
     config's native count.  With a grid ``plan`` (a
     :class:`repro_torch.partition.MeshPlan`) the specs are one PE's:
-    ``kvh = kv_stored(r)[0] // r``, as the JAX grid stores them, and only
-    attention layers (the SSM on the grid comes later).  An
+    ``kvh = kv_stored(r)[0] // r``, as the JAX grid stores them, and a
+    mamba layer's slot holds its columns' channels and heads.  An
     encoder-decoder model has no spec: its
     cross caches are per request and sequence-shaped, neither pages nor
     O(1) slots, so it serves through the fixed-batch path
@@ -164,11 +168,8 @@ def layer_state_specs(cfg: ModelConfig, plan=None, *, stride: int,
     q = r = 1
     if plan is not None and plan.n_pes > 1:
         q, r = plan.grid_q, plan.grid_r
-        kvh = cfg.kv_stored(r)[0] // r
-        if any(m != "attn" for m, _ in cfg.pattern()):
-            raise NotImplementedError(
-                f"{cfg.name}: dense-state (SSM) layers on a PE grid come "
-                f"with a later slice (ROADMAP.md)")
+        if any(m == "attn" for m, _ in cfg.pattern()):
+            kvh = cfg.kv_stored(r)[0] // r
     entries: List[StateSpec] = []
     for (mixer, _) in cfg.pattern():
         if mixer == "attn":
@@ -176,7 +177,7 @@ def layer_state_specs(cfg: ModelConfig, plan=None, *, stride: int,
                 kvh=kvh if kvh is not None else cfg.kv_stored(1)[0],
                 hd=cfg.hd(), stride=stride, dtype=cfg.compute_dtype))
         elif mixer in ("mamba", "ssm"):
-            entries.append(_mamba_dense_spec(cfg))
+            entries.append(_mamba_dense_spec(cfg, r))
         else:
             raise NotImplementedError(
                 f"no StateSpec mapping for mixer {mixer!r}")

@@ -4,7 +4,10 @@ Four CPU PE processes (``repro_torch.runtime.pe.run_pes``) run every
 collective of ``PeGrid`` once over their shared-memory heaps
 (``repro_torch.core.pe_grid.probe_collectives``); the same stacked numpy
 inputs, made from a seed, go through ``repro.core.shmem.ShmemGrid`` under
-``shard_map`` on a 2x2 grid of 4 of the host devices.  Permutations and
+``shard_map`` on a 2x2 grid of 4 of the host devices, and the flat
+exchange through ``lax.all_to_all`` (``split_axis=0, concat_axis=0,
+tiled=True``, as ``repro/models/moe.py:84`` calls it) in fp32, int8 and
+int32.  Permutations and
 gathers must match exactly; sums within fp32 rel 1e-6 (two-member sums in
 fp32 are exact, so they match exactly too).  A PE that raises must end the
 whole run, naming the PE, well inside the grid's timeout.
@@ -29,7 +32,8 @@ from repro_torch.runtime.pe import PeFailed, fail_on, run_pes
 
 Q = R = 2
 EXACT = ("transpose", "shift_rows", "shift_cols", "pmax_rows",
-         "all_gather_rows", "all_gather_cols", "broadcast_from")
+         "all_gather_rows", "all_gather_cols", "broadcast_from",
+         "all_to_all", "all_to_all_int8", "all_to_all_int32")
 SUMS = ("psum_rows", "psum_cols", "reduce_scatter_rows", "gemv2d")
 
 
@@ -47,9 +51,17 @@ def _jax_results(inputs):
                          axis_types=(jax.sharding.AxisType.Auto,) * 2)
     grid = ShmemGrid(MODEL, Q, R)
 
+    def a2a(t):
+        return jax.lax.all_to_all(t, MODEL, split_axis=0, concat_axis=0,
+                                  tiled=True)
+
     def body(x, vec, w):
         x, vec, w = x[0], vec[0], w[0]
         out = {
+            "all_to_all": a2a(x),
+            "all_to_all_int8": a2a(jnp.clip(jnp.round(x * 40), -127, 127)
+                                   .astype(jnp.int8)),
+            "all_to_all_int32": a2a((x * 1000).astype(jnp.int32)),
             "transpose": grid.put(x, grid.transpose_pairs()),
             "shift_rows": grid.shift_rows(x, 1),
             "shift_cols": grid.shift_cols(x, 1),

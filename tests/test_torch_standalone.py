@@ -49,7 +49,9 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
             "repro_torch.partition", "repro_torch.core.pe_grid",
             "repro_torch.runtime.pe", "repro_torch.kernels.shmem_heap.kernel",
             "repro_torch.kernels.shmem_heap.ref",
-            "repro_torch.serve.engine.grid"} <= set(mods)
+            "repro_torch.serve.engine.grid", "repro_torch.models.moe",
+            "repro_torch.models.ssm", "repro_torch.serve.state",
+            "repro_torch.serve.engine.state_store"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -185,3 +187,36 @@ def test_one_by_one_plan_is_the_one_device_engine():
         outs.append([c.tokens for c in generate(
             eng, prompts, SamplingParams(max_tokens=4))])
     assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("name", ["mamba2-780m", "qwen3-moe-235b-a22b",
+                                  "jamba-1.5-large-398b"])
+def test_grid_serves_every_decoder_family(name):
+    """A grid engine refuses speculation and the step guard only: SSM,
+    hybrid and MoE models serve there, and their state specs and weights
+    cut into a 2x2 grid's (mamba slots by column, experts by PE)."""
+    from repro_torch.models.params import init_params, shard_params
+    from repro_torch.partition import grid_plan
+    from repro_torch.serve.spec import SpeculationConfig
+    from repro_torch.serve.state import layer_state_specs
+    cfg = reduced(get_config(name))
+    plan = grid_plan(2, 2)
+    ServingEngine._refuse_on_grid(cfg, EngineConfig(device="cpu"))
+    with pytest.raises(NotImplementedError, match="one device"):
+        ServingEngine._refuse_on_grid(cfg, EngineConfig(
+            device="cpu", speculation=SpeculationConfig("ngram", k=2)))
+    one = layer_state_specs(cfg, stride=4)
+    grid = layer_state_specs(cfg, plan, stride=4)
+    assert grid.dense_slot_bytes() == one.dense_slot_bytes() * 2
+    params = init_params(cfg, generator=torch.Generator().manual_seed(0),
+                         device="cpu")
+    blk = shard_params(params, cfg, plan, 3)
+    for lp, bp in zip(params["layers"], blk["layers"]):
+        if "w1" in lp.get("ffn", {}):
+            E = cfg.n_experts
+            assert torch.equal(bp["ffn"]["w1"],
+                               lp["ffn"]["w1"][:, 3 * E // 4:])
+        if "wx" in lp["mixer"]:
+            assert bp["mixer"]["wx"].shape[-1] * 2 == \
+                lp["mixer"]["wx"].shape[-1]
+            assert torch.equal(bp["mixer"]["A"], lp["mixer"]["A"])
