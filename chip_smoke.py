@@ -195,6 +195,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    per step, collectives per step, barrier-wait share per PE, heap bytes
    per step, device busy per PE and step, tokens/s against the 1x1
    engine, the dense-slot commands PE 0 sent, the MoE pairs dropped;
+14b. grid_forward — on an emptied cache, the blocked layout on the same
+   2x2 grid (``launch/grid_run.py``, one spawn): ``make_loss_fn`` and
+   ``make_prefill`` on batch 2 x 1024 tokens (512 a grid row), once each,
+   on qwen2-0.5b (24 layers) in fp32 under cannon, cannon_opt, allgather
+   and SUMMA and in bf16 under cannon and cannon_opt, mamba2-780m (48
+   layers, the sequence-sharded block: 4 scan chunks a row, the halo and
+   the state relay) in fp32 under cannon and cannon_opt and in bf16 under
+   cannon, the reduced jamba in fp32 under cannon and cannon_opt; then
+   ``make_decode_step(mode="batched")`` under Cannon (batch 8, 4 a row,
+   s_max 512, 16 greedy tokens from one random token a row) on
+   qwen2-0.5b in fp32 and bf16 and mamba2-780m in fp32; each beside the
+   port's 1x1 on the same seed-0 weights.  Gates on every PE: fp32 loss,
+   prefill logits and first decode logits within GRID_FWD_TOL of the
+   1x1's, fp32 decode tokens equal, the fp32 strategies within
+   GRID_FWD_TOL of each other, bf16 logits within GRID_FWD_BF16_TOL;
+   every forward's and decode step's heap bytes as reckoned from the
+   shapes; cannon_mm on every distributed GEMM (q launches a Cannon,
+   crot or SUMMA GEMM, one an allgather one), the SSD passes on every
+   mamba layer of every forward (``mma`` in bf16, ``simt`` in fp32), the
+   grouped GEMMs on every MoE layer, no plain version.  Printed per job
+   and strategy: ms per forward and per decode step, collectives, heap
+   bytes per PE, barrier-wait share, cannon_mm's variants;
 15. the engine at full width on an MoE model, last and after the cache is
    emptied — qwen3-moe-235b-a22b at the repo config's full width (d_model
    4096, 64 q heads over 4 kv heads, hd 64, qk_norm, 128 experts top-8 of
@@ -4870,6 +4892,350 @@ def compare_1x1(label, cfg, prompts, one, pe0):
 
 
 # ---------------------------------------------------------------------------
+# The blocked layout on the grid: the forward (loss and prefill) under the
+# paper's Cannon GEMMs and their baselines, and the batched decode, on a
+# 2x2 grid of PE processes.
+# ---------------------------------------------------------------------------
+
+GRID_FWD_BATCH, GRID_FWD_SEQ = 2, 1024       # S_loc 512 a grid row
+GRID_DEC_BATCH, GRID_DEC_S_MAX, GRID_DEC_STEPS = 8, 512, 16
+# each forward runs once: the first job (the small jamba) takes the PEs'
+# first launches, so the timed qwen2 and mamba2 forwards find them warm
+GRID_FWD_RUNS = 1
+GRID_STRATEGIES = ("cannon", "cannon_opt", "allgather", "summa")
+# fp32 against the port's 1x1 on the same weights: the loss, the prefill's
+# last-position logits (relative to the largest) and the first decode
+# step's logits, the bound the CPU tests hold the grid to against JAX
+GRID_FWD_TOL = 1e-5
+# mamba2-780m's 48 random fp32 layers amplify summation order: its logits
+# (not its loss) take this bound instead, 4x the 1x1's own spread between
+# its two fp32 scan routes on the same weights (the SSD kernels against the
+# differentiable torch scan: 1.25e-4 on an H100); the grid reads 1.38e-4 to
+# 1.41e-4 at the last position, 2.56e-5 at the first decode step.  (A grid
+# without the state relay reads the same at the last position, where the
+# relayed state has decayed away: the loss, held at GRID_FWD_TOL, fails it
+# at 3.1e-4.)
+GRID_FWD_DEEP_TOL = {"mamba2-780m fp32": 5e-4}
+# bf16 prefill logits (and the first batched-decode step's) against the 1x1
+# bf16 run's, relative to the largest: a limit between the sound grid's
+# reading and a control whose every local block product is rounded to bf16
+# before the fp32 accumulation (one extra rounding a GEMM step), near their
+# geometric mean.  On an H100, sound / control: qwen2-0.5b prefill 0.01698
+# (cannon; cannon_opt 0.01649) / 0.02142, its first decode step 0.02075 /
+# 0.02494, mamba2-780m prefill 0.1286 / 0.2637.  PERF.md has the readings.
+GRID_FWD_BF16_TOL = {"qwen2-0.5b bf16": 0.019, "mamba2-780m bf16": 0.18,
+                     "qwen2-0.5b bf16 decode": 0.0227}
+GRID_FWD_PHASE_S = 300.0
+
+
+def grid_forward_table():
+    """The forward jobs, as (label, config, strategies): the reduced
+    jamba (attention, mamba and MoE layers, capacity_factor GRID_MOE_CF:
+    nothing can drop) in fp32 under cannon and cannon_opt; qwen2-0.5b (24
+    layers) in fp32 under all four strategies and in bf16 under cannon
+    and cannon_opt; mamba2-780m (48 layers) in fp32 under cannon and
+    cannon_opt and in bf16 under cannon."""
+    f32, b16 = torch.float32, torch.bfloat16
+    S = GRID_STRATEGIES
+    return [("jamba fp32", grid_cfg("jamba", f32,
+                                    capacity_factor=GRID_MOE_CF), S[:2]),
+            ("qwen2-0.5b fp32", grid_cfg("qwen2-0.5b", f32), S),
+            ("qwen2-0.5b bf16", grid_cfg("qwen2-0.5b", b16), S[:2]),
+            ("mamba2-780m fp32", grid_cfg("mamba2-780m", f32), S[:2]),
+            ("mamba2-780m bf16", grid_cfg("mamba2-780m", b16), S[:1])]
+
+
+# the batched decode's jobs (labels of grid_forward_table)
+GRID_DECODE = ("qwen2-0.5b fp32", "qwen2-0.5b bf16", "mamba2-780m fp32")
+
+
+def grid_denses(cfg):
+    """Distributed GEMMs of one forward: two a layer (QKV and wo, in and
+    out projections, gate|up and down; the MoE router is a local fp32
+    product summed over the columns) and the lm_head."""
+    per = {"attn": 2, "mamba": 2, "mlp": 2, "moe": 0, "none": 0}
+    return cfg.n_groups() * sum(per[m] + per[f] for m, f in cfg.pattern()) \
+        + 1
+
+
+def one_device_blocked(cfg, toks, labels, first):
+    """The port's 1x1 on the seed-0 weights drawn on the card: the loss,
+    the prefill's last-position logits and, with ``first``, the batched
+    decode's greedy tokens and its first step's logits."""
+    from repro_torch.models.params import init_params
+    from repro_torch.serve.decode import (cache_specs, make_decode_step,
+                                          make_prefill)
+    from repro_torch.train.step import make_loss_fn
+    gen = torch.Generator(DEV).manual_seed(0)
+    params = init_params(cfg, generator=gen, device=DEV)
+    batch = {"tokens": torch.from_numpy(toks).to(DEV),
+             "labels": torch.from_numpy(labels).to(DEV)}
+    loss, _ = make_loss_fn(cfg)(params, batch)
+    out = {"loss": float(loss),
+           "logits": make_prefill(cfg)(params, batch)[:, 0].float().cpu()}
+    if first is not None:
+        B = len(first)
+        step = make_decode_step(cfg, batch=B, s_max=GRID_DEC_S_MAX)
+        cache = cache_specs(cfg, B, GRID_DEC_S_MAX, "batched", device=DEV)
+        tok = torch.from_numpy(first.astype(np.int32)).to(DEV)
+        seq = [tok]
+        for t in range(GRID_DEC_STEPS):
+            logits = step(params, cache, tok, t)
+            if t == 0:
+                out["first_row"] = logits[:, 0].float().cpu()
+            tok = torch.argmax(logits[:, 0, :cfg.vocab_size], -1).to(
+                torch.int32)
+            seq.append(tok)
+        out["tokens"] = torch.stack(seq, 1).cpu().numpy()
+        del cache
+    del params, gen
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_forward_pe(where, cfg, strategy, r, one, plan):
+    """One PE's forward job (``phase_grid_forward``): heap bytes as
+    reckoned every run, no plain version, the cannon_mm kernel on every
+    distributed GEMM (q launches a Cannon, crot or SUMMA GEMM, one an
+    allgather one), the SSD scan's two passes on every mamba layer (the
+    ``mma`` variant in bf16, ``simt`` in fp32), both grouped GEMMs on
+    every MoE layer; fp32 results within GRID_FWD_TOL of the 1x1's."""
+    kinds = layer_counts(cfg)
+    bf16 = cfg.compute_dtype == torch.bfloat16
+    per_gemm = 1 if strategy == "allgather" else plan.grid_q
+    failed = []
+    for what in ("loss", "prefill"):
+        for k, rec in enumerate(r[f"{what}_runs"]):
+            n = {name: c["launches"] for name, c in rec["launches"].items()}
+            if rec["heap_bytes"] != r["reckoned_heap_bytes"][what]:
+                failed.append(f"{where} {what} run {k}: heap bytes "
+                              f"{rec['heap_bytes']}, reckoned "
+                              f"{r['reckoned_heap_bytes'][what]}")
+            plain = {name: v for name, v in n.items()
+                     if name.endswith("_ref") and v}
+            want = {"matmul_cuda": grid_denses(cfg) * per_gemm,
+                    "ssd_chunk_cuda": kinds["mamba"],
+                    "ssd_apply_cuda": kinds["mamba"],
+                    "grouped_mm_cuda": kinds["moe"],
+                    "grouped_mm_swiglu_cuda": kinds["moe"]}
+            got = {name: n.get(name, 0) for name in want}
+            if plain or got != want:
+                failed.append(f"{where} {what} run {k}: launches {got}, "
+                              f"expected {want}; plain {plain}")
+            variant = "mma" if bf16 else "simt"
+            for name in ("ssd_chunk_cuda", "ssd_apply_cuda"):
+                var = rec["launches"].get(name, {}).get("by_variant", {})
+                if kinds["mamba"] and var.get(variant) != kinds["mamba"]:
+                    failed.append(f"{where} {what}: {name} by variant {var}"
+                                  f", expected {variant}")
+    if r["device"][:4] != "cuda" or r["heap"] != "CudaHeap":
+        failed.append(f"{where}: {r['device']} with a {r['heap']}")
+    V = cfg.vocab_size
+    errs = {"loss_rel_err": abs(r["loss"] - one["loss"]) / abs(one["loss"]),
+            "logits_rel_err": rel_err(one["logits"][..., :V], torch.from_numpy(
+                r["logits"][:, 0, :V]))}
+    label = f"{cfg.name} {'bf16' if bf16 else 'fp32'}"
+    tol = {"loss_rel_err": GRID_FWD_TOL,
+           "logits_rel_err": GRID_FWD_BF16_TOL.get(label) if bf16
+           else GRID_FWD_DEEP_TOL.get(label, GRID_FWD_TOL)}
+    for k, e in errs.items():
+        if tol[k] is not None and not (bf16 and k == "loss_rel_err") \
+                and e > tol[k]:
+            failed.append(f"{where}: {k} {e} from the 1x1 (tolerance "
+                          f"{tol[k]})")
+    return errs, failed
+
+
+def check_decode_pe(where, cfg, label, r, one):
+    """One PE's batched decode job: heap bytes as reckoned every step, no
+    plain version, cannon_mm on every GEMM of every step (q launches
+    each); fp32 tokens equal to the 1x1's, the first step's logits within
+    GRID_FWD_TOL (fp32) or GRID_FWD_BF16_TOL (bf16)."""
+    failed = []
+    want = grid_denses(cfg) * GRID_Q
+    for k, rec in enumerate(r["steps"]):
+        n = {name: c["launches"] for name, c in rec["launches"].items()}
+        if rec["heap_bytes"] != r["reckoned_heap_bytes"]:
+            failed.append(f"{where} step {k}: heap bytes {rec['heap_bytes']}"
+                          f", reckoned {r['reckoned_heap_bytes']}")
+        plain = {name: v for name, v in n.items()
+                 if name.endswith("_ref") and v}
+        if plain or n.get("matmul_cuda", 0) != want:
+            failed.append(f"{where} step {k}: cannon_mm {n.get('matmul_cuda')}"
+                          f" (expected {want}), plain {plain}")
+    V = cfg.vocab_size
+    err = rel_err(one["first_row"][:, :V],
+                  torch.from_numpy(r["rows"][0][:, :V]))
+    equal = bool(np.array_equal(r["tokens"], one["tokens"]))
+    if cfg.compute_dtype == torch.float32:
+        tol = GRID_FWD_DEEP_TOL.get(label, GRID_FWD_TOL)
+        if not equal:
+            failed.append(f"{where}: greedy tokens differ from the 1x1's")
+        if err > tol:
+            failed.append(f"{where}: first-step logits {err} from the 1x1 "
+                          f"(tolerance {tol})")
+    elif err > GRID_FWD_BF16_TOL[f"{label} decode"]:
+        failed.append(f"{where}: first-step logits {err} from the 1x1 "
+                      f"(tolerance {GRID_FWD_BF16_TOL[f'{label} decode']})")
+    return {"first_step_rel_err": err, "tokens_equal_1x1": equal}, failed
+
+
+def _walls(reports, runs_key):
+    """(PE 0's wall, the slowest PE's) of the last run, ms."""
+    walls = [r[runs_key][-1]["wall_s"] * 1e3 for r in reports]
+    return walls[0], max(walls)
+
+
+def phase_grid_forward(smi):
+    """The blocked layout on a 2x2 grid of PE processes of this card
+    (``launch/grid_run.py``), every job in one spawn: ``make_loss_fn`` and
+    ``make_prefill`` on batch GRID_FWD_BATCH x GRID_FWD_SEQ tokens (S_loc
+    512 a row) for the jobs of ``grid_forward_table``, each run
+    GRID_FWD_RUNS times (the last timed), and ``make_decode_step(mode=
+    "batched")`` under Cannon for GRID_DECODE: batch GRID_DEC_BATCH (4 a
+    row), ``s_max`` GRID_DEC_S_MAX, GRID_DEC_STEPS greedy tokens from one
+    random token a row.  Every job beside the port's 1x1 on the same
+    seed-0 weights (drawn on the card; the PEs draw them in turn and cut
+    their blocks in the strategy's storage).  Gates on every PE
+    (``check_forward_pe``, ``check_decode_pe``): fp32 loss, prefill logits
+    and first decode logits within GRID_FWD_TOL of the 1x1's, fp32 decode
+    tokens equal, the fp32 strategies within GRID_FWD_TOL of each other,
+    bf16 logits within GRID_FWD_BF16_TOL; heap bytes of every forward and
+    decode step as reckoned from the shapes; cannon_mm on every GEMM, the
+    SSD passes on every mamba layer, the grouped GEMMs on every MoE layer,
+    no plain version.  Prints per strategy the ms per forward and per
+    decode step, collectives, heap bytes per PE and the barrier-wait
+    share.  Returns the launches by path (summed over the PEs, the
+    forward's last run and every decode step)."""
+    from repro_torch.launch.grid_run import (DecodeJob, ForwardJob,
+                                             make_batch, run_on_grid)
+    from repro_torch.partition import grid_plan
+    t0 = time.perf_counter()
+    plan = grid_plan(GRID_Q, GRID_R)
+    table = grid_forward_table()
+    cfgs = {label: cfg for label, cfg, _ in table}
+    inputs, one = {}, {}
+    t_one = time.perf_counter()
+    for label, cfg, _ in table:
+        toks, labels = make_batch(cfg, GRID_FWD_BATCH, GRID_FWD_SEQ)
+        first = np.random.default_rng(0).integers(
+            0, cfg.vocab_size, size=(GRID_DEC_BATCH,)) \
+            if label in GRID_DECODE else None
+        inputs[label] = (toks, labels, first)
+        one[label] = one_device_blocked(cfg, toks, labels, first)
+    one_s = time.perf_counter() - t_one
+    jobs, keys = [], []
+    for label, cfg, strategies in table:
+        toks, labels, _ = inputs[label]
+        for s in strategies:
+            keys.append((label, s))
+            jobs.append(ForwardJob(cfg, s, toks, labels, seed=0,
+                                   runs=GRID_FWD_RUNS))
+    for label in GRID_DECODE:
+        keys.append((label, "decode"))
+        jobs.append(DecodeJob(cfg=cfgs[label], first=inputs[label][2],
+                              s_max=GRID_DEC_S_MAX, steps=GRID_DEC_STEPS,
+                              seed=0))
+    t_grid, t_wall = time.perf_counter(), time.time()
+    runs = run_on_grid(jobs, plan, device=DEV, timeout=900)
+    grid_s = time.perf_counter() - t_grid
+    # the PEs' start (spawn to the target) and end (the target's return
+    # to the results in hand), on the wall clock all processes share
+    spawn_s = max(r["t_enter"] for r in runs[0]) - t_wall
+    end_s = t_wall + grid_s - min(r["t_leave"] for r in runs[0])
+    failed, rows, by_path = [], [], {}
+    fp32_results = {}
+    for (label, s), reports in zip(keys, runs):
+        cfg = cfgs[label]
+        path = f"{label} {s} grid 2x2 " + (
+            "(batched decode)" if s == "decode" else "(loss + prefill)")
+        row = dict(run=label, strategy=s, layers=cfg.n_layers,
+                   heap_slot_bytes=reports[0]["heap_slot_bytes"],
+                   job_s=max(r["job_s"] for r in reports),
+                   setup_s=max(r["setup_s"] for r in reports))
+        for r in reports:
+            where = f"grid_forward {label} {s} PE {r['pe']}"
+            if s == "decode":
+                errs, bad = check_decode_pe(where, cfg, label, r, one[label])
+            else:
+                errs, bad = check_forward_pe(where, cfg, s, r, one[label],
+                                             plan)
+            failed += bad
+            for k, v in errs.items():
+                row.setdefault(k + "_by_pe", {})[r["pe"]] = v
+            recs = r["steps"] if s == "decode" else \
+                r["loss_runs"][-1:] + r["prefill_runs"][-1:]
+            for rec in recs:
+                for name, c in rec["launches"].items():
+                    if not name.endswith("_cuda"):
+                        continue
+                    k = name[:-len("_cuda")]
+                    e = by_path.setdefault(k, {}).setdefault(
+                        path, {"launches": 0, "by_variant": {}})
+                    e["launches"] += c["launches"]
+                    for v, m in c["by_variant"].items():
+                        if m:
+                            e["by_variant"][v] = e["by_variant"].get(v, 0) + m
+        pe0 = reports[0]
+        if s == "decode":
+            st = pe0["steps"][1:]           # the first step warms up
+            wall = float(np.mean([x["wall_s"] for x in st])) * 1e3
+            row.update(ms_per_decode_step=wall,
+                       ms_per_decode_step_slowest_pe=max(
+                           1e3 * float(np.mean([x["wall_s"]
+                                                for x in r["steps"][1:]]))
+                           for r in reports),
+                       collectives_per_step=st[0]["collectives"],
+                       heap_bytes_per_pe_per_step=st[0]["heap_bytes"],
+                       barrier_wait_share={r["pe"]: sum(
+                           x["wait_s"] for x in r["steps"][1:]) / max(sum(
+                               x["wall_s"] for x in r["steps"][1:]), 1e-9)
+                           for r in reports},
+                       tokens=pe0["tokens"][:2].tolist())
+        else:
+            for what in ("loss", "prefill"):
+                rec = pe0[f"{what}_runs"][-1]
+                w0, wmax = _walls(reports, f"{what}_runs")
+                row[f"{what}_forward"] = dict(
+                    ms=w0, ms_slowest_pe=wmax,
+                    collectives=rec["collectives"],
+                    heap_bytes_per_pe=rec["heap_bytes"],
+                    barrier_wait_share={r["pe"]: r[f"{what}_runs"][-1][
+                        "wait_s"] / max(r[f"{what}_runs"][-1]["wall_s"],
+                                        1e-9) for r in reports},
+                    cannon_mm_by_variant=rec["launches"].get(
+                        "matmul_cuda", {}).get("by_variant"))
+            row.update(loss=pe0["loss"], loss_1x1=one[label]["loss"],
+                       n_tokens=pe0["n_tokens"])
+            if cfg.compute_dtype == torch.float32:
+                fp32_results.setdefault(label, {})[s] = reports
+        emit("grid_forward_run", **row, nvidia_smi=smi)
+        rows.append(row)
+    # the fp32 strategies against each other, on every PE
+    for label, by_s in fp32_results.items():
+        base = by_s["cannon"]
+        for s, reports in by_s.items():
+            for r, b in zip(reports, base):
+                e_loss = abs(r["loss"] - b["loss"]) / abs(b["loss"])
+                e_log = rel_err(torch.from_numpy(b["logits"]),
+                                torch.from_numpy(r["logits"]))
+                if max(e_loss, e_log) > GRID_FWD_TOL:
+                    failed.append(f"grid_forward {label}: {s} PE {r['pe']} "
+                                  f"{e_loss} / {e_log} from cannon's")
+    check(not failed, "; ".join(failed[:12]))
+    phase_s = time.perf_counter() - t0
+    emit("grid_forward", jobs=[f"{label} {s}" for label, s in keys],
+         one_device_s=one_s, grid_spawn_and_run_s=grid_s,
+         pe_start_s=spawn_s, pe_end_s=end_s,
+         jobs_s=sum(max(r["job_s"] for r in reports) for reports in runs),
+         phase_s=phase_s, nvidia_smi=smi)
+    check(phase_s < GRID_FWD_PHASE_S,
+          f"the grid_forward phase took {phase_s:.0f} s")
+    return by_path, rows
+
+
+# ---------------------------------------------------------------------------
 # The fresh-thread launches, the fixed-batch decode path, whisper and
 # pixtral.
 # ---------------------------------------------------------------------------
@@ -5291,6 +5657,31 @@ def main() -> int:
             else:
                 launches[name] = launches.get(name, 0) + n
                 by_path.setdefault(name, {})[path] = n
+    # the blocked forward under the four strategies and the batched
+    # decode on the 2x2 grid, on an emptied cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    fwd_by_path, fwd_rows = timed("grid_forward", phase_grid_forward, smi)
+    mm_grid = fwd_by_path.pop("matmul", {})
+    for name, paths in fwd_by_path.items():
+        for path, got in paths.items():
+            if name.startswith("shmem_"):
+                heap_by_path.setdefault(name, {})[path] = got["launches"]
+            elif name in ("ssd_chunk", "ssd_apply") \
+                    and "mma" in got["by_variant"]:
+                continue            # the passes' mma entry, below
+            else:
+                launches[name] = launches.get(name, 0) + got["launches"]
+                by_path.setdefault(name, {})[path] = got["launches"]
+    ssd_mma = {name: {path: got["launches"] for path, got in
+                      fwd_by_path.get(name, {}).items()
+                      if "mma" in got["by_variant"]}
+               for name in ("ssd_chunk", "ssd_apply")}
+    emit("grid_forward_summary", rows=[{k: r[k] for k in r if k in (
+        "run", "strategy", "loss_forward", "prefill_forward",
+        "ms_per_decode_step",
+        "collectives_per_step", "heap_bytes_per_pe_per_step")}
+        for r in fwd_rows], nvidia_smi=smi)
     # the MoE model last, on an emptied cache: 41.7 GB of weights
     gc.collect()
     torch.cuda.empty_cache()
@@ -5325,7 +5716,8 @@ def main() -> int:
             continue
         launches[k] = launches.get(k, 0) + sum(paths.values())
         by_path.setdefault(k, {}).update(paths)
-    mm_by_path = {"cannon": mm_launches, **new_paths.get("cannon_mm", {})}
+    mm_by_path = {"cannon": mm_launches, **new_paths.get("cannon_mm", {}),
+                  **{path: got["launches"] for path, got in mm_grid.items()}}
 
     decode = timing[0]
     kernels = [{
@@ -5386,21 +5778,27 @@ def main() -> int:
                           ref_launches[name] + launches.get(name, 0),
                           "reference (fp32 reduced mamba2 and hybrid), "
                           "speculation and resilience (mamba2-780m in "
-                          "fp32)")
+                          "fp32), the sequence-sharded mamba block in fp32 "
+                          "(grid_forward)")
         entry["launches_by_path"] = {"reference": ref_launches[name],
                                      **by_path.get(name, {})}
-        mma = ssd_entry(name, "mma", ssd_rows(name, "mma"), 0, "none")
+        mma = ssd_entry(name, "mma", ssd_rows(name, "mma"),
+                        sum(ssd_mma[name].values()),
+                        "the sequence-sharded mamba block in bf16 "
+                        "(mamba2-780m, 4 chunks a grid row)")
         entry["mma"] = {k: mma[k] for k in (
-            "max_abs_err", "max_rel_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "device_ms", "shape", "per_L_ms",
-            "per_L_device_ms")}
-        entry["mma"]["callers"] = "no driven path (bf16 at several chunks)"
+            "launches", "launches_from", "max_abs_err", "max_rel_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "device_ms", "shape",
+            "per_L_ms", "per_L_device_ms")}
+        entry["mma"]["launches_by_path"] = ssd_mma[name]
         kernels.append(entry)
     top = mm_timing[2]                # the n = 8192 Cannon round
     kernels.append({
         "name": "cannon_mm", "route": "cuda", "source": MM_SOURCE,
         "replaces": MM_REPLACES, "launches": sum(mm_by_path.values()),
         "launches_by_path": mm_by_path, "by_variant": mm_by_variant,
+        "by_variant_by_path": {path: got["by_variant"]
+                               for path, got in mm_grid.items()},
         "max_abs_err": mm_worst[1], "max_rel_err": mm_worst[0],
         "ms": top["ms"], "plain_ms": top["plain_ms"],
         "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],

@@ -12,18 +12,24 @@ one sees row ``i*r + j`` of the stack.
   * :func:`allgather_matmul` — the pure-OpenCL baseline: every PE fetches
     its full operand panels on every call.
   * :func:`summa_matmul` — broadcast-based 2D GEMM.
-  * :func:`gemv2d` — small-M path against stationary 2D weights; given a
-    :class:`~repro_torch.core.pe_grid.PeGrid` it runs on one process's
-    local blocks instead (the engine's grid path).
+  * :func:`gemv2d` — small-M path against stationary 2D weights.
+
+Given a :class:`~repro_torch.core.pe_grid.PeGrid` in place of the stack,
+each function runs on one PE process's local blocks instead, as the JAX
+function does inside ``shard_map``: a block ``(M_loc, K_loc)`` (or any
+leading dims, flattened into M) against ``(K_loc, N_loc)``.  The four
+distributed GEMMs are the model's projections in the blocked layout
+(:func:`repro_torch.models.layers.dense`), gemv2d the engine's.
 
 Block convention (row-major grid, PE = (i, j) = (pe // r, pe % r)):
   A block at (i, j) = A[i-th M slice, j-th K slice]
   B block at (i, j) = B[i-th K slice, j-th N slice]
   C block at (i, j) = C[i-th M slice, j-th N slice]
 
-Every local product is one launch of the hand-written matmul kernel over
-all PEs at once (:func:`_mm`; the plain version on the CPU), accumulated in
-fp32 and cast back at the points the JAX functions cast.  ``overlap``
+Every local product of the four GEMMs is one launch of the hand-written
+matmul kernel (:func:`_mm`; over all PEs at once on a stack, the plain
+version on the CPU), accumulated in fp32 and cast back at the points the
+JAX functions cast.  ``overlap``
 orders the JAX program's shifts before the product that precedes them so
 XLA can overlap the two; eager PyTorch on one stream runs ops in call
 order either way, so here the argument is kept for the signature and
@@ -42,9 +48,16 @@ from repro_torch.core.shmem import ShmemGrid
 from repro_torch.kernels.cannon_mm import blocked_matmul
 
 
-def _mm(grid: ShmemGrid, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Local block products of every PE in one launch: (P, M, K) @
-    (P, K, N) -> (P, M, N) fp32.  Adds one PE's 2*M*K*N to ``grid.flops``."""
+def _mm(grid, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Local block products in fp32: on a stack every PE's in one launch,
+    (P, M, K) @ (P, K, N) -> (P, M, N), adding one PE's 2*M*K*N to
+    ``grid.flops``; on a :class:`PeGrid` this PE's, a (..., K) flattened
+    to (M, K) @ b (K, N) -> (..., N)."""
+    if isinstance(grid, PeGrid):
+        lead = a.shape[:-1]
+        return blocked_matmul(a.reshape(-1, a.shape[-1]), b,
+                              out_dtype=torch.float32).reshape(
+                                  *lead, b.shape[-1])
     _, m, k = a.shape
     grid.flops += 2 * m * k * b.shape[-1]
     return blocked_matmul(a, b, out_dtype=torch.float32)
@@ -125,11 +138,20 @@ def summa_matmul(grid: ShmemGrid, a_blk: torch.Tensor, b_blk: torch.Tensor,
     sum), and accumulate."""
     _square(grid, "summa")
     out_dtype = out_dtype or a_blk.dtype
-    i, j = grid.my_coords(a_blk)
+    if isinstance(grid, PeGrid):
+        i, j = grid.my_coords()
+
+        def held(blk, mine):
+            return blk if mine else torch.zeros_like(blk)
+    else:
+        i, j = grid.my_coords(a_blk)
+
+        def held(blk, mine):
+            return blk * mine.to(blk.dtype)
     acc = None
     for s in range(grid.q):
-        a_s = grid.psum_cols(a_blk * (j == s).to(a_blk.dtype))
-        b_s = grid.psum_rows(b_blk * (i == s).to(b_blk.dtype))
+        a_s = grid.psum_cols(held(a_blk, j == s))
+        b_s = grid.psum_rows(held(b_blk, i == s))
         prod = _mm(grid, a_s, b_s)
         acc = prod if acc is None else acc + prod
     return acc.to(out_dtype)
@@ -229,3 +251,32 @@ def unskew_activation(grid: ShmemGrid, x: torch.Tensor) -> torch.Tensor:
 
 def skew_activation(grid: ShmemGrid, x: torch.Tensor) -> torch.Tensor:
     return grid.put(x, grid.skew_a_pairs())
+
+
+def probe_gemms(grid, inputs) -> dict:
+    """Every distributed GEMM once on this PE's blocks of the stacked fp32
+    numpy ``inputs`` (``inputs[name][pe]``): ``a`` (n_pes, M, K/q) and the
+    weight ``b`` (n_pes, K/q, N/r) natural, ``b_skew`` pre-skewed,
+    ``b_crot`` in the C-rotating arrangement, and ``a16``/``b_crot16``,
+    values that bf16 holds exactly, which run in bf16.  Returns the
+    results as fp32 numpy: the grid's check against ``repro.core.cannon``
+    under ``shard_map`` (the CPU tests).  A :class:`PeGrid` target."""
+    def blk(name):
+        t = torch.from_numpy(inputs[name][grid.pe].copy()).to(grid.device)
+        return t.to(torch.bfloat16) if name.endswith("16") else t
+
+    a, b, bs, bc = blk("a"), blk("b"), blk("b_skew"), blk("b_crot")
+    grid.reserve(4 * max(a.numel(), b.numel(),
+                         a.shape[0] * b.shape[1] * grid.q))
+    out = {
+        "cannon": cannon_matmul(grid, a, bs, preskewed_b=True),
+        "cannon_skew_b": cannon_matmul(grid, a, b),
+        "cannon_arot": cannon_matmul(grid, a, bs, preskewed_b=True,
+                                     a_preskewed=True),
+        "crot": cannon_matmul_crot(grid, a, bc),
+        "crot_bf16": cannon_matmul_crot(grid, blk("a16"), blk("b_crot16")),
+        "allgather": allgather_matmul(grid, a, b),
+        "summa": summa_matmul(grid, a, b),
+    }
+    grid.barrier_all()
+    return {k: v.float().cpu().numpy() for k, v in out.items()}

@@ -9,11 +9,12 @@ has the same method names and the same semantics on LOCAL blocks:
 
   * ``put(x, pairs)``: PE s writes its block into PE d's heap for every
     (s, d); a PE that receives nothing gets zeros, as ``ppermute`` gives.
-  * ``psum_rows``/``psum_cols``/``pmax_rows``: every member of the group
-    (a grid column for ``rows``, a grid row for ``cols``) puts its block
-    into slot k of every member's heap, k its place in the group; after
-    the barrier each member reduces its own slots in slot order with an
-    fp32 accumulator (``shmem_reduce_slots``), so all get the same bits.
+  * ``psum_rows``/``psum_cols``/``pmax_rows``/``pmax_cols``: every member
+    of the group (a grid column for ``rows``, a grid row for ``cols``) puts
+    its block into slot k of every member's heap, k its place in the
+    group; after the barrier each member reduces its own slots in slot
+    order with an fp32 accumulator (``shmem_reduce_slots``), so all get
+    the same bits.
   * ``all_gather_rows``/``all_gather_cols``: the same puts, then the slots
     concatenated in group order; ``reduce_scatter_rows``: chunk m of every
     block goes to member m, which sums what it receives.
@@ -259,6 +260,11 @@ class PeGrid(GridGeometry):
     def pmax_rows(self, x: torch.Tensor) -> torch.Tensor:
         """Max over the grid rows (the axis paged KV pages shard on)."""
         return self._reduce(x, self.row_members(), "max", "pmax_rows")
+
+    def pmax_cols(self, x: torch.Tensor) -> torch.Tensor:
+        """Max over the grid cols (the loss's column-sharded vocabulary: a
+        forward max, as ``pmax_cols_sg`` computes it)."""
+        return self._reduce(x, self.col_members(), "max", "pmax_cols")
 
     def _gather(self, x: torch.Tensor, members: List[int], axis: int,
                 tiled: bool, what: str) -> torch.Tensor:

@@ -4,8 +4,11 @@ A CUDA tensor goes to the hand-written kernels (:mod:`.kernel`) on the
 route :func:`.kernel.plan` names: a sequence of one chunk with bf16 x (the
 engine's every call) to the one fused launch, anything else to the chunk
 pass, the state passing and the apply pass.  A CPU tensor goes to the
-plain versions of the same route (:mod:`.ref`).  There is no backend
-string and no fallback; any other device raises.  The cross-chunk state
+plain versions of the same route (:mod:`.ref`).  A meta tensor (the dry
+run, ``launch/dryrun.py``) takes the meta route: each launch an empty
+meta tensor of its kernel's outputs, so the dry run's memory account sees
+what the kernels allocate (their operations are not counted).  There is no
+backend string and no fallback; any other device raises.  The cross-chunk state
 passing is an affine recurrence ``s' = d * s + u`` over tiny (H, N, P)
 tensors, a plain torch op, as is the one-token :func:`ssd_decode_step`
 (jnp code in the JAX package, not a Pallas kernel).
@@ -49,6 +52,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         rt = plan(x, Bm, Cm, chunk=L).route
         fused_fn, chunk_fn, apply_fn = (ssd_scan_fused_cuda, ssd_chunk_cuda,
                                         ssd_apply_cuda)
+    elif x.is_meta:
+        rt = route(x.dtype, N, nc)[0]
+        fused_fn, chunk_fn, apply_fn = _fused_meta, _chunk_meta, _apply_meta
     else:
         raise ValueError(f"ssd_scan: unsupported device {x.device}")
     if rt == "fused":
@@ -58,6 +64,24 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                                       init_state)
     y = apply_fn(y_intra, Cm.reshape(B, nc, L, G, N), cumexp, states_in)
     return y.reshape(B, S, H, P), final
+
+
+def _fused_meta(x, dt, A, Bm, Cm, init_state, *, chunk):
+    B, _, H, P = x.shape
+    return torch.empty_like(x), x.new_empty((B, H, Bm.shape[-1], P),
+                                            dtype=torch.float32)
+
+
+def _chunk_meta(x, dt, A, Bm, Cm, *, chunk):
+    B, S, H, P = x.shape
+    nc, N = S // chunk, Bm.shape[-1]
+    return (x.new_empty((B, nc, chunk, H, P)),
+            x.new_empty((B, nc, H, N, P), dtype=torch.float32),
+            x.new_empty((B, nc, chunk, H), dtype=torch.float32))
+
+
+def _apply_meta(y_intra, Cm, cumexp, states_in):
+    return torch.empty_like(y_intra)
 
 
 def ssd_decode_step(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

@@ -17,6 +17,8 @@ mixed-length workload through the continuous-batching engine.
       --engine --grid 2x2
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch qwen3-moe-235b-a22b --layers 2 --engine --grid 2x2
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
+      --mode batched --grid 2x2
 
 serves the full-width model on ``cuda`` with random weights from seed 0.
 ``--smoke`` takes the ``reduced()`` config instead (as the JAX launcher
@@ -35,7 +37,13 @@ recurrence, MoE layers run their experts on the grouped GEMM.  whisper-base
 is refused here, as the JAX launcher refuses it: its decoder needs an
 encoder pass to fill the cross-K/V cache
 (``serve/decode.py::fill_cross_cache``, as ``chip_smoke.py``'s ``encdec``
-phase does).
+phase does).  ``--mode batched --grid QxR`` decodes the fixed batch on a
+``q x r`` grid of PE processes instead (``launch/grid_run.py``; the JAX
+launcher's batched mode, ``repro/launch/serve.py:117-141``): the batch over
+the grid rows, Cannon projections on pre-skewed weight blocks, each PE's
+cache its own; it prints the tokens, the wall, collectives and barrier
+wait a step and the heap bytes against the count reckoned from the
+shapes.  ``gemv`` and ``longctx`` on a grid come with a later slice.
 
 With ``--engine`` attention layers page their K/V, mamba layers keep dense
 state slots and MoE layers run the grouped GEMM; ``--speculation ngram``
@@ -287,6 +295,49 @@ def _main_fixed(cfg, args):
         print(f"  seq[{b}]: {seqs[b][:16].tolist()} ...")
 
 
+def _main_fixed_grid(cfg, args):
+    """The fixed batch on a grid of PE processes (``--mode batched``)."""
+    from repro_torch.launch.grid_run import DecodeJob, run_on_grid
+    from repro_torch.partition import parse_grid
+    if args.mode != "batched":
+        raise SystemExit(f"--mode {args.mode} on a grid of PE processes "
+                         f"comes with a later slice (gemv/longctx "
+                         f"fixed-batch on the grid); use --mode batched")
+    if cfg.enc_layers:
+        raise SystemExit("encoder-decoder models on a grid of PE processes "
+                         "come with a later slice")
+    plan = parse_grid(args.grid)
+    device = args.device or "cuda"
+    need = check_fit(cfg, device)
+    print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{need / 1e9:.2f} GB of weights, batched decode on a "
+          f"{plan.grid_q}x{plan.grid_r} grid of PE processes ({device})")
+    first = np.random.default_rng(0).integers(0, min(cfg.vocab_size, 256),
+                                              size=(args.batch,))
+    job = DecodeJob(cfg, first, s_max=max(args.s_max, args.tokens),
+                    steps=args.tokens)
+    reports = run_on_grid([job], plan, device=device)[0]
+    pe0 = reports[0]
+    steps = pe0["steps"]
+    wall = sum(s["wall_s"] for s in steps)
+    for b in range(min(args.batch, 2)):
+        print(f"  seq[{b}]: {pe0['tokens'][b][:16].tolist()} ...")
+    got = [sum(r["steps"][k]["heap_bytes"] for r in reports)
+           for k in range(len(steps))]
+    want = plan.n_pes * pe0["reckoned_heap_bytes"]
+    same = all(np.array_equal(r["tokens"], pe0["tokens"]) for r in reports)
+    print(f"decoded {args.tokens} tokens x batch {args.batch}: "
+          f"{1e3 * wall / max(len(steps), 1):.2f} ms a step, "
+          f"{steps[0]['collectives']} collectives a step, barrier wait "
+          f"{sum(s['wait_s'] for s in steps) / max(wall, 1e-9):.0%} of "
+          f"PE 0's wall; every PE's tokens {'equal' if same else 'DIFFER'}")
+    print(f"heap bytes a step over all PEs: {got[0]} put, {want} reckoned "
+          f"from the shapes ({'equal' if set(got) == {want} else 'DIFFERENT'}"
+          f"; slots of {pe0['heap_slot_bytes']} bytes)")
+    if set(got) != {want} or not same:
+        raise SystemExit("the grid's decode differs from its reckoning")
+
+
 def _main_service(cfg, args):
     import asyncio
     import json
@@ -462,8 +513,9 @@ def main(argv=None):
                     help="serve the first N layers only (a multiple of the "
                          "layer pattern)")
     ap.add_argument("--grid", default=None,
-                    help="with --engine: serve on a QxR grid of PE "
-                         "processes (e.g. 2x2)")
+                    help="with --engine, or the fixed batch with --mode "
+                         "batched: serve on a QxR grid of PE processes "
+                         "(e.g. 2x2)")
     args = ap.parse_args(argv)
     if args.speculation == "draft_model" and not args.smoke:
         ap.error("--speculation draft_model self-drafts with the reduced "
@@ -489,6 +541,8 @@ def main(argv=None):
         _main_grid(cfg, args)
     elif args.engine:
         _main_engine(cfg, args)
+    elif args.grid:
+        _main_fixed_grid(cfg, args)
     else:
         _main_fixed(cfg, args)
 

@@ -10,6 +10,14 @@ Pallas kernel): a running ``(m, l, acc)`` over ``block_kv`` key blocks,
 each block recomputed in the backward (``torch.utils.checkpoint``), so the
 S x S scores never live.
 
+On one PE of a grid of PE processes in the blocked layout (a ``pctx``
+whose ``blocked`` is set) :func:`attention_block_grid` is the JAX block
+itself (``repro/models/attention.py:151-193``): the fused QKV projection
+as one distributed GEMM, RoPE at the global positions of this PE's
+sequence block, K/V gathered over the grid rows, ``chunked_attention``
+with the block's query offset, and ``wo`` as the C-rotating GEMM (under
+cannon_opt).
+
 ``attention_partial`` scores q against one run of keys with per-position
 labels and returns the unnormalised softmax partials ``(m, l, acc)``;
 ``combine_partials`` merges them.  On one device the KV cache is not
@@ -30,7 +38,8 @@ from typing import NamedTuple, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.layers import apply_rope, rms_norm_local, rope_tables
+from repro_torch.models.layers import (apply_rope, dense, fused_dense,
+                                       rms_norm_local, rope_tables)
 
 NEG_INF = -1e30
 
@@ -118,6 +127,40 @@ def attention_block(p: dict, x: torch.Tensor, cfg, pos_offset: int = 0
                             v.transpose(1, 2), q_offset=pos_offset,
                             causal=cfg.causal, block_kv=cfg.attn_block_kv)
     return out.transpose(1, 2).reshape(B, S, -1) @ p["wo"]
+
+
+def attention_block_grid(pctx, p: dict, x: torch.Tensor, cfg,
+                         pos_offset: int = 0) -> torch.Tensor:
+    """x (B, S_loc, D_loc) -> (B, S_loc, D_loc) on one PE of the grid in
+    the blocked (or skewed) layout: PE (i, j) holds positions
+    ``[i S_loc, (i+1) S_loc)`` and its column's heads.  The projections
+    round to x's dtype before the biases are added; K and V of every row
+    are gathered (``all_gather_rows``), so each PE attends its query block
+    against the whole sequence at query offset ``pos_offset + i S_loc``."""
+    B, S_loc, _ = x.shape
+    hd = cfg.head_dim
+    i, _ = pctx.grid.my_coords()
+    biases = [p["bq"], p["bk"], p["bv"]] if cfg.qkv_bias else None
+    q, k, v = fused_dense(pctx, x, [p["wq"], p["wk"], p["wv"]],
+                          biases=biases)
+    q = q.reshape(B, S_loc, -1, hd)
+    k = k.reshape(B, S_loc, -1, hd)
+    v = v.reshape(B, S_loc, -1, hd)
+    if cfg.qk_norm:
+        q = rms_norm_local(q, p["q_norm"])
+        k = rms_norm_local(k, p["k_norm"])
+    offset = pos_offset + i * S_loc
+    pos = offset + torch.arange(S_loc, device=x.device)
+    cos, sin = rope_tables(pos, hd, cfg.rope_theta)
+    q = apply_rope(q, cos[None], sin[None])
+    k = apply_rope(k, cos[None], sin[None])
+    k_full = pctx.grid.all_gather_rows(k, axis=1)     # (B, S, kvh_loc, hd)
+    v_full = pctx.grid.all_gather_rows(v, axis=1)
+    out = chunked_attention(q.transpose(1, 2), k_full.transpose(1, 2),
+                            v_full.transpose(1, 2), q_offset=offset,
+                            causal=cfg.causal, block_kv=cfg.attn_block_kv)
+    out = out.transpose(1, 2).reshape(B, S_loc, -1)
+    return dense(pctx, out, p["wo"], kind="crot")
 
 
 def cross_kv(p: dict, enc: torch.Tensor, head_dim: int):

@@ -33,13 +33,17 @@ count on the host (no ``bincount``, ``nonzero``, boolean indexing or
 ``.item()``), so a step body holding the block can be captured as a CUDA
 graph, and the combine uses no atomics, so a replay gives the same bits.
 
-On one PE of a ``q x r`` grid of PE processes (``moe_ffn`` with a grid
-``pctx``) the block takes the form of ``repro/models/moe.py:32-150``
-(:func:`_moe_grid`): experts over the flat PE space (PE p owns experts
-``[p E_loc, (p+1) E_loc)``), tokens row-replicated with their features
-over the columns, dispatch and combine as ``all_to_all`` exchanges through
-the symmetric heap, and capacity per owner PE.  Its shapes are fixed by
-(T, k) too: every exchange carries ``cap`` rows a PE pair.
+On one PE of a ``q x r`` grid of PE processes (``moe_ffn`` or
+``moe_block`` with a grid ``pctx``) the block takes the form of
+``repro/models/moe.py:32-157`` (:func:`_moe_grid`): experts over the flat
+PE space (PE p owns experts ``[p E_loc, (p+1) E_loc)``), tokens with their
+features over the columns (row-replicated in the engine's ``repl_rows``
+layout; in the blocked layouts each row's B S_loc tokens differ, and under
+``skewed`` PE (i, j) holds feature block ``(i + j) % q``, which the router
+slice and the full-D reassembly follow), dispatch and combine as
+``all_to_all`` exchanges through the symmetric heap, and capacity per
+owner PE.  Its shapes are fixed by (T, k) too: every exchange carries
+``cap`` rows a PE pair.
 """
 
 from __future__ import annotations
@@ -128,20 +132,25 @@ def moe_capacity(cfg, n_pes: int, tokens: int) -> int:
 
 
 def _moe_grid(pctx: ParallelContext, p: Dict[str, torch.Tensor],
-              x: torch.Tensor, cfg) -> torch.Tensor:
-    """The MoE block on one PE of a grid: x (B, S, D/r) row-replicated ->
-    y of the same shape.  ``p``: router (D, E) fp32 whole, w1 (E_loc, D,
-    2F) and w2 (E_loc, F, D) this PE's experts.
+              x: torch.Tensor, cfg, metrics: bool = False):
+    """The MoE block on one PE of a grid: x (B, S, D/r) -> y of the same
+    shape, and with ``metrics`` also {moe_aux, moe_dropped} as the JAX
+    block computes them (the load-balance fractions and mean probabilities
+    averaged over the grid rows before their product; the z-loss and the
+    dropped share of this PE's tokens).  ``p``: router (D, E) fp32 whole,
+    w1 (E_loc, D, 2F) and w2 (E_loc, F, D) this PE's experts.
 
-      * router logits: this column's rows of the router against x in
-        fp32, summed over the columns, so every PE routes alike; softmax,
-        top-k, renorm;
+      * router logits: this PE's feature rows of the router (block j, or
+        ``(i + j) % q`` under ``skewed``) against x in fp32, summed over
+        the columns, so every PE of a row routes alike; softmax, top-k,
+        renorm;
       * each pair's rank among the pairs bound for its owner PE ``e //
         E_loc``, kept below ``cap = ceil(T k / n_pes * capacity_factor)``;
       * send buffers (n_pes, cap, D/r) of this PE's feature slice and
         (n_pes, cap) of local expert ids, flat ``all_to_all``; the int8
         wire sends codes and scales of the rows instead, both ways;
-      * full-D rows from the r column slices each source row sent, sorted
+      * full-D rows from the r column slices each source row sent (under
+        ``skewed`` source row i's slices rolled back by i first), sorted
         by local expert, ``grouped_mm_swiglu`` and ``grouped_mm`` over the
         PE's E_loc experts, unsorted; the exchange back;
       * each pair's row by (owner, rank), dropped pairs zero, and the fp32
@@ -159,10 +168,12 @@ def _moe_grid(pctx: ParallelContext, p: Dict[str, torch.Tensor],
     n = T * k
     cap = moe_capacity(cfg, n_pes, T)
     dev = x.device
-    _, j = grid.my_coords()
+    i, j = grid.my_coords()
+    skewed = pctx.act_layout == "skewed"
+    fb = (i + j) % q if skewed else j
 
     x2 = x.reshape(T, D_loc)
-    wr = p["router"][j * D_loc:(j + 1) * D_loc]
+    wr = p["router"][fb * D_loc:(fb + 1) * D_loc]
     logits = grid.psum_cols(x2.float() @ wr.float())
     probs = torch.softmax(logits, dim=-1)
     top_w, top_e = torch.topk(probs, k, dim=-1)
@@ -203,8 +214,10 @@ def _moe_grid(pctx: ParallelContext, p: Dict[str, torch.Tensor],
     recv_le = grid.all_to_all(send_le)
     # source PE (i_s, j_s) sent columns j_s of row i_s's tokens: the r
     # slices of a source row make full-D rows
-    xs = recv_x.reshape(q, r, cap, D_loc).transpose(1, 2).reshape(
-        q * cap, r * D_loc)
+    xs = recv_x.reshape(q, r, cap, D_loc)
+    if skewed:      # source row i sent feature blocks (i + j) % q
+        xs = torch.stack([torch.roll(xs[s], s, dims=0) for s in range(q)])
+    xs = xs.transpose(1, 2).reshape(q * cap, r * D_loc)
     les = recv_le.reshape(q, r, cap)[:, 0].reshape(q * cap).long()
 
     # ---- this PE's experts: sort, two grouped GEMMs, unsort -----------------
@@ -221,14 +234,28 @@ def _moe_grid(pctx: ParallelContext, p: Dict[str, torch.Tensor],
     ys[perm] = ye
 
     # ---- the exchange back and the combine ---------------------------------
-    yd = ys.reshape(q, cap, r, D_loc).transpose(1, 2).reshape(
-        n_pes, cap, D_loc)
+    yd = ys.reshape(q, cap, r, D_loc).transpose(1, 2)
+    if skewed:      # each destination row's skewed slice order
+        yd = torch.stack([torch.roll(yd[s], -s, dims=0) for s in range(q)])
+    yd = yd.reshape(n_pes, cap, D_loc)
     back = exchange(yd)                                      # (n_pes, cap, Dl)
     got = back[dest, slot.clamp(max=cap - 1)]                # (n, D_loc)
     got = torch.where(valid[:, None], got, torch.zeros((), dtype=got.dtype,
                                                        device=dev))
     y = (got.float().reshape(T, k, D_loc) * fw.reshape(T, k, 1)).sum(1)
-    return y.to(x.dtype).reshape(B, S, D_loc)
+    y = y.to(x.dtype).reshape(B, S, D_loc)
+    if not metrics:
+        return y
+    # the load balance over every token shard: fractions and mean
+    # probabilities averaged over the grid rows (one psum of both) before
+    # their product
+    frac = torch.zeros(E, dtype=torch.float32, device=dev).scatter_add_(
+        0, fe, torch.ones(n, dtype=torch.float32, device=dev)) / n
+    both = grid.psum_rows(torch.stack([frac, probs.mean(0)])) / q
+    aux = E * torch.sum(both[0] * both[1]) * cfg.moe_aux_coef
+    zloss = torch.mean(torch.logsumexp(logits, -1) ** 2) * cfg.moe_z_coef
+    return y, {"moe_aux": aux + zloss,
+               "moe_dropped": (~valid).sum().float() / n}
 
 
 def moe_ffn(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
@@ -256,10 +283,14 @@ def moe_metrics(logits: torch.Tensor, probs: torch.Tensor,
     return {"moe_aux": aux + zloss, "moe_dropped": dropped}
 
 
-def moe_block(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg
+def moe_block(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
+              pctx: Optional[ParallelContext] = None
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x (B, S, D) -> (y same shape and dtype, metrics {moe_aux,
     moe_dropped}).  Serving calls ``moe_ffn``, which skips the metrics;
-    training reads them."""
+    training reads them.  With a grid ``pctx``, the grid form
+    (:func:`_moe_grid`) on this PE's block."""
+    if pctx is not None and not pctx.local:
+        return _moe_grid(pctx, p, x, cfg, metrics=True)
     y, logits, probs, top_e = _moe(p, x, cfg)
     return y, moe_metrics(logits, probs, top_e, cfg)

@@ -329,33 +329,74 @@ def _grid_heads(params, cfg: ModelConfig, r: int):
     return ks // kvh
 
 
-def _block(a: torch.Tensor, i: int, j: int, q: int, r: int) -> torch.Tensor:
-    """Block (i, j) of the last two dims (K/q rows, N/r cols)."""
+def _block(a: torch.Tensor, i: int, j: int, q: int, r: int,
+           skew=False) -> torch.Tensor:
+    """The block PE (i, j) stores of the last two dims (K/q rows, N/r
+    cols) in a storage mode of ``repro.core.cannon._block_index``:
+    ``False`` block (i, j), ``True`` (Cannon pre-skew) ``((i+j) % q, j)``,
+    ``"crot"`` (C-rotating) ``(j, (i+j+1) % q)``."""
     K, N = a.shape[-2:]
     if K % q or N % r:
         raise ValueError(f"{tuple(a.shape)} does not block into {q}x{r}")
     kb, nb = K // q, N // r
-    return a[..., i * kb:(i + 1) * kb, j * nb:(j + 1) * nb].contiguous()
+    ki, nj = block_index(i, j, q, skew)
+    return a[..., ki * kb:(ki + 1) * kb, nj * nb:(nj + 1) * nb].contiguous()
 
 
-def shard_params(params, cfg: ModelConfig, plan, pe: int) -> Dict[str, Any]:
+def block_index(i: int, j: int, q: int, skew) -> Tuple[int, int]:
+    """(K block, N block) PE (i, j) stores in a storage mode (see
+    :func:`_block`)."""
+    if skew == "crot":
+        return j, (i + j + 1) % q
+    if skew:
+        return (i + j) % q, j
+    return i, j
+
+
+# the output projections: C-rotating storage under storage="opt"
+_OUTPUTS = ("wo", "w_down")
+STORAGES = (False, True, "opt")
+
+
+def storage_for(tp_strategy: str):
+    """The weight storage a blocked forward under ``tp_strategy`` reads
+    (``repro.train.step.make_loss_fn``): ``"opt"`` for cannon_opt, pre-skewed
+    for cannon, natural for allgather and SUMMA."""
+    return {"cannon": True, "cannon_opt": "opt"}.get(tp_strategy, False)
+
+
+def shard_params(params, cfg: ModelConfig, plan, pe: int,
+                 storage=False) -> Dict[str, Any]:
     """PE ``pe``'s blocks of the global tree in the JAX package's layout
-    (``repro.models.params`` ``blocked2d``/``vocab2d``/``expert_flat``,
-    unskewed as the serving path stores them): every projection ``(d_in/q,
-    d_out/r)`` in natural position (K block i, N block j), the mamba
-    projections ``wz``/``wx``/``wb``/``wc``/``wdt``/``wo`` included; the
-    embedding's vocabulary rows over the grid rows and its features over
-    the columns; the lm_head's features over rows and vocabulary over
-    columns, the vocabulary padded with zeros to a multiple of ``q * r`` as
-    the JAX specs pad it; the MoE experts over the flat PE space, PE p
-    holding experts ``[p E/n_pes, (p+1) E/n_pes)`` of ``w1``/``w2``; norms,
-    biases, qk-norm scales, the router (fp32) and the mamba conv, decay,
-    skip and norm leaves whole (``col_slice`` and ``_conv_param_slice`` cut
-    them where they are used).  Heads follow :func:`_grid_heads`.  Encoder
-    layers come with a later slice of the grid."""
+    (``repro.models.params`` ``blocked2d``/``vocab2d``/``expert_flat``):
+    every projection ``(d_in/q, d_out/r)``, the mamba projections
+    ``wz``/``wx``/``wb``/``wc``/``wdt``/``wo`` included; the embedding's
+    vocabulary rows over the grid rows and its features over the columns;
+    the lm_head's features over rows and vocabulary over columns, the
+    vocabulary padded with zeros to a multiple of ``q * r`` as the JAX
+    specs pad it; the MoE experts over the flat PE space, PE p holding
+    experts ``[p E/n_pes, (p+1) E/n_pes)`` of ``w1``/``w2``; norms, biases,
+    qk-norm scales, the router (fp32) and the mamba conv, decay, skip and
+    norm leaves whole (``col_slice`` and ``_conv_param_slice`` cut them
+    where they are used).  Heads follow :func:`_grid_heads`.  Encoder
+    layers come with a later slice of the grid.
+
+    ``storage`` places the projection blocks as ``param_specs(cfg, q, r,
+    preskew=storage)`` stores them (``repro/models/transformer.py:
+    164-197``): ``False`` natural (K block i, N block j; the serving
+    engine, allgather, SUMMA), ``True`` Cannon pre-skewed (K block
+    ``(i+j) % q``) for every projection and the lm_head, ``"opt"``
+    (cannon_opt) the input projections and the lm_head pre-skewed, the
+    output projections (attention and mamba ``wo``, ``w_down``) in the
+    C-rotating arrangement ``(j, (i+j+1) % q)``."""
+    if storage not in STORAGES:
+        raise ValueError(f"storage must be one of {STORAGES}, got "
+                         f"{storage!r}")
     q, r = plan.grid_q, plan.grid_r
     i, j = plan.coords(pe)
     n_pes = q * r
+    sk_in = True if storage == "opt" else storage
+    sk_out = "crot" if storage == "opt" else storage
     if cfg.enc_layers:
         raise NotImplementedError(f"{cfg.name}: encoder-decoder models on a "
                                   f"PE grid come with a later slice")
@@ -390,17 +431,19 @@ def shard_params(params, cfg: ModelConfig, plan, pe: int) -> Dict[str, Any]:
                     e = a.shape[1] // n_pes
                     out[part][name] = a[:, pe * e:(pe + 1) * e].clone()
                 else:
-                    out[part][name] = _block(a, i, j, q, r)
+                    out[part][name] = _block(
+                        a, i, j, q, r,
+                        sk_out if name in _OUTPUTS else sk_in)
         return out
 
     vb, db = vpad // q, params["embed"].shape[1] // r
     out = {
         "embed": pad_rows(params["embed"])[i * vb:(i + 1) * vb,
                                            j * db:(j + 1) * db].contiguous(),
-        "lm_head": _block(pad_cols(params["lm_head"]), i, j, q, r),
+        "lm_head": _block(pad_cols(params["lm_head"]), i, j, q, r, sk_in),
         "final_norm": {k: v.clone() for k, v in params["final_norm"].items()},
         "layers": [layer(lp) for lp in params["layers"]],
     }
     if "vis_proj" in params:
-        out["vis_proj"] = _block(params["vis_proj"], i, j, q, r)
+        out["vis_proj"] = _block(params["vis_proj"], i, j, q, r, sk_in)
     return out

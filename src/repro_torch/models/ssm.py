@@ -22,9 +22,25 @@ local heads (:func:`_slice_groups`), ``A``, ``dt_bias`` and ``D`` are
 column-sliced, the gated norm adds its statistic over the columns, and
 ``wo`` is a gemv2d.  The SSD scan runs on the PE's ``H/r`` heads.
 
-The serving steps call the SSD scan op, the hand-written kernels on the
-card.  Training calls :func:`ssd_scan_differentiable`, the port of the JAX
-package's jnp backend (``repro.kernels.ssd_scan.ops``: ``_chunk_math_jnp``,
+On one PE of the grid in the blocked layout (the training-style forward
+and prefill) :func:`mamba_block` with a ``pctx`` is the sequence-sharded
+block of ``repro/models/ssm.py:87-168``: grid row i holds positions
+``[i S_loc, (i+1) S_loc)``.  The fused in-projection consumes the
+residual layout (A-rotating under cannon_opt) and everything after it is
+natural; the conv's halo is the last ``k-1`` pre-conv positions of row
+``i-1``, put along ``row_shift_pairs(-1)`` and zeroed on row 0 (whose
+source is row q-1's tail); each row scans its block from a zero state,
+and the cross-row state relay adds what entered it: every row's total
+decay and final state gathered over the rows, the affine prefix composed
+in row order, and ``exp(cumsum dtA)_t C_t . state_in`` added.  ``wo`` is
+the C-rotating GEMM.
+
+The serving steps, and the full-sequence block under ``torch.no_grad()``
+(prefill, the forward-only loss; at 1x1 and on the grid alike), call the
+SSD scan op, the hand-written kernels on the card (the JAX package's
+``ssd_backend="pallas"``).  With autograd on, the block calls
+:func:`ssd_scan_differentiable`, the port of the JAX package's jnp
+backend (``repro.kernels.ssd_scan.ops``: ``_chunk_math_jnp``,
 ``_state_passing``, ``_apply_math_jnp``), which is what the JAX training
 path runs (``ModelConfig.ssd_backend`` defaults to ``"jnp"``; the JAX
 package never differentiates its Pallas scan).
@@ -124,17 +140,27 @@ def _conv1d_causal(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
 
 
 def _gated_out(p: Dict, y: torch.Tensor, xh: torch.Tensor, z: torch.Tensor,
-               dtype, pctx: Optional[ParallelContext] = None
-               ) -> torch.Tensor:
+               dtype, pctx: Optional[ParallelContext] = None,
+               kind: str = "arot") -> torch.Tensor:
     """Skip (D), gate (silu z), grouped rms norm and out projection; on a
     grid over this PE's heads, the norm's statistic summed over the
-    columns and ``wo`` a gemv2d (on one device ``col_slice`` and the
-    norm's psum are the identity and ``dense`` is one product)."""
+    columns and ``wo`` a gemv2d (``repl_rows``) or the strategy's GEMM of
+    ``kind`` (blocked); on one device ``col_slice`` and the norm's psum
+    are the identity and ``dense`` is one product."""
     Dskip = col_slice(pctx, p["D"], xh.shape[-2]).float()
     y = y.float() + Dskip[:, None] * xh.float()
     y = y.reshape(z.shape) * F.silu(z.float())
     return dense(pctx, rms_norm(y.to(dtype), p["ssm_norm"], pctx=pctx),
-                 p["wo"])
+                 p["wo"], kind=kind)
+
+
+def _scan(x, dt, A, Bm, Cm, chunk: int):
+    """The full-sequence scan from a zero state: the SSD scan op (the
+    kernels on the card) under ``torch.no_grad()``, else the
+    differentiable scan.  Returns (y, final state)."""
+    if torch.is_grad_enabled():
+        return ssd_scan_differentiable(x, dt, A, Bm, Cm, chunk=chunk)
+    return ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
 
 
 def _local_heads(pctx: Optional[ParallelContext], p: Dict, cfg):
@@ -200,12 +226,17 @@ def ssd_scan_differentiable(x: torch.Tensor, dt: torch.Tensor,
     return y.reshape(Bsz, S, H, P), s_in
 
 
-def mamba_block(p: Dict, x: torch.Tensor, cfg) -> torch.Tensor:
-    """The full-sequence block (training): x (B, S, D) -> y (B, S, D).
-    Five in-projections, the causal conv
-    (zero halo: the sequence starts here) with silu, softplus dt, the
-    chunked scan at ``cfg.ssd_chunk``, the D skip, the gate and the grouped
-    norm, the out projection."""
+def mamba_block(p: Dict, x: torch.Tensor, cfg,
+                pctx: Optional[ParallelContext] = None) -> torch.Tensor:
+    """The full-sequence block (training, prefill): x (B, S, D) -> y
+    (B, S, D).  Five in-projections, the causal conv (zero halo: the
+    sequence starts here) with silu, softplus dt, the chunked scan at
+    ``cfg.ssd_chunk`` (:func:`_scan`), the D skip, the gate and the grouped
+    norm, the out projection.  With a blocked grid ``pctx``, x is this
+    PE's (B, S_loc, D_loc) block and the block is the sequence-sharded one
+    (:func:`_mamba_block_grid`)."""
+    if pctx is not None and pctx.blocked:
+        return _mamba_block_grid(pctx, p, x, cfg)
     Bsz, S = x.shape[:2]
     H, P = cfg.ssm_heads, cfg.ssm_headdim
     G, N = cfg.ssm_groups, cfg.ssm_state
@@ -220,9 +251,56 @@ def mamba_block(p: Dict, x: torch.Tensor, cfg) -> torch.Tensor:
     Bg = xBC[..., di:di + gn].reshape(Bsz, S, G, N)
     Cg = xBC[..., di + gn:].reshape(Bsz, S, G, N)
     dt = _softplus(dt.float() + p["dt_bias"])             # (B, S, H)
-    y, _ = ssd_scan_differentiable(xh, dt, p["A"].float(), Bg, Cg,
-                                   chunk=cfg.ssd_chunk)
+    y, _ = _scan(xh, dt, p["A"].float(), Bg, Cg, cfg.ssd_chunk)
     return _gated_out(p, y, xh, z, x.dtype)
+
+
+def _mamba_block_grid(pctx: ParallelContext, p: Dict, x: torch.Tensor,
+                      cfg) -> torch.Tensor:
+    """The sequence-sharded block on one PE (module docstring): x (B,
+    S_loc, D_loc) in the residual layout -> y in the residual layout."""
+    grid = pctx.grid
+    i, _ = grid.my_coords()
+    Bsz, S_loc = x.shape[:2]
+    P, G, N, kconv = (cfg.ssm_headdim, cfg.ssm_groups, cfg.ssm_state,
+                      cfg.conv_kernel)
+    # the in-projection reads the residual layout (arot under cannon_opt);
+    # every internal tensor is natural: column j owns head block j
+    z, xc, Bc, Cc, dt = _in_proj(p, x, pctx)
+    if pctx.act_layout == "skewed":
+        pctx = pctx.with_(act_layout="blocked")
+    H, A, dt_bias = _local_heads(pctx, p, cfg)
+    di, gn = H * P, _bc_width(cfg, pctx)
+
+    # ---- the causal conv with the halo of row i-1 --------------------------
+    xBC = torch.cat([xc, Bc, Cc], dim=-1)                  # (B, S_loc, conv)
+    tail = xBC[:, S_loc - (kconv - 1):]
+    halo = grid.put(tail, grid.row_shift_pairs(-1))        # from row i-1
+    if i == 0:                                             # sequence start
+        halo = torch.zeros_like(halo)
+    xBC = _conv1d_causal(
+        xBC, _conv_param_slice(pctx, p["conv_w"], cfg.d_inner, G * N),
+        _conv_param_slice(pctx, p["conv_b"], cfg.d_inner, G * N), halo)
+    xBC = F.silu(xBC.float()).to(x.dtype)
+    xh = xBC[..., :di].reshape(Bsz, S_loc, H, P)
+    Bg, Cg = _local_bc(pctx, xBC[..., di:di + gn], xBC[..., di + gn:], G, N)
+    dt = _softplus(dt.float() + dt_bias)                   # (B, S_loc, H)
+    y0, contrib = _scan(xh, dt, A.float(), Bg, Cg, cfg.ssd_chunk)
+
+    # ---- the cross-row state relay (affine prefix over the rows) -----------
+    dtA = dt * A.float()[None, None]
+    decay_tot = torch.exp(torch.sum(dtA, dim=1))[..., None, None]
+    decays = grid.all_gather_rows(decay_tot[None], axis=0)  # (q,B,H,1,1)
+    contribs = grid.all_gather_rows(contrib[None], axis=0)  # (q,B,H,N,P)
+    state_in = torch.zeros_like(contrib)
+    for s in range(i):
+        state_in = decays[s] * state_in + contribs[s]
+    cumexp = torch.exp(torch.cumsum(dtA, dim=1))           # (B, S_loc, H)
+    c_h = Cg.float().repeat_interleave(H // Cg.shape[2], dim=2)
+    y_corr = torch.einsum("bshn,bhnp->bshp", c_h, state_in) \
+        * cumexp[..., None]
+    y = y0.float() + y_corr
+    return _gated_out(p, y, xh, z, x.dtype, pctx, kind="crot")
 
 
 def _bc_width(cfg, pctx: Optional[ParallelContext]) -> int:

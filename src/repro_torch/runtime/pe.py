@@ -34,7 +34,11 @@ A child imports the module of its target by name, so a target lives in
 ``repro_torch`` (a test module imports JAX); :func:`_pe_main` refuses to
 return from a PE that has imported ``jax`` or the ``repro`` package.
 Arguments cross as pickles: pass seeds, numpy arrays or paths, never CUDA
-tensors.
+tensors.  The parent writes the target and its arguments once to a file in
+the grid's directory, which every PE reads: handed to each ``Process``,
+a pickle larger than a pipe's buffer holds the parent's ``start()`` until
+that child has imported torch, so the PEs would start one after another
+(about 10 s each on the card's host).
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ from __future__ import annotations
 import datetime
 import multiprocessing as mp
 import os
+import pickle
 import shutil
 import sys
 import tempfile
@@ -150,11 +155,12 @@ def _forbidden_modules() -> List[str]:
 
 
 def _pe_main(pe: int, q: int, r: int, workdir: str, device: str,
-             timeout: float, threads: int, target: Callable, args: tuple,
-             conn) -> None:
+             timeout: float, threads: int, conn) -> None:
     """The entry of PE ``pe``: join the group, build the grid, run the
-    target, report."""
+    target (read from the grid's directory), report."""
     try:
+        with open(os.path.join(workdir, "target.pkl"), "rb") as f:
+            target, args = pickle.load(f)
         import torch.distributed as dist
 
         from repro_torch.core.pe_grid import PeGrid
@@ -190,16 +196,22 @@ def _pe_main(pe: int, q: int, r: int, workdir: str, device: str,
 
 
 def _prebuild(device: str) -> None:
-    """Build the libraries the PEs load, once, in this process, at once."""
+    """Build the libraries the PEs load, once, in this process, at once
+    (four PEs compiling one library at the same time would each pay the
+    whole build)."""
     if device != "cuda":
         return
     from concurrent.futures import ThreadPoolExecutor
 
+    from repro_torch.kernels.cannon_mm.kernel import build as mm_build
+    from repro_torch.kernels.grouped_mm.kernel import build as gmm_build
     from repro_torch.kernels.paged_attention.kernel import \
         build as paged_build
     from repro_torch.kernels.shmem_heap.kernel import build as heap_build
-    with ThreadPoolExecutor(2) as ex:
-        for f in [ex.submit(b) for b in (heap_build, paged_build)]:
+    from repro_torch.kernels.ssd_scan.kernel import build as ssd_build
+    builds = (heap_build, paged_build, mm_build, ssd_build, gmm_build)
+    with ThreadPoolExecutor(len(builds)) as ex:
+        for f in [ex.submit(b) for b in builds]:
             f.result()
 
 
@@ -230,13 +242,14 @@ def run_pes(target: Callable, plan: MeshPlan, *, args: Sequence = (),
     procs, conns = [], []
     t_end = None if deadline is None else time.monotonic() + deadline
     try:
+        with open(os.path.join(workdir, "target.pkl"), "wb") as f:
+            pickle.dump((target, tuple(args)), f)
         for pe in range(n):
             recv, send = ctx.Pipe(duplex=False)
             p = ctx.Process(target=_pe_main, daemon=True,
                             name=f"pe{pe}",
                             args=(pe, plan.grid_q, plan.grid_r, workdir,
-                                  device, timeout, threads, target,
-                                  tuple(args), send))
+                                  device, timeout, threads, send))
             p.start()
             send.close()
             procs.append(p)

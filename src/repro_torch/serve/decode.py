@@ -59,7 +59,7 @@ from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
 
 import torch
 
-from repro_torch.core.cannon import matmul_f32
+from repro_torch.core.cannon import matmul_f32, unskew_activation
 from repro_torch.device import resolve_device
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.models.attention import (attention_partial, combine_partials,
@@ -102,7 +102,9 @@ def _embed_decode(embed: torch.Tensor, tokens: torch.Tensor, compute_dtype,
     """tokens (B,) or (B, L) -> (B, 1, D) or (B, L, D); ids outside the
     (padded) vocabulary embed to zero.  On a grid ``embed`` is this PE's
     (V/q, D/r) block: each row looks up the ids of its vocabulary block,
-    and a row psum adds the blocks (``repro/serve/decode.py:560``)."""
+    and a row psum adds the blocks (``repro/serve/decode.py:560``); in the
+    blocked layout (the batched decode) a row reduce-scatter adds them
+    and gives grid row i batch chunk i, (B/q, 1, D/r)."""
     V = embed.shape[0]
     if pctx is not None and not pctx.local:
         tokens = tokens - pctx.grid.my_coords()[0] * V
@@ -111,21 +113,29 @@ def _embed_decode(embed: torch.Tensor, tokens: torch.Tensor, compute_dtype,
     x = torch.where(hit[..., None], x, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
     x = x.to(compute_dtype)
+    if pctx is not None and pctx.blocked:
+        return pctx.grid.reduce_scatter_rows(x, axis=0)[:, None, :]
     if pctx is not None and not pctx.local:
         x = pctx.grid.psum_rows(x)
     return x if tokens.ndim == 2 else x[:, None, :]
 
 
 def _last_logits(lm_head: torch.Tensor, x: torch.Tensor,
-                 pctx: Optional[ParallelContext] = None) -> torch.Tensor:
+                 pctx: Optional[ParallelContext] = None,
+                 gather_rows: bool = False) -> torch.Tensor:
     """x (B, n, D) -> logits (B, n, Vpad) in fp32, the JAX package's
     fp32-accumulated ``out_dtype=float32`` gemv; a bf16 product would round
     the logits to bf16 (:func:`repro_torch.core.cannon.matmul_f32`).  On a
-    grid the gemv2d gives this column's vocabulary block, and the blocks
-    are gathered over the columns (``repro/serve/decode.py:579``)."""
+    grid the projection (gemv2d, or the strategy's GEMM in the blocked
+    layout) gives this column's vocabulary block, and the blocks are
+    gathered over the columns, then with ``gather_rows`` the rows' batch
+    chunks over the rows (``repro/serve/decode.py:579-589``)."""
     if pctx is not None and not pctx.local:
         logits = dense(pctx, x, lm_head, out_dtype=torch.float32)
-        return pctx.grid.all_gather_cols(logits, axis=-1)
+        logits = pctx.grid.all_gather_cols(logits, axis=-1)
+        if gather_rows:
+            logits = pctx.grid.all_gather_rows(logits, axis=0)
+        return logits
     return matmul_f32(x, lm_head)
 
 
@@ -466,8 +476,26 @@ def _check_mode(mode: str, per_slot: bool = False) -> None:
             "(modes: batched, gemv)")
 
 
+def _grid_pctx(pctx: Optional[ParallelContext], mode: str
+               ) -> Optional[ParallelContext]:
+    """``pctx`` when it is a grid of several PEs, else None; a grid runs
+    the ``batched`` mode in the blocked layout only."""
+    if pctx is None or pctx.local:
+        return None
+    if mode != "batched":
+        raise NotImplementedError(
+            f"the fixed-batch {mode!r} mode on a grid of PE processes comes "
+            f"with a later slice (gemv/longctx fixed-batch on the grid); "
+            f"the grid runs mode 'batched'")
+    if not pctx.blocked or pctx.tp_strategy != "cannon":
+        raise ValueError("the batched decode on a grid takes the Cannon "
+                         "context of make_pctx(grid, 'cannon')")
+    return pctx
+
+
 def cache_specs(cfg: ModelConfig, batch: int, s_max: int, mode: str, *,
-                kvh: Optional[int] = None, device=None) -> List[CacheEntry]:
+                kvh: Optional[int] = None, device=None,
+                pctx: Optional[ParallelContext] = None) -> List[CacheEntry]:
     """The zeroed decode cache, one dict of leaves per pattern position,
     allocated on ``device`` (the card unless the caller asks for the CPU):
     ``repro.serve.decode.cache_specs`` at q = r = 1, where the three modes
@@ -477,10 +505,18 @@ def cache_specs(cfg: ModelConfig, batch: int, s_max: int, mode: str, *,
     kvh, hd)``; a mamba position ``conv`` ``(G, B, k - 1, conv_ch)`` and
     ``ssm`` ``(G, B, H, N, P)`` fp32.  ``kvh`` is the stored kv-head count
     of the weights served (:func:`repro_torch.models.params.stored_heads`),
-    by default the config's."""
+    by default the config's.  With a grid ``pctx`` (mode ``batched``) a
+    PE's cache of ``repro/serve/decode.py:103-151``: its row's B/q slots,
+    its column's kv heads (``kvh`` given as the grid stores them), conv
+    channels and SSM heads."""
     _check_mode(mode)
+    pctx = _grid_pctx(pctx, mode)
     dev = resolve_device(device)
     G, dt = cfg.n_groups(), cfg.compute_dtype
+    q, r = (1, 1) if pctx is None else (pctx.q, pctx.r)
+    if batch % q:
+        raise ValueError(f"batch {batch} does not split over {q} grid rows")
+    batch //= q
 
     def zeros(shape, dtype=dt):
         return torch.zeros(shape, dtype=dtype, device=dev)
@@ -489,15 +525,16 @@ def cache_specs(cfg: ModelConfig, batch: int, s_max: int, mode: str, *,
     for mixer, _ in cfg.pattern():
         if mixer == "attn":
             kv = (G, batch, s_max,
-                  kvh if kvh is not None else cfg.kv_stored(1)[0], cfg.hd())
+                  (kvh if kvh is not None else cfg.kv_stored(r)[0]) // r,
+                  cfg.hd())
             e = {"k": zeros(kv), "v": zeros(kv)}
             if cfg.enc_layers:
                 cross = (G, batch, cfg.enc_seq) + kv[3:]
                 e.update(cross_k=zeros(cross), cross_v=zeros(cross))
         elif mixer in ("mamba", "ssm"):
-            conv_ch = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+            conv_ch = (cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state) // r
             e = {"conv": zeros((G, batch, cfg.conv_kernel - 1, conv_ch)),
-                 "ssm": zeros((G, batch, cfg.ssm_heads, cfg.ssm_state,
+                 "ssm": zeros((G, batch, cfg.ssm_heads // r, cfg.ssm_state,
                                cfg.ssm_headdim), torch.float32)}
         else:
             raise NotImplementedError(f"no decode cache for mixer {mixer!r}")
@@ -539,18 +576,26 @@ class _Fixed(NamedTuple):
     write: Union[int, torch.Tensor]           # the cache row: int or (B,)
 
 
-def _attn_decode_fixed(p, x, ast, kc, vc, op: _Fixed):
+def _attn_decode_fixed(p, x, ast, kc, vc, op: _Fixed,
+                       pctx: Optional[ParallelContext] = None):
     """One new token's attention over the contiguous cache (the JAX
     ``_attn_decode_batched``): x (B, 1, D); kc/vc (B, s_max, kvh, hd) are
     written in place at each slot's position, then every cached position
-    at or before it is attended to."""
+    at or before it is attended to.  With a blocked grid ``pctx`` x is
+    this PE's (B/q, 1, D/r) block, the cache its rows' slots and its
+    column's kv heads, and the projections the strategy's GEMMs; the
+    attention itself needs no communication."""
     B = x.shape[0]
     hd = ast.head_dim
-    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
-    if ast.qkv_bias:
-        q = q + p["bq"].to(q.dtype)
-        k = k + p["bk"].to(k.dtype)
-        v = v + p["bv"].to(v.dtype)
+    if pctx is not None:
+        q, k, v = fused_dense(pctx, x, [p["wq"], p["wk"], p["wv"]], biases=[
+            p["bq"], p["bk"], p["bv"]] if ast.qkv_bias else None)
+    else:
+        q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+        if ast.qkv_bias:
+            q = q + p["bq"].to(q.dtype)
+            k = k + p["bk"].to(k.dtype)
+            v = v + p["bv"].to(v.dtype)
     q = q.reshape(B, 1, -1, hd)
     k = k.reshape(B, 1, -1, hd)
     v = v.reshape(B, 1, -1, hd)
@@ -573,6 +618,8 @@ def _attn_decode_fixed(p, x, ast, kc, vc, op: _Fixed):
                              kv_pos=torch.arange(S, device=x.device),
                              q_pos=op.q_pos)
     out = combine_partials(part).transpose(1, 2).reshape(B, 1, -1)
+    if pctx is not None:
+        return dense(pctx, out.to(x.dtype), p["wo"])
     return out.to(x.dtype) @ p["wo"]
 
 
@@ -589,16 +636,19 @@ def _cross_decode(p, x, ast, ck, cv):
     return out.to(x.dtype) @ p["wo"]
 
 
-def _fixed_layer(cfg, mixer, ffn, p, x, cache: CacheEntry, op: _Fixed):
+def _fixed_layer(cfg, mixer, ffn, p, x, cache: CacheEntry, op: _Fixed,
+                 pctx: Optional[ParallelContext] = None):
     """One layer of the fixed-batch step (the JAX ``_decode_layer`` on its
-    non-paged branches), its cache entry updated in place."""
-    h = apply_norm(cfg, p["norm1"], x)
+    non-paged branches), its cache entry updated in place; with a blocked
+    grid ``pctx`` on this PE's blocks."""
+    h = apply_norm(cfg, p["norm1"], x, pctx)
     if mixer == "attn":
         x = x + _attn_decode_fixed(p["mixer"], h, attn_static(cfg),
-                                   cache["k"], cache["v"], op)
+                                   cache["k"], cache["v"], op, pctx)
     elif mixer in ("mamba", "ssm"):
         h, (conv, ssm) = mamba_decode_step(p["mixer"], h, (cache["conv"],
-                                                           cache["ssm"]), cfg)
+                                                           cache["ssm"]), cfg,
+                                           pctx)
         cache["conv"].copy_(conv)
         cache["ssm"].copy_(ssm)
         x = x + h
@@ -609,9 +659,11 @@ def _fixed_layer(cfg, mixer, ffn, p, x, cache: CacheEntry, op: _Fixed):
         x = x + _cross_decode(p["cross"], h, attn_static(cfg),
                               cache["cross_k"], cache["cross_v"])
     if ffn == "mlp":
-        x = x + mlp_apply(cfg, p["ffn"], apply_norm(cfg, p["norm2"], x))
+        x = x + mlp_apply(cfg, p["ffn"], apply_norm(cfg, p["norm2"], x, pctx),
+                          pctx)
     elif ffn == "moe":
-        x = x + moe_ffn(p["ffn"], apply_norm(cfg, p["norm2"], x), cfg)
+        x = x + moe_ffn(p["ffn"], apply_norm(cfg, p["norm2"], x, pctx), cfg,
+                        pctx)
     elif ffn != "none":
         raise NotImplementedError(f"({mixer}, {ffn}) layers")
     return x
@@ -637,8 +689,8 @@ def _fixed_operands(cfg, pos, B: int, s_max: int, device) -> _Fixed:
 
 
 def make_decode_step(cfg: ModelConfig, *, batch: int, s_max: int,
-                     mode: str = "batched", per_slot: bool = False
-                     ) -> Callable:
+                     mode: str = "batched", per_slot: bool = False,
+                     pctx: Optional[ParallelContext] = None) -> Callable:
     """``step(params, cache, tokens, pos[, reset]) -> logits``: the
     fixed-batch decode step (``repro.serve.decode.make_decode_step``
     without ``paged``; the engine's paged step is :func:`decode_step`),
@@ -651,10 +703,25 @@ def make_decode_step(cfg: ModelConfig, *, batch: int, s_max: int,
     inside the step).  ``longctx`` refuses ``per_slot``, as the JAX
     package does.  Returns fp32 logits (B, 1, Vpad); ``cache``
     (:func:`cache_specs`) is updated in place, so only the logits are
-    returned."""
+    returned.
+
+    With a grid ``pctx`` (``make_pctx(grid, "cannon")``; mode ``batched``
+    only, ``repro/serve/decode.py:591-742``) every PE takes the whole
+    (B,) tokens and ``pos``/``reset``: the embedding's reduce-scatter
+    gives grid row i batch chunk i, whose slots (``pos``, ``reset``) it
+    keeps in its own cache (:func:`cache_specs` with the ``pctx``), the
+    projections are Cannon GEMMs on pre-skewed blocks, attention and the
+    mamba recurrence run on this PE's slots and heads with no
+    communication, and the logits are gathered over the columns and the
+    rows, so every PE returns all (B, 1, Vpad)."""
     _check_mode(mode, per_slot)
+    pctx = _grid_pctx(pctx, mode)
     pattern = cfg.pattern()
     G = cfg.n_groups()
+    q = 1 if pctx is None else pctx.q
+    if batch % q:
+        raise ValueError(f"batch {batch} does not split over {q} grid rows")
+    b_loc = batch // q
 
     @torch.no_grad()
     def step(params, cache: List[CacheEntry], tokens: torch.Tensor, pos,
@@ -667,42 +734,81 @@ def make_decode_step(cfg: ModelConfig, *, batch: int, s_max: int,
             raise ValueError("per_slot steps take a (B,) pos and a reset "
                              "vector; scalar steps take neither")
         dev = tokens.device
+        if pctx is not None and per_slot:
+            # this row's batch chunk, as the embedding's reduce-scatter
+            # hands it out; the wipe reaches this PE's slots only
+            i, _ = pctx.grid.my_coords()
+            pos = pos[i * b_loc:(i + 1) * b_loc]
+            reset = reset[i * b_loc:(i + 1) * b_loc]
         if reset is not None:
             wipe = reset.to(dev) > 0
             for e in cache:
                 for leaf in e.values():
                     leaf.masked_fill_(
                         wipe.view((1, -1) + (1,) * (leaf.ndim - 2)), 0)
-        op = _fixed_operands(cfg, pos, batch, s_max, dev)
-        x = _embed_decode(params["embed"], tokens, cfg.compute_dtype)
+        op = _fixed_operands(cfg, pos, b_loc, s_max, dev)
+        x = _embed_decode(params["embed"], tokens, cfg.compute_dtype, pctx)
         layers = [_unstack(lp, G) for lp in params["layers"]]
         for g in range(G):
             caches = _group(cache, g)
             for posn, (mixer, ffn) in enumerate(pattern):
                 x = _fixed_layer(cfg, mixer, ffn, layers[posn][g], x,
-                                 caches[posn], op)
-        x = apply_norm(cfg, params["final_norm"], x)
-        return _last_logits(params["lm_head"], x)
+                                 caches[posn], op, pctx)
+        x = apply_norm(cfg, params["final_norm"], x, pctx)
+        return _last_logits(params["lm_head"], x, pctx, gather_rows=True)
 
     return step
 
 
 def make_prefill(cfg: ModelConfig, *,
-                 extra_batch_keys: Sequence[str] = ()) -> Callable:
+                 extra_batch_keys: Sequence[str] = (),
+                 pctx: Optional[ParallelContext] = None) -> Callable:
     """``prefill(params, batch) -> logits (B, 1, Vpad)`` fp32 of the last
     position (``repro.serve.decode.make_prefill``): the full
     training-style forward (:func:`repro_torch.models.transformer.forward`)
     under ``torch.no_grad()``, then the lm_head on the final position.
     ``batch`` holds ``tokens`` and each of ``extra_batch_keys`` (``frames``
-    for an encoder-decoder model, ``patches`` for a vision-language one)."""
+    for an encoder-decoder model, ``patches`` for a vision-language one).
+
+    With a blocked grid ``pctx`` (``make_pctx``, any strategy;
+    ``repro/serve/decode.py:879-905``) the forward runs on this PE's
+    blocks; the last position, held by grid row q-1, reaches every row by
+    a masked ``psum_rows``, the lm_head GEMM takes it as a natural block
+    (under cannon_opt it is unskewed first, one put, and the GEMM is the
+    classic ``std`` one: the residual's skewed block of row q-1 is not the
+    block another row's A-rotating GEMM expects), and the vocabulary is
+    gathered over the columns: every PE returns all (B, 1, Vpad)."""
     keys = ("tokens",) + tuple(extra_batch_keys)
+    grid = None if pctx is None or pctx.local else pctx
+    if grid is not None and not grid.blocked:
+        raise ValueError("prefill on a grid runs in the blocked layout "
+                         "(make_pctx)")
 
     def prefill(params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         missing = [k for k in keys if k not in batch]
         if missing:
             raise ValueError(f"prefill batch lacks {missing}")
         with torch.no_grad():
-            x, _ = forward(cfg, params, {k: batch[k] for k in keys})
-            return _last_logits(params["lm_head"], x[:, -1:])
+            x, _ = forward(cfg, params, {k: batch[k] for k in keys},
+                           pctx=grid)
+            if grid is None:
+                return _last_logits(params["lm_head"], x[:, -1:])
+            return _last_grid(grid, params["lm_head"], x[:, -1:])
 
     return prefill
+
+
+def _last_grid(pctx: ParallelContext, lm_head: torch.Tensor,
+               last: torch.Tensor) -> torch.Tensor:
+    """Logits (B, 1, Vpad) of the sequence's last position from this PE's
+    (B, 1, D/r) block of its rows' last positions (:func:`make_prefill`)."""
+    grid = pctx.grid
+    if pctx.act_layout == "skewed":
+        last = unskew_activation(grid, last)
+        pctx = pctx.with_(act_layout="blocked")
+    i, _ = grid.my_coords()
+    if i != pctx.q - 1:
+        last = torch.zeros_like(last)
+    last = grid.psum_rows(last)
+    logits = dense(pctx, last, lm_head, out_dtype=torch.float32, kind="std")
+    return grid.all_gather_cols(logits, axis=-1)

@@ -188,20 +188,27 @@ def grid_serve_pe(grid, jobs: Sequence[GridJob], latency: bool = False
 
 
 def _pe_params(grid, job: GridJob):
-    """This PE's blocks of the job's weights: cut from the global numpy
-    tree, or drawn on the PE's device from the job's seed as a one-device
-    engine draws them.  The PEs draw in turn, each freeing its full tree
-    before the next starts, so the card holds one full tree at a time."""
+    return pe_params(grid, job.cfg, seed=job.seed, weights=job.weights)
+
+
+def pe_params(grid, cfg, *, seed: int = 0, weights: Optional[Dict] = None,
+              storage=False):
+    """This PE's blocks of a model's weights in ``storage``
+    (:func:`~repro_torch.models.params.shard_params`): cut from the global
+    numpy tree ``weights``, or drawn on the PE's device from ``seed`` as a
+    one-device engine draws them.  The PEs draw in turn, each freeing its
+    full tree before the next starts, so the card holds one full tree at a
+    time."""
     plan = _plan(grid)
-    if job.weights is not None:
-        full = from_jax_params(job.weights, job.cfg, device=grid.device)
-        return shard_params(full, job.cfg, plan, grid.pe)
+    if weights is not None:
+        full = from_jax_params(weights, cfg, device=grid.device)
+        return shard_params(full, cfg, plan, grid.pe, storage=storage)
     params = None
     for turn in range(grid.n_pes):
         if turn == grid.pe:
-            gen = torch.Generator(device=grid.device).manual_seed(job.seed)
-            full = init_params(job.cfg, generator=gen, device=grid.device)
-            params = shard_params(full, job.cfg, plan, grid.pe)
+            gen = torch.Generator(device=grid.device).manual_seed(seed)
+            full = init_params(cfg, generator=gen, device=grid.device)
+            params = shard_params(full, cfg, plan, grid.pe, storage=storage)
             del full, gen
             if grid.device.type == "cuda":
                 torch.cuda.empty_cache()

@@ -15,9 +15,12 @@ the JAX package stores in blocks: ``blocked2d``, ``vocab2d``,
 ``opt_state["resid"]``, the replicated ones (norms, biases, router, conv,
 A, dt_bias, D) pass as they are.  The global norm is taken after it.
 
-There is no ``tp_strategy`` argument: on one card cannon, cannon_opt,
+The step has no ``tp_strategy`` argument: on one card cannon, cannon_opt,
 allgather and summa compute the same product, so the step has one form
-(as ``EngineConfig`` has no ``kernel_backend``).
+(as ``EngineConfig`` has no ``kernel_backend``).  On a grid of PE
+processes the forward-only :func:`make_loss_fn` takes a ``pctx`` from
+:func:`make_pctx`, which names the strategy; the step on the grid (its
+backward through the puts) comes with a later slice.
 
 The step differentiates the parameters through per-group views: each leaf
 stacked over the G layer groups is handed to the forward as a
@@ -29,11 +32,12 @@ slice, in place (:mod:`repro_torch.optim.adamw`).
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import TP_STRATEGIES, ParallelContext
 from repro_torch.models.transformer import loss_fn
 from repro_torch.optim.adamw import (AdamWConfig, apply_updates,
                                      lr_schedule, pieces_of, slices)
@@ -203,10 +207,34 @@ def make_train_step(cfg: ModelConfig, *,
     return step_fn
 
 
-def make_loss_fn(cfg: ModelConfig, *, remat: bool = False) -> Callable:
+def make_pctx(grid, tp_strategy: str = "cannon",
+              compute_dtype: torch.dtype = torch.float32) -> ParallelContext:
+    """The blocked forward's context on one PE's ``grid``
+    (``repro.train.step.make_pctx``): weights pre-skewed for cannon and
+    cannon_opt (which also keeps the residual stream skewed), natural for
+    the allgather and SUMMA baselines.  Shard the weights with
+    ``shard_params(..., storage=storage_for(tp_strategy))``."""
+    if tp_strategy not in TP_STRATEGIES:
+        raise ValueError(f"tp_strategy must be one of {TP_STRATEGIES}, got "
+                         f"{tp_strategy!r}")
+    return ParallelContext(
+        grid=grid, tp_strategy=tp_strategy,
+        preskewed=tp_strategy in ("cannon", "cannon_opt"),
+        act_layout="skewed" if tp_strategy == "cannon_opt" else "blocked",
+        compute_dtype=compute_dtype)
+
+
+def make_loss_fn(cfg: ModelConfig, *, remat: bool = False,
+                 pctx: Optional[ParallelContext] = None) -> Callable:
     """Forward only: ``fn(params, batch) -> (loss, metrics)`` under
-    ``torch.no_grad()``."""
+    ``torch.no_grad()``.  With a grid ``pctx`` (:func:`make_pctx`) the
+    blocked forward on this PE's blocks; every PE returns the global
+    loss."""
+    if pctx is not None and not pctx.local and not pctx.blocked:
+        raise ValueError("the loss on a grid runs in the blocked layout "
+                         "(make_pctx)")
+
     def fn(params, batch):
         with torch.no_grad():
-            return loss_fn(cfg, params, batch, remat)
+            return loss_fn(cfg, params, batch, remat, pctx=pctx)
     return fn

@@ -50,6 +50,8 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
             "repro_torch.runtime.pe", "repro_torch.kernels.shmem_heap.kernel",
             "repro_torch.kernels.shmem_heap.ref",
             "repro_torch.serve.engine.grid", "repro_torch.models.moe",
+            "repro_torch.launch.grid_run", "repro_torch.core.cannon",
+            "repro_torch.models.layers", "repro_torch.models.attention",
             "repro_torch.models.ssm", "repro_torch.serve.state",
             "repro_torch.serve.engine.state_store"} <= set(mods)
     code = (
