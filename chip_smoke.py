@@ -204,7 +204,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    the state relay) in fp32 under cannon and cannon_opt and in bf16 under
    cannon, the reduced jamba in fp32 under cannon and cannon_opt; then
    ``make_decode_step(mode="batched")`` under Cannon (batch 8, 4 a row,
-   s_max 512, 16 greedy tokens from one random token a row) on
+   s_max 512, 8 greedy tokens from one random token a row) on
    qwen2-0.5b in fp32 and bf16 and mamba2-780m in fp32; each beside the
    port's 1x1 on the same seed-0 weights.  Gates on every PE: fp32 loss,
    prefill logits and first decode logits within GRID_FWD_TOL of the
@@ -217,6 +217,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    grouped GEMMs on every MoE layer, no plain version.  Printed per job
    and strategy: ms per forward and per decode step, collectives, heap
    bytes per PE, barrier-wait share, cannon_mm's variants;
+14c. grid_train — in grid_forward's spawn, the training step on the grid
+   (``TrainJob``: ``make_train_step`` with a grid ``pctx``, its backward
+   through every put and collective): GRID_TRAIN_STEPS AdamW steps at lr
+   1e-3, eps 1e-6, remat on, on one batch of 2 x 1024 tokens, of
+   qwen2-0.5b (24 layers) in fp32 under cannon and cannon_opt and in bf16
+   under cannon_opt, mamba2-780m at 8 of its 48 layers in fp32 under
+   cannon, and qwen3-moe at 2 layers in bf16 with 8-bit moments under
+   cannon_opt, each beside the port's 1x1 step on the same seed-0 weights
+   and batch.  Gates on every PE: heap bytes and collectives of every
+   step as ``train_messages`` reckons them; cannon_mm on every GEMM of the
+   forward, the recompute and both backward products, the grouped GEMM's
+   forward, dgrad and wgrad on every MoE layer, no plain version; fp32
+   loss within 1e-5 and grad_norm within 1e-4 of q*r = 4 times the 1x1's
+   (JAX's grid step carries that factor), the second step and the
+   parameter blocks (within 2e-5 of the 1x1's cut by ``shard_params``;
+   mamba2's within GRID_TRAIN_DEEP_PARAMS_TOL) where the 1x1's first norm
+   exceeds grad_clip, so both clip; bf16 within GRID_TRAIN_BF16_TOL.  Printed per job (a ``grid_train_run``
+   line each, then a ``grid_train`` line): ms per step, collectives per
+   step, heap MB a PE, the barrier-wait share, and the 1x1's ms per step;
 15. the engine at full width on an MoE model, last and after the cache is
    emptied — qwen3-moe-235b-a22b at the repo config's full width (d_model
    4096, 64 q heads over 4 kv heads, hd 64, qk_norm, 128 experts top-8 of
@@ -4396,9 +4415,11 @@ HEAP_REPLACES = {"shmem_put": "src/repro/core/shmem.py:137",
                  "shmem_reduce_slots":
                      "src/repro/core/shmem.py:154,159,163"}
 GRID_Q = GRID_R = 2
-# the grid's workload: four of the engine phase's prompts, 16 greedy tokens
+# the grid's workload: four of the engine phase's prompts, 8 greedy tokens
+# (16 until the grid's training jobs joined the smoke: a cut of the path's
+# steps to keep the smoke inside its clock; every gate stays)
 GRID_PROMPT_LENS = [5, 40, 100, 300]
-GRID_MAX_TOKENS = 16
+GRID_MAX_TOKENS = 8
 GRID_MOE_LAYERS = 2                # of qwen3-moe's 94 (24 GB in fp32)
 GRID_MOE_CF = 4.0                  # = n_pes: cap = T k, nothing can drop
 # qwen2-0.5b's and mamba2-780m's bf16 jobs also at their first this many
@@ -4898,7 +4919,9 @@ def compare_1x1(label, cfg, prompts, one, pe0):
 # ---------------------------------------------------------------------------
 
 GRID_FWD_BATCH, GRID_FWD_SEQ = 2, 1024       # S_loc 512 a grid row
-GRID_DEC_BATCH, GRID_DEC_S_MAX, GRID_DEC_STEPS = 8, 512, 16
+# 8 greedy tokens (16 until the training jobs joined the spawn: a cut of
+# the path's steps to keep the smoke inside its clock; every gate stays)
+GRID_DEC_BATCH, GRID_DEC_S_MAX, GRID_DEC_STEPS = 8, 512, 8
 # each forward runs once: the first job (the small jamba) takes the PEs'
 # first launches, so the timed qwen2 and mamba2 forwards find them warm
 GRID_FWD_RUNS = 1
@@ -5106,8 +5129,10 @@ def phase_grid_forward(smi):
     SSD passes on every mamba layer, the grouped GEMMs on every MoE layer,
     no plain version.  Prints per strategy the ms per forward and per
     decode step, collectives, heap bytes per PE and the barrier-wait
-    share.  Returns the launches by path (summed over the PEs, the
-    forward's last run and every decode step)."""
+    share.  The training jobs of ``grid_train_table`` run in the same
+    spawn, after the others (``grid_train_rows`` gates and prints them).
+    Returns the launches by path (summed over the PEs, the forward's last
+    run, every decode step and every training step)."""
     from repro_torch.launch.grid_run import (DecodeJob, ForwardJob,
                                              make_batch, run_on_grid)
     from repro_torch.partition import grid_plan
@@ -5124,6 +5149,21 @@ def phase_grid_forward(smi):
             if label in GRID_DECODE else None
         inputs[label] = (toks, labels, first)
         one[label] = one_device_blocked(cfg, toks, labels, first)
+    # the training jobs' 1x1 runs, each model's once (the strategies of a
+    # model share it), its final blocks saved where a job holds them
+    from repro_torch.launch.grid_run import TrainJob
+    from repro_torch.models.params import storage_for
+    train_table = grid_train_table()
+    one_train, train_inputs = {}, {}
+    for label, cfg, strategy, bits, held in train_table:
+        if label in one_train:
+            continue
+        toks, labels = make_batch(cfg, GRID_FWD_BATCH, GRID_FWD_SEQ)
+        train_inputs[label] = (toks, labels)
+        storages = sorted({storage_for(st) for lb, _, st, _, h
+                           in train_table if lb == label and h}, key=str)
+        one_train[label] = one_device_train(label, cfg, bits, toks, labels,
+                                            storages, plan)
     one_s = time.perf_counter() - t_one
     jobs, keys = [], []
     for label, cfg, strategies in table:
@@ -5137,9 +5177,18 @@ def phase_grid_forward(smi):
         jobs.append(DecodeJob(cfg=cfgs[label], first=inputs[label][2],
                               s_max=GRID_DEC_S_MAX, steps=GRID_DEC_STEPS,
                               seed=0))
+    for label, cfg, strategy, bits, held in train_table:
+        toks, labels = train_inputs[label]
+        jobs.append(TrainJob(
+            cfg, strategy, [(toks, labels)] * GRID_TRAIN_STEPS, seed=0,
+            opt=dict(GRID_TRAIN_OPT, state_bits=bits),
+            compare_to=one_train[label]["files"][storage_for(strategy)]
+            if held else None))
     t_grid, t_wall = time.perf_counter(), time.time()
     runs = run_on_grid(jobs, plan, device=DEV, timeout=900)
     grid_s = time.perf_counter() - t_grid
+    train_runs, runs = runs[len(keys):], runs[:len(keys)]
+    shutil.rmtree(ROOT / "build" / "grid_train", ignore_errors=True)
     # the PEs' start (spawn to the target) and end (the target's return
     # to the results in hand), on the wall clock all processes share
     spawn_s = max(r["t_enter"] for r in runs[0]) - t_wall
@@ -5223,6 +5272,18 @@ def phase_grid_forward(smi):
                 if max(e_loss, e_log) > GRID_FWD_TOL:
                     failed.append(f"grid_forward {label}: {s} PE {r['pe']} "
                                   f"{e_loss} / {e_log} from cannon's")
+    train_failed, train_rows, train_by_path = grid_train_rows(
+        train_table, train_runs, one_train, plan, smi)
+    failed += train_failed
+    for name, paths in train_by_path.items():
+        by_path.setdefault(name, {}).update(paths)
+    emit("grid_train", rows=[{k: r[k] for k in (
+        "run", "strategy", "layers", "state_bits", "both_clip", "losses",
+        "losses_1x1", "grad_norms", "grad_norms_1x1", "ms_per_step",
+        "ms_per_step_slowest_pe", "ms_per_step_1x1", "collectives_per_step",
+        "heap_mb_per_pe_per_step", "heap_mb_per_pe", "barrier_wait_share",
+        "params_spread_1x1")}
+        for r in train_rows], nvidia_smi=smi)
     check(not failed, "; ".join(failed[:12]))
     phase_s = time.perf_counter() - t0
     emit("grid_forward", jobs=[f"{label} {s}" for label, s in keys],
@@ -5233,6 +5294,284 @@ def phase_grid_forward(smi):
     check(phase_s < GRID_FWD_PHASE_S,
           f"the grid_forward phase took {phase_s:.0f} s")
     return by_path, rows
+
+
+# ---------------------------------------------------------------------------
+# The training step on the grid (grid_train): jobs in grid_forward's spawn.
+# ---------------------------------------------------------------------------
+
+# two AdamW steps of each job on one batch of GRID_FWD_BATCH x GRID_FWD_SEQ
+# tokens (512 a grid row), the layer groups recomputed in the backward
+GRID_TRAIN_STEPS = 2
+GRID_TRAIN_OPT = dict(lr=1e-3, eps=1e-6, warmup_steps=2, decay_steps=10)
+GRID_TRAIN_MAMBA_LAYERS = 8          # of mamba2-780m's 48
+GRID_TRAIN_MOE_LAYERS = 2            # of qwen3-moe's 94, bf16, 8-bit moments
+# fp32 against the port's 1x1 on the same weights and batch: the CPU
+# tests' bounds against JAX (the loss rel 1e-5, grad_norm rel 1e-4 of q*r
+# times the 1x1's, the parameter blocks after the last step within 2e-5)
+GRID_TRAIN_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "params": 2e-5}
+# mamba2-780m's parameter blocks after the second step take this bound
+# instead, 3x the 1x1's own spread between two fp32 routes of the same
+# steps (its scan at chunk 128 against 64, ``params_spread_1x1`` of each
+# run: 6.9e-5 on an H100); the grid reads 6.9e-5 to 7.8e-5 by PE.  The
+# first loss drops 11.3 -> 8.9, and AdamW's first moment cancels where a
+# gradient turns, which magnifies the rounding of another scan split
+GRID_TRAIN_DEEP_PARAMS_TOL = {"mamba2-780m fp32": 2e-4}
+# bf16 (qwen2-0.5b cannon_opt, qwen3-moe): the first step's grad_norm
+# against q*r times the 1x1 bf16 run's and the second step's loss against
+# its, relative: limits between the sound grid's reading and a control (a
+# copy made on the chip machine whose all_gather backward keeps this PE's
+# own chunk of the cotangent instead of the reduce-scatter), near their
+# geometric means.  On an H100, sound / control: qwen2-0.5b grad_norm
+# 5.75e-4 / 0.205, loss 2.52e-5 / 1.19e-3; qwen3-moe 1.42e-3 / 0.132,
+# 1.66e-4 / 0.0416.  PERF.md has the readings.
+GRID_TRAIN_BF16_TOL = {
+    "qwen2-0.5b bf16": {"grad_norm": 0.01, "loss2": 1.7e-4},
+    "qwen3-moe bf16": {"grad_norm": 0.014, "loss2": 2.6e-3}}
+
+
+def grid_train_table():
+    """The training jobs, as (label, config, strategy, state_bits, whether
+    the parameter blocks are held against the 1x1's): qwen2-0.5b (24
+    layers) in fp32 under cannon and cannon_opt and in bf16 under
+    cannon_opt (the launcher's default), mamba2-780m at
+    GRID_TRAIN_MAMBA_LAYERS layers in fp32 under cannon, qwen3-moe at
+    GRID_TRAIN_MOE_LAYERS layers (capacity_factor GRID_MOE_CF: nothing
+    drops) in bf16 with 8-bit moments under cannon_opt."""
+    f32, b16 = torch.float32, torch.bfloat16
+    qwen32 = grid_cfg("qwen2-0.5b", f32)
+    return [("qwen2-0.5b fp32", qwen32, "cannon", 32, True),
+            ("qwen2-0.5b fp32", qwen32, "cannon_opt", 32, True),
+            ("qwen2-0.5b bf16", grid_cfg("qwen2-0.5b", b16), "cannon_opt",
+             32, False),
+            ("mamba2-780m fp32", grid_cfg(
+                "mamba2-780m", f32, n_layers=GRID_TRAIN_MAMBA_LAYERS),
+             "cannon", 32, True),
+            ("qwen3-moe bf16", grid_cfg(
+                "qwen3-moe-235b-a22b", b16,
+                n_layers=GRID_TRAIN_MOE_LAYERS), "cannon_opt", 8, False)]
+
+
+def train_ref_path(label, storage):
+    """The file pattern (``{pe}`` the PE) of the 1x1 run's final blocks
+    in ``storage``, in the checkout's build directory."""
+    d = ROOT / "build" / "grid_train"
+    d.mkdir(parents=True, exist_ok=True)
+    tag = label.replace(" ", "_")
+    return str(d / f"{tag}_{storage}_pe{{pe}}.pt")
+
+
+def _one_device_steps(cfg, bits, batch):
+    """GRID_TRAIN_STEPS steps of the port's 1x1 step (remat) from the
+    seed-0 weights drawn on the card: (final parameters, each step's
+    loss, grad_norm and wall)."""
+    from repro_torch.models.params import init_params
+    from repro_torch.optim.adamw import AdamWConfig, init_state
+    from repro_torch.train.step import make_train_step
+    gen = torch.Generator(DEV).manual_seed(0)
+    params = init_params(cfg, generator=gen, device=DEV)
+    opt_cfg = AdamWConfig(**GRID_TRAIN_OPT, state_bits=bits)
+    opt = init_state(params, opt_cfg)
+    step = make_train_step(cfg, opt_cfg=opt_cfg, remat=True)
+    out = {"loss": [], "grad_norm": [], "ms": []}
+    for _ in range(GRID_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        out["loss"].append(float(m["loss"]))
+        out["grad_norm"].append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+    return params, out
+
+
+def one_device_train(label, cfg, bits, toks, labels, storages, plan):
+    """The port's 1x1 step GRID_TRAIN_STEPS times on one batch
+    (:func:`_one_device_steps`): each step's loss, grad_norm and wall;
+    with ``storages`` the final parameters cut into every PE's blocks in
+    each storage, saved for the PEs to hold theirs against
+    (:func:`train_ref_path`).  For a label of GRID_TRAIN_DEEP_PARAMS_TOL
+    also the 1x1's own spread: the same steps with the scan at half its
+    chunk, the largest difference of the final blocks (``spread``), the
+    measure that bound is set from."""
+    from repro_torch.models.params import shard_params
+    from repro_torch.tree import flatten_with_paths
+    gc.collect()
+    torch.cuda.empty_cache()
+    batch = {"tokens": torch.from_numpy(toks).to(DEV),
+             "labels": torch.from_numpy(labels).to(DEV)}
+    params, out = _one_device_steps(cfg, bits, batch)
+    other = None
+    if label in GRID_TRAIN_DEEP_PARAMS_TOL:
+        other, _ = _one_device_steps(dataclasses.replace(
+            cfg, ssd_chunk=cfg.ssd_chunk // 2), bits, batch)
+        out["spread"] = 0.0
+    out["files"] = {}
+    for storage in storages:
+        path = train_ref_path(label, storage)
+        for pe in range(plan.n_pes):
+            ps, flat = flatten_with_paths(
+                shard_params(params, cfg, plan, pe, storage=storage))
+            torch.save({p: t.cpu() for p, t in zip(ps, flat)},
+                       path.format(pe=pe))
+            if other is not None:
+                alt = flatten_with_paths(
+                    shard_params(other, cfg, plan, pe, storage=storage))[1]
+                out["spread"] = max([out["spread"]] + [
+                    float((a - b).abs().max()) for a, b in zip(flat, alt)])
+            del flat
+        out["files"][storage] = path
+    del params, other, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def grid_train_launches(cfg, strategy, plan):
+    """Launches a PE's training step implies: cannon_mm on every
+    distributed GEMM of the forward, of the recompute (every layer group
+    again) and of both backward products (dA, dB), q local products a
+    Cannon, crot or SUMMA GEMM; per MoE layer the grouped GEMM's forward
+    w1 (swiglu) twice (forward, recompute), w2 three times (forward,
+    recompute, the swiglu backward's recomputed product), dgrad and wgrad
+    twice each."""
+    per_gemm = 1 if strategy == "allgather" else plan.grid_q
+    fwd = grid_denses(cfg)
+    n_moe = layer_counts(cfg)["moe"]
+    return {"matmul_cuda": per_gemm * (3 * fwd + fwd - 1),
+            "grouped_mm_swiglu_cuda": 2 * n_moe,
+            "grouped_mm_cuda": 3 * n_moe,
+            "grouped_mm_dgrad_cuda": 2 * n_moe,
+            "grouped_mm_wgrad_cuda": 2 * n_moe}
+
+
+def check_train_pe(where, label, cfg, strategy, r, one, plan, held):
+    """One PE's training job: heap bytes and collectives of every step as
+    ``train_messages`` reckons them, the launches of
+    :func:`grid_train_launches` and no plain version on every step, every
+    loss and grad norm finite; fp32 against the 1x1 (GRID_TRAIN_TOL):
+    the first step's loss and grad_norm (q*r times the 1x1's) always,
+    the second step's and the parameter blocks (mamba2's within
+    GRID_TRAIN_DEEP_PARAMS_TOL) only where the 1x1's first grad norm
+    exceeds grad_clip (then both clip, and the first update is the same;
+    else the grid, whose gradients carry q*r, clips where the 1x1 does
+    not); bf16 within GRID_TRAIN_BF16_TOL."""
+    failed = []
+    qr = plan.n_pes
+    want = grid_train_launches(cfg, strategy, plan)
+    for k, rec in enumerate(r["steps"]):
+        n = {name: c["launches"] for name, c in rec["launches"].items()}
+        if rec["heap_bytes"] != r["reckoned_heap_bytes"] \
+                or rec["collectives"] != r["reckoned_collectives"]:
+            failed.append(f"{where} step {k}: heap bytes {rec['heap_bytes']}"
+                          f", {rec['collectives']} collectives; reckoned "
+                          f"{r['reckoned_heap_bytes']}, "
+                          f"{r['reckoned_collectives']}")
+        plain = {name: v for name, v in n.items()
+                 if name.endswith("_ref") and v}
+        got = {name: n.get(name, 0) for name in want}
+        if plain or got != want:
+            failed.append(f"{where} step {k}: launches {got}, expected "
+                          f"{want}; plain {plain}")
+        if not (np.isfinite(rec["loss"]) and np.isfinite(rec["grad_norm"])):
+            failed.append(f"{where} step {k}: loss {rec['loss']}, grad_norm "
+                          f"{rec['grad_norm']}")
+    if r["device"][:4] != "cuda" or r["heap"] != "CudaHeap":
+        failed.append(f"{where}: {r['device']} with a {r['heap']}")
+    s = r["steps"]
+    both_clip = one["grad_norm"][0] > GRID_TRAIN_OPT.get("grad_clip", 1.0)
+    errs = {"loss1_rel_err": abs(s[0]["loss"] - one["loss"][0])
+            / abs(one["loss"][0]),
+            "grad_norm1_rel_err": abs(s[0]["grad_norm"]
+                                      - qr * one["grad_norm"][0])
+            / (qr * one["grad_norm"][0]),
+            "loss2_rel_err": abs(s[1]["loss"] - one["loss"][1])
+            / abs(one["loss"][1]),
+            "grad_norm2_rel_err": abs(s[1]["grad_norm"]
+                                      - qr * one["grad_norm"][1])
+            / (qr * one["grad_norm"][1])}
+    if held:
+        errs["params_max_abs_err"] = max(r["param_max_abs_err"].values())
+    if cfg.compute_dtype == torch.float32:
+        limits = {"loss1_rel_err": GRID_TRAIN_TOL["loss"],
+                  "grad_norm1_rel_err": GRID_TRAIN_TOL["grad_norm"]}
+        if both_clip:
+            limits.update(loss2_rel_err=GRID_TRAIN_TOL["loss"],
+                          grad_norm2_rel_err=GRID_TRAIN_TOL["grad_norm"])
+            if held:
+                limits["params_max_abs_err"] = \
+                    GRID_TRAIN_DEEP_PARAMS_TOL.get(label,
+                                                   GRID_TRAIN_TOL["params"])
+        else:
+            failed.append(f"{where}: the 1x1's first grad norm "
+                          f"{one['grad_norm'][0]} does not exceed grad_clip:"
+                          f" the second step is not comparable")
+    else:
+        tol = GRID_TRAIN_BF16_TOL[label]
+        limits = {k: v for k, v in (("grad_norm1_rel_err", tol["grad_norm"]),
+                                    ("loss2_rel_err", tol["loss2"]))
+                  if v is not None}
+    for k, lim in limits.items():
+        if errs[k] > lim:
+            failed.append(f"{where}: {k} {errs[k]} from the 1x1 (limit "
+                          f"{lim})")
+    return errs, both_clip, failed
+
+
+def grid_train_rows(keys, runs, one, plan, smi):
+    """Gate and print every training job (:func:`check_train_pe`) on every
+    PE; returns (failures, rows, launches by path)."""
+    failed, rows, by_path = [], [], {}
+    for (label, cfg, strategy, bits, held), reports in zip(keys, runs):
+        path = f"{label} {strategy} grid 2x2 (train step)"
+        ref = one[label]
+        row = dict(run=label, strategy=strategy, layers=cfg.n_layers,
+                   state_bits=bits, heap_slot_bytes=reports[0][
+                       "heap_slot_bytes"],
+                   max_message_bytes=reports[0]["max_message_bytes"],
+                   job_s=max(r["job_s"] for r in reports),
+                   setup_s=max(r["setup_s"] for r in reports))
+        for r in reports:
+            where = f"grid_train {label} {strategy} PE {r['pe']}"
+            errs, both_clip, bad = check_train_pe(
+                where, label, cfg, strategy, r, ref, plan, held)
+            failed += bad
+            for k, v in errs.items():
+                row.setdefault(k + "_by_pe", {})[r["pe"]] = v
+            for rec in r["steps"]:
+                for name, c in rec["launches"].items():
+                    if not name.endswith("_cuda"):
+                        continue
+                    e = by_path.setdefault(name[:-len("_cuda")], {}
+                                           ).setdefault(path, {
+                                               "launches": 0,
+                                               "by_variant": {}})
+                    e["launches"] += c["launches"]
+                    for v, m in c["by_variant"].items():
+                        if m:
+                            e["by_variant"][v] = e["by_variant"].get(v, 0) + m
+        pe0 = reports[0]
+        last = [r["steps"][-1] for r in reports]
+        row.update(
+            both_clip=both_clip, losses=[s["loss"] for s in pe0["steps"]],
+            losses_1x1=ref["loss"],
+            grad_norms=[s["grad_norm"] for s in pe0["steps"]],
+            grad_norms_1x1=ref["grad_norm"],
+            ms_per_step=[1e3 * s["wall_s"] for s in pe0["steps"]],
+            ms_per_step_slowest_pe=max(1e3 * s["wall_s"] for s in last),
+            ms_per_step_1x1=ref["ms"],
+            params_spread_1x1=ref.get("spread"),
+            collectives_per_step=pe0["steps"][-1]["collectives"],
+            heap_mb_per_pe_per_step=pe0["steps"][-1]["heap_bytes"] / 1e6,
+            heap_mb_per_pe=pe0["heap_mb"],
+            barrier_wait_share={r["pe"]: r["steps"][-1]["wait_s"]
+                                / max(r["steps"][-1]["wall_s"], 1e-9)
+                                for r in reports},
+            cannon_mm_by_variant=pe0["steps"][-1]["launches"].get(
+                "matmul_cuda", {}).get("by_variant"))
+        emit("grid_train_run", **row, nvidia_smi=smi)
+        rows.append(row)
+    return failed, rows, by_path
 
 
 # ---------------------------------------------------------------------------

@@ -17,7 +17,12 @@ one sees row ``i*r + j`` of the stack.
 Given a :class:`~repro_torch.core.pe_grid.PeGrid` in place of the stack,
 each function runs on one PE process's local blocks instead, as the JAX
 function does inside ``shard_map``: a block ``(M_loc, K_loc)`` (or any
-leading dims, flattened into M) against ``(K_loc, N_loc)``.  The four
+leading dims, flattened into M) against ``(K_loc, N_loc)``.  There they
+are differentiable: every put and psum has its transpose as its backward
+(:mod:`repro_torch.core.pe_grid`), and every local product's backward is
+two more cannon_mm launches on transposed views (``dA = dC B^T``,
+``dB = A^T dC``); the C-rotating accumulator is rounded to the input
+dtype at every hop by a cast, which autograd follows.  The four
 distributed GEMMs are the model's projections in the blocked layout
 (:func:`repro_torch.models.layers.dense`), gemv2d the engine's.
 
@@ -142,7 +147,10 @@ def summa_matmul(grid: ShmemGrid, a_blk: torch.Tensor, b_blk: torch.Tensor,
         i, j = grid.my_coords()
 
         def held(blk, mine):
-            return blk if mine else torch.zeros_like(blk)
+            # a product by the mask, as the JAX function has it: every PE
+            # then records the same graph, and the psums' transposes run
+            # on every PE of their groups
+            return blk * float(mine)
     else:
         i, j = grid.my_coords(a_blk)
 

@@ -15,9 +15,12 @@ has the same method names and the same semantics on LOCAL blocks:
     group; after the barrier each member reduces its own slots in slot
     order with an fp32 accumulator (``shmem_reduce_slots``), so all get
     the same bits.
+  * ``psum_all`` over every PE and ``psum_groups`` over a partition of
+    the PEs (``axis_index_groups``) likewise, on a heap of ``n_pes``
+    slots a half; integer payloads are summed exactly in their dtype.
   * ``all_gather_rows``/``all_gather_cols``: the same puts, then the slots
-    concatenated in group order; ``reduce_scatter_rows``: chunk m of every
-    block goes to member m, which sums what it receives.
+    concatenated in group order; ``reduce_scatter_rows``/``_cols``: chunk
+    m of every block goes to member m, which sums what it receives.
   * ``broadcast_from(x, root)``: the root puts to every PE.
   * ``all_to_all(x)``: the flat exchange over every PE (``lax.all_to_all``
     with ``split_axis=0, concat_axis=0, tiled=True``): block p of x's
@@ -36,6 +39,22 @@ only once its reads of k are done.  The heap (:mod:`repro_torch.kernels.
 shmem_heap`) is sized once, before the first collective (:meth:`reserve`):
 each half holds ``max(q, r)`` slots, or ``n_pes`` where the flat exchange
 runs.
+
+Every collective is differentiable, with the transpose JAX takes inside
+``shard_map(..., check_vma=False)`` as its backward (itself a collective
+of the grid, run by :class:`_Collective` when autograd reaches it): a put
+along the inverted pairs; a psum (rows, cols, ``psum_all``,
+``psum_groups``) the same psum, so a cotangent replicated over the group
+comes back multiplied by its size (JAX's grid step reports gradients q*r
+times the model's for this reason, and the port follows it); a gather
+the tiled reduce-scatter over its group and back; ``all_to_all`` itself;
+``broadcast_from`` (JAX's ``psum_all(x * mask)``) a ``psum_all``, then
+the mask.  ``pmax_rows``/``pmax_cols`` take no gradient (the zero tangent
+of ``pmax_cols_sg``).  Every PE must then run the same backward
+collectives in the same order, so a program must build the same graph on
+every PE (masks by multiplication, loops of a fixed length); the host
+barrier compares the PEs' collective names and ordinals and raises on a
+mismatch.
 
 ``comm_bytes`` counts each op's per-PE result bytes, as the stacked
 :class:`~repro_torch.core.shmem.ShmemGrid` does; ``heap_bytes`` the bytes
@@ -61,6 +80,21 @@ ALIGN = 256                       # bytes: every slot starts on this
 
 def _nbytes(x: torch.Tensor) -> int:
     return x.numel() * x.element_size()
+
+
+class _Collective(torch.autograd.Function):
+    """A collective whose backward is its transpose, another collective
+    of the grid: every PE runs it, in the order autograd reaches it,
+    which is the same on every PE when the graphs are."""
+
+    @staticmethod
+    def forward(ctx, x, fwd, bwd):
+        ctx.bwd = bwd
+        return fwd(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.bwd(g.contiguous()), None, None
 
 
 class PeGrid(GridGeometry):
@@ -184,7 +218,7 @@ class PeGrid(GridGeometry):
     def _barrier(self, what: str = "barrier_all") -> None:
         t0 = time.perf_counter()
         self._sync()
-        self.comm.barrier(what)
+        self.comm.barrier(f"{what} #{self.n_collectives}")
         self.wait_s += time.perf_counter() - t0
 
     def _done(self, out: torch.Tensor) -> torch.Tensor:
@@ -197,12 +231,26 @@ class PeGrid(GridGeometry):
         return slot(self.heap.views[self.pe], self._offset(k), tuple(shape),
                     dtype).clone()
 
+    def _diff(self, x: torch.Tensor, fwd, bwd) -> torch.Tensor:
+        """``fwd(x)``, with ``bwd`` (the transpose, itself a collective) as
+        its backward when autograd records x."""
+        if not self.local and torch.is_grad_enabled() and x.requires_grad:
+            return _Collective.apply(x, fwd, bwd)
+        return fwd(x)
+
     # -- one-sided communication (shmem_put analogues) ---------------------
     def put(self, x: torch.Tensor, pairs: Sequence[Tuple[int, int]]
             ) -> torch.Tensor:
         """``shmem_put`` along ``pairs`` of (source, destination) PEs: this
         PE's block goes to its destination; it returns what its source
-        sent (zeros when none)."""
+        sent (zeros when none).  Backward: the put along the inverted
+        pairs (a PE that sent nothing gets zeros)."""
+        pairs = [(int(s), int(d)) for s, d in pairs]
+        inverse = [(d, s) for s, d in pairs]
+        return self._diff(x, lambda t: self._put_raw(t, pairs),
+                          lambda g: self.put(g, inverse))
+
+    def _put_raw(self, x: torch.Tensor, pairs) -> torch.Tensor:
         srcs: Dict[int, int] = {}
         for s, d in pairs:
             if d in srcs:
@@ -233,41 +281,85 @@ class PeGrid(GridGeometry):
         every member's heap, then the barrier."""
         x = x.contiguous()
         self._check_fits(_nbytes(x), what)
+        if len(members) > self.n_slots:
+            raise RuntimeError(f"{what}: {len(members)} members, the heap's "
+                               f"halves hold {self.n_slots} slots (reserve "
+                               f"with all_to_all for the flat groups)")
         k = members.index(self.pe)
         for m in members:
             self._put(x, m, k)
         self._barrier(what)
         return x
 
-    def _reduce(self, x: torch.Tensor, members: List[int], op: str,
-                what: str) -> torch.Tensor:
+    def _reduce_raw(self, x: torch.Tensor, members: List[int], op: str,
+                    what: str) -> torch.Tensor:
         if self.local:
             return x
         x = self._scatter_puts(x, members, what)
+        if x.dtype not in (torch.float32, torch.bfloat16):
+            # integer payloads (compressed_psum's codes): summed exactly
+            # in slot order, in their own dtype
+            out = self._read(0, x.shape, x.dtype)
+            for k in range(1, len(members)):
+                v = self._read(k, x.shape, x.dtype)
+                out = torch.maximum(out, v) if op == "max" else out + v
+            return self._done(out)
         out = shmem_reduce_slots(self.heap, self._offset(0), self.slot_bytes,
                                  len(members), tuple(x.shape), x.dtype,
                                  x.dtype, op)
         return self._done(out)
 
+    def _psum(self, x: torch.Tensor, members: List[int],
+              what: str) -> torch.Tensor:
+        """The sum over ``members`` (this PE among them); its transpose is
+        the same sum (JAX's ``psum`` transpose under ``check_vma=False``:
+        a replicated cotangent comes back multiplied by the group's
+        size)."""
+        return self._diff(x, lambda t: self._reduce_raw(t, members, "sum",
+                                                        what),
+                          lambda g: self._psum(g, members, what))
+
     def psum_rows(self, x: torch.Tensor) -> torch.Tensor:
         """Sum over the grid rows of this PE's column, replicated there."""
-        return self._reduce(x, self.row_members(), "sum", "psum_rows")
+        return self._psum(x, self.row_members(), "psum_rows")
 
     def psum_cols(self, x: torch.Tensor) -> torch.Tensor:
         """Sum over the grid cols of this PE's row, replicated there."""
-        return self._reduce(x, self.col_members(), "sum", "psum_cols")
+        return self._psum(x, self.col_members(), "psum_cols")
+
+    def psum_all(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum over every PE (a heap reserved with ``all_to_all``: n_pes
+        slots a half)."""
+        return self._psum(x, list(range(self.n_pes)), "psum_all")
+
+    def psum_groups(self, x: torch.Tensor, groups: Sequence[Sequence[int]]
+                    ) -> torch.Tensor:
+        """Sum over this PE's group of ``groups`` (a partition of the PEs,
+        each in ascending PE order: ``lax.psum(..., axis_index_groups=)``);
+        a PE in no group keeps its block."""
+        mine = next((sorted(int(p) for p in g) for g in groups
+                     if self.pe in g), [self.pe])
+        return self._psum(x, mine, "psum_groups")
 
     def pmax_rows(self, x: torch.Tensor) -> torch.Tensor:
-        """Max over the grid rows (the axis paged KV pages shard on)."""
-        return self._reduce(x, self.row_members(), "max", "pmax_rows")
+        """Max over the grid rows (the axis paged KV pages shard on); no
+        gradient."""
+        if self.local:
+            return x
+        return self._reduce_raw(x.detach(), self.row_members(), "max",
+                                "pmax_rows")
 
     def pmax_cols(self, x: torch.Tensor) -> torch.Tensor:
-        """Max over the grid cols (the loss's column-sharded vocabulary: a
-        forward max, as ``pmax_cols_sg`` computes it)."""
-        return self._reduce(x, self.col_members(), "max", "pmax_cols")
+        """Max over the grid cols (the loss's column-sharded vocabulary:
+        a forward max with a zero tangent, as ``pmax_cols_sg`` computes
+        it): no gradient reaches ``x``."""
+        if self.local:
+            return x
+        return self._reduce_raw(x.detach(), self.col_members(), "max",
+                                "pmax_cols")
 
-    def _gather(self, x: torch.Tensor, members: List[int], axis: int,
-                tiled: bool, what: str) -> torch.Tensor:
+    def _gather_raw(self, x: torch.Tensor, members: List[int], axis: int,
+                    tiled: bool, what: str) -> torch.Tensor:
         if self.local:
             return x if tiled else x.unsqueeze(axis)
         x = self._scatter_puts(x, members, what)
@@ -276,42 +368,88 @@ class PeGrid(GridGeometry):
             else torch.stack(parts, dim=axis)
         return self._done(out)
 
+    def _gather(self, x: torch.Tensor, members: List[int], axis: int,
+                tiled: bool, what: str, scatter: str) -> torch.Tensor:
+        """Backward: the tiled reduce-scatter over the same group (of the
+        stacked axis' members, then squeezed, when not ``tiled``)."""
+        axis = axis % (x.dim() + (0 if tiled else 1))
+
+        def bwd(g):
+            if tiled:
+                return self._reduce_scatter(g, members, axis, scatter)
+            return self._reduce_scatter(g, members, axis,
+                                        scatter).squeeze(axis)
+        return self._diff(x, lambda t: self._gather_raw(t, members, axis,
+                                                        tiled, what), bwd)
+
     def all_gather_rows(self, x: torch.Tensor, axis: int = 0,
                         tiled: bool = True) -> torch.Tensor:
         """fcollect over the grid rows: the q blocks of this PE's column,
         in row order, concatenated along ``axis`` (or stacked)."""
         return self._gather(x, self.row_members(), axis, tiled,
-                            "all_gather_rows")
+                            "all_gather_rows", "reduce_scatter_rows")
 
     def all_gather_cols(self, x: torch.Tensor, axis: int = 0,
                         tiled: bool = True) -> torch.Tensor:
         return self._gather(x, self.col_members(), axis, tiled,
-                            "all_gather_cols")
+                            "all_gather_cols", "reduce_scatter_cols")
+
+    def _reduce_scatter_raw(self, x: torch.Tensor, members: List[int],
+                            axis: int, what: str) -> torch.Tensor:
+        n = len(members)
+        if self.local:
+            return x
+        if x.shape[axis] % n:
+            raise ValueError(f"axis {axis} of size {x.shape[axis]} does not "
+                             f"split into {n} chunks")
+        chunks = [c.contiguous() for c in x.chunk(n, dim=axis)]
+        self._check_fits(_nbytes(chunks[0]), what)
+        k = members.index(self.pe)
+        for m, c in zip(members, chunks):
+            self._put(c, m, k)
+        self._barrier(what)
+        shape = tuple(chunks[0].shape)
+        out = shmem_reduce_slots(self.heap, self._offset(0), self.slot_bytes,
+                                 n, shape, x.dtype, x.dtype, "sum")
+        return self._done(out)
+
+    def _reduce_scatter(self, x: torch.Tensor, members: List[int],
+                        axis: int, what: str) -> torch.Tensor:
+        """Backward: the tiled all-gather over the same group."""
+        axis = axis % x.dim()
+        gather = "all_gather_rows" if what.endswith("rows") \
+            else "all_gather_cols"
+        return self._diff(
+            x, lambda t: self._reduce_scatter_raw(t, members, axis, what),
+            lambda g: self._gather(g, members, axis, True, gather, what))
 
     def reduce_scatter_rows(self, x: torch.Tensor, axis: int = 0
                             ) -> torch.Tensor:
         """Sum over this PE's column; grid row k keeps chunk k along
         ``axis``."""
-        if self.local:
-            return x
-        if x.shape[axis] % self.q:
-            raise ValueError(f"axis {axis} of size {x.shape[axis]} does not "
-                             f"split into {self.q} chunks")
-        members = self.row_members()
-        chunks = [c.contiguous() for c in x.chunk(self.q, dim=axis)]
-        self._check_fits(_nbytes(chunks[0]), "reduce_scatter_rows")
-        k = members.index(self.pe)
-        for m, c in zip(members, chunks):
-            self._put(c, m, k)
-        self._barrier("reduce_scatter_rows")
-        shape = tuple(chunks[0].shape)
-        out = shmem_reduce_slots(self.heap, self._offset(0), self.slot_bytes,
-                                 self.q, shape, x.dtype, x.dtype, "sum")
-        return self._done(out)
+        return self._reduce_scatter(x, self.row_members(), axis,
+                                    "reduce_scatter_rows")
+
+    def reduce_scatter_cols(self, x: torch.Tensor, axis: int = 0
+                            ) -> torch.Tensor:
+        """Sum over this PE's grid row; grid col k keeps chunk k along
+        ``axis``."""
+        return self._reduce_scatter(x, self.col_members(), axis,
+                                    "reduce_scatter_cols")
 
     def broadcast_from(self, x: torch.Tensor, root: int) -> torch.Tensor:
         """``shmem_broadcast``: every PE gets PE ``root``'s block (``x``
-        gives the shape and dtype everywhere)."""
+        gives the shape and dtype everywhere).  Backward: JAX's
+        ``psum_all(x * mask)`` transposed, a ``psum_all`` then the mask
+        (the cotangents of every PE summed onto the root's block)."""
+        mine = self.pe == root
+
+        def bwd(g):
+            s = self.psum_all(g)
+            return s if mine else torch.zeros_like(s)
+        return self._diff(x, lambda t: self._broadcast_raw(t, root), bwd)
+
+    def _broadcast_raw(self, x: torch.Tensor, root: int) -> torch.Tensor:
         if self.local:
             return x
         x = x.contiguous()
@@ -327,7 +465,11 @@ class PeGrid(GridGeometry):
         into n_pes blocks along axis 0, block p goes to PE p, and the
         result stacks the blocks received in source-PE order (an MoE
         layer's dispatch and combine).  Needs a heap reserved with
-        ``all_to_all``; any dtype (the put copies bytes)."""
+        ``all_to_all``; any dtype (the put copies bytes).  Its own
+        transpose."""
+        return self._diff(x, self._all_to_all_raw, self.all_to_all)
+
+    def _all_to_all_raw(self, x: torch.Tensor) -> torch.Tensor:
         if self.local:
             return x
         n = self.n_pes
@@ -440,3 +582,64 @@ def probe_latency(grid: PeGrid, n: int = 200, numel: int = 8 * 4864
            "psum_rows_us": mean_us(lambda: grid.psum_rows(x))}
     grid.barrier_all()
     return out
+
+
+def grad_probe_pairs(grid: PeGrid) -> List[Tuple[int, int]]:
+    """A put in which PE 0 receives nothing and the last PE sends
+    nothing: PE p to PE p+1."""
+    return [(p, p + 1) for p in range(grid.n_pes - 1)]
+
+
+def probe_collective_grads(grid: PeGrid, inputs: Dict[str, np.ndarray]
+                           ) -> Dict[str, np.ndarray]:
+    """The backward of every differentiable collective of :class:`PeGrid`
+    on this PE's block of ``inputs["x"]`` (n_pes, M, N): for each op, the
+    gradient of ``sum(op(x) * ct)`` with respect to x, ``ct`` this PE's
+    block of ``inputs["ct_" + op]``; also ``compressed_psum`` of
+    ``inputs["g"]`` with the residual ``inputs["resid"]`` over
+    ``psum_all`` (its sum and new residual).  The grid's check against
+    ``jax.vjp`` of ``repro.core.shmem.ShmemGrid``'s ops under
+    ``shard_map`` (the CPU tests)."""
+    from repro_torch.optim.compress import compressed_psum
+    from repro_torch.train.step import _replica_groups
+    dev = grid.device
+
+    def blk(name):
+        a = np.ascontiguousarray(inputs[name][grid.pe])
+        return torch.from_numpy(a).to(dev)
+
+    x0 = blk("x")
+    grid.reserve(1 << 16, all_to_all=True)
+    groups = _replica_groups(grid.q, grid.r, grid.r, True)
+    ops = {
+        "transpose": lambda x: grid.put(x, grid.transpose_pairs()),
+        "shift_rows": lambda x: grid.shift_rows(x, 1),
+        "shift_cols": lambda x: grid.shift_cols(x, 1),
+        "put_partial": lambda x: grid.put(x, grad_probe_pairs(grid)),
+        "psum_rows": grid.psum_rows,
+        "psum_cols": grid.psum_cols,
+        "psum_all": grid.psum_all,
+        "psum_groups": lambda x: grid.psum_groups(x, groups),
+        "all_gather_rows": lambda x: grid.all_gather_rows(x, axis=0),
+        "all_gather_cols": lambda x: grid.all_gather_cols(x, axis=-1),
+        "reduce_scatter_rows": lambda x: grid.reduce_scatter_rows(x, axis=0),
+        "reduce_scatter_cols": lambda x: grid.reduce_scatter_cols(x,
+                                                                  axis=-1),
+        "all_to_all": grid.all_to_all,
+        "broadcast_from": lambda x: grid.broadcast_from(x, 1 % grid.n_pes),
+        "pmax_cols": grid.pmax_cols,
+    }
+    out = {}
+    for name, op in ops.items():
+        x = x0.clone().requires_grad_(True)
+        y = op(x)
+        if y.requires_grad:
+            (g,) = torch.autograd.grad((y * blk("ct_" + name)).sum(), x)
+        else:                       # no gradient reaches x
+            g = torch.zeros_like(x)
+        out[name] = g
+        out[name + "_fwd"] = y.detach()
+    out["compressed_psum"], out["compressed_psum_resid"] = compressed_psum(
+        blk("g"), blk("resid"), psum_fn=grid.psum_all)
+    grid.barrier_all()
+    return {k: v.cpu().numpy() for k, v in out.items()}

@@ -10,7 +10,9 @@ global set of weights in the storage its strategy reads
     or SUMMA; :func:`repro_torch.train.step.make_pctx`), each ``runs``
     times;
   * a :class:`DecodeJob`: ``make_decode_step(mode="batched")``, greedy
-    tokens from one token a row, as the JAX launcher decodes.
+    tokens from one token a row, as the JAX launcher decodes;
+  * a :class:`TrainJob`: AdamW steps of ``make_train_step`` with a grid
+    ``pctx``, the backward through the grid's puts and collectives.
 
 Every job of a run shares one spawn of the grid; each sizes its own heap
 from :func:`blocked_messages` (its largest message) and frees it after.
@@ -20,8 +22,9 @@ Each PE reports its results (loss, last-position logits, tokens, logits
 rows), and per forward or decode step its wall, collectives, puts, heap
 bytes, barrier wait and kernel launches (by variant).
 :func:`blocked_messages` reckons from the shapes alone every message a
-forward or a decode step puts into the heaps, which the heap bytes a PE
-counts must equal.
+forward or a decode step puts into the heaps, and :func:`train_messages`
+every message of a training step (forward, recompute, backward and the
+gradient reduction), which the heap bytes a PE counts must equal.
 
     PYTHONPATH=src python -m repro_torch.launch.grid_run --arch qwen2-0.5b \\
         --smoke --device cpu                  # every strategy, then decode
@@ -31,6 +34,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import time
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -77,6 +81,40 @@ class DecodeJob:
     record: int = 1
 
 
+@dataclasses.dataclass
+class TrainJob:
+    """``len(batches)`` AdamW steps of ``make_train_step`` under
+    ``strategy`` on this PE's blocks, each on its (tokens, labels) (B, S)
+    pair.  ``weights``: a global numpy tree, else drawn from ``seed``.
+    ``opt`` holds :class:`~repro_torch.optim.adamw.AdamWConfig`'s fields.
+    ``return_params`` sends every block back (numpy, by path) after the
+    last step; ``compare_to`` names the file, ``{pe}`` in it standing for
+    the PE, of the blocks (by path, ``torch.save``) each PE holds its own
+    against after the last step (the largest absolute difference per leaf
+    comes back)."""
+    cfg: Any
+    strategy: str
+    batches: List                     # [(tokens, labels)] a step
+    seed: int = 0
+    weights: Optional[Dict] = None
+    opt: Dict = dataclasses.field(default_factory=dict)
+    remat: bool = True
+    microbatches: int = 1
+    grad_compress: bool = False
+    return_params: bool = False
+    compare_to: Optional[str] = None
+    log_every: int = 0                # PE 0 prints a JSON line every N
+
+
+@dataclasses.dataclass
+class ProbeJob:
+    """``target(grid, *args)`` on every PE, on a heap it reserves itself
+    (a probe of the grid, such as ``core/pe_grid.py::
+    probe_collective_grads``); the target lives in ``repro_torch``."""
+    target: Any
+    args: tuple = ()
+
+
 # ---------------------------------------------------------------------------
 # The messages of a blocked forward or decode step.
 # ---------------------------------------------------------------------------
@@ -121,6 +159,15 @@ def blocked_messages(cfg, plan, strategy: str, batch: int, seq: int,
     slots, Cannon).  ``hq``/``kvh`` are a PE's heads.  Every PE puts the
     same, so ``n_pes * sum(nbytes * puts)`` is the heap traffic; the
     largest ``nbytes`` sizes the heap's slots."""
+    head, layer, tail = _blocked_parts(cfg, plan, strategy, batch, seq,
+                                       what, hq=hq, kvh=kvh)
+    return head + layer * cfg.n_groups() + tail
+
+
+def _blocked_parts(cfg, plan, strategy: str, batch: int, seq: int,
+                   what: str, *, hq: int, kvh: int):
+    """:func:`blocked_messages` in three parts: before the layer stack,
+    one layer group, and after it."""
     q, r = plan.grid_q, plan.grid_r
     n_pes = q * r
     esz, wsz = _esz(cfg.compute_dtype), _esz(cfg.param_dtype)
@@ -151,6 +198,7 @@ def blocked_messages(cfg, plan, strategy: str, batch: int, seq: int,
             out += dense("vis_proj", t, D, D, "std")
         if strategy == "cannon_opt":
             out.append(Message("skew put", t * (D // r) * esz, 1))
+    group: List[Message] = []
     for mixer, ffn in cfg.pattern():
         layer = norm("norm1")
         if mixer == "attn":
@@ -204,7 +252,8 @@ def blocked_messages(cfg, plan, strategy: str, batch: int, seq: int,
             if not decode:
                 layer.append(Message("moe balance psum_rows",
                                      2 * cfg.n_experts * 4, q))
-        out += layer * cfg.n_groups()
+        group += layer
+    head, out = out, []
     out += norm("final")
     if decode:
         out += dense("lm_head", b_loc, D, vpad)
@@ -227,12 +276,71 @@ def blocked_messages(cfg, plan, strategy: str, batch: int, seq: int,
         out.append(Message("loss psum_rows", 3 * 4, q))
     else:
         raise ValueError(f"what must be loss, prefill or decode: {what!r}")
-    return out
+    return head, group, out
 
 
 def heap_bytes(messages: Sequence[Message]) -> int:
     """One PE's heap bytes of ``messages``."""
     return sum(m.nbytes * m.puts for m in messages)
+
+
+# forward messages that carry no gradient: the loss's max shift (a zero
+# tangent) and the integer payloads of the MoE exchange
+_NO_GRAD = ("loss pmax_cols", "moe expert ids all_to_all",
+            "moe rows all_to_all int8", "moe rows back all_to_all int8")
+
+
+def local_tree(cfg, plan, strategy: str, pe: int = 0):
+    """PE ``pe``'s blocks in ``strategy``'s storage on the meta device:
+    the shapes and dtypes of its parameters, with nothing allocated."""
+    return shard_params(init_params(cfg, device="meta"), cfg, plan, pe,
+                        storage=storage_for(strategy))
+
+
+def train_messages(cfg, plan, strategy: str, batch: int, seq: int,
+                   remat: bool = True, microbatches: int = 1
+                   ) -> List[Message]:
+    """Every message one PE puts into the heaps in one training step
+    (``make_train_step`` with a grid ``pctx``), in order by part: per
+    microbatch of ``batch / microbatches`` rows, the forward
+    (:func:`blocked_messages` of the loss), with ``remat`` every layer
+    group's forward again (the recompute re-runs it whole), and the
+    backward: the transpose of every forward message that carries a
+    gradient, which puts what its forward put (a put along the inverted
+    pairs, a psum of the cotangent, a reduce-scatter for a gather and
+    back, the exchange back), last to first; then the reduction: the
+    replicated leaves' gradients summed over the grid (one message a
+    dtype, fp32 with microbatches), the kv column replicas' over their
+    groups, and the squared norm's sum."""
+    from repro_torch.train.step import kv_replicas, reduction_parts
+    q, r = plan.grid_q, plan.grid_r
+    n_pes = q * r
+    local = local_tree(cfg, plan, strategy)
+    hq, kvh = _pe_heads(local, cfg)
+    head, layer, tail = _blocked_parts(cfg, plan, strategy,
+                                       batch // microbatches, seq, "loss",
+                                       hq=hq, kvh=kvh)
+    G = cfg.n_groups()
+    fwd = head + layer * G + tail
+    back = [Message(f"{m.what} (transpose)", m.nbytes, m.puts)
+            for m in reversed(fwd) if m.what not in _NO_GRAD]
+    out = (fwd + (layer * G if remat else []) + back) * microbatches
+    from repro_torch.tree import flatten_with_paths
+    parts = [[t[g] for g in range(t.shape[0])] if p.startswith("['layers']")
+             else [t] for p, t in zip(*flatten_with_paths(local))]
+    rep = kv_replicas(cfg, r)
+    repl, tied = reduction_parts(local, parts, rep)
+    for idx, what, puts in ((repl, "grads psum_all", n_pes),
+                            (tied, "kv replicas psum_groups", rep)):
+        by_dtype: Dict[Any, int] = {}
+        for li, k in idx:
+            t = parts[li][k]
+            dt = torch.float32 if microbatches > 1 else t.dtype
+            by_dtype[dt] = by_dtype.get(dt, 0) + t.numel() * _esz(dt)
+        out += [Message(f"{what} {dt}", n, puts)
+                for dt, n in by_dtype.items()]
+    out.append(Message("grad norm psum_all", 4, n_pes))
+    return out
 
 
 def _pe_heads(params, cfg):
@@ -287,10 +395,15 @@ class _Drawn:
     def __init__(self):
         self.key, self.tree = None, None
 
-    def params(self, grid, job, storage):
+    def params(self, grid, job, storage, keep: bool = True):
         if job.weights is not None:
             return pe_params(grid, job.cfg, weights=job.weights,
                              storage=storage)
+        if not keep:
+            # the PEs draw in turn and keep no tree (a model whose full
+            # tree four times over would crowd the card)
+            self.key = self.tree = None
+            return pe_params(grid, job.cfg, seed=job.seed, storage=storage)
         key = (job.cfg, job.seed)
         if self.key != key:
             self.key = self.tree = None
@@ -375,6 +488,71 @@ def _decode(grid, job: DecodeJob, drawn: _Drawn) -> Dict[str, Any]:
             "setup_s": setup_s}
 
 
+def _train(grid, job: TrainJob, drawn: _Drawn) -> Dict[str, Any]:
+    from repro_torch.optim.adamw import AdamWConfig, init_state
+    from repro_torch.train.step import init_resid, make_train_step
+    from repro_torch.tree import flatten_with_paths
+    cfg, plan = job.cfg, _plan(grid)
+    storage = storage_for(job.strategy)
+    t0 = time.perf_counter()
+    params = drawn.params(grid, job, storage,
+                          keep=not any(f == "moe" for _, f in cfg.pattern()))
+    B, S = np.asarray(job.batches[0][0]).shape
+    msgs = train_messages(cfg, plan, job.strategy, B, S, job.remat,
+                          job.microbatches)
+    # psum_all sums over every PE: n_pes slots a half
+    grid.reserve(max(m.nbytes for m in msgs), all_to_all=True)
+    pctx = make_pctx(grid, job.strategy, cfg.compute_dtype)
+    opt_cfg = AdamWConfig(**job.opt)
+    opt_state = init_state(params, opt_cfg)
+    if job.grad_compress:
+        opt_state["resid"] = init_resid(params, torch.float32)
+    step = make_train_step(cfg, opt_cfg=opt_cfg, remat=job.remat,
+                           microbatches=job.microbatches,
+                           grad_compress=job.grad_compress, pctx=pctx)
+    setup_s = time.perf_counter() - t0
+    dev = grid.device
+    steps = []
+    for toks, labels in job.batches:
+        batch = {"tokens": torch.from_numpy(np.asarray(toks, np.int32))
+                 .to(dev),
+                 "labels": torch.from_numpy(np.asarray(labels, np.int32))
+                 .to(dev)}
+        (params, opt_state, m), rec = _measured(
+            grid, lambda: step(params, opt_state, batch))
+        rec.update({k: float(m[k]) for k in ("loss", "ce_loss", "aux",
+                                              "grad_norm", "lr")})
+        steps.append(rec)
+        k = len(steps) - 1
+        if grid.pe == 0 and job.log_every and (
+                k % job.log_every == 0 or k == len(job.batches) - 1):
+            print(json.dumps({"step": k, "loss": rec["loss"],
+                              "ce_loss": rec["ce_loss"],
+                              "grad_norm": rec["grad_norm"], "lr": rec["lr"],
+                              "seconds": rec["wall_s"],
+                              "collectives": rec["collectives"]}),
+                  flush=True)
+    out: Dict[str, Any] = {
+        "steps": steps, "reckoned_heap_bytes": heap_bytes(msgs),
+        "reckoned_collectives": len(msgs), "setup_s": setup_s,
+        "max_message_bytes": max(m.nbytes for m in msgs)}
+    paths, flat = flatten_with_paths(params)
+    if job.return_params:
+        out["params"] = {p: t.float().cpu().numpy()
+                         for p, t in zip(paths, flat)}
+    if job.compare_to is not None:
+        want = torch.load(job.compare_to.format(pe=grid.pe),
+                          map_location=dev)
+        out["param_max_abs_err"] = {
+            p: float((want[p].float() - t.float()).abs().max())
+            for p, t in zip(paths, flat)}
+        del want
+    del params, opt_state
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
 def _plan(grid):
     from repro_torch.partition import grid_plan
     return grid_plan(grid.q, grid.r)
@@ -391,11 +569,17 @@ def grid_run_pe(grid, jobs: Sequence) -> List[Dict[str, Any]]:
             res = _forward(grid, job, drawn)
         elif isinstance(job, DecodeJob):
             res = _decode(grid, job, drawn)
+        elif isinstance(job, TrainJob):
+            res = _train(grid, job, drawn)
+        elif isinstance(job, ProbeJob):
+            res = {"result": job.target(grid, *job.args)}
         else:
             raise TypeError(f"not a grid job: {job!r}")
         res.update(pe=grid.pe, device=str(grid.device),
                    heap=type(grid.heap).__name__,
-                   heap_slot_bytes=grid.slot_bytes)
+                   heap_slot_bytes=grid.slot_bytes,
+                   heap_mb=0.0 if grid.heap is None
+                   else grid.heap.nbytes / 1e6)
         grid.close()
         res["job_s"] = time.perf_counter() - t0
         out.append(res)

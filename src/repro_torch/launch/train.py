@@ -20,8 +20,20 @@ the backward.  Without ``--full`` it takes the ``reduced()`` config, as
 the JAX launcher does; ``--full`` takes the full config, and ``--layers``
 cuts its depth where one card cannot hold it.  The device is the card
 unless ``--device cpu``; with no card and no ``--device cpu`` it raises.
-There is no ``--strategy``: on one card every tensor-parallel strategy of
-the JAX launcher computes the same product.
+On one card ``--strategy`` changes nothing: every tensor-parallel
+strategy of the JAX launcher computes the same product there.  With
+``--grid QxR`` the steps run on a ``q x r`` grid of PE processes
+(``launch/grid_run.py``; the backward through the grid's puts and
+collectives), each PE on its blocks of the seed-0 weights in the storage
+of ``--strategy`` (cannon_opt by default, as the JAX launcher), PE 0
+logging; there ``grad_norm`` is the JAX grid step's, q*r times the
+model's (ROADMAP section 3).  Checkpoints and the fault drill on a grid
+raise (they come with a later slice):
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
+      --grid 2x2 --device cpu --steps 2          # the reduced config
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
+      --full --grid 2x2 --seq-len 1024 --global-batch 2 --steps 4
 
 Before it allocates, it reckons the parameter, gradient and moment (and
 with ``--grad-compress`` residual) bytes from the config and raises
@@ -58,6 +70,7 @@ from repro_torch.configs import ARCH_NAMES, get_config, reduced
 from repro_torch.data.pipeline import DataConfig, make_batch
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import TP_STRATEGIES
 from repro_torch.models.params import init_params, param_leaves
 from repro_torch.optim.adamw import QBLOCK, AdamWConfig, init_state
 from repro_torch.runtime.fault_tolerance import (DEFAULT_CKPT_DIR,
@@ -189,15 +202,27 @@ def main(argv=None):
                     help="cut the depth to N layers")
     ap.add_argument("--state-bits", type=int, default=32, choices=[32, 8])
     ap.add_argument("--ckpt-dir", default=DEFAULT_CKPT_DIR)
-    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--ckpt-every", type=int, default=None,
+                    help="checkpoint every N steps (default 50; none on a "
+                         "grid)")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--fail-at-step", type=int, default=None,
                     help="fault drill: step N fails on every attempt")
     ap.add_argument("--deterministic", action="store_true")
     ap.add_argument("--device", default=None, choices=["cuda", "cpu"],
                     help="default: the card (raises when there is none)")
+    ap.add_argument("--grid", default=None,
+                    help="QxR: train on a grid of PE processes")
+    ap.add_argument("--strategy", default="cannon_opt",
+                    choices=list(TP_STRATEGIES),
+                    help="the grid's distributed GEMM (default cannon_opt, "
+                         "as the JAX launcher's)")
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
+    if args.grid:
+        return _main_grid(args)
+    if args.ckpt_every is None:
+        args.ckpt_every = 50
     if args.deterministic:
         # cuBLAS needs a fixed workspace for reproducible products
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -247,6 +272,61 @@ def main(argv=None):
                       "retries": ctrl.retries, "skipped": ctrl.skipped,
                       "seconds": time.perf_counter() - t0,
                       "losses": ctrl.metrics_log}), flush=True)
+
+
+def _main_grid(args) -> None:
+    """``--grid QxR``: the steps on a grid of PE processes
+    (``launch/grid_run.py::TrainJob``; PE p on ``cuda:{p % count}`` or
+    the CPU), every PE on its blocks of the seed-0 weights in the
+    strategy's storage and on the same batches; PE 0 logs."""
+    from repro_torch.launch.grid_run import TrainJob, run_on_grid
+    from repro_torch.partition import parse_grid
+    if args.ckpt_every is not None or args.fail_at_step is not None:
+        raise SystemExit(
+            "checkpoints and the fault drill on a grid of PE processes come "
+            "with a later slice (ROADMAP section 1: the controller and "
+            "checkpoints of a grid run); drop --ckpt-every/--fail-at-step")
+    if args.deterministic:
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    plan = parse_grid(args.grid)
+    device = args.device or "cuda"
+    cfg = train_config(args.arch, args.full, args.layers)
+    if cfg.enc_layers or cfg.vis_patches:
+        raise SystemExit(f"{cfg.name}: encoder and vision families on a grid "
+                         f"of PE processes come with a later slice")
+    need = check_fit(cfg, resolve_device(device), args.state_bits,
+                     args.grad_compress)
+    print(json.dumps({"config": cfg.name, "layers": cfg.n_layers,
+                      "d_model": cfg.d_model, "device": device,
+                      "grid": f"{plan.grid_q}x{plan.grid_r}",
+                      "strategy": args.strategy,
+                      "state_gb": {k: round(v / 1e9, 3)
+                                   for k, v in need.items()}}), flush=True)
+    dc = data_config(cfg, args.seq_len, args.global_batch, args.full)
+    batches = [(b["tokens"], b["labels"]) for b in
+               (make_batch(dc, s, 0, 1) for s in range(args.steps))]
+    opt = dict(lr=args.lr, warmup_steps=10,
+               decay_steps=max(args.steps, 100), state_bits=args.state_bits)
+    job = TrainJob(cfg, args.strategy, batches, seed=0, opt=opt,
+                   grad_compress=args.grad_compress, log_every=args.log_every)
+    t0 = time.perf_counter()
+    reports = run_on_grid([job], plan, device=device)[0]
+    pe0 = reports[0]
+    same = all([s["loss"] for s in r["steps"]]
+               == [s["loss"] for s in pe0["steps"]] for r in reports)
+    heap = {r["steps"][0]["heap_bytes"] for r in reports}
+    print(json.dumps({
+        "done": len(pe0["steps"]), "seconds": time.perf_counter() - t0,
+        "losses": [s["loss"] for s in pe0["steps"]],
+        "grad_norms": [s["grad_norm"] for s in pe0["steps"]],
+        "ms_per_step": [1e3 * s["wall_s"] for s in pe0["steps"]],
+        "collectives_per_step": pe0["steps"][0]["collectives"],
+        "heap_bytes_per_pe": sorted(heap),
+        "reckoned_heap_bytes": pe0["reckoned_heap_bytes"],
+        "losses_equal_on_every_pe": same}), flush=True)
+    if not same or heap != {pe0["reckoned_heap_bytes"]}:
+        raise SystemExit("the grid's steps differ across PEs or from their "
+                         "reckoning")
 
 
 if __name__ == "__main__":

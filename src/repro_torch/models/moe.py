@@ -158,7 +158,13 @@ def _moe_grid(pctx: ParallelContext, p: Dict[str, torch.Tensor],
 
     Slots no pair filled carry the id E_loc: they sort past
     ``offsets[E_loc]``, where the grouped GEMM writes zeros (the JAX block
-    feeds them to expert 0 as zero rows, whose outputs are zeros too)."""
+    feeds them to expert 0 as zero rows, whose outputs are zeros too).
+
+    In training the block is differentiable as it stands: the exchanges'
+    backward is the exchange back (``PeGrid.all_to_all`` is its own
+    transpose), the router's column psum a psum, the grouped GEMMs' dgrad
+    and wgrad kernels run on this PE's experts, and the scatters write
+    into fresh buffers, so every PE records the same graph."""
     grid = pctx.grid
     n_pes, q, r = grid.n_pes, grid.q, grid.r
     B, S, D_loc = x.shape

@@ -29,10 +29,13 @@ block of ``repro/models/ssm.py:87-168``: grid row i holds positions
 residual layout (A-rotating under cannon_opt) and everything after it is
 natural; the conv's halo is the last ``k-1`` pre-conv positions of row
 ``i-1``, put along ``row_shift_pairs(-1)`` and zeroed on row 0 (whose
-source is row q-1's tail); each row scans its block from a zero state,
-and the cross-row state relay adds what entered it: every row's total
-decay and final state gathered over the rows, the affine prefix composed
-in row order, and ``exp(cumsum dtA)_t C_t . state_in`` added.  ``wo`` is
+source is row q-1's tail) by a product with a mask; each row scans its
+block from a zero state, and the cross-row state relay adds what entered
+it: every row's total decay and final state gathered over the rows, the
+q-1 affine prefixes composed in row order on every row and this row's
+picked by a one-hot product, and ``exp(cumsum dtA)_t C_t . state_in``
+added.  Both keep the graph the same on every row, so the collectives'
+backwards (the inverse put, the reduce-scatters) meet on every PE.  ``wo`` is
 the C-rotating GEMM.
 
 The serving steps, and the full-sequence block under ``torch.no_grad()``
@@ -276,8 +279,9 @@ def _mamba_block_grid(pctx: ParallelContext, p: Dict, x: torch.Tensor,
     xBC = torch.cat([xc, Bc, Cc], dim=-1)                  # (B, S_loc, conv)
     tail = xBC[:, S_loc - (kconv - 1):]
     halo = grid.put(tail, grid.row_shift_pairs(-1))        # from row i-1
-    if i == 0:                                             # sequence start
-        halo = torch.zeros_like(halo)
+    # the sequence starts on row 0: its halo (row q-1's tail) masked by a
+    # product, so the put's output stays in the graph on every row
+    halo = halo * float(i != 0)
     xBC = _conv1d_causal(
         xBC, _conv_param_slice(pctx, p["conv_w"], cfg.d_inner, G * N),
         _conv_param_slice(pctx, p["conv_b"], cfg.d_inner, G * N), halo)
@@ -292,9 +296,17 @@ def _mamba_block_grid(pctx: ParallelContext, p: Dict, x: torch.Tensor,
     decay_tot = torch.exp(torch.sum(dtA, dim=1))[..., None, None]
     decays = grid.all_gather_rows(decay_tot[None], axis=0)  # (q,B,H,1,1)
     contribs = grid.all_gather_rows(contrib[None], axis=0)  # (q,B,H,N,P)
+    # every row composes the same q-1 prefixes and selects its own by a
+    # one-hot product (``repro/models/ssm.py:140-147``): the graph is the
+    # same on every row, so their backward collectives meet
     state_in = torch.zeros_like(contrib)
-    for s in range(i):
+    prefixes = [state_in]
+    for s in range(grid.q - 1):
         state_in = decays[s] * state_in + contribs[s]
+        prefixes.append(state_in)
+    sel = torch.zeros(grid.q, dtype=torch.float32, device=x.device)
+    sel[i] = 1.0
+    state_in = torch.einsum("s,sbhnp->bhnp", sel, torch.stack(prefixes))
     cumexp = torch.exp(torch.cumsum(dtA, dim=1))           # (B, S_loc, H)
     c_h = Cg.float().repeat_interleave(H // Cg.shape[2], dim=2)
     y_corr = torch.einsum("bshn,bhnp->bshp", c_h, state_in) \

@@ -36,7 +36,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (checkpoint,
+                                    set_checkpoint_early_stop)
 
 from repro_torch.core.cannon import skew_activation
 from repro_torch.models.attention import (attention_block,
@@ -96,7 +97,9 @@ def lm_loss_grid(pctx: ParallelContext, lm_head: torch.Tensor,
     logit its column sum (both sums ride one ``psum_cols``).  Columns at
     or past ``vocab`` (the zero padding a tree of ``vocab`` columns gets)
     are left out of the log-sum-exp; labels outside the padded vocabulary
-    are masked.  Returns (this row's summed token losses, its valid
+    are masked.  With autograd on the chunks are not recomputed (the JAX
+    loss's ``jax.checkpoint`` per chunk gives the same values), so no
+    collective of the loss runs twice.  Returns (this row's summed token losses, its valid
     labels), both fp32."""
     B, S_loc, _ = x.shape
     grid = pctx.grid
@@ -116,6 +119,7 @@ def lm_loss_grid(pctx: ParallelContext, lm_head: torch.Tensor,
         logits = dense(pctx, xs, lm_head, out_dtype=torch.float32)
         if pad is not None:
             logits = logits.masked_fill(pad, float("-inf"))
+        # the shift takes no gradient (``pmax_cols_sg``'s zero tangent)
         m = grid.pmax_cols(torch.amax(logits, dim=-1))
         loc = ls - j * V_loc
         hit = (loc >= 0) & (loc < V_loc)
@@ -220,9 +224,10 @@ def stack_forward(cfg: ModelConfig, layers_p: list, x: torch.Tensor,
                   pctx: Optional[ParallelContext] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run the layer groups in order; returns (x, summed ``moe_aux``).
-    With ``remat`` each group is recomputed in the backward; ``cross`` is
-    the encoder output the decoder layers attend to; ``pctx`` a blocked
-    grid (:func:`apply_layer`)."""
+    With ``remat`` each group is recomputed in the backward (on a grid in
+    whole, collectives included, as ``jax.checkpoint`` does); ``cross``
+    is the encoder output the decoder layers attend to; ``pctx`` a
+    blocked grid (:func:`apply_layer`)."""
     pattern = cfg.pattern()
 
     def group(g, x, cross):
@@ -236,9 +241,15 @@ def stack_forward(cfg: ModelConfig, layers_p: list, x: torch.Tensor,
         return x, aux
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    # on a grid the recompute re-runs the group's collectives: it runs
+    # the whole group (no early stop), so every PE runs all of them
+    stop = pctx is None or pctx.local
     for g in range(cfg.n_groups()):
-        x, a = (checkpoint(group, g, x, cross, use_reentrant=False)
-                if remat and torch.is_grad_enabled() else group(g, x, cross))
+        if remat and torch.is_grad_enabled():
+            with set_checkpoint_early_stop(stop):
+                x, a = checkpoint(group, g, x, cross, use_reentrant=False)
+        else:
+            x, a = group(g, x, cross)
         aux = aux + a
     return x, aux
 
@@ -292,13 +303,13 @@ def patch_inject_grid(pctx: ParallelContext, params: Dict,
     padded = F.pad(patches, (0, 0, 0, s_loc - P))
     blocked = col_slice(pctx, padded, layout="blocked").to(
         pctx.compute_dtype)
-    if i != 0:
-        blocked = torch.zeros_like(blocked)
+    blocked = blocked * float(i == 0)
     return dense(pctx, blocked, params["vis_proj"], kind="std")
 
 
 def _forward_grid(pctx: ParallelContext, cfg: ModelConfig, params: Dict,
-                  batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
+                  batch: Dict, remat: bool = False
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``forward`` on one PE of a blocked grid (module docstring)."""
     if cfg.enc_layers:
         raise NotImplementedError(f"{cfg.name}: encoder-decoder models on a "
@@ -312,7 +323,7 @@ def _forward_grid(pctx: ParallelContext, cfg: ModelConfig, params: Dict,
     if pctx.tp_strategy == "cannon_opt":
         # enter the permanently skewed residual layout (one put)
         x = skew_activation(pctx.grid, x)
-    x, aux = stack_forward(cfg, params["layers"], x, pctx=pctx)
+    x, aux = stack_forward(cfg, params["layers"], x, remat, pctx=pctx)
     return apply_norm(cfg, params["final_norm"], x, pctx), aux
 
 
@@ -326,7 +337,7 @@ def forward(cfg: ModelConfig, params: Dict, batch: Dict,
     blocks of both, x (B, S/q, D/r) in the residual layout (skewed under
     cannon_opt)."""
     if pctx is not None and pctx.blocked:
-        return _forward_grid(pctx, cfg, params, batch)
+        return _forward_grid(pctx, cfg, params, batch, remat)
     frames = _modality(cfg, batch, "frames") if cfg.enc_layers else None
     patches = _modality(cfg, batch, "patches") if cfg.vis_patches else None
     x = embed_tokens(params["embed"], batch["tokens"], cfg.compute_dtype)
@@ -346,7 +357,7 @@ def loss_fn(cfg: ModelConfig, params: Dict, batch: Dict,
     and aux summed over the rows in one ``psum_rows`` (the aux then
     averaged over them), as ``repro/models/transformer.py:404-420``."""
     if pctx is not None and pctx.blocked:
-        x, aux = forward(cfg, params, batch, pctx=pctx)
+        x, aux = forward(cfg, params, batch, remat, pctx=pctx)
         s, n = lm_loss_grid(pctx, params["lm_head"], x, batch["labels"],
                             cfg.vocab_size)
         s, n, aux = pctx.grid.psum_rows(torch.stack([s, n, aux]))

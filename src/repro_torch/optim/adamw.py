@@ -5,8 +5,10 @@ the bias corrections, the decoupled weight decay on the decay mask, the
 arithmetic in fp32 and the new parameter rounded once to its dtype.  With
 ``state_bits=8`` each moment is block-quantized over its flattened leaf in
 blocks of 128: int8 codes and an fp32 scale ``max|x| / 127 + 1e-12`` per
-block (the JAX package quantizes each local shard; on one device the shard
-is the leaf).
+block (the JAX package quantizes each local shard: on one device the shard
+is the leaf, and on a grid of PE processes the step hands this module each
+PE's local blocks, so each block is quantized alone, as in JAX's
+``shard_map`` body).
 
 The port updates in place where JAX returns new arrays: the parameters,
 the fp32 moments and the int8 codes and scales are written where they

@@ -10,7 +10,10 @@ of 256, fp32 scale ``max|x| / 127 + 1e-12``), dequantized and summed
 this worker's contribution kept as the next residual.  So
 ``--grad-compress`` changes the numbers on one card as it does on many.
 Every step is block-local: any slice of the flattened gradient made of
-whole blocks gives the same bits as the whole.
+whole blocks gives the same bits as the whole.  ``compressed_psum`` takes
+the grid's sum as ``psum_fn`` (``PeGrid.psum_all`` on a grid of PE
+processes, whose integer sums are exact), as the JAX tests pass
+``lax.psum``.
 """
 
 from __future__ import annotations

@@ -18,7 +18,9 @@ PE's return value, in PE order.
     ms among four processes on the H100's host (``chip_smoke.py``'s
     ``grid`` phase, which times both), and a grid step takes 293 of them.
     Its wait names the PE, the collective and the PEs missing when it
-    times out.
+    times out; each PE leaves the tag of its collective (name and
+    ordinal) beside its count, and a PE that meets a peer in another
+    collective raises :class:`CollectiveMismatch` naming both.
   * PE ``p`` runs on ``cuda:{p % device_count}``, or on the CPU when the
     caller asks, where its heap is a shared file mapping in that directory.
   * Every gloo operation has the ``timeout`` given here.  A PE that raises
@@ -53,6 +55,7 @@ import tempfile
 import threading
 import time
 import traceback
+import zlib
 from multiprocessing.connection import wait
 from typing import Any, Callable, List, Optional, Sequence
 
@@ -71,21 +74,36 @@ class PeFailed(RuntimeError):
         self.pe, self.detail = pe, detail
 
 
+class CollectiveMismatch(RuntimeError):
+    """PEs met at one barrier from different collectives."""
+
+
 class HostBarrier:
     """A barrier of ``n`` processes over a shared file mapping of one
-    64-byte line per PE: barrier k is done when every PE's count is at
-    least k.  Each PE writes only its own line, so there is no race; a PE
-    can run at most one barrier ahead, and its count then still satisfies
-    the slower PEs' wait.  (A process-local lock around the store is a
-    release fence on hosts that order stores weakly.)"""
+    line per PE: barrier k is done when every PE's count is at least k.
+    Each PE writes only its own line, so there is no race; a PE can run
+    at most one barrier ahead, and its count then still satisfies the
+    slower PEs' wait.  (A process-local lock around the store is a
+    release fence on hosts that order stores weakly.)
 
-    LINE = 8                       # int64 words per PE: one cache line
+    Beside its count each PE writes the tag of what it waits for (the
+    collective's name and ordinal, :meth:`wait`'s ``what``) into slot
+    ``k % 2`` of its line, before the count.  A PE that has passed
+    barrier k reads every peer's slot ``k % 2``: no peer can have
+    overwritten it yet (barrier k+2 needs this PE at k+1), so a tag that
+    differs is a peer in another collective, which raises
+    :class:`CollectiveMismatch` naming both, where it would otherwise
+    read another collective's slots."""
+
+    LINE = 64                      # int64 words per PE: four cache lines
+    TAG_WORDS = 28                 # a slot: crc32, length, 208 name bytes
     SPIN_S = 200e-6                # pure spin, then yield
     SLEEP_S = 10e-3                # then short sleeps
 
     def __init__(self, path: str, pe: int, n: int, timeout: float):
         self.flags = np.memmap(path, dtype=np.int64, mode="r+",
                                shape=(n, self.LINE))
+        self.raw = self.flags.view(np.uint8).reshape(n, self.LINE * 8)
         self.pe, self.n, self.timeout = pe, n, timeout
         self.count = 0
         self._fence = threading.Lock()
@@ -95,17 +113,46 @@ class HostBarrier:
         with open(path, "wb") as f:
             f.truncate(n * cls.LINE * 8)
 
+    @classmethod
+    def _slot(cls, count: int) -> int:
+        """First word of the tag slot of barrier ``count``."""
+        return 1 + (count % 2) * cls.TAG_WORDS
+
+    def _tag_of(self, pe: int, count: int) -> str:
+        w = self._slot(count)
+        size = int(self.flags[pe, w + 1])
+        start = (w + 2) * 8
+        return bytes(self.raw[pe, start:start + size]).decode(
+            errors="replace")
+
     def wait(self, what: str = "barrier") -> None:
         """Arrive, then wait: a pure spin on the mapping for the first
         ``SPIN_S`` (no system call: a yield or a sleep costs far more than
         a barrier's skew on a sandboxed host), then spinning with a yield,
-        then with short sleeps, until ``timeout`` names who is missing."""
+        then with short sleeps, until ``timeout`` names who is missing.
+        Then every peer's tag is held against this PE's ``what``."""
         self.count += 1
+        name = what.encode()[:(self.TAG_WORDS - 2) * 8]
+        crc = zlib.crc32(name)
+        w = self._slot(self.count)
         with self._fence:
+            self.flags[self.pe, w] = crc
+            self.flags[self.pe, w + 1] = len(name)
+            self.raw[self.pe, (w + 2) * 8:(w + 2) * 8 + len(name)] = \
+                np.frombuffer(name, dtype=np.uint8)
             self.flags[self.pe, 0] = self.count
         col = self.flags[:, 0]
-        if int(col.min()) >= self.count:
-            return
+        if int(col.min()) < self.count:
+            self._spin(col, what)
+        tags = self.flags[:, w]
+        if (tags != crc).any():
+            other = next(k for k in range(self.n) if int(tags[k]) != crc)
+            raise CollectiveMismatch(
+                f"PE {self.pe}: barrier {self.count} met PE {other} in "
+                f"{self._tag_of(other, self.count)!r} while this PE is in "
+                f"{what!r}")
+
+    def _spin(self, col, what: str) -> None:
         t0 = time.perf_counter()
         spins = 0
         while int(col.min()) < self.count:
@@ -309,3 +356,15 @@ def fail_on(grid, pe: int) -> int:
         raise RuntimeError(f"probe failure on PE {pe}")
     grid.barrier_all()
     return grid.my_pe()
+
+
+def mismatch_on(grid, pe: int) -> int:
+    """A probe target: PE ``pe`` sums over its grid row where the others
+    sum over their column (a program whose collectives differ by PE);
+    every PE must raise :class:`CollectiveMismatch` at that barrier."""
+    x = torch.ones(4, device=grid.device)
+    grid.reserve(x.numel() * 4)
+    grid.barrier_all()
+    y = grid.psum_cols(x) if grid.my_pe() == pe else grid.psum_rows(x)
+    return int(y.sum())
+
