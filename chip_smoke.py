@@ -195,8 +195,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    per step, collectives per step, barrier-wait share per PE, heap bytes
    per step, device busy per PE and step, tokens/s against the 1x1
    engine, the dense-slot commands PE 0 sent, the MoE pairs dropped;
-14b. grid_forward — on an emptied cache, the blocked layout on the same
-   2x2 grid (``launch/grid_run.py``, one spawn): ``make_loss_fn`` and
+14b. grid_forward — the blocked layout on the same 2x2 grid
+   (``launch/grid_run.py``; its jobs run in the grid phase's spawn, after
+   the serving jobs, so the PEs start once: ``phase_grids``):
+   ``make_loss_fn`` and
    ``make_prefill`` on batch 2 x 1024 tokens (512 a grid row), once each,
    on qwen2-0.5b (24 layers) in fp32 under cannon, cannon_opt, allgather
    and SUMMA and in bf16 under cannon and cannon_opt, mamba2-780m (48
@@ -326,8 +328,14 @@ kernels:
   --full --layers 4 --steps 6 --ckpt-every 3`` (deterministic algorithms
   on) run straight and, beside it, stopped by a fault drill at step 4 past
   its retry budget, then started again from the step-2 checkpoint: the
-  resumed steps
-  give the straight run's losses bit for bit;
+  resumed steps give the straight run's losses bit for bit.  Beside them
+  grid_train_resume: the same launcher with ``--grid 2x2 --strategy
+  cannon_opt --seq-len 1024 --global-batch 2 --steps 4 --ckpt-every 2``
+  (bf16, fp32 moments), straight and stopped at step 3, then resumed from
+  the step-1 checkpoint (the grid's stored form, meta grid [2, 2]): steps
+  2-3 bit for bit, every PE the same losses, cannon_mm and the heap
+  kernels as reckoned and no plain version, and the 1x1 port's loss on
+  that checkpoint within the bf16 loss gate of the grid's step 2;
 * dryrun — ``python -m repro_torch.launch.dryrun --all`` in the
   background (the 40 arch x shape cells counted on the meta device,
   DRYRUN_JOBS processes; each cell's line printed) while three cells run
@@ -2313,33 +2321,144 @@ def train_run(label, proc):
     return res.returncode, losses, summary, wall
 
 
-def phase_train_resume():
-    """``python -m repro_torch.launch.train --arch qwen2-0.5b --full
-    --layers 4 --steps 6 --ckpt-every 3`` (deterministic algorithms on),
-    run straight and, beside it, with its step 4 (0-based) failing past
-    the retry budget, which stops it after steps 0-3 with the checkpoint
-    of step 2; then started again, resuming from that checkpoint.  The
-    resumed steps 3-5 must give the straight run's losses bit for bit."""
+# the grid's run of the drill (launch/train.py --grid): qwen2-0.5b at full
+# width, 4 layers, bf16 weights and fp32 moments, cannon_opt on 2x2 PEs,
+# 4 steps of 2 x 1024 tokens with a checkpoint every 2 steps
+GRID_RESUME_ARGS = ["--arch", "qwen2-0.5b", "--full", "--layers", "4",
+                    "--grid", "2x2", "--strategy", "cannon_opt", "--seq-len",
+                    "1024", "--global-batch", "2", "--steps", "4",
+                    "--ckpt-every", "2", "--log-every", "1",
+                    "--deterministic"]
+GRID_RESUME_FAIL = 3
+
+
+def grid_resume_launches(label, summary, cfg, plan):
+    """Every step of one grid launcher run (PE 0's counts, which the
+    launcher holds equal on every PE): cannon_mm as
+    :func:`grid_train_launches` reckons it, the heap kernels as
+    ``grid_run.heap_launches`` reckons them from ``train_messages``, no
+    plain version; returns the launches summed over the PEs."""
+    want = {"matmul_cuda": grid_train_launches(cfg, "cannon_opt", plan)[
+        "matmul_cuda"]}
+    want.update({f"{k}_cuda": n for k, n in
+                 summary["reckoned_heap_launches"].items()})
+    check(summary["launches_equal_on_every_pe"]
+          and summary["losses_equal_on_every_pe"],
+          f"grid_train_resume {label}: the PEs' losses or launches differ")
+    total = {}
+    for k, n in zip(summary["steps"], summary["launches_per_step"]):
+        plain = {name: v for name, v in n.items()
+                 if name.endswith("_ref") and v}
+        got = {name: n.get(name, 0) for name in want}
+        check(got == want and not plain,
+              f"grid_train_resume {label} step {k}: launches {got}, "
+              f"expected {want}; plain {plain}")
+        for name, v in got.items():
+            total[name] = total.get(name, 0) + plan.n_pes * v
+    check(summary["collectives_per_step"] == [summary[
+        "reckoned_collectives"]] * len(summary["steps"])
+        and summary["heap_bytes_per_pe"] == [summary["reckoned_heap_bytes"]],
+        f"grid_train_resume {label}: collectives or heap bytes off the "
+        f"reckoning")
+    return total
+
+
+def grid_resume_read(ckpt_dir, cfg, want_loss):
+    """The 1x1 port reads the grid's step-1 checkpoint (its grid and
+    storage from the meta) onto the card, and its loss on batch 2 is held
+    against the grid's step-2 loss: (seconds to read, rel err)."""
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch.train import data_config
+    from repro_torch.models.transformer import loss_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    step, params, opt = ckpt.restore_train_state(str(ckpt_dir), step=1,
+                                                 device=DEV)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    del opt
+    dc = data_config(cfg, 1024, 2, True)
+    batch = {k: torch.from_numpy(v).to(DEV)
+             for k, v in make_batch(dc, 2, 0, 1).items()}
+    with torch.no_grad():
+        loss, _ = loss_fn(cfg, params, batch)
+    err = abs(float(loss) - want_loss) / abs(want_loss)
+    del params, batch
+    torch.cuda.empty_cache()
+    return read_s, err, float(loss)
+
+
+def phase_train_resume(smi):
+    """The fault drill of ``launch/train.py`` at 1x1 and on a 2x2 grid,
+    the runs of both side by side (each process's start is most of its
+    wall).
+
+    At 1x1: ``--arch qwen2-0.5b --full --layers 4 --steps 6 --ckpt-every
+    3`` (deterministic algorithms on), run straight and, beside it, with
+    its step 4 (0-based) failing past the retry budget, which stops it
+    after steps 0-3 with the checkpoint of step 2; then started again,
+    resuming from that checkpoint.  The resumed steps 3-5 must give the
+    straight run's losses bit for bit.
+
+    grid_train_resume: the same on the grid (GRID_RESUME_ARGS, bf16 with
+    fp32 moments): straight, and a drill whose step 3 fails, which exits
+    non-zero after steps 0-2 and leaves the step-1 checkpoint in the
+    grid's stored form (meta grid [2, 2]); the resumed run starts at step
+    2 and its steps 2-3 give the straight run's losses bit for bit; every
+    PE the same losses; cannon_mm on every GEMM and the heap kernels on
+    every collective as reckoned, no plain version
+    (:func:`grid_resume_launches`); the 1x1 port reads the step-1
+    checkpoint and its loss on batch 2 is within the bf16 loss gate
+    (GRID_TRAIN_BF16_TOL's loss2) of the grid's step-2 loss.  Prints each
+    run's seconds, the checkpoint's bytes, its write and read seconds.
+    Returns the grid runs' launches summed over the PEs."""
+    from repro_torch.launch.train import train_config
+    from repro_torch.partition import grid_plan
     base = ["--arch", "qwen2-0.5b", "--full", "--layers", "4", "--steps",
             "6", "--ckpt-every", "3", "--log-every", "1", "--deterministic"]
     root = ROOT / "build" / "smoke_train_ckpt"
-    shutil.rmtree(root, ignore_errors=True)
-    # the straight run and the drill share nothing: side by side (each
-    # process's start is most of its wall)
-    with ThreadPoolExecutor(2) as ex:
-        both = [ex.submit(train_proc, base, root / "straight"),
+    groot = ROOT / "build" / "smoke_grid_ckpt"
+    for d in (root, groot):
+        shutil.rmtree(d, ignore_errors=True)
+    grid_fail = ["--fail-at-step", str(GRID_RESUME_FAIL)]
+    with ThreadPoolExecutor(4) as ex:
+        runs = [ex.submit(train_proc, base, root / "straight"),
                 ex.submit(train_proc, base + ["--fail-at-step", "4"],
-                          root / "resumed")]
-        both = [f.result() for f in both]
-    rc, straight, _, _ = train_run("straight", both[0])
+                          root / "resumed"),
+                ex.submit(train_proc, GRID_RESUME_ARGS, groot / "straight"),
+                ex.submit(train_proc, GRID_RESUME_ARGS + grid_fail,
+                          groot / "resumed")]
+        runs = [f.result() for f in runs]
+    rc, straight, _, _ = train_run("straight", runs[0])
     check(rc == 0 and sorted(straight) == list(range(6)),
           f"train_resume: the straight run failed ({rc}): {straight}")
-    rc, failed, _, _ = train_run("failed at step 4", both[1])
+    rc, failed, _, _ = train_run("failed at step 4", runs[1])
     check(rc != 0 and sorted(failed) == [0, 1, 2, 3],
           f"train_resume: the drill did not stop after step 3 ({rc}): "
           f"{failed}")
-    rc, resumed, summary, _ = train_run("resumed", train_proc(
-        base, root / "resumed"))
+    rc, g_straight, g_sum, g_s_wall = train_run("grid straight", runs[2])
+    check(rc == 0 and sorted(g_straight) == [0, 1, 2, 3],
+          f"grid_train_resume: the straight run failed ({rc}): {g_straight}")
+    rc, g_failed, g_fsum, g_f_wall = train_run(
+        f"grid failed at step {GRID_RESUME_FAIL}", runs[3])
+    drill = g_fsum and {k: g_fsum[k] for k in ("stopped_at", "ckpt_step",
+                                                 "retries")}
+    check(rc != 0 and sorted(g_failed) == [0, 1, 2] and drill
+          and drill["stopped_at"] == GRID_RESUME_FAIL
+          and drill["ckpt_step"] == 1,
+          f"grid_train_resume: the drill did not stop after step 2 with "
+          f"the step-1 checkpoint ({rc}): {g_failed}, {drill}")
+    with open(groot / "resumed" / "step_00000001" / "manifest.json") as f:
+        meta = json.load(f)["meta"]
+    check(meta.get("grid") == [2, 2],
+          f"grid_train_resume: the step-1 checkpoint's meta is {meta}")
+    with ThreadPoolExecutor(2) as ex:
+        again = [ex.submit(train_proc, base, root / "resumed"),
+                 ex.submit(train_proc, GRID_RESUME_ARGS, groot / "resumed")]
+        again = [f.result() for f in again]
+    rc, resumed, summary, _ = train_run("resumed", again[0])
     check(rc == 0 and summary and summary["start_step"] == 3
           and sorted(resumed) == [3, 4, 5],
           f"train_resume: the resumed run ({rc}) did not run steps 3-5 "
@@ -2351,7 +2470,47 @@ def phase_train_resume():
                               f"differ from the straight run's {straight}")
     check(all(failed[s] == straight[s] for s in failed),
           "train_resume: the drill's steps 0-3 differ from the straight run")
-    shutil.rmtree(root, ignore_errors=True)
+    rc, g_resumed, g_rsum, g_r_wall = train_run("grid resumed", again[1])
+    check(rc == 0 and g_rsum and g_rsum["start_step"] == 2
+          and sorted(g_resumed) == [2, 3],
+          f"grid_train_resume: the resumed run ({rc}) did not run steps 2-3 "
+          f"from the step-1 checkpoint: {g_rsum}")
+    g_same = {s: g_resumed[s] == g_straight[s] for s in (2, 3)}
+    check(all(g_same.values()) and all(g_failed[s] == g_straight[s]
+                                       for s in g_failed),
+          f"grid_train_resume: resumed {g_resumed} / drill {g_failed} "
+          f"against the straight run's {g_straight}")
+    cfg = train_config("qwen2-0.5b", True, 4)
+    plan = grid_plan(2, 2)
+    launches = {}
+    for label, sm in (("straight", g_sum), ("drill", g_fsum),
+                      ("resumed", g_rsum)):
+        for k, n in grid_resume_launches(label, sm, cfg, plan).items():
+            launches[k] = launches.get(k, 0) + n
+    read_s, err, loss_1x1 = grid_resume_read(groot / "resumed", cfg,
+                                             g_straight[2])
+    tol = GRID_TRAIN_BF16_TOL["qwen2-0.5b bf16"]["loss2"]
+    saves = g_sum["checkpoints"] + g_fsum["checkpoints"] \
+        + g_rsum["checkpoints"]
+    emit("grid_train_resume", straight=g_straight, failed=g_failed,
+         resumed=g_resumed, identical=g_same, meta=meta,
+         seconds={"straight": round(g_s_wall, 2), "drill": round(g_f_wall, 2),
+                  "resumed": round(again[1][1], 2)},
+         ckpt_bytes=saves[0]["bytes"],
+         ckpt_write_s={f"{lab} step {c['step']}": round(c["seconds"], 3)
+                       for lab, sm in (("straight", g_sum), ("drill", g_fsum),
+                                       ("resumed", g_rsum))
+                       for c in sm["checkpoints"]},
+         ckpt_read_s_grid=round(g_rsum["restored"]["seconds"], 3),
+         ckpt_read_s_1x1=round(read_s, 3), loss_1x1_on_batch2=loss_1x1,
+         loss_1x1_rel_err=err, loss_tol=tol,
+         ms_per_step=g_sum["ms_per_step"], launches=launches, nvidia_smi=smi)
+    check(err <= tol, f"grid_train_resume: the 1x1 port's loss {loss_1x1} "
+                      f"on the step-1 checkpoint is {err} from the grid's "
+                      f"step-2 loss {g_straight[2]} (limit {tol})")
+    for d in (root, groot):
+        shutil.rmtree(d, ignore_errors=True)
+    return launches
 
 
 # the dry run's cells checked on the card (arch, shape, options, layers,
@@ -4739,9 +4898,10 @@ def check_grid_job(label, cfg, reports, plan, max_tokens):
     return launches
 
 
-def phase_grid(smi):
-    """The serving engine on a 2x2 grid of PE processes on this card
-    (``serve/engine/grid.py``), one spawn for every job: the heap's kernels
+def grid_prepare():
+    """The grid phase: the serving engine on a 2x2 grid of PE processes on
+    this card (``serve/engine/grid.py``), its jobs in the spawn
+    ``phase_grids`` shares with grid_forward: the heap's kernels
     against their plain versions and timed, the parts of one collective
     timed on the four PEs (``probe_latency``), then GRID_PROMPT_LENS'
     prompts with GRID_MAX_TOKENS greedy tokens on the jobs of
@@ -4763,11 +4923,11 @@ def phase_grid(smi):
     engine's; bf16 first-step logits (the prompts' last positions, from
     the same tokens in both) within GRID_BF16_TOL[label] of the 1x1
     engine's; every step's heap bytes equal to the count reckoned from the
-    shapes.  Returns the kernels' launches by job and the heap kernels'
-    rows and errors."""
+    shapes.  Here the work before the spawn (the heap kernels, the 1x1
+    engines, the jobs); ``grid_check`` gates the reports."""
     from repro_torch.partition import grid_plan
     from repro_torch.serve.engine import SamplingParams
-    from repro_torch.serve.engine.grid import GridJob, serve_on_grid
+    from repro_torch.serve.engine.grid import GridJob
     t0 = time.perf_counter()
     cases, heap_err, timing = heap_kernels()
     emit("heap_vs_plain", cases=cases, max_abs_err=heap_err)
@@ -4783,13 +4943,24 @@ def phase_grid(smi):
     one = {label: one_device_passes(cfg, prompts[label], sampling, passes)
            for label, cfg, passes, _, ref in table if ref}
     one_s = time.perf_counter() - t_one
-    t_grid = time.perf_counter()
     jobs = [GridJob(cfg, smoke_ec(), prompts[label], sampling, seed=0,
                     record=2, passes=passes, profile=profile)
             for label, cfg, passes, profile, _ in table]
-    runs = serve_on_grid(jobs, plan, device="cuda", timeout=900,
-                         latency=True)
-    grid_s = time.perf_counter() - t_grid
+    return dict(plan=plan, table=table, prompts=prompts, one=one,
+                one_s=one_s, timing=timing, heap_err=heap_err, jobs=jobs,
+                prep_s=time.perf_counter() - t0)
+
+
+def grid_check(smi, prep, runs, latency, spawn_s):
+    """The grid phase's gates and rows on its jobs' reports (``runs``, per
+    job every PE's), ``latency`` the collective's parts timed on every PE
+    and ``spawn_s`` the phase's share of the shared spawn: returns
+    (launches by job, the heap kernels' rows, their errors) and the
+    phase's seconds."""
+    t0 = time.perf_counter()
+    plan, table, prompts, one = (prep[k] for k in ("plan", "table",
+                                                   "prompts", "one"))
+    timing, heap_err = prep["timing"], prep["heap_err"]
     launches, failed, grid_rows = {}, [], {}
     for (label, cfg, passes, profile, ref), reports in zip(table, runs):
         launches[label] = check_grid_job(label, cfg, reports, plan,
@@ -4855,14 +5026,13 @@ def phase_grid(smi):
                  for (k, n), row in grid_rows[label].items()
                  if n == 0), nvidia_smi=smi)
     check(not failed, "; ".join(failed))
-    phase_s = time.perf_counter() - t0
+    phase_s = prep["prep_s"] + spawn_s + time.perf_counter() - t0
     emit("grid", jobs=[label for label, *_ in table],
-         collective_parts_us_by_pe={r["pe"]: r["latency_us"]
-                                    for r in runs[0]},
-         one_device_s=one_s, grid_spawn_and_serve_s=grid_s, phase_s=phase_s,
-         nvidia_smi=smi)
+         collective_parts_us_by_pe=dict(enumerate(latency)),
+         one_device_s=prep["one_s"], grid_spawn_and_serve_s=spawn_s,
+         phase_s=phase_s, nvidia_smi=smi)
     check(phase_s < GRID_PHASE_S, f"the grid phase took {phase_s:.0f} s")
-    return launches, timing, heap_err
+    return (launches, timing, heap_err), phase_s
 
 
 def compare_1x1(label, cfg, prompts, one, pe0):
@@ -5110,9 +5280,10 @@ def _walls(reports, runs_key):
     return walls[0], max(walls)
 
 
-def phase_grid_forward(smi):
-    """The blocked layout on a 2x2 grid of PE processes of this card
-    (``launch/grid_run.py``), every job in one spawn: ``make_loss_fn`` and
+def grid_forward_prepare():
+    """The grid_forward phase: the blocked layout on a 2x2 grid of PE
+    processes of this card (``launch/grid_run.py``), its jobs in the spawn
+    ``phase_grids`` shares with the grid phase: ``make_loss_fn`` and
     ``make_prefill`` on batch GRID_FWD_BATCH x GRID_FWD_SEQ tokens (S_loc
     512 a row) for the jobs of ``grid_forward_table``, each run
     GRID_FWD_RUNS times (the last timed), and ``make_decode_step(mode=
@@ -5131,10 +5302,9 @@ def phase_grid_forward(smi):
     decode step, collectives, heap bytes per PE and the barrier-wait
     share.  The training jobs of ``grid_train_table`` run in the same
     spawn, after the others (``grid_train_rows`` gates and prints them).
-    Returns the launches by path (summed over the PEs, the forward's last
-    run, every decode step and every training step)."""
-    from repro_torch.launch.grid_run import (DecodeJob, ForwardJob,
-                                             make_batch, run_on_grid)
+    Here the work before the spawn (the 1x1 runs, the jobs);
+    ``grid_forward_check`` gates the reports."""
+    from repro_torch.launch.grid_run import DecodeJob, ForwardJob, make_batch
     from repro_torch.partition import grid_plan
     t0 = time.perf_counter()
     plan = grid_plan(GRID_Q, GRID_R)
@@ -5184,15 +5354,22 @@ def phase_grid_forward(smi):
             opt=dict(GRID_TRAIN_OPT, state_bits=bits),
             compare_to=one_train[label]["files"][storage_for(strategy)]
             if held else None))
-    t_grid, t_wall = time.perf_counter(), time.time()
-    runs = run_on_grid(jobs, plan, device=DEV, timeout=900)
-    grid_s = time.perf_counter() - t_grid
+    return dict(plan=plan, cfgs=cfgs, one=one, keys=keys,
+                train_table=train_table, one_train=one_train, jobs=jobs,
+                one_s=one_s, prep_s=time.perf_counter() - t0)
+
+
+def grid_forward_check(smi, prep, runs, spawn_s, pe_start_s, end_s):
+    """The grid_forward phase's gates and rows on its jobs' reports
+    (``runs``, per job every PE's, the training jobs last); ``spawn_s`` is
+    its share of the shared spawn, ``pe_start_s`` and ``end_s`` the PEs'
+    start and end in it.  Returns the launches by path (summed over the
+    PEs, the forward's last run, every decode step and every training
+    step), the rows and the phase's seconds."""
+    t0 = time.perf_counter()
+    plan, cfgs, one, keys, train_table, one_train = (prep[k] for k in (
+        "plan", "cfgs", "one", "keys", "train_table", "one_train"))
     train_runs, runs = runs[len(keys):], runs[:len(keys)]
-    shutil.rmtree(ROOT / "build" / "grid_train", ignore_errors=True)
-    # the PEs' start (spawn to the target) and end (the target's return
-    # to the results in hand), on the wall clock all processes share
-    spawn_s = max(r["t_enter"] for r in runs[0]) - t_wall
-    end_s = t_wall + grid_s - min(r["t_leave"] for r in runs[0])
     failed, rows, by_path = [], [], {}
     fp32_results = {}
     for (label, s), reports in zip(keys, runs):
@@ -5285,15 +5462,56 @@ def phase_grid_forward(smi):
         "params_spread_1x1")}
         for r in train_rows], nvidia_smi=smi)
     check(not failed, "; ".join(failed[:12]))
-    phase_s = time.perf_counter() - t0
+    phase_s = prep["prep_s"] + spawn_s + time.perf_counter() - t0
     emit("grid_forward", jobs=[f"{label} {s}" for label, s in keys],
-         one_device_s=one_s, grid_spawn_and_run_s=grid_s,
-         pe_start_s=spawn_s, pe_end_s=end_s,
+         one_device_s=prep["one_s"], grid_spawn_and_run_s=spawn_s,
+         pe_start_s=pe_start_s, pe_end_s=end_s,
          jobs_s=sum(max(r["job_s"] for r in reports) for reports in runs),
          phase_s=phase_s, nvidia_smi=smi)
     check(phase_s < GRID_FWD_PHASE_S,
           f"the grid_forward phase took {phase_s:.0f} s")
-    return by_path, rows
+    return (by_path, rows), phase_s
+
+
+def phase_grids(smi):
+    """The grid and grid_forward phases (``grid_prepare``,
+    ``grid_forward_prepare``) in one spawn of the 2x2 grid of PE processes
+    (``launch/grid_run.py::run_on_grid``, which serves the engine's jobs
+    as ``serve_on_grid`` does), so the PEs start once: the collective's
+    parts timed, the serving jobs, then the forward, decode and training
+    jobs.  Each phase's seconds are its own work before and after the
+    spawn and its share of the spawn: the PEs' start and the serving jobs
+    to the grid phase, the rest to grid_forward.  Returns both phases'
+    results."""
+    from repro_torch.core.pe_grid import probe_latency
+    from repro_torch.launch.grid_run import ProbeJob, run_on_grid
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve = grid_prepare()
+    gc.collect()
+    torch.cuda.empty_cache()
+    fwd = grid_forward_prepare()
+    jobs = [ProbeJob(probe_latency)] + serve["jobs"] + fwd["jobs"]
+    t_grid, t_wall = time.perf_counter(), time.time()
+    runs = run_on_grid(jobs, serve["plan"], device=DEV, timeout=900)
+    grid_s = time.perf_counter() - t_grid
+    shutil.rmtree(ROOT / "build" / "grid_train", ignore_errors=True)
+    # the PEs' start (spawn to the target) and end (the target's return
+    # to the results in hand), on the wall clock all processes share
+    pe_start_s = max(r["t_enter"] for r in runs[0]) - t_wall
+    end_s = t_wall + grid_s - min(r["t_leave"] for r in runs[0])
+    n = 1 + len(serve["jobs"])
+    serve_s = pe_start_s + sum(max(r["job_s"] for r in reports)
+                               for reports in runs[:n])
+    out, seconds = {}, {}
+    out["grid"], seconds["grid"] = grid_check(
+        smi, serve, runs[1:n], [r["result"] for r in runs[0]], serve_s)
+    out["grid_forward"], seconds["grid_forward"] = grid_forward_check(
+        smi, fwd, runs[n:], grid_s - serve_s, pe_start_s, end_s)
+    for name, sec in seconds.items():
+        PHASE_SECONDS[name] = round(sec, 1)
+        emit("seconds", of=name, seconds=PHASE_SECONDS[name])
+    return out["grid"], out["grid_forward"]
 
 
 # ---------------------------------------------------------------------------
@@ -5913,7 +6131,7 @@ def main() -> int:
     grad_timing = timed("gmm_grad_timing", phase_gmm_grad_timing)
     train_counts, train_by_run, train_rows, train_profile = timed(
         "train", phase_train, smi)
-    timed("train_resume", phase_train_resume)
+    resume_launches = timed("train_resume", phase_train_resume, smi)
     gc.collect()
     torch.cuda.empty_cache()
     new_paths = {**timed("dryrun", phase_dryrun, smi)}
@@ -5980,11 +6198,11 @@ def main() -> int:
             if n:
                 launches[k] = launches.get(k, 0) + n
                 by_path.setdefault(k, {})[path] = n
-    # every decoder family on a 2x2 grid of PE processes, on an emptied
-    # cache
-    gc.collect()
-    torch.cuda.empty_cache()
-    grid_launches, heap_rows, heap_err = timed("grid", phase_grid, smi)
+    # every decoder family on a 2x2 grid of PE processes, then the blocked
+    # forward under the four strategies, the batched decode and the
+    # training step there: one spawn, on an emptied cache
+    (grid_launches, heap_rows, heap_err), (fwd_by_path, fwd_rows) = \
+        phase_grids(smi)
     heap_by_path = {}
     for label, got in grid_launches.items():
         for k, n in got.items():
@@ -5996,11 +6214,6 @@ def main() -> int:
             else:
                 launches[name] = launches.get(name, 0) + n
                 by_path.setdefault(name, {})[path] = n
-    # the blocked forward under the four strategies and the batched
-    # decode on the 2x2 grid, on an emptied cache
-    gc.collect()
-    torch.cuda.empty_cache()
-    fwd_by_path, fwd_rows = timed("grid_forward", phase_grid_forward, smi)
     mm_grid = fwd_by_path.pop("matmul", {})
     for name, paths in fwd_by_path.items():
         for path, got in paths.items():
@@ -6057,6 +6270,13 @@ def main() -> int:
         by_path.setdefault(k, {}).update(paths)
     mm_by_path = {"cannon": mm_launches, **new_paths.get("cannon_mm", {}),
                   **{path: got["launches"] for path, got in mm_grid.items()}}
+    # the grid launcher's fault drill (train_resume): its three runs
+    resume_path = ("qwen2-0.5b bf16 cannon_opt grid 2x2 (launch/train.py "
+                   "straight, drill and resumed runs)")
+    mm_by_path[resume_path] = resume_launches["matmul_cuda"]
+    for name in ("shmem_put", "shmem_reduce_slots"):
+        heap_by_path.setdefault(name, {})[resume_path] = \
+            resume_launches[f"{name}_cuda"]
 
     decode = timing[0]
     kernels = [{

@@ -12,10 +12,16 @@ global set of weights in the storage its strategy reads
   * a :class:`DecodeJob`: ``make_decode_step(mode="batched")``, greedy
     tokens from one token a row, as the JAX launcher decodes;
   * a :class:`TrainJob`: AdamW steps of ``make_train_step`` with a grid
-    ``pctx``, the backward through the grid's puts and collectives.
+    ``pctx``, the backward through the grid's puts and collectives, run
+    by the training controller on every PE (checkpoints in the grid's
+    stored form, resume, the retry and skip rules, the fault drill).
 
 Every job of a run shares one spawn of the grid; each sizes its own heap
 from :func:`blocked_messages` (its largest message) and frees it after.
+A run may also hold the serving engine's jobs
+(``serve/engine/grid.py::GridJob``, served as ``serve_on_grid`` serves
+them) and probes (:class:`ProbeJob`), so one spawn pays the PEs' start
+for all of them.
 Weights drawn from a seed are drawn once for consecutive jobs of one
 model: each PE keeps the global tree and cuts each job's storage from it.
 Each PE reports its results (loss, last-position logits, tokens, logits
@@ -35,12 +41,14 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import time
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.ckpt.checkpoint import latest_step as ckpt_latest
 from repro_torch.kernels import count_delta, launch_counts
 from repro_torch.models.config import pad_to_multiple
 from repro_torch.models.layers import TP_STRATEGIES
@@ -49,7 +57,7 @@ from repro_torch.models.params import (init_params, shard_params,
                                        storage_for)
 from repro_torch.serve.decode import (Message, cache_specs, make_decode_step,
                                       make_prefill)
-from repro_torch.serve.engine.grid import pe_params
+from repro_torch.serve.engine.grid import GridJob, grid_serve_pe, pe_params
 from repro_torch.train.step import make_loss_fn, make_pctx
 
 
@@ -83,18 +91,30 @@ class DecodeJob:
 
 @dataclasses.dataclass
 class TrainJob:
-    """``len(batches)`` AdamW steps of ``make_train_step`` under
-    ``strategy`` on this PE's blocks, each on its (tokens, labels) (B, S)
-    pair.  ``weights``: a global numpy tree, else drawn from ``seed``.
-    ``opt`` holds :class:`~repro_torch.optim.adamw.AdamWConfig`'s fields.
-    ``return_params`` sends every block back (numpy, by path) after the
-    last step; ``compare_to`` names the file, ``{pe}`` in it standing for
-    the PE, of the blocks (by path, ``torch.save``) each PE holds its own
-    against after the last step (the largest absolute difference per leaf
-    comes back)."""
+    """AdamW steps of ``make_train_step`` under ``strategy`` on this PE's
+    blocks, run by the training controller
+    (``runtime/fault_tolerance.py::TrainController`` on the grid): step k
+    on ``batches[k]``, a (tokens, labels) (B, S) pair, or with ``data`` (a
+    ``DataConfig``) on the pipeline's batch of step k, steps 0 ..
+    ``steps - 1``.  ``weights``: a global numpy tree, else drawn from
+    ``seed``.  ``opt`` holds :class:`~repro_torch.optim.adamw.AdamWConfig`'s
+    fields.  ``return_params`` sends every block back (numpy, by path)
+    after the last step; ``compare_to`` names the file, ``{pe}`` in it
+    standing for the PE, of the blocks (by path, ``torch.save``) each PE
+    holds its own against after the last step (the largest absolute
+    difference per leaf comes back).
+
+    ``ckpt_dir``: checkpoints of the grid's stored form there every
+    ``ckpt_every`` steps (after step s when ``(s + 1) % ckpt_every ==
+    0``), and the job resumes from the latest one it finds.
+    ``fail_at_step``: a fault drill, that step raises
+    ``TransientWorkerFailure`` on every attempt, so the job stops past its
+    retry budget and reports where (``stopped_at``) on every PE; the
+    spawn's later jobs still run.  ``deterministic``: the PE runs the job
+    under ``torch.use_deterministic_algorithms(True)``."""
     cfg: Any
     strategy: str
-    batches: List                     # [(tokens, labels)] a step
+    batches: Optional[List] = None    # [(tokens, labels)] a step
     seed: int = 0
     weights: Optional[Dict] = None
     opt: Dict = dataclasses.field(default_factory=dict)
@@ -104,6 +124,12 @@ class TrainJob:
     return_params: bool = False
     compare_to: Optional[str] = None
     log_every: int = 0                # PE 0 prints a JSON line every N
+    data: Any = None                  # a DataConfig, for steps 0..steps-1
+    steps: int = 0
+    ckpt_dir: Optional[str] = None
+    ckpt_every: int = 0
+    fail_at_step: Optional[int] = None
+    deterministic: bool = False
 
 
 @dataclasses.dataclass
@@ -488,16 +514,58 @@ def _decode(grid, job: DecodeJob, drawn: _Drawn) -> Dict[str, Any]:
             "setup_s": setup_s}
 
 
+def heap_launches(messages: Sequence[Message]) -> Dict[str, int]:
+    """The heap kernels' launches on one PE for ``messages`` of float
+    payloads (:func:`train_messages`, :func:`blocked_messages`): one
+    ``shmem_put`` a put, one ``shmem_reduce_slots`` a sum or max, a
+    reduce-scatter, or a gather's transpose (a reduce-scatter)."""
+    red = 0
+    for m in messages:
+        back = m.what.endswith("(transpose)")
+        if "psum" in m.what or "pmax" in m.what:
+            red += 1
+        elif "reduce_scatter" in m.what:
+            red += not back
+        elif "all_gather" in m.what:
+            red += back
+    return {"shmem_put": sum(m.puts for m in messages),
+            "shmem_reduce_slots": red}
+
+
+def _job_batch(job: TrainJob, step: int):
+    """Step ``step``'s (tokens, labels) of ``job``."""
+    if job.batches is not None:
+        return job.batches[step]
+    from repro_torch.data.pipeline import make_batch as pipeline_batch
+    b = pipeline_batch(job.data, step, 0, 1)
+    return b["tokens"], b["labels"]
+
+
 def _train(grid, job: TrainJob, drawn: _Drawn) -> Dict[str, Any]:
+    prev = torch.are_deterministic_algorithms_enabled()
+    if job.deterministic:
+        # cuBLAS needs a fixed workspace for reproducible products
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        torch.use_deterministic_algorithms(True)
+    try:
+        return _train_steps(grid, job, drawn)
+    finally:
+        torch.use_deterministic_algorithms(prev)
+
+
+def _train_steps(grid, job: TrainJob, drawn: _Drawn) -> Dict[str, Any]:
     from repro_torch.optim.adamw import AdamWConfig, init_state
+    from repro_torch.runtime.fault_tolerance import (
+        FaultConfig, TrainController, TransientWorkerFailure)
     from repro_torch.train.step import init_resid, make_train_step
     from repro_torch.tree import flatten_with_paths
     cfg, plan = job.cfg, _plan(grid)
     storage = storage_for(job.strategy)
+    n_steps = len(job.batches) if job.batches is not None else job.steps
     t0 = time.perf_counter()
     params = drawn.params(grid, job, storage,
                           keep=not any(f == "moe" for _, f in cfg.pattern()))
-    B, S = np.asarray(job.batches[0][0]).shape
+    B, S = np.asarray(_job_batch(job, 0)[0]).shape
     msgs = train_messages(cfg, plan, job.strategy, B, S, job.remat,
                           job.microbatches)
     # psum_all sums over every PE: n_pes slots a half
@@ -510,32 +578,59 @@ def _train(grid, job: TrainJob, drawn: _Drawn) -> Dict[str, Any]:
     step = make_train_step(cfg, opt_cfg=opt_cfg, remat=job.remat,
                            microbatches=job.microbatches,
                            grad_compress=job.grad_compress, pctx=pctx)
-    setup_s = time.perf_counter() - t0
     dev = grid.device
     steps = []
-    for toks, labels in job.batches:
-        batch = {"tokens": torch.from_numpy(np.asarray(toks, np.int32))
-                 .to(dev),
-                 "labels": torch.from_numpy(np.asarray(labels, np.int32))
-                 .to(dev)}
-        (params, opt_state, m), rec = _measured(
-            grid, lambda: step(params, opt_state, batch))
-        rec.update({k: float(m[k]) for k in ("loss", "ce_loss", "aux",
-                                              "grad_norm", "lr")})
+
+    def batch_of(k):
+        toks, labels = _job_batch(job, k)
+        return {"tokens": torch.from_numpy(np.asarray(toks, np.int32))
+                .to(dev),
+                "labels": torch.from_numpy(np.asarray(labels, np.int32))
+                .to(dev)}
+
+    def measured_step(p, o, batch):
+        k = ctrl.step                     # this step's index
+        (p, o, m), rec = _measured(grid, lambda: step(p, o, batch))
+        rec.update({k_: float(m[k_]) for k_ in ("loss", "ce_loss", "aux",
+                                                 "grad_norm", "lr")})
+        rec["step"] = k
         steps.append(rec)
-        k = len(steps) - 1
         if grid.pe == 0 and job.log_every and (
-                k % job.log_every == 0 or k == len(job.batches) - 1):
+                k % job.log_every == 0 or k == n_steps - 1):
             print(json.dumps({"step": k, "loss": rec["loss"],
                               "ce_loss": rec["ce_loss"],
                               "grad_norm": rec["grad_norm"], "lr": rec["lr"],
                               "seconds": rec["wall_s"],
                               "collectives": rec["collectives"]}),
                   flush=True)
+        return p, o, m
+
+    def injector(k):
+        if k == job.fail_at_step:
+            raise TransientWorkerFailure(f"fault drill at step {k}")
+
+    fcfg = FaultConfig(ckpt_dir=job.ckpt_dir, ckpt_every=job.ckpt_every,
+                       fail_injector=injector
+                       if job.fail_at_step is not None else None)
+    ctrl = TrainController(measured_step, batch_of, fcfg, cfg=cfg,
+                           device=dev, grid=grid, storage=storage)
+    start, params, opt_state = ctrl.resume_or_init(params, opt_state)
+    setup_s = time.perf_counter() - t0
+    stopped_at = None
+    try:
+        params, opt_state = ctrl.run(params, opt_state, n_steps, start)
+    except TransientWorkerFailure:
+        stopped_at = ctrl.step
     out: Dict[str, Any] = {
         "steps": steps, "reckoned_heap_bytes": heap_bytes(msgs),
-        "reckoned_collectives": len(msgs), "setup_s": setup_s,
-        "max_message_bytes": max(m.nbytes for m in msgs)}
+        "reckoned_collectives": len(msgs),
+        "reckoned_heap_launches": heap_launches(msgs), "setup_s": setup_s,
+        "max_message_bytes": max(m.nbytes for m in msgs),
+        "start_step": start, "stopped_at": stopped_at,
+        "retries": ctrl.retries, "skipped": ctrl.skipped,
+        "checkpoints": ctrl.saves, "restored": ctrl.restored,
+        "ckpt_step": None if not job.ckpt_dir
+        else ckpt_latest(job.ckpt_dir)}
     paths, flat = flatten_with_paths(params)
     if job.return_params:
         out["params"] = {p: t.float().cpu().numpy()
@@ -573,6 +668,12 @@ def grid_run_pe(grid, jobs: Sequence) -> List[Dict[str, Any]]:
             res = _train(grid, job, drawn)
         elif isinstance(job, ProbeJob):
             res = {"result": job.target(grid, *job.args)}
+        elif isinstance(job, GridJob):
+            # served as serve_on_grid serves it, heap and report its own
+            res = grid_serve_pe(grid, [job])[0]
+            res["job_s"] = time.perf_counter() - t0
+            out.append(res)
+            continue
         else:
             raise TypeError(f"not a grid job: {job!r}")
         res.update(pe=grid.pe, device=str(grid.device),

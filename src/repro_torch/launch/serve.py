@@ -529,6 +529,11 @@ def main(argv=None):
             ap.error(f"--layers must be a multiple of {cfg.name}'s "
                      f"{len(cfg.pattern())}-layer pattern")
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    if args.grid and (args.service or args.supervised):
+        ap.error(f"--{'supervised' if args.supervised else 'service'} on a "
+                 f"grid of PE processes comes with ROADMAP section 1 item 5 "
+                 f"(speculation, the service, resilience and the supervisor "
+                 f"at q*r > 1); drop --grid {args.grid}")
     if (args.engine or args.service or args.supervised) \
             and args.mode != "gemv":
         print(f"note: the engine serves through its per-slot paged step; "

@@ -27,8 +27,12 @@ strategy of the JAX launcher computes the same product there.  With
 collectives), each PE on its blocks of the seed-0 weights in the storage
 of ``--strategy`` (cannon_opt by default, as the JAX launcher), PE 0
 logging; there ``grad_norm`` is the JAX grid step's, q*r times the
-model's (ROADMAP section 3).  Checkpoints and the fault drill on a grid
-raise (they come with a later slice):
+model's (ROADMAP section 3).  Every PE runs the training controller:
+checkpoints, resume and the fault drill work on a grid as on one card,
+each checkpoint in the stored form of the q x r grid
+(``ckpt/checkpoint.py::save_grid_state``, written by every PE), which the
+1x1 port also reads (with fp32 moments).  A grid run that stops past its
+retry budget exits non-zero once every PE has reported:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
       --grid 2x2 --device cpu --steps 2          # the reduced config
@@ -202,9 +206,8 @@ def main(argv=None):
                     help="cut the depth to N layers")
     ap.add_argument("--state-bits", type=int, default=32, choices=[32, 8])
     ap.add_argument("--ckpt-dir", default=DEFAULT_CKPT_DIR)
-    ap.add_argument("--ckpt-every", type=int, default=None,
-                    help="checkpoint every N steps (default 50; none on a "
-                         "grid)")
+    ap.add_argument("--ckpt-every", type=int, default=50,
+                    help="checkpoint every N steps (0: none)")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--fail-at-step", type=int, default=None,
                     help="fault drill: step N fails on every attempt")
@@ -221,8 +224,6 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO)
     if args.grid:
         return _main_grid(args)
-    if args.ckpt_every is None:
-        args.ckpt_every = 50
     if args.deterministic:
         # cuBLAS needs a fixed workspace for reproducible products
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -278,15 +279,12 @@ def _main_grid(args) -> None:
     """``--grid QxR``: the steps on a grid of PE processes
     (``launch/grid_run.py::TrainJob``; PE p on ``cuda:{p % count}`` or
     the CPU), every PE on its blocks of the seed-0 weights in the
-    strategy's storage and on the same batches; PE 0 logs."""
+    strategy's storage and on the same batches, under the training
+    controller (checkpoints, resume, the fault drill); PE 0 logs."""
     from repro_torch.launch.grid_run import TrainJob, run_on_grid
     from repro_torch.partition import parse_grid
-    if args.ckpt_every is not None or args.fail_at_step is not None:
-        raise SystemExit(
-            "checkpoints and the fault drill on a grid of PE processes come "
-            "with a later slice (ROADMAP section 1: the controller and "
-            "checkpoints of a grid run); drop --ckpt-every/--fail-at-step")
     if args.deterministic:
+        # the PEs inherit it; each runs under deterministic algorithms
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     plan = parse_grid(args.grid)
     device = args.device or "cuda"
@@ -303,30 +301,54 @@ def _main_grid(args) -> None:
                       "state_gb": {k: round(v / 1e9, 3)
                                    for k, v in need.items()}}), flush=True)
     dc = data_config(cfg, args.seq_len, args.global_batch, args.full)
-    batches = [(b["tokens"], b["labels"]) for b in
-               (make_batch(dc, s, 0, 1) for s in range(args.steps))]
     opt = dict(lr=args.lr, warmup_steps=10,
                decay_steps=max(args.steps, 100), state_bits=args.state_bits)
-    job = TrainJob(cfg, args.strategy, batches, seed=0, opt=opt,
-                   grad_compress=args.grad_compress, log_every=args.log_every)
+    job = TrainJob(cfg, args.strategy, data=dc, steps=args.steps, seed=0,
+                   opt=opt, grad_compress=args.grad_compress,
+                   log_every=args.log_every, ckpt_dir=args.ckpt_dir,
+                   ckpt_every=args.ckpt_every,
+                   fail_at_step=args.fail_at_step,
+                   deterministic=args.deterministic)
     t0 = time.perf_counter()
     reports = run_on_grid([job], plan, device=device)[0]
     pe0 = reports[0]
+
+    def launches(r):
+        return [{k: c["launches"] for k, c in s["launches"].items()}
+                for s in r["steps"]]
+
     same = all([s["loss"] for s in r["steps"]]
                == [s["loss"] for s in pe0["steps"]] for r in reports)
-    heap = {r["steps"][0]["heap_bytes"] for r in reports}
+    same_launches = all(launches(r) == launches(pe0) for r in reports)
+    heap = {s["heap_bytes"] for r in reports for s in r["steps"]}
     print(json.dumps({
         "done": len(pe0["steps"]), "seconds": time.perf_counter() - t0,
+        "start_step": pe0["start_step"], "retries": pe0["retries"],
+        "skipped": pe0["skipped"], "stopped_at": pe0["stopped_at"],
+        "checkpoints": pe0["checkpoints"], "restored": pe0["restored"],
+        "ckpt_step": pe0["ckpt_step"],
+        "steps": [s["step"] for s in pe0["steps"]],
         "losses": [s["loss"] for s in pe0["steps"]],
         "grad_norms": [s["grad_norm"] for s in pe0["steps"]],
         "ms_per_step": [1e3 * s["wall_s"] for s in pe0["steps"]],
-        "collectives_per_step": pe0["steps"][0]["collectives"],
+        "collectives_per_step": [s["collectives"] for s in pe0["steps"]],
+        "reckoned_collectives": pe0["reckoned_collectives"],
         "heap_bytes_per_pe": sorted(heap),
         "reckoned_heap_bytes": pe0["reckoned_heap_bytes"],
-        "losses_equal_on_every_pe": same}), flush=True)
-    if not same or heap != {pe0["reckoned_heap_bytes"]}:
+        "launches_per_step": launches(pe0),
+        "reckoned_heap_launches": pe0["reckoned_heap_launches"],
+        "losses_equal_on_every_pe": same,
+        "launches_equal_on_every_pe": same_launches}), flush=True)
+    if not same or not same_launches \
+            or heap - {pe0["reckoned_heap_bytes"]}:
         raise SystemExit("the grid's steps differ across PEs or from their "
                          "reckoning")
+    if pe0["stopped_at"] is not None:
+        raise SystemExit(
+            f"the grid run stopped at step {pe0['stopped_at']} past its "
+            f"retry budget ({pe0['retries']} retries); its latest "
+            f"checkpoint is step {pe0['ckpt_step']} in {args.ckpt_dir}: run "
+            f"again to resume")
 
 
 if __name__ == "__main__":

@@ -22,8 +22,10 @@ count ``train_messages`` reckons.
 
 ``launch/train.py --grid 2x2 --strategy cannon_opt --device cpu`` trains
 the reduced qwen2-0.5b two steps: every PE the same losses, the heap
-bytes as reckoned.  A grid whose PE 1 sums over its row while the others
-sum over their columns must raise, naming both collectives, well inside
+bytes as reckoned; with ``--ckpt-every 1`` it writes the grid's stored
+form, which the 1x1 port reads.  A grid whose PE 1 sums over its row
+while the others sum over their columns must raise, naming both
+collectives, well inside
 the grid's timeout (``runtime/pe.py::HostBarrier``'s tags), not hang.
 """
 
@@ -87,11 +89,13 @@ def test_param_blocks_match_jax(runs, case):
         assert max(diffs.values()) <= tol, (r["pe"], diffs)
 
 
-def test_launcher_on_the_grid(capfd):
+def test_launcher_on_the_grid(capfd, tmp_path):
     from repro_torch.launch.train import main
+    # a fresh --ckpt-dir: the launcher resumes from the latest checkpoint
+    # of its directory, and the default one may hold another run's
     main(["--arch", "qwen2-0.5b", "--grid", "2x2", "--strategy",
           "cannon_opt", "--device", "cpu", "--steps", "2", "--log-every",
-          "1"])
+          "1", "--ckpt-dir", str(tmp_path)])
     lines = [json.loads(x) for x in capfd.readouterr().out.splitlines()
              if x.startswith("{")]
     done = lines[-1]
@@ -101,11 +105,24 @@ def test_launcher_on_the_grid(capfd):
     assert [x["step"] for x in lines if "step" in x] == [0, 1]
 
 
-def test_launcher_refuses_checkpoints_on_a_grid():
+def test_launcher_checkpoints_on_a_grid(capfd, tmp_path):
+    """``--ckpt-every`` on a grid writes the grid's stored form, marked
+    in its meta, which the 1x1 port reads."""
+    from repro_torch.ckpt import checkpoint as ckpt
     from repro_torch.launch.train import main
-    with pytest.raises(SystemExit, match="later slice"):
-        main(["--arch", "qwen2-0.5b", "--grid", "2x2", "--device", "cpu",
-              "--ckpt-every", "5"])
+    main(["--arch", "qwen2-0.5b", "--grid", "2x2", "--device", "cpu",
+          "--steps", "2", "--ckpt-every", "1", "--ckpt-dir", str(tmp_path)])
+    done = [json.loads(x) for x in capfd.readouterr().out.splitlines()
+            if x.startswith("{")][-1]
+    assert [c["step"] for c in done["checkpoints"]] == [0, 1]
+    assert ckpt.all_steps(str(tmp_path)) == [0, 1]
+    with open(tmp_path / "step_00000001" / "manifest.json") as f:
+        meta = json.load(f)["meta"]
+    assert meta == {"grid": [2, 2], "storage": "opt",
+                    "moments": "local_shards"}
+    step, params, opt = ckpt.restore_train_state(str(tmp_path))
+    assert step == 1 and int(opt["step"]) == 2
+    assert params["embed"].shape[0] % 4 == 0
 
 
 def test_collective_mismatch_raises_naming_both():
